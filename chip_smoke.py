@@ -5,29 +5,43 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the process exits non-zero:
+Two paths run through the same three kernels: the fit path (the first
+slice's plugin set, `fit_config()`) and the affinity path (the default
+profile without volumes and preemption, `slice_config()`, on BASELINE
+config #3's workload). Phases, in order; any failure raises and the process
+exits non-zero:
 
 1. the device: its name, `nvidia-smi`'s name and power limit, the torch
    and CUDA versions;
 2. build: the CUDA kernels (csrc/seq_kernels.cu) compiled for sm_90a into
    build/kernels/, with the compiler's register and spill report;
 3. each kernel against its plain PyTorch version on the card, under TPU32
-   and EXACT and three plugin configurations, on a 256-node x 2,000-pod
-   cluster dressed with taints, tolerations, cordoned nodes, nodeName pods
-   and pods too large for any node: `seq_attempt` at 64 pods x random
-   states, `seq_bind` on those pods, `seq_run` over the whole queue (trace,
-   final state, placements). Every comparison is exact equality;
-4. full width: `schedule()` on 1,024 nodes x 10,000 pods (TPU32, trace
-   recorded) with the launch counters set to 0 just before and read just
-   after — the pass must launch `seq_run` and no plain version; its
-   placements, trace and 100 sampled pods' annotations must equal the plain
-   version's run on the card. Then the single-pod step path
-   (`attempt_bind_fn`, launching `seq_attempt` and `seq_bind`) is driven
-   over the same queue with the counters reset again, and each step must
-   reproduce the pass's trace row;
-5. kernel times (CUDA events; the per-pod kernels replayed from a CUDA
-   graph so host enqueue time is not counted), the plain versions' times
-   and each kernel's bound, printed as one JSON line;
+   and EXACT, exact equality: (fit) three fit-path configurations on a
+   256-node x 2,000-pod cluster dressed with taints, tolerations, cordoned
+   nodes, nodeName pods and pods too large for any node; (affinity)
+   `slice_config()` on a 256 x 2,000 cluster dressed with zone, hostname
+   and numeric node labels, nodeSelector, required and preferred node
+   affinity with all six operators and a matchFields term, wildcard and
+   IP-specific host ports, images, hard and soft spread constraints (and
+   pods left to System defaulting), required and preferred pod affinity
+   and anti-affinity across two namespaces, pre-bound pods and a pod being
+   deleted. Each: `seq_attempt` at 64 pods x random states (random
+   bindings and port counters for the affinity path), `seq_bind` on those
+   pods, `seq_run` over the whole queue (trace, final state, placements);
+4. the fit path at full width: `schedule()` on 1,024 nodes x 10,000 pods
+   (TPU32, trace recorded) with the launch counters set to 0 just before
+   and read just after — the pass must launch `seq_run` and no plain
+   version; its placements, trace and 100 sampled pods' annotations must
+   equal the plain version's run on the card. Then the single-pod step
+   path (`attempt_bind_fn`, launching `seq_attempt` and `seq_bind`) is
+   driven over the same queue with the counters reset again, and each step
+   must reproduce the pass's trace row;
+4b. the affinity path at full width, the same way: BASELINE config #3,
+   `synthetic_affinity_cluster(500, 5000, seed=11)`;
+5. kernel times on both paths (CUDA events; the per-pod kernels replayed
+   from a CUDA graph so host enqueue time is not counted), the plain
+   versions' times and each kernel's bound, printed as one JSON line with a
+   `path` field per entry;
 6. the card's name and power limit, then the result line.
 
 It imports nothing of JAX or of the reference package.
@@ -131,13 +145,136 @@ def dressed_cluster(kp, n_nodes, n_pods, seed):
     return nodes, pods
 
 
+NAMESPACES = [
+    {"metadata": {"name": "default", "labels": {"team": "core"}}},
+    {"metadata": {"name": "prod", "labels": {"team": "core", "tier": "prod"}}},
+]
+ZONE, HOST = "topology.kubernetes.io/zone", "kubernetes.io/hostname"
+OPERATORS = ("In", "NotIn", "Exists", "DoesNotExist", "Gt", "Lt")
+
+
+def rel_dressed_cluster(kp, n_nodes, n_pods, seed):
+    """The port's synthetic affinity cluster (services with hostname
+    anti-affinity chains and zone affinity chains) dressed with every path
+    of the affinity plugins: rack (numeric) and disk node labels, nodes
+    without a zone, images on nodes; pods in two namespaces with a second
+    label, nodeSelector, required node affinity cycling through all six
+    operators (some with a matchFields term), preferred node affinity, host
+    ports (wildcard and IP-specific), images, hard and soft spread
+    constraints with multi-clause selectors (a nil selector, and pods left
+    to System defaulting), preferred and extra required pod (anti-)affinity
+    terms with namespace lists and selectors, pre-bound pods and one pod
+    being deleted. Choices from a numpy generator seeded with `seed`."""
+    nodes, pods = kp.synthetic_affinity_cluster(n_nodes, n_pods, seed=seed,
+                                                replicas_per_service=6)
+    rng = np.random.default_rng(seed)
+    images = ["nginx", "redis:6", "reg.io/app/db"]
+    for i, nd in enumerate(nodes):
+        lab = nd["metadata"]["labels"]
+        lab["rack"] = str(int(rng.integers(0, 20)))
+        if rng.random() < 0.6:
+            lab["disk"] = str(rng.choice(["ssd", "hdd", "nvme"]))
+        if i % 9 == 4:
+            del lab[ZONE]
+        if rng.random() < 0.5:
+            nd["status"]["images"] = [{"names": [str(rng.choice(images))],
+                                       "sizeBytes": int(rng.integers(30, 900)) << 20}]
+    n_aff = 0
+    for j, pd in enumerate(pods):
+        spec, meta = pd["spec"], pd["metadata"]
+        app = meta["labels"]["app"]
+        if j % 5 == 1:
+            meta["labels"]["tier"] = str(rng.choice(["web", "db"]))
+        if j % 7 == 1:
+            meta["namespace"] = "prod"
+        aff = spec["affinity"]
+        r = rng.random()
+        if r < 0.12:
+            spec["nodeSelector"] = {"disk": str(rng.choice(["ssd", "hdd"]))}
+        elif r < 0.35:
+            op = OPERATORS[n_aff % 6]
+            n_aff += 1
+            expr = ({"key": "rack", "operator": op, "values": [str(int(rng.integers(2, 18)))]}
+                    if op in ("Gt", "Lt") else
+                    {"key": "disk", "operator": op,
+                     "values": ["ssd", "nvme"] if op in ("In", "NotIn") else []})
+            terms = [{"matchExpressions": [expr]}]
+            if rng.random() < 0.3:
+                terms.append({"matchFields": [{"key": "metadata.name", "operator": "In",
+                                               "values": [f"node-{int(rng.integers(n_nodes))}"]}]})
+            aff["nodeAffinity"] = {"requiredDuringSchedulingIgnoredDuringExecution": {
+                "nodeSelectorTerms": terms}}
+        if rng.random() < 0.3:
+            aff.setdefault("nodeAffinity", {})["preferredDuringSchedulingIgnoredDuringExecution"] = [
+                {"weight": int(rng.integers(1, 100)), "preference": {"matchExpressions": [
+                    {"key": "rack", "operator": str(rng.choice(["Gt", "Lt"])),
+                     "values": [str(int(rng.integers(0, 20)))]}]}},
+                {"weight": int(rng.integers(1, 100)), "preference": {"matchExpressions": [
+                    {"key": "disk", "operator": "In", "values": ["nvme"]}]}}]
+        c = spec["containers"][0]
+        if rng.random() < 0.2:
+            c["ports"] = [{"hostPort": int(rng.choice([80, 443])),
+                           "hostIP": str(rng.choice(["0.0.0.0", "10.0.0.1", "10.0.0.2"])),
+                           "protocol": str(rng.choice(["TCP", "UDP"]))}]
+        if rng.random() < 0.4:
+            c["image"] = str(rng.choice(images + ["nginx:latest", "mysql"]))
+        if rng.random() < 0.1:
+            spec["containers"].append({"name": "side", "image": "nginx"})
+        r = rng.random()
+        if r < 0.15:
+            spec["topologySpreadConstraints"] = [{
+                "maxSkew": int(rng.integers(1, 3)), "topologyKey": ZONE,
+                "whenUnsatisfiable": "DoNotSchedule",
+                "labelSelector": {"matchLabels": {"app": app}, "matchExpressions": [
+                    {"key": "tier", "operator": "In", "values": ["web", "db"]}]}}]
+        elif r < 0.25:
+            spec["topologySpreadConstraints"] = [{
+                "maxSkew": 1, "topologyKey": HOST, "whenUnsatisfiable": "DoNotSchedule",
+                "labelSelector": {"matchExpressions": [
+                    {"key": "app", "operator": "NotIn", "values": [app, "svc-0"]}]}}]
+        elif r < 0.4:
+            spec["topologySpreadConstraints"] = [
+                {"maxSkew": 1, "topologyKey": HOST, "whenUnsatisfiable": "ScheduleAnyway",
+                 "labelSelector": {"matchExpressions": [
+                     {"key": "tier", "operator": str(rng.choice(["Exists", "DoesNotExist"]))}]}},
+                {"maxSkew": 2, "topologyKey": ZONE, "whenUnsatisfiable": "ScheduleAnyway",
+                 "labelSelector": {"matchLabels": {"app": app}}}]
+        elif r < 0.43:
+            spec["topologySpreadConstraints"] = [
+                {"maxSkew": 1, "topologyKey": ZONE, "whenUnsatisfiable": "ScheduleAnyway"}]
+        r = rng.random()
+        t = {"topologyKey": str(rng.choice([HOST, ZONE])),
+             "labelSelector": {"matchLabels": {"app": f"svc-{int(rng.integers(0, 12))}"}}}
+        r2 = rng.random()
+        if r2 < 0.15:
+            t["namespaceSelector"] = {"matchLabels": {"tier": "prod"}}
+        elif r2 < 0.25:
+            t["namespaceSelector"] = {}
+        elif r2 < 0.35:
+            t["namespaces"] = ["prod", "default"]
+        if r < 0.15:
+            aff["podAffinity"] = {"preferredDuringSchedulingIgnoredDuringExecution": [
+                {"weight": int(rng.integers(1, 100)), "podAffinityTerm": t}]}
+        elif r < 0.3:
+            aff["podAntiAffinity"]["preferredDuringSchedulingIgnoredDuringExecution"] = [
+                {"weight": int(rng.integers(1, 100)), "podAffinityTerm": t}]
+        elif r < 0.36:
+            aff["podAntiAffinity"]["requiredDuringSchedulingIgnoredDuringExecution"].append(t)
+        if j % 13 == 3:
+            spec["nodeName"] = f"node-{int(rng.integers(n_nodes))}"
+    pods[5]["metadata"]["deletionTimestamp"] = "2024-01-01T00:00:00Z"
+    pods[5]["spec"]["nodeName"] = "node-0"
+    return nodes, pods
+
+
+
 def configs(kp):
-    """The slice's default configuration, and two that reach the other
+    """The fit path's configuration, and two that reach the other
     NodeResourcesFit strategies and BalancedAllocation's 3-resource branch
     (the float32 branch under TPU32)."""
     from kube_scheduler_simulator_tpu_torch.sched.config import SchedulerConfiguration
 
-    plugins = kp.slice_config().to_dict()["profiles"][0]["plugins"]
+    plugins = kp.fit_config().to_dict()["profiles"][0]["plugins"]
     three = [{"name": r, "weight": 1} for r in ("cpu", "memory", "ephemeral-storage")]
 
     def with_args(fit_strategy):
@@ -151,7 +288,7 @@ def configs(kp):
         }]})
 
     return {
-        "slice": kp.slice_config(),
+        "fit": kp.fit_config(),
         "most-3": with_args({"type": "MostAllocated", "resources": [
             {"name": "cpu", "weight": 2}, {"name": "memory", "weight": 1},
             {"name": "example.com/absent", "weight": 1}]}),
@@ -163,26 +300,33 @@ def configs(kp):
     }
 
 
+STATE_FIELDS = ("requested", "s_requested", "n_pods", "assignment", "used_pair",
+                "used_wild", "used_trip", "bound_seq")
+
+
 class Diff:
     """Exact comparison of kernel and plain outputs; keeps the largest
-    absolute difference seen per kernel."""
+    absolute difference seen per (path, kernel)."""
 
     def __init__(self):
         self.err = {}
 
-    def check(self, kernel, what, got, want):
+    def check(self, path, kernel, what, got, want):
         if got.dtype != want.dtype or got.shape != want.shape:
-            raise AssertionError(f"{kernel} {what}: {got.dtype}{tuple(got.shape)} "
+            raise AssertionError(f"{path} {kernel} {what}: {got.dtype}{tuple(got.shape)} "
                                  f"vs plain {want.dtype}{tuple(want.shape)}")
         err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
-        self.err[kernel] = max(self.err.get(kernel, 0.0), err)
+        self.err[path, kernel] = max(self.err.get((path, kernel), 0.0), err)
         if not torch.equal(got, want):
-            raise AssertionError(f"{kernel} {what}: kernel differs from plain (max |d| {err})")
+            raise AssertionError(
+                f"{path} {kernel} {what}: kernel differs from plain (max |d| {err})")
 
 
-def random_state(enc, rng):
+def random_state(enc, rng, bind):
     """A node state with usage up to 130% of capacity and pod counts about
-    the 110-pod limit (what the pass reaches only partly)."""
+    the 110-pod limit (what the pass reaches only partly). `bind`: port
+    counters of 0..2 users, and about half of the pending pods bound,
+    mostly to the first third of the nodes (skewed topology counts)."""
     from kube_scheduler_simulator_tpu_torch.engine.encode import SchedState
 
     alloc = enc.arrays.node_alloc.cpu().numpy()
@@ -190,59 +334,73 @@ def random_state(enc, rng):
     req = np.floor(alloc * rng.uniform(0.0, 1.3, alloc.shape)).astype(dt)
     sreq = np.floor(alloc * rng.uniform(0.0, 1.3, alloc.shape)).astype(dt)
     n_pods = rng.integers(0, 112, alloc.shape[0]).astype(np.int32)
-    return SchedState(
-        requested=torch.as_tensor(req, device=dev),
-        s_requested=torch.as_tensor(sreq, device=dev),
-        n_pods=torch.as_tensor(n_pods, device=dev),
-        assignment=enc.state0.assignment.clone(),
-        bound_seq=enc.state0.bound_seq.clone(),
-    )
+    st = enc.state0.clone()
+    st.requested = torch.as_tensor(req, device=dev)
+    st.s_requested = torch.as_tensor(sreq, device=dev)
+    st.n_pods = torch.as_tensor(n_pods, device=dev)
+    if bind:
+        for f in ("used_pair", "used_wild", "used_trip"):
+            setattr(st, f, torch.as_tensor(rng.integers(0, 3, tuple(getattr(st, f).shape)),
+                                           dtype=torch.int32, device=dev))
+        assignment = enc.state0.assignment.cpu().numpy().copy()
+        free = (assignment < 0) & (rng.random(assignment.shape) < 0.5)
+        free[enc.n_pods:] = False
+        hi = np.where(rng.random(int(free.sum())) < 0.8, max(1, enc.n_nodes // 3), enc.n_nodes)
+        assignment[free] = rng.integers(0, hi)
+        st.assignment = torch.as_tensor(assignment, device=dev)
+    return st
 
 
-def compare_kernels(kp, cuda, diff):
-    """Phase 3: every kernel against its plain version, exact."""
-    nodes, pods = dressed_cluster(kp, 256, 2000, seed=11)
+def compare_kernels(kp, cuda, diff, path, nodes, pods, cfgs, bind):
+    """Phase 3: every kernel against its plain version, exact, for each
+    configuration in `cfgs` under TPU32 and EXACT."""
     for pol in (kp.TPU32, kp.EXACT):
-        for cname, cfg in configs(kp).items():
-            enc = kp.encode_cluster(nodes, pods, cfg, policy=pol)
+        for cname, cfg in cfgs.items():
+            enc = kp.encode_cluster(nodes, pods, cfg, policy=pol, namespaces=NAMESPACES)
             eng = kp.BatchedScheduler(enc)
             prog, a, w = eng.program, enc.arrays, eng.weights
             rng = np.random.default_rng(3)
             for k in range(4):
-                st = random_state(enc, rng)
+                st = random_state(enc, rng, bind)
                 for qi, p in enumerate(rng.choice(enc.n_pods, 16, replace=False).tolist()):
                     got = cuda.seq_attempt(prog, a, st, w, p)
                     want = cuda.seq_attempt_plain(prog, a, st, w, p)
                     for name, g, h in zip(("codes", "raw", "final", "sel"), got, want):
-                        diff.check("seq_attempt", f"{pol.name}/{cname} pod {p} {name}", g, h)
+                        diff.check(path, "seq_attempt", f"{pol.name}/{cname} pod {p} {name}",
+                                   g, h)
                     # bind the selection, an unschedulable pick, and a padding step
                     for pp, sel in ((p, got[3]), (p, torch.full_like(got[3], -1)),
                                     (-1, got[3])):
                         s1 = cuda.seq_bind(prog, a, st.clone(), pp, sel, qi + 16 * k)
                         s2 = cuda.seq_bind_plain(prog, a, st.clone(), pp, sel, qi + 16 * k)
-                        for f in ("requested", "s_requested", "n_pods", "assignment",
-                                  "bound_seq"):
-                            diff.check("seq_bind", f"{pol.name}/{cname} pod {pp} {f}",
+                        for f in STATE_FIELDS:
+                            diff.check(path, "seq_bind", f"{pol.name}/{cname} pod {pp} {f}",
                                        getattr(s1, f), getattr(s2, f))
-            queue = torch.as_tensor(
-                np.concatenate([enc.queue, np.full(
-                    eng.queue_bucket(len(enc.queue)) - len(enc.queue), -1)]).astype(np.int32),
-                device=enc.device)
+            queue = padded_queue(eng)
             s_k, t_k = cuda.seq_run(prog, a, enc.state0, queue, w, record=True)
             s_p, t_p = cuda.seq_run_plain(prog, a, enc.state0, queue, w, record=True)
             for name, g, h in zip(("pf_codes", "codes", "raw", "final", "sel"), t_k, t_p):
-                diff.check("seq_run", f"{pol.name}/{cname} {name}", g, h)
-            for f in ("requested", "s_requested", "n_pods", "assignment", "bound_seq"):
-                diff.check("seq_run", f"{pol.name}/{cname} state {f}",
+                diff.check(path, "seq_run", f"{pol.name}/{cname} {name}", g, h)
+            for f in STATE_FIELDS:
+                diff.check(path, "seq_run", f"{pol.name}/{cname} state {f}",
                            getattr(s_k, f), getattr(s_p, f))
             s_n, sel_n = cuda.seq_run(prog, a, enc.state0, queue, w, record=False)
-            diff.check("seq_run", f"{pol.name}/{cname} unrecorded sel", sel_n, t_p[4])
-            diff.check("seq_run", f"{pol.name}/{cname} unrecorded assignment",
+            diff.check(path, "seq_run", f"{pol.name}/{cname} unrecorded sel", sel_n, t_p[4])
+            diff.check(path, "seq_run", f"{pol.name}/{cname} unrecorded assignment",
                        s_n.assignment, s_p.assignment)
             placed = int((s_k.assignment >= 0).sum()) - int((enc.state0.assignment >= 0).sum())
-            log(f"  {pol.name:5s} {cname:7s}: 64 attempts, 192 binds and a "
+            codes = t_k[1][: len(enc.queue)]
+            seen = [sorted(set(codes[:, :, f].unique().tolist())) for f in range(codes.shape[2])]
+            log(f"  {path:8s} {pol.name:5s} {cname:7s}: 64 attempts, 192 binds and a "
                 f"{len(queue)}-step pass equal to plain ({placed} of "
-                f"{len(enc.queue)} pending pods placed)")
+                f"{len(enc.queue)} pending pods placed; filter codes seen {seen})")
+
+
+def padded_queue(eng):
+    """The engine's queue padded to its bucket with -1, on its device."""
+    q = eng.enc.queue
+    return torch.as_tensor(np.concatenate([q, np.full(eng.queue_bucket(len(q)) - len(q), -1)])
+                           .astype(np.int32), device=eng.device)
 
 
 def events_ms(fn, iters, reps=5):
@@ -287,21 +445,286 @@ def ops_per_node(enc, prog):
     multiply or divide counts one)."""
     from kube_scheduler_simulator_tpu_torch.engine import kernels as K
 
-    T, L, R = enc.arrays.taint_key.shape[1], enc.arrays.tol_key.shape[1], enc.R
+    a, rel = enc.arrays, enc.arrays.rel
+    T, L, R = a.taint_key.shape[1], a.tol_key.shape[1], enc.R
+    K_, HC, SC = a.label_val.shape[1], rel.sph_key.shape[1], rel.sps_key.shape[1]
     taint = T * (3 + 8 * L)
+    _, TM, E, VV = a.raff_vals.shape
+    affinity = 3 * a.nsel_key.shape[1] + TM * E * (VV + 6)
     per_filter = {"NodeUnschedulable": 3, "NodeName": 3, "TaintToleration": taint,
-                  "NodeResourcesFit": 4 + 6 * R}
+                  "NodeResourcesFit": 4 + 6 * R, "NodeAffinity": 2,
+                  "NodePorts": 2 * a.want_wild.shape[1] + 4 * a.want_trip.shape[1],
+                  "PodTopologySpread": 8 * HC,
+                  "InterPodAffinity": 3 * K_ + 4 * rel.ian_key.shape[1] + 6 * rel.ia_key.shape[1]}
     per_score = {"NodeResourcesFit": 12 * len(K.fit_score_args(enc)[1]) + 4,
                  "NodeResourcesBalancedAllocation": 45 * len(K.balanced_resources(enc)) + 20,
-                 "TaintToleration": taint}
-    normalize_select = 8 * len(prog.score_names) + 8
+                 "TaintToleration": taint,
+                 "NodeAffinity": a.paff_vals.shape[1] * E * (VV + 6),
+                 "ImageLocality": 3 * a.pod_img.shape[1] + 20,
+                 "PodTopologySpread": 14 * SC + 10, "InterPodAffinity": 3 * K_}
+    normalize_select = 10 * len(prog.score_names) + 8
+    # the relational node phases: NodeAffinity per node, pair aggregation,
+    # the spread score's prologue
+    rel_node = 0
+    if {"NodeAffinity", "PodTopologySpread"} & set(prog.filter_names + prog.score_names):
+        rel_node = affinity + 6 * (HC + SC)
     return (sum(per_filter[n] for n in prog.filter_names)
-            + sum(per_score[n] for n in prog.score_names) + normalize_select)
+            + sum(per_score[n] for n in prog.score_names) + normalize_select + rel_node)
+
+
+def ops_per_pod(enc, prog):
+    """A rough count of the integer operations one step's relational
+    prologue does per pod: each term of each enabled domain tests its
+    clauses (every pair id of every clause) and its namespace."""
+    rel = enc.arrays.rel
+    names = set(prog.filter_names) | set(prog.score_names)
+
+    def dom(d):
+        _, T, C, VP = getattr(rel, f"{d}_cpairs").shape
+        return T * (C * (VP + 3) + 6)
+
+    ops = 4
+    if "PodTopologySpread" in names:
+        ops += dom("sph") + dom("sps")
+    if "InterPodAffinity" in prog.filter_names:
+        ops += 2 * dom("ian") + dom("ia")
+    if "InterPodAffinity" in prog.score_names:
+        ops += 2 * (dom("ipa") + dom("ipan")) + dom("ia")
+    return ops if names & {"PodTopologySpread", "InterPodAffinity"} else 0
 
 
 def bound(bytes_moved, ops):
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def cluster_bytes(enc):
+    """Every plane the kernels read, each once."""
+    import dataclasses
+
+    a = enc.arrays
+    return (nbytes(*(getattr(a, f.name) for f in dataclasses.fields(a) if f.name != "rel"))
+            + nbytes(*(getattr(a.rel, f.name) for f in dataclasses.fields(a.rel))))
+
+
+# planes and state indexed by node (or by neither axis); the others are
+# indexed by pod
+NODE_PLANES = {"node_alloc", "node_unsched", "node_mask", "taint_key", "taint_val",
+               "taint_effect", "label_val", "label_num", "label_num_ok", "trip_pair",
+               "img_contrib", "node_pair", "spread_lut", "requested", "s_requested",
+               "n_pods", "used_pair", "used_wild", "used_trip"}
+
+
+def attempt_bytes(enc, prog):
+    """What one attempt must read: every node plane, the pod's own row of
+    every pod plane and, where a relational plugin is enabled, every pod's
+    relational rows and binding (the counts run over all pods)."""
+    import dataclasses
+
+    a, st = enc.arrays, enc.state0
+    rel_on = ops_per_pod(enc, prog) > 0
+    planes = [(f.name, getattr(a, f.name)) for f in dataclasses.fields(a) if f.name != "rel"]
+    rel = [(f.name, getattr(a.rel, f.name)) for f in dataclasses.fields(a.rel)]
+    state = [(f.name, getattr(st, f.name)) for f in dataclasses.fields(st)]
+    all_pods = {n for n, _ in rel} | {"assignment", "pod_mask"} if rel_on else set()
+    total = 0
+    for name, t in planes + rel + state:
+        whole = name in NODE_PLANES or name in all_pods
+        total += nbytes(t) if whole else nbytes(t) // enc.P
+    return total
+
+
+def drive_path(kp, cuda, diff, path, nodes, pods, cfg, sample, smi):
+    """Phase 4 / 4b: one path at full width. `schedule()` with the counters
+    set to 0 just before and read just after, the layer split, the plain
+    pass on the card against it, then the single-pod step path with the
+    counters reset again. Returns what phase 5 needs."""
+    n_pods = len(pods)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    placements, results = kp.schedule(nodes, pods, config=cfg, policy=kp.TPU32, decode=sample)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    pass_counts, pass_plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() - base
+    if pass_counts["seq_run"] < 1 or any(pass_plain.values()):
+        raise AssertionError(f"the pass did not go through seq_run: {pass_counts} {pass_plain}")
+    n_placed = sum(1 for v in placements.values() if v)
+    log(f"    schedule(): {wall_s:.3f} s wall (encode + pass + decode of {len(sample)} pods), "
+        f"{n_pods / wall_s:.1f} decisions/s, {n_placed} placed, peak memory "
+        f"{peak / 2**30:.3f} GiB, launches {pass_counts}, plain calls {pass_plain} "
+        f"[{smi}]")
+
+    # where the time goes: the same pass split into its layers
+    t0 = time.perf_counter()
+    enc = kp.encode_cluster(nodes, pods, cfg, policy=kp.TPU32)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng = kp.BatchedScheduler(enc)
+    state_k, trace_k = eng.run()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    eng.placements()
+    eng.results(pods=sample)
+    t3 = time.perf_counter()
+    split = (t1 - t0, t2 - t1, t3 - t2)
+    log(f"    split: encode {split[0]:.3f} s, engine + pass {split[1]:.3f} s, decode "
+        f"(placements + {len(sample)} records) {split[2]:.3f} s")
+    eng_p = kp.BatchedScheduler(enc)
+    eng_p.run_fn = functools.partial(cuda.seq_run_plain, eng_p.program, record=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state_p, trace_p = eng_p.run()
+    torch.cuda.synchronize()
+    plain_run_s = time.perf_counter() - t0
+    for slot, g, h in zip(("pf_codes", "codes", "raw", "final", "sel"), trace_k, trace_p):
+        diff.check(path, "seq_run", f"full width {slot}", g, h)
+    for f in STATE_FIELDS:
+        diff.check(path, "seq_run", f"full width state {f}", getattr(state_k, f),
+                   getattr(state_p, f))
+    if eng_p.placements() != placements:
+        raise AssertionError(f"{path} full width: placements differ from the plain run's")
+    want = {(r.pod_namespace, r.pod_name): r.to_annotations() for r in eng_p.results(pods=sample)}
+    got = {(r.pod_namespace, r.pod_name): r.to_annotations() for r in results}
+    if got != want or len(got) != len(sample & set(placements)):
+        raise AssertionError(f"{path} full width: sampled annotations differ from the plain run's")
+    log(f"    plain version of the pass on the card: {plain_run_s:.3f} s; trace "
+        f"({len(trace_k[4])} steps), state, placements and {len(got)} pods' annotations equal")
+
+    # the single-pod step path: attempt_bind_fn over the same queue
+    a, w = enc.arrays, eng.weights
+    st = enc.state0.clone()
+    bad = torch.zeros((), dtype=torch.bool, device=enc.device)
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    for qi, p in enumerate(enc.queue.tolist()):
+        _, codes, raw, final, sel, _, st = eng.attempt_bind_fn(a, st, w, p, qi)
+        for row, out in zip(trace_k[1:], (codes, raw, final, sel)):
+            bad |= (row[qi] != out).any()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step_counts, step_plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    if bool(bad):
+        raise AssertionError(f"{path}: single-pod steps differ from the pass's trace rows")
+    for f in STATE_FIELDS:
+        diff.check(path, "seq_bind", f"step path state {f}", getattr(st, f), getattr(state_k, f))
+    n_q = len(enc.queue)
+    if step_counts["seq_attempt"] != n_q or step_counts["seq_bind"] != n_q or any(
+            step_plain.values()):
+        raise AssertionError(f"{path} step path launches {step_counts}, plain {step_plain}")
+    log(f"    single-pod step path: {n_q} steps in {step_s:.3f} s, every trace row and the "
+        f"final state equal the pass's; launches {step_counts}")
+    return dict(enc=enc, eng=eng, trace=trace_k, pass_counts=pass_counts,
+                step_counts=step_counts, plain_run_s=plain_run_s)
+
+
+def kernel_rows(cuda, diff, path, run):
+    """Phase 5 for one path: each kernel's time, its plain version's time
+    and its bound, as entries of the kernels line."""
+    enc, eng, trace_k = run["enc"], run["eng"], run["trace"]
+    a, w, prog = enc.arrays, eng.weights, eng.program
+    q = enc.queue[0].item()
+    queue = padded_queue(eng)
+    st = enc.state0.clone()
+    codes, raw, final, sel = cuda.seq_attempt(prog, a, st, w, q)
+    attempt_ms = graph_ms(lambda: cuda.seq_attempt(prog, a, st, w, q))
+    attempt_plain_ms = events_ms(lambda: cuda.seq_attempt_plain(prog, a, st, w, q), 20)
+    bind_ms = graph_ms(lambda: cuda.seq_bind(prog, a, st, q, sel, 0))
+    bind_plain_ms = events_ms(lambda: cuda.seq_bind_plain(prog, a, st, q, sel, 0), 20)
+    run_ms = events_ms(lambda: cuda.seq_run(prog, a, enc.state0, queue, w, record=True), 1, 3)
+    state_bytes = nbytes(*(getattr(enc.state0, f) for f in STATE_FIELDS))
+    step_out = nbytes(codes, raw, final, sel)
+    per_step_ops = ops_per_node(enc, prog) * enc.N + ops_per_pod(enc, prog) * enc.P
+    b_att = bound(attempt_bytes(enc, prog) + nbytes(w) + step_out, per_step_ops)
+    port_row = nbytes(a.want_pair[0], a.want_wild[0], a.want_trip[0])
+    b_bind = bound(nbytes(a.pod_req[0], a.pod_sreq[0]) + 2 * 2 * nbytes(st.requested[0])
+                   + 3 * port_row + 2 * 4 + 3 * 4, 3 * enc.R + 4 + port_row // 4)
+    b_run = bound(cluster_bytes(enc) + state_bytes + nbytes(queue, w) + nbytes(*trace_k)
+                  + state_bytes, per_step_ops * len(queue))
+    rows = [
+        ("seq_attempt", run["step_counts"], attempt_ms, attempt_plain_ms, b_att),
+        ("seq_bind", run["step_counts"], bind_ms, bind_plain_ms, b_bind),
+        ("seq_run", run["pass_counts"], run_ms, run["plain_run_s"] * 1e3, b_run),
+    ]
+    return [{
+        "name": k, "path": path, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
+        "launches": counts[k], "max_abs_err": diff.err[path, k], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+    } for k, counts, ms, plain_ms, b in rows]
+
+
+# The plugin bodies this slice added (K4/K5 of the reference), each with the
+# planes it reads (relational counts come from the `rel` planes and the
+# state's assignment).
+BODIES = {
+    ("filter", "NodeAffinity"): ("label_val", "label_num", "label_num_ok", "nsel_key",
+                                 "nsel_val", "raff_key", "raff_op", "raff_vals", "raff_num",
+                                 "raff_num_ok", "raff_term_valid", "pod_has_raff"),
+    ("filter", "NodePorts"): ("want_wild", "want_trip", "trip_pair"),
+    ("filter", "PodTopologySpread"): ("rel", "label_val"),
+    ("filter", "InterPodAffinity"): ("rel",),
+    ("score", "NodeAffinity"): ("label_val", "label_num", "label_num_ok", "paff_key",
+                                "paff_op", "paff_vals", "paff_num", "paff_num_ok",
+                                "paff_weight", "paff_term_valid"),
+    ("score", "ImageLocality"): ("img_contrib", "pod_img", "pod_ncont"),
+    ("score", "PodTopologySpread"): ("rel", "label_val"),
+    ("score", "InterPodAffinity"): ("rel",),
+}
+
+
+def body_times(kp, cuda, enc, smi):
+    """Phase 5b: each plugin body this slice added, timed inside
+    `seq_attempt` with that plugin alone enabled (its PreScore too), beside
+    its plain body on the same inputs and a bound from the planes it reads
+    and the trace row it writes. On the affinity path's cluster at the pass's
+    initial state. The time includes the launch and the select that every
+    attempt does."""
+    import dataclasses
+
+    from kube_scheduler_simulator_tpu_torch.engine import kernels as K
+    from kube_scheduler_simulator_tpu_torch.sched.config import SchedulerConfiguration
+
+    a, st = enc.arrays, enc.state0
+    p = int(enc.queue[0])
+    out = []
+    for (point, name), planes in BODIES.items():
+        star = [{"name": "*"}]
+        plugins = {pt: {"disabled": star, "enabled": []}
+                   for pt in ("preFilter", "filter", "postFilter", "preScore", "score")}
+        plugins[point]["enabled"] = [{"name": name, "weight": 1}] if point == "score" else [
+            {"name": name}]
+        if point == "score" and name in K.TRIVIAL_PRESCORE:
+            plugins["preScore"]["enabled"] = [{"name": name}]
+        cfg = SchedulerConfiguration.from_dict(
+            {"profiles": [{"schedulerName": "default-scheduler", "plugins": plugins}]})
+        enc1 = type(enc)(a, st, node_names=enc.node_names, pod_keys=enc.pod_keys,
+                         resource_names=enc.resource_names, queue=enc.queue,
+                         policy=enc.policy, config=cfg, n_nodes=enc.n_nodes,
+                         n_pods=enc.n_pods, aux=enc.aux)
+        eng = kp.BatchedScheduler(enc1)
+        prog, w = eng.program, eng.weights
+        ms = graph_ms(lambda: cuda.seq_attempt(prog, a, st, w, p))
+        reg = K.FILTER_KERNELS if point == "filter" else K.SCORE_KERNELS
+        body = reg[name][0](enc1)
+        feasible = a.node_mask.clone()
+        plain = (lambda: body(a, st, p)) if point == "filter" else (
+            lambda: body(a, st, p, feasible))
+        plain_ms = events_ms(plain, 20)
+        read = 0
+        for f in planes:
+            if f == "rel":
+                read += nbytes(*(getattr(a.rel, g.name) for g in dataclasses.fields(a.rel)))
+                read += nbytes(st.assignment)
+            else:
+                read += nbytes(getattr(a, f))
+        b = bound(read + 4 * enc.N * 3, 0)
+        out.append((point, name, ms, plain_ms, b))
+        log(f"    {point:6s} {name:18s} seq_attempt alone {ms:.6f} ms (plain body "
+            f"{plain_ms:.3f} ms, bound {b[0]:.6f} ms by {b[1]}) [{smi}]")
+    return out
 
 
 def main() -> int:
@@ -329,132 +752,41 @@ def main() -> int:
     # -- 3. kernels vs plain ----------------------------------------------
     log("[3] kernels against their plain versions on the card (exact equality)")
     diff = Diff()
-    compare_kernels(kp, cuda, diff)
+    nodes, pods = dressed_cluster(kp, 256, 2000, seed=11)
+    compare_kernels(kp, cuda, diff, "fit", nodes, pods, configs(kp), bind=False)
+    nodes, pods = rel_dressed_cluster(kp, 256, 2000, seed=11)
+    compare_kernels(kp, cuda, diff, "affinity", nodes, pods, {"slice": kp.slice_config()},
+                    bind=True)
+    log(f"    phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
-    # -- 4. full width ----------------------------------------------------
+    # -- 4. the fit path at full width --------------------------------------
     n_nodes, n_pods = 1024, 10000
     nodes, pods = kp.synthetic_cluster(n_nodes, n_pods, seed=7)
     rng = np.random.default_rng(7)
     sample = {("default", f"pod-{i}") for i in rng.choice(n_pods, 100, replace=False)}
-    log(f"[4] full width: {n_nodes} nodes x {n_pods} pods, TPU32, trace recorded")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    cuda.reset_counts()
-    t0 = time.perf_counter()
-    placements, results = kp.schedule(nodes, pods, policy=kp.TPU32, decode=sample)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    pass_counts, pass_plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
-    peak = torch.cuda.max_memory_allocated()
-    if pass_counts["seq_run"] < 1 or any(pass_plain.values()):
-        raise AssertionError(f"the pass did not go through seq_run: {pass_counts} {pass_plain}")
-    n_placed = sum(1 for v in placements.values() if v)
-    log(f"    schedule(): {wall_s:.3f} s wall (encode + pass + decode of 100 pods), "
-        f"{n_pods / wall_s:.1f} decisions/s, {n_placed} placed, peak memory "
-        f"{peak / 2**30:.3f} GiB, launches {pass_counts}, plain calls {pass_plain} "
-        f"[{smi}]")
+    log(f"[4] fit path at full width: {n_nodes} nodes x {n_pods} pods, fit_config(), TPU32, "
+        "trace recorded")
+    fit = drive_path(kp, cuda, diff, "fit", nodes, pods, kp.fit_config(), sample, smi)
 
-    # where the time goes: the same pass split into its layers
-    t0 = time.perf_counter()
-    enc = kp.encode_cluster(nodes, pods, kp.slice_config(), policy=kp.TPU32)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    eng = kp.BatchedScheduler(enc)
-    state_k, trace_k = eng.run()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    eng.placements()
-    eng.results(pods=sample)
-    t3 = time.perf_counter()
-    log(f"    split: encode {t1 - t0:.3f} s, engine + pass {t2 - t1:.3f} s, decode "
-        f"(placements + 100 records) {t3 - t2:.3f} s")
-    eng_p = kp.BatchedScheduler(enc)
-    eng_p.run_fn = functools.partial(cuda.seq_run_plain, eng_p.program, record=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state_p, trace_p = eng_p.run()
-    torch.cuda.synchronize()
-    plain_run_s = time.perf_counter() - t0
-    for slot, g, h in zip(("pf_codes", "codes", "raw", "final", "sel"), trace_k, trace_p):
-        diff.check("seq_run", f"full width {slot}", g, h)
-    for f in ("requested", "s_requested", "n_pods", "assignment", "bound_seq"):
-        diff.check("seq_run", f"full width state {f}", getattr(state_k, f), getattr(state_p, f))
-    if eng_p.placements() != placements:
-        raise AssertionError("full width: placements differ from the plain run's")
-    want = {(r.pod_namespace, r.pod_name): r.to_annotations() for r in eng_p.results(pods=sample)}
-    got = {(r.pod_namespace, r.pod_name): r.to_annotations() for r in results}
-    if got != want or len(got) != len(sample & set(placements)):
-        raise AssertionError("full width: sampled annotations differ from the plain run's")
-    log(f"    plain version of the pass on the card: {plain_run_s:.3f} s; trace "
-        f"({len(trace_k[4])} steps), state, placements and {len(got)} pods' annotations equal")
-
-    # the single-pod step path: attempt_bind_fn over the same queue
-    a, w = enc.arrays, eng.weights
-    st = enc.state0.clone()
-    bad = torch.zeros((), dtype=torch.bool, device=enc.device)
-    cuda.reset_counts()
-    t0 = time.perf_counter()
-    for qi, p in enumerate(enc.queue.tolist()):
-        _, codes, raw, final, sel, _, st = eng.attempt_bind_fn(a, st, w, p, qi)
-        for row, out in zip(trace_k[1:], (codes, raw, final, sel)):
-            bad |= (row[qi] != out).any()
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t0
-    step_counts, step_plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
-    if bool(bad):
-        raise AssertionError("single-pod steps differ from the pass's trace rows")
-    for f in ("requested", "s_requested", "n_pods", "assignment", "bound_seq"):
-        diff.check("seq_bind", f"step path state {f}", getattr(st, f), getattr(state_k, f))
-    n_q = len(enc.queue)
-    if step_counts["seq_attempt"] != n_q or step_counts["seq_bind"] != n_q or any(
-            step_plain.values()):
-        raise AssertionError(f"step path launches {step_counts}, plain {step_plain}")
-    log(f"    single-pod step path: {n_q} steps in {step_s:.3f} s, every trace row and the "
-        f"final state equal the pass's; launches {step_counts}")
+    # -- 4b. the affinity path at full width (BASELINE config #3) -----------
+    n_nodes, n_pods = 500, 5000
+    nodes, pods = kp.synthetic_affinity_cluster(n_nodes, n_pods, seed=11)
+    rng = np.random.default_rng(11)
+    sample = {("default", f"pod-{i}") for i in rng.choice(n_pods, 100, replace=False)}
+    log(f"[4b] affinity path at full width: {n_nodes} nodes x {n_pods} pods "
+        "(synthetic_affinity_cluster, seed 11), slice_config(), TPU32, trace recorded")
+    aff = drive_path(kp, cuda, diff, "affinity", nodes, pods, kp.slice_config(), sample, smi)
 
     # -- 5. kernel times --------------------------------------------------
-    prog, q = eng.program, enc.queue[0].item()
-    queue = torch.as_tensor(np.concatenate([enc.queue, np.full(
-        eng.queue_bucket(n_q) - n_q, -1)]).astype(np.int32), device=enc.device)
-    st = enc.state0.clone()
-    codes, raw, final, sel = cuda.seq_attempt(prog, a, st, w, q)
-    attempt_ms = graph_ms(lambda: cuda.seq_attempt(prog, a, st, w, q))
-    attempt_plain_ms = events_ms(lambda: cuda.seq_attempt_plain(prog, a, st, w, q), 20)
-    bind_ms = graph_ms(lambda: cuda.seq_bind(prog, a, st, q, sel, 0))
-    bind_plain_ms = events_ms(lambda: cuda.seq_bind_plain(prog, a, st, q, sel, 0), 20)
-    run_ms = events_ms(lambda: cuda.seq_run(prog, a, enc.state0, queue, w, record=True), 1, 3)
-    run_plain_ms = plain_run_s * 1e3
-    node_in = nbytes(a.node_alloc, a.node_unsched, a.node_mask, a.taint_key, a.taint_val,
-                     a.taint_effect, enc.state0.requested, enc.state0.s_requested,
-                     enc.state0.n_pods)
-    pod_row = (nbytes(a.pod_req, a.pod_sreq, a.pod_req_rank, a.pod_node_name,
-                      a.pod_tol_unsched, a.tol_key, a.tol_val, a.tol_effect, a.tol_op)
-               // enc.P)
-    step_out = nbytes(codes, raw, final, sel)
-    per_step_ops = ops_per_node(enc, prog) * enc.N
-    b_att = bound(node_in + pod_row + nbytes(w) + step_out, per_step_ops)
-    b_bind = bound(nbytes(a.pod_req[0], a.pod_sreq[0]) + 2 * 2 * nbytes(st.requested[0])
-                   + 2 * 4 + 3 * 4, 3 * enc.R + 4)
-    pod_planes = nbytes(a.pod_req, a.pod_sreq, a.pod_req_rank, a.pod_node_name,
-                        a.pod_tol_unsched, a.tol_key, a.tol_val, a.tol_effect, a.tol_op)
-    state_bytes = nbytes(*(getattr(enc.state0, f) for f in
-                           ("requested", "s_requested", "n_pods", "assignment", "bound_seq")))
-    b_run = bound(node_in + pod_planes + state_bytes + nbytes(queue, w)
-                  + nbytes(*trace_k) + state_bytes, per_step_ops * len(queue))
-    rows = [
-        ("seq_attempt", step_counts, attempt_ms, attempt_plain_ms, b_att),
-        ("seq_bind", step_counts, bind_ms, bind_plain_ms, b_bind),
-        ("seq_run", pass_counts, run_ms, run_plain_ms, b_run),
-    ]
-    kernels = [{
-        "name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
-        "launches": counts[k], "max_abs_err": diff.err[k], "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
-    } for k, counts, ms, plain_ms, b in rows]
-    log(f"[5] kernel times at full width (1024 nodes, TPU32) [{smi}]")
+    kernels = kernel_rows(cuda, diff, "fit", fit) + kernel_rows(cuda, diff, "affinity", aff)
+    log(f"[5] kernel times at full width, TPU32 [{smi}]")
     for kr in kernels:
-        log(f"    {kr['name']:11s} {kr['ms']:.6f} ms (plain {kr['plain_ms']:.3f} ms, bound "
-            f"{kr['bound_ms']:.6f} ms by {kr['bound_by']}), {kr['launches']} launches")
+        log(f"    {kr['path']:8s} {kr['name']:11s} {kr['ms']:.6f} ms (plain "
+            f"{kr['plain_ms']:.3f} ms, bound {kr['bound_ms']:.6f} ms by {kr['bound_by']}), "
+            f"{kr['launches']} launches")
+    log(f"[5b] the slice's plugin bodies inside seq_attempt, affinity path's cluster, "
+        f"TPU32 [{smi}]")
+    body_times(kp, cuda, aff["enc"], smi)
     log(f"    total {time.perf_counter() - t_start:.1f} s")
     faulthandler.cancel_dump_traceback_later()
 

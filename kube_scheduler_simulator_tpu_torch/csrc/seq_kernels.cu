@@ -32,10 +32,23 @@
 // (cooperative grid sync, or a cluster) and keeping node state in shared
 // memory is later work.
 //
+// The relational plugins (PodTopologySpread, InterPodAffinity) need counts
+// over every bound pod before any node can be decided. A step is therefore
+// a run of phases separated by __syncthreads(): clear a workspace (global
+// memory, allocated once per launch by the caller), walk all P pods and
+// scatter their matches into per-(term, topology pair) counters with
+// integer atomics (integer adds commute, so the result does not depend on
+// their order), aggregate nodes into topology pairs, then the node sweep
+// (filters), the spread score's prologue over feasible nodes, the raw
+// scores with their block reductions, and the normalize, argmax and bind.
+// Plugins that are not enabled skip their phases.
+//
 // Arithmetic follows the reference bit for bit. Integer `//` floors (C++
 // `/` truncates), every intermediate stays in the policy's type (int32 for
 // TPU32, int64 for EXACT) and wraps as XLA's does, through unsigned
-// arithmetic. Float steps use the round-to-nearest intrinsics, so no
+// arithmetic; the sums the reference takes in 64 bits (it runs with 64-bit
+// types enabled: the spread total, the image sum, the node-affinity
+// weights) are taken in 64 bits and cast at the end. Float steps use the round-to-nearest intrinsics, so no
 // fused multiply-add changes a rounding; the build does not use
 // --use_fast_math.
 
@@ -55,12 +68,24 @@ constexpr int MAX_BAL = 16;
 constexpr int PODS_RES = 3;
 constexpr int MAX_NODE_SCORE = 100;
 constexpr long long BALANCED_SCALE = 1LL << 16;
+constexpr long long SPREAD_SCALE = 1LL << 12;
+constexpr long long IMG_MIN_KI = 23 * 1024;
+constexpr long long IMG_MAX_CONTAINER_KI = 1000 * 1024;
+constexpr int BIG = INT_MAX;  // the custom normalizes' min/max sentinel
 
 // plugin ids, as engine/kernels.py's registries name them
-enum { F_UNSCHED = 0, F_NODENAME = 1, F_TAINT = 2, F_FIT = 3 };
-enum { S_FIT = 0, S_BALANCED = 1, S_TAINT = 2 };
-enum { NORM_NONE = 0, NORM_DEFAULT = 1, NORM_REVERSE = 2 };
+enum {
+  F_UNSCHED = 0, F_NODENAME = 1, F_TAINT = 2, F_FIT = 3,
+  F_AFFINITY = 4, F_PORTS = 5, F_SPREAD = 6, F_INTERPOD = 7
+};
+enum {
+  S_FIT = 0, S_BALANCED = 1, S_TAINT = 2,
+  S_AFFINITY = 3, S_IMAGE = 4, S_SPREAD = 5, S_INTERPOD = 6
+};
+enum { NORM_NONE = 0, NORM_DEFAULT = 1, NORM_REVERSE = 2, NORM_CUSTOM = 3 };
 enum { FIT_LEAST = 0, FIT_MOST = 1, FIT_RTCR = 2 };
+// label-selector clause types (engine/encode_rel.py)
+enum { CL_PAD = -1, PAIR_ANY = 0, NOTIN = 1, EXISTS = 2, DNE = 3 };
 
 }  // namespace
 
@@ -82,10 +107,45 @@ struct Cfg {
   int rtcr_y[MAX_PTS];
   int bal_n;
   int bal_r[MAX_BAL];
+  // PreScore of PodTopologySpread / InterPodAffinity enabled (without it
+  // the plugin's score is 0 and normalizes to 0)
+  int spread_on;
+  int interpod_on;
+  int hard_w;  // InterPodAffinityArgs.hardPodAffinityWeight
 };
 
-// Device pointers of the cluster planes (engine/encode.py ClusterArrays).
-// Resource planes hold the policy's integer type; bools are one byte.
+// Required or preferred node-affinity terms of every pod
+// (ClusterArrays raff_* / paff_*): [P, TM, E(, VV)].
+struct NodeTerms {
+  const int* key;               // [P, TM, E] label key column | -1 pad
+  const int* op;                // [P, TM, E] operator id
+  const int* vals;              // [P, TM, E, VV] value ids | VAL_PAD
+  const void* num;              // [P, TM, E] Gt/Lt operand, policy type
+  const unsigned char* num_ok;  // [P, TM, E]
+  const unsigned char* valid;   // [P, TM] term has an expression
+  const int* weight;            // [P, TM] preferred terms only, else null
+  int TM, E, VV;
+};
+
+// One relational term domain of every pod (PodRelArrays): spread hard or
+// soft constraints, or one InterPodAffinity term kind. Unused members are
+// null.
+struct Terms {
+  const int* key;              // [P, T] node-label key column | -1 pad
+  const int* ctype;            // [P, T, C] clause type | CL_PAD
+  const int* ckey;             // [P, T, C] pod-label key id | -1
+  const int* cpairs;           // [P, T, C, VP] pod-label pair id | -1
+  const int* skew;             // [P, T] spread maxSkew
+  const unsigned char* flag;   // [P, T] sph_self / sps_host / ia_self
+  const unsigned char* nsall;  // [P, T] term selects every namespace
+  const unsigned char* ns;     // [P, T, NSV] term selects namespace
+  const int* weight;           // [P, T] preferred-term weight
+  int T, C, VP;
+};
+
+// Device pointers of the cluster planes (engine/encode.py ClusterArrays and
+// engine/encode_rel.py PodRelArrays). Planes of the policy's integer type
+// are void*; bools are one byte.
 struct Planes {
   const void* node_alloc;
   const unsigned char* node_unsched;
@@ -95,6 +155,7 @@ struct Planes {
   const int* pod_req_rank;
   const int* pod_node_name;
   const unsigned char* pod_tol_unsched;
+  const unsigned char* pod_mask;
   const int* taint_key;
   const int* taint_val;
   const int* taint_effect;
@@ -102,7 +163,29 @@ struct Planes {
   const int* tol_val;
   const int* tol_effect;
   const int* tol_op;
-  int N, P, R, T, L;
+  const int* label_val;               // [N, K] value id | -1 absent
+  const void* label_num;              // [N, K] policy type
+  const unsigned char* label_num_ok;  // [N, K]
+  const int* nsel_key;                // [P, NS]
+  const int* nsel_val;                // [P, NS]
+  const unsigned char* pod_has_raff;  // [P]
+  const int* want_wild;               // [P, Q]
+  const int* want_trip;               // [P, V2]
+  const int* want_pair;               // [P, Q]
+  const int* trip_pair;               // [V2]
+  const void* img_contrib;            // [N, I] policy type
+  const int* pod_img;                 // [P, I]
+  const int* pod_ncont;               // [P]
+  const unsigned char* pair_present;  // [P, LP]
+  const unsigned char* key_present;   // [P, KK]
+  const int* ns_id;                   // [P]
+  const unsigned char* deleted;       // [P]
+  const int* node_pair;               // [N, K] pair id + 1 | 0 absent
+  const unsigned char* req_all;       // [P]
+  const int* spread_lut;              // [LUT]
+  NodeTerms raff, paff;
+  Terms sph, sps, ia, ian, ipa, ipan;
+  int N, P, R, T, L, K, NS, Q, V2, I, LP, KK, NSV, NP1, LUT;
 };
 
 // Device pointers of the state (engine/encode.py SchedState), updated in place.
@@ -111,6 +194,9 @@ struct State {
   void* s_requested;
   int* n_pods;
   int* assignment;
+  int* used_pair;
+  int* used_wild;
+  int* used_trip;
   int* bound_seq;
 };
 
@@ -159,6 +245,315 @@ template <typename I> struct Smem {
   int red_i[32];
 };
 
+// Integer atomics in the policy's type (two's-complement adds wrap, as the
+// reference's int32 scatter-adds do).
+__device__ __forceinline__ void atomic_add(int* p, int v) { atomicAdd(p, v); }
+__device__ __forceinline__ void atomic_add(long long* p, long long v) {
+  atomicAdd((unsigned long long*)p, (unsigned long long)v);
+}
+
+// ---------------------------------------------------------------------------
+// the per-step workspace of the relational plugins
+// ---------------------------------------------------------------------------
+
+// Pointers into the workspace the caller allocates once per launch. HC/SC:
+// hard/soft spread constraints of the widest pod, NP1: topology pairs + 1.
+struct Ws {
+  void* wsum;             // [NP1] InterPodAffinity score weight per pair, policy type
+  int* cnt_h;             // [HC, N] matching bound pods per hard constraint and node
+  int* cnt_s;             // [SC, N] the same for soft constraints
+  int* val_h;             // [HC, NP1] eligible nodes' counts summed per pair
+  int* pres_h;            // [HC, NP1] eligible nodes per pair
+  int* val_s;             // [SC, NP1]
+  int* pres_s;            // [SC, NP1] scored nodes per pair
+  int* min_h;             // [HC] least count over present pairs (INT_MAX: none)
+  int* topo_s;            // [SC] present pairs (topology size)
+  int* ea;                // [NP1] existing pods' anti-affinity hits per pair
+  int* anti;              // [T_ian, NP1] the pod's anti-affinity matches per pair
+  int* affc;              // [T_ia, NP1] the pod's affinity matches per pair
+  int* scal;              // [2] affinity matches over all pairs > 0, scored nodes
+  unsigned char* aff_ok;  // [N] the NodeAffinity filter body holds
+  unsigned char* ign;     // [N] the spread score ignores the node
+  int n_words;            // 32-bit words from wsum through scal, cleared each step
+  int min_lo, min_hi;     // the words of min_h (cleared to INT_MAX)
+};
+
+// The workspace layout for these planes and an integer type of `isz`
+// bytes; fills *w from `base` when w is not null. Returns its size in bytes.
+__host__ __device__ inline size_t ws_layout(const Planes& a, size_t isz, char* base, Ws* w) {
+  const size_t N = a.N, NP1 = a.NP1, HC = a.sph.T, SC = a.sps.T;
+  size_t off = (NP1 * isz + 7) & ~(size_t)7;
+  const size_t o_cnt_h = off;  off += HC * N * 4;
+  const size_t o_cnt_s = off;  off += SC * N * 4;
+  const size_t o_val_h = off;  off += HC * NP1 * 4;
+  const size_t o_pres_h = off; off += HC * NP1 * 4;
+  const size_t o_val_s = off;  off += SC * NP1 * 4;
+  const size_t o_pres_s = off; off += SC * NP1 * 4;
+  const size_t o_min_h = off;  off += HC * 4;
+  const size_t o_topo_s = off; off += SC * 4;
+  const size_t o_ea = off;     off += NP1 * 4;
+  const size_t o_anti = off;   off += (size_t)a.ian.T * NP1 * 4;
+  const size_t o_affc = off;   off += (size_t)a.ia.T * NP1 * 4;
+  const size_t o_scal = off;   off += 2 * 4;
+  const size_t words = off / 4;
+  const size_t o_aff = off;    off += N;
+  const size_t o_ign = off;    off += N;
+  off = (off + 7) & ~(size_t)7;
+  if (w) {
+    w->wsum = base;
+    w->cnt_h = (int*)(base + o_cnt_h);
+    w->cnt_s = (int*)(base + o_cnt_s);
+    w->val_h = (int*)(base + o_val_h);
+    w->pres_h = (int*)(base + o_pres_h);
+    w->val_s = (int*)(base + o_val_s);
+    w->pres_s = (int*)(base + o_pres_s);
+    w->min_h = (int*)(base + o_min_h);
+    w->topo_s = (int*)(base + o_topo_s);
+    w->ea = (int*)(base + o_ea);
+    w->anti = (int*)(base + o_anti);
+    w->affc = (int*)(base + o_affc);
+    w->scal = (int*)(base + o_scal);
+    w->aff_ok = (unsigned char*)(base + o_aff);
+    w->ign = (unsigned char*)(base + o_ign);
+    w->n_words = (int)words;
+    w->min_lo = (int)(o_min_h / 4);
+    w->min_hi = (int)(o_min_h / 4 + HC);
+  }
+  return off;
+}
+
+// Which phases a step runs, from the enabled plugins.
+struct Need {
+  bool aff;       // the NodeAffinity body per node (its filter, or spread)
+  bool f_spread;  // PodTopologySpread filter
+  bool s_spread;  // PodTopologySpread score, PreScore enabled
+  bool f_ipa;     // InterPodAffinity filter
+  bool s_ipa;     // InterPodAffinity score, PreScore enabled
+  bool rel;       // any of the four: the workspace is cleared and filled
+};
+
+__device__ Need need_of(const Cfg& c) {
+  Need nd = {false, false, false, false, false, false};
+  for (int f = 0; f < c.n_filters; ++f) {
+    nd.aff |= c.filter[f] == F_AFFINITY;
+    nd.f_spread |= c.filter[f] == F_SPREAD;
+    nd.f_ipa |= c.filter[f] == F_INTERPOD;
+  }
+  for (int j = 0; j < c.n_scores; ++j) {
+    nd.s_spread |= c.score[j] == S_SPREAD && c.spread_on;
+    nd.s_ipa |= c.score[j] == S_INTERPOD && c.interpod_on;
+  }
+  nd.aff |= nd.f_spread || nd.s_spread;
+  nd.rel = nd.f_spread || nd.s_spread || nd.f_ipa || nd.s_ipa;
+  return nd;
+}
+
+// ---------------------------------------------------------------------------
+// label selectors and node affinity (engine/encode_rel.py _eval_clauses,
+// engine/kernels.py _terms_match)
+// ---------------------------------------------------------------------------
+
+// Term t of pod `owner` in domain d, against the labels of pod `target`: an
+// AND over its clauses (CL_PAD neutral; NotIn matches an absent key; NEVER
+// and unknown types match nothing).
+__device__ bool clauses_match(const Planes& a, const Terms& d, int owner, int t, int target) {
+  const size_t row = (size_t)owner * d.T + t;
+  const int* ct = d.ctype + row * d.C;
+  const int* ck = d.ckey + row * d.C;
+  const int* cp = d.cpairs + row * d.C * d.VP;
+  const unsigned char* pp = a.pair_present + (size_t)target * a.LP;
+  const unsigned char* kp = a.key_present + (size_t)target * a.KK;
+  for (int c = 0; c < d.C; ++c) {
+    const int ty = ct[c];
+    if (ty == CL_PAD) continue;
+    bool m = false;
+    if (ty == PAIR_ANY || ty == NOTIN) {
+      bool hit = false;
+      for (int v = 0; v < d.VP; ++v) {
+        const int pid = cp[(size_t)c * d.VP + v];
+        hit = hit || (pid >= 0 && pp[pid]);
+      }
+      m = ty == PAIR_ANY ? hit : !hit;
+    } else if (ty == EXISTS || ty == DNE) {
+      const int kid = ck[c];
+      const bool kh = kid >= 0 && kp[kid];
+      m = ty == EXISTS ? kh : !kh;
+    }
+    if (!m) return false;
+  }
+  return true;
+}
+
+// Term t of pod `owner` selects namespace `ns`.
+__device__ __forceinline__ bool ns_ok(const Planes& a, const Terms& d, int owner, int t, int ns) {
+  const size_t row = (size_t)owner * d.T + t;
+  return d.nsall[row] || d.ns[row * a.NSV + ns];
+}
+
+// Node n carries the topology key of every constraint of pod ps in d.
+__device__ bool has_all_keys(const Planes& a, const Terms& d, int ps, int n) {
+  const int* npn = a.node_pair + (size_t)n * a.K;
+  for (int t = 0; t < d.T; ++t) {
+    const int key = d.key[(size_t)ps * d.T + t];
+    if (key >= 0 && npn[key] == 0) return false;
+  }
+  return true;
+}
+
+// One node-selector expression (row e of nt) against node n.
+template <typename I>
+__device__ bool expr_match(const Planes& a, const NodeTerms& nt, size_t e, int n) {
+  const int key = nt.key[e];
+  if (key == -1) return true;  // padding is neutral for the AND
+  const size_t lk = (size_t)n * a.K + key;
+  const int nval = a.label_val[lk];
+  const bool present = nval >= 0;
+  const int op = nt.op[e];
+  if (op == 0 || op == 1) {  // In, NotIn (NotIn also matches an absent key)
+    bool eq = false;
+    for (int v = 0; v < nt.VV; ++v) eq = eq || nt.vals[e * nt.VV + v] == nval;
+    return (op == 0) == (present && eq);
+  }
+  if (op == 2) return present;   // Exists
+  if (op == 3) return !present;  // DoesNotExist
+  if (op == 4 || op == 5) {      // Gt, Lt: both sides must parse
+    if (!(present && a.label_num_ok[lk] && nt.num_ok[e])) return false;
+    const I lhs = ((const I*)a.label_num)[lk], rhs = ((const I*)nt.num)[e];
+    return op == 4 ? lhs > rhs : lhs < rhs;
+  }
+  return false;  // OP_NEVER
+}
+
+template <typename I>
+__device__ bool term_match(const Planes& a, const NodeTerms& nt, int ps, int t, int n) {
+  const size_t tr = (size_t)ps * nt.TM + t;
+  if (!nt.valid[tr]) return false;
+  for (int e = 0; e < nt.E; ++e)
+    if (!expr_match<I>(a, nt, tr * nt.E + e, n)) return false;
+  return true;
+}
+
+// nodeSelector AND required terms OR-ed (no terms: pass).
+template <typename I>
+__device__ bool node_affinity_ok(const Planes& a, int ps, int n) {
+  for (int j = 0; j < a.NS; ++j) {
+    const int k = a.nsel_key[(size_t)ps * a.NS + j];
+    if (k != -1 && a.label_val[(size_t)n * a.K + k] != a.nsel_val[(size_t)ps * a.NS + j])
+      return false;
+  }
+  if (!a.pod_has_raff[ps]) return true;
+  for (int t = 0; t < a.raff.TM; ++t)
+    if (term_match<I>(a, a.raff, ps, t, n)) return true;
+  return false;
+}
+
+// ---------------------------------------------------------------------------
+// the relational prologue (engine/kernels.py _spread_counts,
+// _forward_pair_counts, the reverse terms of build_interpod_filter/score)
+// ---------------------------------------------------------------------------
+
+// Bound pod q's contributions to the counts of step pod ps.
+template <typename I>
+__device__ void rel_pod(const Cfg& c, const Planes& a, const State& s, const Need& nd,
+                        const Ws& w, int ps, int q) {
+  const int nq = s.assignment[q];
+  if (nq < 0 || !a.pod_mask[q]) return;  // only bound pods count
+  const int* npq = a.node_pair + (size_t)nq * a.K;
+  const int N = a.N, NP1 = a.NP1;
+  const int nsp = a.ns_id[ps], nsq = a.ns_id[q];
+  if ((nd.f_spread || nd.s_spread) && nsq == nsp && !a.deleted[q]) {
+    if (nd.f_spread)
+      for (int t = 0; t < a.sph.T; ++t)
+        if (a.sph.key[(size_t)ps * a.sph.T + t] >= 0 && clauses_match(a, a.sph, ps, t, q))
+          atomicAdd(&w.cnt_h[(size_t)t * N + nq], 1);
+    if (nd.s_spread)
+      for (int t = 0; t < a.sps.T; ++t)
+        if (a.sps.key[(size_t)ps * a.sps.T + t] >= 0 && clauses_match(a, a.sps, ps, t, q))
+          atomicAdd(&w.cnt_s[(size_t)t * N + nq], 1);
+  }
+  if (nd.f_ipa) {
+    // (1) q's required anti-affinity against ps
+    for (int t = 0; t < a.ian.T; ++t) {
+      const int key = a.ian.key[(size_t)q * a.ian.T + t];
+      if (key >= 0 && npq[key] > 0 && ns_ok(a, a.ian, q, t, nsp) &&
+          clauses_match(a, a.ian, q, t, ps))
+        atomicAdd(&w.ea[npq[key]], 1);
+    }
+    // (2) ps's required anti-affinity against q
+    for (int t = 0; t < a.ian.T; ++t) {
+      const int key = a.ian.key[(size_t)ps * a.ian.T + t];
+      if (key >= 0 && npq[key] > 0 && ns_ok(a, a.ian, ps, t, nsq) &&
+          clauses_match(a, a.ian, ps, t, q))
+        atomicAdd(&w.anti[(size_t)t * NP1 + npq[key]], 1);
+    }
+    // (3) ps's required affinity against q
+    for (int t = 0; t < a.ia.T; ++t) {
+      const int key = a.ia.key[(size_t)ps * a.ia.T + t];
+      if (key >= 0 && npq[key] > 0 && ns_ok(a, a.ia, ps, t, nsq) &&
+          clauses_match(a, a.ia, ps, t, q)) {
+        atomicAdd(&w.affc[(size_t)t * NP1 + npq[key]], 1);
+        atomicAdd(&w.scal[0], 1);
+      }
+    }
+  }
+  if (nd.s_ipa) {
+    I* wsum = (I*)w.wsum;
+    // ps's preferred terms against q (±weight), then q's preferred terms
+    // (±weight) and required affinity (hardPodAffinityWeight) against ps
+    const Terms* doms[3] = {&a.ipa, &a.ipan, &a.ia};
+    for (int k = 0; k < 2; ++k) {
+      const Terms& d = *doms[k];
+      const int sign = k == 0 ? 1 : -1;
+      for (int t = 0; t < d.T; ++t) {
+        const size_t r = (size_t)ps * d.T + t;
+        const int key = d.key[r];
+        if (key >= 0 && npq[key] > 0 && ns_ok(a, d, ps, t, nsq) && clauses_match(a, d, ps, t, q))
+          atomic_add(&wsum[npq[key]], (I)wmul<int>(sign, d.weight[r]));
+      }
+    }
+    for (int k = 0; k < (c.hard_w > 0 ? 3 : 2); ++k) {
+      const Terms& d = *doms[k];
+      const int sign = k == 0 ? 1 : -1;
+      for (int t = 0; t < d.T; ++t) {
+        const size_t r = (size_t)q * d.T + t;
+        const int key = d.key[r];
+        if (key >= 0 && npq[key] > 0 && ns_ok(a, d, q, t, nsp) && clauses_match(a, d, q, t, ps))
+          atomic_add(&wsum[npq[key]], k == 2 ? (I)c.hard_w : (I)wmul<int>(sign, d.weight[r]));
+      }
+    }
+  }
+}
+
+// Node n's NodeAffinity result, and its counts summed into its topology
+// pairs: for the spread filter over eligible nodes (affinity, every key,
+// real node), for the spread score over the nodes its counting mask keeps.
+template <typename I>
+__device__ void rel_node(const Planes& a, const Need& nd, const Ws& w, int ps, int n) {
+  const bool aff = node_affinity_ok<I>(a, ps, n);
+  w.aff_ok[n] = aff;
+  if (!aff || !a.node_mask[n]) return;
+  const int* npn = a.node_pair + (size_t)n * a.K;
+  const int N = a.N, NP1 = a.NP1;
+  if (nd.f_spread && has_all_keys(a, a.sph, ps, n)) {
+    for (int t = 0; t < a.sph.T; ++t) {
+      const int key = a.sph.key[(size_t)ps * a.sph.T + t];
+      if (key < 0) continue;
+      const size_t i = (size_t)t * NP1 + npn[key];
+      const int cnt = w.cnt_h[(size_t)t * N + n];
+      if (cnt) atomicAdd(&w.val_h[i], cnt);
+      atomicAdd(&w.pres_h[i], 1);
+    }
+  }
+  if (nd.s_spread && (!a.req_all[ps] || has_all_keys(a, a.sps, ps, n))) {
+    for (int t = 0; t < a.sps.T; ++t) {
+      const int key = a.sps.key[(size_t)ps * a.sps.T + t];
+      if (key < 0 || npn[key] == 0) continue;
+      const int cnt = w.cnt_s[(size_t)t * N + n];
+      if (cnt) atomicAdd(&w.val_s[(size_t)t * NP1 + npn[key]], cnt);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // plugin bodies (engine/kernels.py)
 // ---------------------------------------------------------------------------
@@ -183,8 +578,55 @@ __device__ bool tolerated(const Planes& a, int ps, int n, int t) {
   return false;
 }
 
+// PodTopologySpread filter: the first failing hard constraint in order
+// wins; 1 = the node lacks its topology key, 2 = maxSkew exceeded.
+__device__ int spread_filter(const Planes& a, const Ws& w, int ps, int n) {
+  const Terms& d = a.sph;
+  const int* npn = a.node_pair + (size_t)n * a.K;
+  for (int t = 0; t < d.T; ++t) {
+    const size_t r = (size_t)ps * d.T + t;
+    const int key = d.key[r];
+    if (key < 0) continue;
+    const int pr = npn[key];
+    if (pr == 0) return 1;
+    const int min_c = w.min_h[t] == INT_MAX ? 0 : w.min_h[t];  // 0: no pair present
+    const int skew = wsub<int>(wadd<int>(w.val_h[(size_t)t * a.NP1 + pr], d.flag[r] ? 1 : 0), min_c);
+    if (skew > d.skew[r]) return 2;
+  }
+  return 0;
+}
+
+// InterPodAffinity filter: 1 = an existing pod's anti-affinity, 2 = the
+// pod's anti-affinity, 3 = the pod's affinity (in that precedence).
+__device__ int interpod_filter(const Planes& a, const Ws& w, int ps, int n) {
+  const int* npn = a.node_pair + (size_t)n * a.K;
+  for (int k = 0; k < a.K; ++k)
+    if (npn[k] > 0 && w.ea[npn[k]] > 0) return 1;
+  for (int t = 0; t < a.ian.T; ++t) {
+    const int key = a.ian.key[(size_t)ps * a.ian.T + t];
+    if (key >= 0 && npn[key] > 0 && w.anti[(size_t)t * a.NP1 + npn[key]] > 0) return 2;
+  }
+  bool has_terms = false, satisfied = true, keys_all = true, self_all = true;
+  for (int t = 0; t < a.ia.T; ++t) {
+    const size_t r = (size_t)ps * a.ia.T + t;
+    const int key = a.ia.key[r];
+    if (key < 0) continue;
+    has_terms = true;
+    const int pr = npn[key];
+    if (pr == 0) keys_all = false;
+    if (pr == 0 || w.affc[(size_t)t * a.NP1 + pr] == 0) satisfied = false;
+    if (!a.ia.flag[r]) self_all = false;
+  }
+  if (!has_terms || satisfied) return 0;
+  // the first pod of a series: nothing matches anywhere and the pod matches
+  // its own terms, on a node that carries every term's key
+  if (keys_all && w.scal[0] == 0 && self_all) return 0;
+  return 3;
+}
+
 template <typename I>
-__device__ int filter_code(int fid, const Planes& a, const State& s, int ps, int n) {
+__device__ int filter_code(int fid, const Planes& a, const State& s, const Ws& w, int ps,
+                           int n) {
   switch (fid) {
     case F_UNSCHED:
       return (a.node_unsched[n] && !a.pod_tol_unsched[ps]) ? 1 : 0;
@@ -220,6 +662,24 @@ __device__ int filter_code(int fid, const Planes& a, const State& s, int ps, int
       }
       return first_r >= 0 ? 2 + first_r : 0;
     }
+    case F_AFFINITY:
+      return w.aff_ok[n] ? 0 : 1;
+    case F_PORTS: {
+      const int* ww = a.want_wild + (size_t)ps * a.Q;
+      const int* up = s.used_pair + (size_t)n * a.Q;
+      for (int q = 0; q < a.Q; ++q)
+        if (ww[q] > 0 && up[q] > 0) return 1;
+      const int* wt = a.want_trip + (size_t)ps * a.V2;
+      const int* ut = s.used_trip + (size_t)n * a.V2;
+      const int* uw = s.used_wild + (size_t)n * a.Q;
+      for (int v = 0; v < a.V2; ++v)
+        if (wt[v] > 0 && (ut[v] > 0 || uw[a.trip_pair[v]] > 0)) return 1;
+      return 0;
+    }
+    case F_SPREAD:
+      return spread_filter(a, w, ps, n);
+    case F_INTERPOD:
+      return interpod_filter(a, w, ps, n);
   }
   return 0;
 }
@@ -362,8 +822,84 @@ __device__ I taint_score(const Planes& a, int ps, int n) {
   return cnt;
 }
 
+// NodeAffinity score: the weights of the preferred terms the node matches.
 template <typename I>
-__device__ I score_raw(const Cfg& c, int j, const Planes& a, const State& s, int ps, int n) {
+__device__ I node_affinity_score(const Planes& a, int ps, int n) {
+  long long sum = 0;
+  for (int t = 0; t < a.paff.TM; ++t)
+    if (term_match<I>(a, a.paff, ps, t, n)) sum += a.paff.weight[(size_t)ps * a.paff.TM + t];
+  return (I)sum;
+}
+
+// ImageLocality: the clipped sum of the node's share of the pod's images
+// (Ki), scaled to 0..100 as 100*x//den in two base-10 digits. Products in
+// I, sums in 64 bits (the reference's jnp.sum), cast to I at the end.
+template <typename I>
+__device__ I image_score(const Planes& a, int ps, int n) {
+  const I* contrib = (const I*)a.img_contrib + (size_t)n * a.I;
+  const int* want = a.pod_img + (size_t)ps * a.I;
+  long long ss = 0;
+  for (int i = 0; i < a.I; ++i) ss += (long long)wmul<I>(contrib[i], (I)want[i]);
+  const I ncont = (I)a.pod_ncont[ps];
+  if (ncont == 0) return 0;  // zero-container pods score 0
+  const I maxth = wmul<I>((I)IMG_MAX_CONTAINER_KI, ncont);
+  const long long hi = imax<I>(maxth, (I)(IMG_MIN_KI + 1));
+  ss = ss < IMG_MIN_KI ? IMG_MIN_KI : ss;
+  ss = ss > hi ? hi : ss;
+  const long long x = ss - IMG_MIN_KI;
+  const long long den = imax<I>(wsub<I>(maxth, (I)IMG_MIN_KI), 1);
+  const long long a1 = fdiv<long long>(x, den), r = fmod_<long long>(x, den);
+  const long long d1 = fdiv<long long>(r * 10, den), r2 = fmod_<long long>(r * 10, den);
+  const long long d2 = fdiv<long long>(r2 * 10, den);
+  return (I)(a1 * 100 + d1 * 10 + d2);
+}
+
+// PodTopologySpread score: Σ count × log-weight in SPREAD_SCALE fixed point,
+// plus Σ (maxSkew − 1), banker's-rounded. Counts and weights in int32, the
+// sums in 64 bits (as the reference); ignored nodes score 0.
+template <typename I>
+__device__ I spread_score(const Cfg& c, const Planes& a, const Ws& w, int ps, int n) {
+  if (!c.spread_on || w.ign[n]) return 0;
+  const Terms& d = a.sps;
+  const int* npn = a.node_pair + (size_t)n * a.K;
+  long long totq = 0, mssum = 0;
+  for (int t = 0; t < d.T; ++t) {
+    const size_t r = (size_t)ps * d.T + t;
+    const int key = d.key[r];
+    if (key < 0 || npn[key] == 0) continue;
+    const int pr = npn[key];
+    const bool host = d.flag[r] != 0;
+    // a hostname constraint counts the node's own pods; any other needs
+    // the node's pair to hold a scored node
+    if (!host && w.pres_s[(size_t)t * a.NP1 + pr] <= 0) continue;
+    const int cnt = host ? w.cnt_s[(size_t)t * a.N + n] : w.val_s[(size_t)t * a.NP1 + pr];
+    int wm = host ? w.scal[1] : w.topo_s[t];
+    wm = wm < 0 ? 0 : (wm > a.LUT - 1 ? a.LUT - 1 : wm);
+    totq += wmul<int>(cnt, a.spread_lut[wm]);
+    mssum += wsub<int>(d.skew[r], 1);
+  }
+  const long long q = fdiv<long long>(totq, SPREAD_SCALE);
+  const long long rr = fmod_<long long>(totq, SPREAD_SCALE);
+  const bool up = 2 * rr > SPREAD_SCALE || (2 * rr == SPREAD_SCALE && fmod_<long long>(q, 2) == 1);
+  return (I)(mssum + q + (up ? 1 : 0));
+}
+
+// InterPodAffinity score: the pair weights of every topology pair the node
+// carries.
+template <typename I>
+__device__ I interpod_score(const Cfg& c, const Planes& a, const Ws& w, int n) {
+  if (!c.interpod_on) return 0;
+  const I* wsum = (const I*)w.wsum;
+  const int* npn = a.node_pair + (size_t)n * a.K;
+  I v = 0;
+  for (int k = 0; k < a.K; ++k)
+    if (npn[k] > 0) v = wadd<I>(v, wsum[npn[k]]);
+  return v;
+}
+
+template <typename I>
+__device__ I score_raw(const Cfg& c, int j, const Planes& a, const State& s, const Ws& w, int ps,
+                       int n) {
   switch (c.score[j]) {
     case S_FIT:
       return fit_score<I>(c, a, s, ps, n);
@@ -371,6 +907,14 @@ __device__ I score_raw(const Cfg& c, int j, const Planes& a, const State& s, int
       return balanced_score<I>(c, a, s, ps, n);
     case S_TAINT:
       return taint_score<I>(a, ps, n);
+    case S_AFFINITY:
+      return node_affinity_score<I>(a, ps, n);
+    case S_IMAGE:
+      return image_score<I>(a, ps, n);
+    case S_SPREAD:
+      return spread_score<I>(c, a, w, ps, n);
+    case S_INTERPOD:
+      return interpod_score<I>(c, a, w, n);
   }
   return 0;
 }
@@ -388,6 +932,23 @@ template <typename I> __device__ I block_max(I v, Smem<I>& sm) {
   if (wid == 0) {
     v = lane < nw ? sm.red_v[lane] : Lim<I>::lo;
     for (int o = 16; o > 0; o >>= 1) v = imax<I>(v, __shfl_down_sync(0xffffffffu, v, o));
+    if (lane == 0) sm.red_v[0] = v;
+  }
+  __syncthreads();
+  const I r = sm.red_v[0];
+  __syncthreads();
+  return r;
+}
+
+template <typename I> __device__ I block_min(I v, Smem<I>& sm) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) v = imin<I>(v, __shfl_down_sync(0xffffffffu, v, o));
+  if (lane == 0) sm.red_v[wid] = v;
+  __syncthreads();
+  if (wid == 0) {
+    v = lane < nw ? sm.red_v[lane] : Lim<I>::hi;
+    for (int o = 16; o > 0; o >>= 1) v = imin<I>(v, __shfl_down_sync(0xffffffffu, v, o));
     if (lane == 0) sm.red_v[0] = v;
   }
   __syncthreads();
@@ -438,31 +999,137 @@ template <typename I> __device__ int block_argmax(I v, int i, Smem<I>& sm) {
 // the step: attempt (K1) and bind (K2)
 // ---------------------------------------------------------------------------
 
+// Block-wide reductions a step's normalizes need, per score plugin: the
+// max of where(feasible, raw, 0) for the default modes; for the custom
+// ones the max and min of where(live, raw, ∓BIG) (live: feasible, and for
+// PodTopologySpread not ignored) — over every node, padded ones included,
+// as the reference reduces.
+template <typename I> struct Norms {
+  I mx[MAX_S], mn[MAX_S];
+  bool any_live;  // a live node for the spread normalize
+};
+
+// Node n's raw scores (written to raw[n, :]) and their share of the
+// reductions.
+template <typename I>
+__device__ __forceinline__ void score_node(const Cfg& c, const Planes& a, const State& s,
+                                           const Ws& ws, int ps, int n, bool ok, I* raw,
+                                           Norms<I>& nm) {
+  const int S = c.n_scores;
+  for (int j = 0; j < S; ++j) {
+    const I r = score_raw<I>(c, j, a, s, ws, ps, n);
+    raw[(size_t)n * S + j] = r;
+    if (c.mode[j] == NORM_DEFAULT || c.mode[j] == NORM_REVERSE) {
+      nm.mx[j] = imax<I>(nm.mx[j], ok ? r : (I)0);
+    } else if (c.mode[j] == NORM_CUSTOM) {
+      const bool live = ok && !(c.score[j] == S_SPREAD && c.spread_on && ws.ign[n]);
+      nm.mx[j] = imax<I>(nm.mx[j], live ? r : (I)-BIG);
+      nm.mn[j] = imin<I>(nm.mn[j], live ? r : (I)BIG);
+      if (c.score[j] == S_SPREAD) nm.any_live = nm.any_live || live;
+    }
+  }
+}
+
+// The custom normalizes (engine/kernels.py build_spread_score/
+// build_interpod_score `normalize`), on the reductions of every node.
+// Integer // floors and the arithmetic wraps in I, as the reference's does
+// when no node is feasible and the sentinels meet.
+template <typename I>
+__device__ I norm_custom(const Cfg& c, int j, const Ws& ws, int n, I r, I maxv, I minv,
+                         bool spread_active) {
+  if (c.score[j] == S_SPREAD) {
+    if (!c.spread_on || !spread_active || ws.ign[n]) return 0;
+    if (maxv == 0) return (I)MAX_NODE_SCORE;
+    return fdiv<I>(wmul<I>((I)MAX_NODE_SCORE, wsub<I>(wadd<I>(maxv, minv), r)), imax<I>(maxv, 1));
+  }
+  if (c.score[j] == S_INTERPOD && c.interpod_on) {
+    const I diff = wsub<I>(maxv, minv);
+    return diff > 0 ? fdiv<I>(wmul<I>((I)MAX_NODE_SCORE, wsub<I>(r, minv)), imax<I>(diff, 1))
+                    : (I)0;
+  }
+  return 0;
+}
+
 // One Filter→Score→Normalize→select pass for pod ps. Writes codes[N,F],
 // raw[N,S] and (when fin is not null) final[N,S]; returns sel to every
-// thread. feas[N] is scratch.
+// thread. feas[N] and the workspace ws are scratch.
 template <typename I>
 __device__ int attempt_body(const Cfg& c, const Planes& a, const State& s, const I* w, int ps,
-                            int* codes, I* raw, I* fin, unsigned char* feas, Smem<I>& sm) {
-  const int N = a.N, F = c.n_filters, S = c.n_scores;
-  I mx[MAX_S];
-  for (int j = 0; j < S; ++j) mx[j] = Lim<I>::lo;
+                            int* codes, I* raw, I* fin, unsigned char* feas, const Ws& ws,
+                            Smem<I>& sm) {
+  const int N = a.N, F = c.n_filters, S = c.n_scores, NP1 = a.NP1;
+  const Need nd = need_of(c);
+  if (nd.rel) {
+    // clear the counters, then every bound pod's matches
+    int* words = (int*)ws.wsum;
+    for (int i = threadIdx.x; i < ws.n_words; i += blockDim.x)
+      words[i] = (i >= ws.min_lo && i < ws.min_hi) ? INT_MAX : 0;
+    __syncthreads();
+    for (int q = threadIdx.x; q < a.P; q += blockDim.x) rel_pod<I>(c, a, s, nd, ws, ps, q);
+    __syncthreads();
+  }
+  if (nd.aff) {
+    // NodeAffinity per node, and node counts into topology pairs
+    for (int n = threadIdx.x; n < N; n += blockDim.x) rel_node<I>(a, nd, ws, ps, n);
+    __syncthreads();
+    if (nd.f_spread) {
+      for (int i = threadIdx.x; i < a.sph.T * NP1; i += blockDim.x)
+        if (i % NP1 > 0 && ws.pres_h[i] > 0) atomicMin(&ws.min_h[i / NP1], ws.val_h[i]);
+      __syncthreads();
+    }
+  }
+  Norms<I> nm;
+  for (int j = 0; j < S; ++j) {
+    nm.mx[j] = Lim<I>::lo;
+    nm.mn[j] = Lim<I>::hi;
+  }
+  nm.any_live = false;
+  // the node sweep: filter codes and feasibility (and the raw scores, when
+  // no score needs a count over the feasible nodes first)
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     bool ok = a.node_mask[n] != 0;
     for (int f = 0; f < F; ++f) {
-      const int code = filter_code<I>(c.filter[f], a, s, ps, n);
+      const int code = filter_code<I>(c.filter[f], a, s, ws, ps, n);
       codes[(size_t)n * F + f] = code;
       ok = ok && code == 0;
     }
     feas[n] = ok;
-    for (int j = 0; j < S; ++j) {
-      const I r = score_raw<I>(c, j, a, s, ps, n);
-      raw[(size_t)n * S + j] = r;
-      mx[j] = imax<I>(mx[j], ok ? r : (I)0);  // max(where(feasible, r, 0))
-    }
+    if (!nd.s_spread) score_node<I>(c, a, s, ws, ps, n, ok, raw, nm);
   }
+  if (nd.s_spread) {
+    // the spread score's prologue: scored nodes (feasible, not ignored),
+    // their count, and the topology size of each soft constraint
+    const Terms& d = a.sps;
+    for (int n = threadIdx.x; n < N; n += blockDim.x) {
+      const bool ok = feas[n] != 0;
+      const bool ign = ok && a.req_all[ps] && !has_all_keys(a, d, ps, n);
+      ws.ign[n] = ign;
+      if (!ok || ign) continue;
+      atomicAdd(&ws.scal[1], 1);
+      const int* npn = a.node_pair + (size_t)n * a.K;
+      for (int t = 0; t < d.T; ++t) {
+        const int key = d.key[(size_t)ps * d.T + t];
+        if (key >= 0 && npn[key] > 0) atomicAdd(&ws.pres_s[(size_t)t * NP1 + npn[key]], 1);
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < d.T * NP1; i += blockDim.x)
+      if (i % NP1 > 0 && ws.pres_s[i] > 0) atomicAdd(&ws.topo_s[i / NP1], 1);
+    __syncthreads();
+    for (int n = threadIdx.x; n < N; n += blockDim.x)
+      score_node<I>(c, a, s, ws, ps, n, feas[n] != 0, raw, nm);
+  }
+  bool spread_active = false;
   for (int j = 0; j < S; ++j) {
-    if (c.mode[j] != NORM_NONE) mx[j] = block_max<I>(mx[j], sm);
+    if (c.mode[j] == NORM_NONE) continue;
+    nm.mx[j] = block_max<I>(nm.mx[j], sm);
+    if (c.mode[j] == NORM_CUSTOM) nm.mn[j] = block_min<I>(nm.mn[j], sm);
+    if (c.mode[j] == NORM_CUSTOM && c.score[j] == S_SPREAD && c.spread_on) {
+      // active: the pod has a soft constraint and some node is live
+      bool any_key = false;
+      for (int t = 0; t < a.sps.T; ++t) any_key |= a.sps.key[(size_t)ps * a.sps.T + t] >= 0;
+      spread_active = (__syncthreads_or(nm.any_live) != 0) && any_key;
+    }
   }
   const I NEG = Lim<I>::lo / 2;
   I best = Lim<I>::lo;
@@ -474,8 +1141,10 @@ __device__ int attempt_body(const Cfg& c, const Planes& a, const State& s, const
     for (int j = 0; j < S; ++j) {
       const I r = raw[(size_t)n * S + j];
       I normed = r;
-      if (c.mode[j] != NORM_NONE) {
-        const I m = mx[j];
+      const I m = nm.mx[j];
+      if (c.mode[j] == NORM_CUSTOM) {
+        normed = norm_custom<I>(c, j, ws, n, r, m, nm.mn[j], spread_active);
+      } else if (c.mode[j] != NORM_NONE) {
         const I scaled = fdiv<I>(wmul<I>(r, MAX_NODE_SCORE), imax<I>(m, 1));
         if (c.mode[j] == NORM_REVERSE)
           normed = m == 0 ? (I)MAX_NODE_SCORE : wsub<I>(MAX_NODE_SCORE, scaled);
@@ -510,6 +1179,16 @@ __device__ void bind_body(const Planes& a, const State& s, int p, int sel, int q
       rq[r] = wadd<I>(rq[r], pr[r]);
       srq[r] = wadd<I>(srq[r], psr[r]);
     }
+    // the host-port counters (NodePorts)
+    for (int q = threadIdx.x; q < a.Q; q += blockDim.x) {
+      const size_t i = (size_t)sel * a.Q + q, k = (size_t)p * a.Q + q;
+      s.used_pair[i] = wadd<int>(s.used_pair[i], a.want_pair[k]);
+      s.used_wild[i] = wadd<int>(s.used_wild[i], a.want_wild[k]);
+    }
+    for (int v = threadIdx.x; v < a.V2; v += blockDim.x) {
+      const size_t i = (size_t)sel * a.V2 + v;
+      s.used_trip[i] = wadd<int>(s.used_trip[i], a.want_trip[(size_t)p * a.V2 + v]);
+    }
   }
   if (threadIdx.x == 0) {
     if (sel >= 0) s.n_pods[sel] = wadd<int>(s.n_pods[sel], 1);
@@ -521,9 +1200,11 @@ __device__ void bind_body(const Planes& a, const State& s, int p, int sel, int q
 template <typename I>
 __global__ void __launch_bounds__(1024)
     seq_attempt_kernel(Cfg c, Planes a, State s, const I* w, int p, int* codes, I* raw, I* fin,
-                       int* sel, unsigned char* feas) {
+                       int* sel, unsigned char* feas, char* wsp) {
   __shared__ Smem<I> sm;
-  const int r = attempt_body<I>(c, a, s, w, p, codes, raw, fin, feas, sm);
+  Ws ws;
+  ws_layout(a, sizeof(I), wsp, &ws);
+  const int r = attempt_body<I>(c, a, s, w, p, codes, raw, fin, feas, ws, sm);
   if (threadIdx.x == 0) *sel = r;
 }
 
@@ -536,8 +1217,10 @@ template <typename I>
 __global__ void __launch_bounds__(1024)
     seq_run_kernel(Cfg c, Planes a, State s, const I* w, const int* queue, int Q, int record,
                    int* codes, I* raw, I* fin, int* sel, unsigned char* feas, int* codes_scratch,
-                   I* raw_scratch) {
+                   I* raw_scratch, char* wsp) {
   __shared__ Smem<I> sm;
+  Ws ws;
+  ws_layout(a, sizeof(I), wsp, &ws);
   const size_t nf = (size_t)a.N * c.n_filters, ns = (size_t)a.N * c.n_scores;
   for (int qi = 0; qi < Q; ++qi) {
     const int p = queue[qi];
@@ -546,7 +1229,7 @@ __global__ void __launch_bounds__(1024)
     int* cr = record ? codes + (size_t)qi * nf : codes_scratch;
     I* rr = record ? raw + (size_t)qi * ns : raw_scratch;
     I* fr = record ? fin + (size_t)qi * ns : nullptr;
-    int sl = attempt_body<I>(c, a, s, w, ps, cr, rr, fr, feas, sm);
+    int sl = attempt_body<I>(c, a, s, w, ps, cr, rr, fr, feas, ws, sm);
     if (p < 0) sl = -1;
     if (threadIdx.x == 0) sel[qi] = sl;
     bind_body<I>(a, s, p, sl, qi);
@@ -561,10 +1244,10 @@ int block_threads(int N) {
 
 template <typename I>
 int launch_attempt(const Cfg* c, const Planes* a, const State* s, const void* w, int p,
-                   int* codes, void* raw, void* fin, int* sel, unsigned char* feas,
+                   int* codes, void* raw, void* fin, int* sel, unsigned char* feas, void* ws,
                    void* stream) {
   seq_attempt_kernel<I><<<1, block_threads(a->N), 0, (cudaStream_t)stream>>>(
-      *c, *a, *s, (const I*)w, p, codes, (I*)raw, (I*)fin, sel, feas);
+      *c, *a, *s, (const I*)w, p, codes, (I*)raw, (I*)fin, sel, feas, (char*)ws);
   return (int)cudaGetLastError();
 }
 
@@ -577,10 +1260,11 @@ int launch_bind(const Planes* a, const State* s, int p, const int* sel, int qi, 
 template <typename I>
 int launch_run(const Cfg* c, const Planes* a, const State* s, const void* w, const int* queue,
                int Q, int record, int* codes, void* raw, void* fin, int* sel,
-               unsigned char* feas, int* codes_scratch, void* raw_scratch, void* stream) {
+               unsigned char* feas, int* codes_scratch, void* raw_scratch, void* ws,
+               void* stream) {
   seq_run_kernel<I><<<1, block_threads(a->N), 0, (cudaStream_t)stream>>>(
       *c, *a, *s, (const I*)w, queue, Q, record, codes, (I*)raw, (I*)fin, sel, feas,
-      codes_scratch, (I*)raw_scratch);
+      codes_scratch, (I*)raw_scratch, (char*)ws);
   return (int)cudaGetLastError();
 }
 
@@ -589,7 +1273,8 @@ int launch_run(const Cfg* c, const Planes* a, const State* s, const void* w, con
 // ---------------------------------------------------------------------------
 // plain C interface (engine/cuda.py binds it with ctypes). Each launcher
 // returns cudaGetLastError() after the launch; the kernels run on the
-// caller's stream and allocate nothing.
+// caller's stream and allocate nothing: the caller passes the workspace,
+// `seq_workspace_bytes` large.
 // ---------------------------------------------------------------------------
 
 extern "C" {
@@ -597,16 +1282,19 @@ extern "C" {
 int seq_cfg_ints() { return (int)(sizeof(Cfg) / sizeof(int)); }
 int seq_planes_bytes() { return (int)sizeof(Planes); }
 int seq_state_bytes() { return (int)sizeof(State); }
+long long seq_workspace_bytes(const Planes* a, int int_bytes) {
+  return (long long)ws_layout(*a, (size_t)int_bytes, nullptr, nullptr);
+}
 
 int seq_attempt_i32(const Cfg* c, const Planes* a, const State* s, const void* w, int p,
-                    int* codes, void* raw, void* fin, int* sel, unsigned char* feas,
+                    int* codes, void* raw, void* fin, int* sel, unsigned char* feas, void* ws,
                     void* stream) {
-  return launch_attempt<int>(c, a, s, w, p, codes, raw, fin, sel, feas, stream);
+  return launch_attempt<int>(c, a, s, w, p, codes, raw, fin, sel, feas, ws, stream);
 }
 int seq_attempt_i64(const Cfg* c, const Planes* a, const State* s, const void* w, int p,
-                    int* codes, void* raw, void* fin, int* sel, unsigned char* feas,
+                    int* codes, void* raw, void* fin, int* sel, unsigned char* feas, void* ws,
                     void* stream) {
-  return launch_attempt<long long>(c, a, s, w, p, codes, raw, fin, sel, feas, stream);
+  return launch_attempt<long long>(c, a, s, w, p, codes, raw, fin, sel, feas, ws, stream);
 }
 int seq_bind_i32(const Planes* a, const State* s, int p, const int* sel, int qi, void* stream) {
   return launch_bind<int>(a, s, p, sel, qi, stream);
@@ -616,15 +1304,17 @@ int seq_bind_i64(const Planes* a, const State* s, int p, const int* sel, int qi,
 }
 int seq_run_i32(const Cfg* c, const Planes* a, const State* s, const void* w, const int* queue,
                 int Q, int record, int* codes, void* raw, void* fin, int* sel,
-                unsigned char* feas, int* codes_scratch, void* raw_scratch, void* stream) {
+                unsigned char* feas, int* codes_scratch, void* raw_scratch, void* ws,
+                void* stream) {
   return launch_run<int>(c, a, s, w, queue, Q, record, codes, raw, fin, sel, feas,
-                         codes_scratch, raw_scratch, stream);
+                         codes_scratch, raw_scratch, ws, stream);
 }
 int seq_run_i64(const Cfg* c, const Planes* a, const State* s, const void* w, const int* queue,
                 int Q, int record, int* codes, void* raw, void* fin, int* sel,
-                unsigned char* feas, int* codes_scratch, void* raw_scratch, void* stream) {
+                unsigned char* feas, int* codes_scratch, void* raw_scratch, void* ws,
+                void* stream) {
   return launch_run<long long>(c, a, s, w, queue, Q, record, codes, raw, fin, sel, feas,
-                               codes_scratch, raw_scratch, stream);
+                               codes_scratch, raw_scratch, ws, stream);
 }
 
 }  // extern "C"

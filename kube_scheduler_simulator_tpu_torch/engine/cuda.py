@@ -41,7 +41,8 @@ import torch
 
 from ..sched.config import MAX_NODE_SCORE
 from . import kernels as K
-from .encode import ClusterArrays, EncodedCluster, SchedState
+from . import encode_rel
+from .encode import RES_TYPED, ClusterArrays, EncodedCluster, SchedState
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc" / "seq_kernels.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -64,9 +65,10 @@ _CFG_FIELDS = (
     ("fit_r", MAX_SPEC), ("fit_w", MAX_SPEC),
     ("rtcr_n", 1), ("rtcr_x", MAX_PTS), ("rtcr_y", MAX_PTS),
     ("bal_n", 1), ("bal_r", MAX_BAL),
+    ("spread_on", 1), ("interpod_on", 1), ("hard_w", 1),
 )
 CFG_INTS = sum(n for _, n in _CFG_FIELDS)
-_NORM_IDS = {None: 0, "default": 1, "default_reverse": 2}
+_NORM_IDS = {None: 0, "default": 1, "default_reverse": 2, "custom": 3}
 
 
 def reset_counts() -> None:
@@ -93,6 +95,7 @@ class SeqProgram:
     normalize: tuple["str | None", ...]
     cfg: np.ndarray  # int32 [CFG_INTS]
     score_dtype: torch.dtype
+    np1: int  # topology pairs + 1 (the pair axis of the relational counts)
 
 
 def pack_config(enc: EncodedCluster, filter_names, score_names) -> np.ndarray:
@@ -122,6 +125,10 @@ def pack_config(enc: EncodedCluster, filter_names, score_names) -> np.ndarray:
     bal = K.balanced_resources(enc)
     vals["bal_n"] = [len(bal)]
     put("bal_r", bal, MAX_BAL)
+    prescore = enc.config.enabled("preScore")
+    vals["spread_on"] = [int("PodTopologySpread" in prescore)]
+    vals["interpod_on"] = [int("InterPodAffinity" in prescore)]
+    vals["hard_w"] = [K.interpod_hard_weight(enc)]
     out: list[int] = []
     for name, n in _CFG_FIELDS:
         xs = vals[name]
@@ -133,6 +140,9 @@ def pack_config(enc: EncodedCluster, filter_names, score_names) -> np.ndarray:
 
 
 def build_program(enc: EncodedCluster, filter_names, score_names) -> SeqProgram:
+    np1 = enc.aux["n_node_pairs"] + 1
+    if enc.arrays.rel.node_pair.numel() and int(enc.arrays.rel.node_pair.max()) >= np1:
+        raise ValueError("node_pair holds pair ids beyond n_node_pairs")
     return SeqProgram(
         filter_names=tuple(filter_names),
         score_names=tuple(score_names),
@@ -141,6 +151,7 @@ def build_program(enc: EncodedCluster, filter_names, score_names) -> SeqProgram:
         normalize=tuple(K.SCORE_KERNELS[n][1] for n in score_names),
         cfg=pack_config(enc, filter_names, score_names),
         score_dtype=enc.policy.score,
+        np1=np1,
     )
 
 
@@ -174,6 +185,8 @@ def seq_attempt_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights
                     )
                 else:
                     normed = torch.where(mx == 0, r, scaled)
+            elif mode == "custom":
+                normed = prog.scores[j]._normalize(a, s, p, r, feasible)
             else:
                 normed = r
             finals.append(normed.to(score_dt) * weights[j])
@@ -202,7 +215,11 @@ def seq_bind_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, p: int,
     valid = sel >= 0
     s.requested.index_add_(0, tgt, (a.pod_req[p] * valid.to(a.pod_req.dtype))[None])
     s.s_requested.index_add_(0, tgt, (a.pod_sreq[p] * valid.to(a.pod_sreq.dtype))[None])
-    s.n_pods.index_add_(0, tgt, valid.to(torch.int32).reshape(1))
+    vi = valid.to(torch.int32)
+    s.n_pods.index_add_(0, tgt, vi.reshape(1))
+    s.used_pair.index_add_(0, tgt, (a.want_pair[p] * vi)[None])
+    s.used_wild.index_add_(0, tgt, (a.want_wild[p] * vi)[None])
+    s.used_trip.index_add_(0, tgt, (a.want_trip[p] * vi)[None])
     s.assignment[p] = sel
     s.bound_seq[p] = torch.where(valid, sel.new_tensor(P + qi), sel.new_tensor(-1))
     return s
@@ -275,15 +292,88 @@ def build() -> tuple[Path, float]:
     return out, secs
 
 
-_PLANE_PTRS = tuple(f.name for f in dataclasses.fields(ClusterArrays)
-                    if f.name not in ("pod_priority", "pod_mask"))
+# Every tensor the kernels read: its dims and its element type ("b": bool;
+# "i": an integer — the policy's type for encode.RES_TYPED fields, int32 for
+# the rest). Dim names ending in _T, _C, _VP belong to one relational term
+# domain (encode_rel.DOMAINS).
+_SPEC = {
+    "node_alloc": "N R i", "node_unsched": "N b", "node_mask": "N b",
+    "pod_req": "P R i", "pod_sreq": "P R i", "pod_req_rank": "P R i",
+    "pod_node_name": "P i", "pod_tol_unsched": "P b", "pod_priority": "P i",
+    "pod_mask": "P b",
+    "taint_key": "N T i", "taint_val": "N T i", "taint_effect": "N T i",
+    "tol_key": "P L i", "tol_val": "P L i", "tol_effect": "P L i", "tol_op": "P L i",
+    "label_val": "N K i", "label_num": "N K i", "label_num_ok": "N K b",
+    "nsel_key": "P NS i", "nsel_val": "P NS i",
+    "raff_key": "P TM E i", "raff_op": "P TM E i", "raff_vals": "P TM E VV i",
+    "raff_num": "P TM E i", "raff_num_ok": "P TM E b", "raff_term_valid": "P TM b",
+    "pod_has_raff": "P b",
+    "paff_key": "P PR E i", "paff_op": "P PR E i", "paff_vals": "P PR E VV i",
+    "paff_num": "P PR E i", "paff_num_ok": "P PR E b", "paff_weight": "P PR i",
+    "paff_term_valid": "P PR b",
+    "want_wild": "P Q i", "want_trip": "P V2 i", "want_pair": "P Q i", "trip_pair": "V2 i",
+    "img_contrib": "N I i", "pod_img": "P I i", "pod_ncont": "P i",
+    # PodRelArrays
+    "pair_present": "P LP b", "key_present": "P KK b", "ns_id": "P i", "deleted": "P b",
+    "node_pair": "N K i", "req_all": "P b", "spread_lut": "LUT i",
+    "sph_skew": "P sph_T i", "sph_self": "P sph_T b",
+    "sps_skew": "P sps_T i", "sps_host": "P sps_T b",
+    "ia_self": "P ia_T b", "ipa_weight": "P ipa_T i", "ipan_weight": "P ipan_T i",
+    **{k: v for d in encode_rel.DOMAINS for k, v in {
+        f"{d}_key": f"P {d}_T i",
+        f"{d}_ctype": f"P {d}_T {d}_C i",
+        f"{d}_ckey": f"P {d}_T {d}_C i",
+        f"{d}_cpairs": f"P {d}_T {d}_C {d}_VP i",
+    }.items()},
+    **{k: v for d in ("ia", "ian", "ipa", "ipan") for k, v in {
+        f"{d}_nsall": f"P {d}_T b",
+        f"{d}_ns": f"P {d}_T NSV b",
+    }.items()},
+    # SchedState
+    "requested": "N R i", "s_requested": "N R i", "n_pods": "N i",
+    "assignment": "P i", "used_pair": "N Q i", "used_wild": "N Q i",
+    "used_trip": "N V2 i", "bound_seq": "P i",
+}
+
+# csrc/seq_kernels.cu `Planes`, `NodeTerms`, `Terms` and `State`, member by
+# member.
+_PLANE_PTRS = (
+    "node_alloc", "node_unsched", "node_mask", "pod_req", "pod_sreq", "pod_req_rank",
+    "pod_node_name", "pod_tol_unsched", "pod_mask", "taint_key", "taint_val",
+    "taint_effect", "tol_key", "tol_val", "tol_effect", "tol_op", "label_val",
+    "label_num", "label_num_ok", "nsel_key", "nsel_val", "pod_has_raff", "want_wild",
+    "want_trip", "want_pair", "trip_pair", "img_contrib", "pod_img", "pod_ncont",
+    "pair_present", "key_present", "ns_id", "deleted", "node_pair", "req_all",
+    "spread_lut",
+)
+_PLANE_DIMS = ("N", "P", "R", "T", "L", "K", "NS", "Q", "V2", "I", "LP", "KK", "NSV",
+               "NP1", "LUT")
+_NODE_TERM_PTRS = ("key", "op", "vals", "num", "num_ok", "valid", "weight")
+_TERM_PTRS = ("key", "ctype", "ckey", "cpairs", "skew", "flag", "nsall", "ns", "weight")
+# the flag plane of each term domain that has one
+_TERM_FLAG = {"sph": "sph_self", "sps": "sps_host", "ia": "ia_self"}
 _STATE_PTRS = tuple(f.name for f in dataclasses.fields(SchedState))
 
 
-class _Planes(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_void_p) for n in _PLANE_PTRS] + [
-        (n, ctypes.c_int) for n in ("N", "P", "R", "T", "L")
+class _NodeTerms(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in _NODE_TERM_PTRS] + [
+        (n, ctypes.c_int) for n in ("TM", "E", "VV")
     ]
+
+
+class _Terms(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in _TERM_PTRS] + [
+        (n, ctypes.c_int) for n in ("T", "C", "VP")
+    ]
+
+
+class _Planes(ctypes.Structure):
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in _PLANE_PTRS]
+        + [("raff", _NodeTerms), ("paff", _NodeTerms)]
+        + [(d, _Terms) for d in encode_rel.DOMAINS]
+        + [(n, ctypes.c_int) for n in _PLANE_DIMS]
+    )
 
 
 class _State(ctypes.Structure):
@@ -299,13 +389,16 @@ def library() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.seq_cfg_ints, lib.seq_planes_bytes, lib.seq_state_bytes):
             fn.argtypes, fn.restype = [], ci
+        lib.seq_workspace_bytes.argtypes = [vp, ci]
+        lib.seq_workspace_bytes.restype = ctypes.c_longlong
         for t in ("i32", "i64"):
             f = getattr(lib, f"seq_attempt_{t}")
-            f.argtypes, f.restype = [vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp], ci
+            f.argtypes, f.restype = [vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp], ci
             f = getattr(lib, f"seq_bind_{t}")
             f.argtypes, f.restype = [vp, vp, ci, vp, ci, vp], ci
             f = getattr(lib, f"seq_run_{t}")
-            f.argtypes, f.restype = [vp, vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp], ci
+            f.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+            f.restype = ci
         if (lib.seq_cfg_ints(), lib.seq_planes_bytes(), lib.seq_state_bytes()) != (
             CFG_INTS, ctypes.sizeof(_Planes), ctypes.sizeof(_State)
         ):
@@ -318,58 +411,71 @@ def library() -> ctypes.CDLL:
 # wrappers
 # ---------------------------------------------------------------------------
 
-_RES_FIELDS = {"node_alloc", "pod_req", "pod_sreq", "requested", "s_requested"}
-_BOOL_FIELDS = {"node_unsched", "node_mask", "pod_tol_unsched", "pod_mask"}
-
-
 def _on_cpu(a: ClusterArrays) -> bool:
     return a.node_mask.device.type == "cpu"
 
 
 def _check(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights=None) -> tuple:
-    """Validate what the kernels read; returns (Planes, State, suffix)."""
+    """Validate what the kernels read against `_SPEC` (device, element
+    type, contiguity, consistent dims); returns (Planes, State, suffix)."""
     dev = a.node_mask.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
     res_dt = prog.score_dtype
     if res_dt not in (torch.int32, torch.int64):
         raise ValueError(f"unsupported score dtype {res_dt}")
-    N, R = a.node_alloc.shape
-    P = a.pod_mask.shape[0]
-    T = a.taint_key.shape[1]
-    L = a.tol_key.shape[1]
-    shapes = {
-        "node_alloc": (N, R), "node_unsched": (N,), "node_mask": (N,),
-        "pod_req": (P, R), "pod_sreq": (P, R), "pod_req_rank": (P, R),
-        "pod_node_name": (P,), "pod_tol_unsched": (P,), "pod_priority": (P,),
-        "pod_mask": (P,), "taint_key": (N, T), "taint_val": (N, T),
-        "taint_effect": (N, T), "tol_key": (P, L), "tol_val": (P, L),
-        "tol_effect": (P, L), "tol_op": (P, L),
-        "requested": (N, R), "s_requested": (N, R), "n_pods": (N,),
-        "assignment": (P,), "bound_seq": (P,),
-    }
-    tensors = {f.name: getattr(a, f.name) for f in dataclasses.fields(a)}
+    tensors = {f.name: getattr(a, f.name) for f in dataclasses.fields(a) if f.name != "rel"}
+    tensors.update({f.name: getattr(a.rel, f.name) for f in dataclasses.fields(a.rel)})
     tensors.update({f.name: getattr(s, f.name) for f in dataclasses.fields(s)})
-    for name, t in tensors.items():
-        want = res_dt if name in _RES_FIELDS else (
-            torch.bool if name in _BOOL_FIELDS else torch.int32
-        )
-        if t.device != dev or t.dtype != want or tuple(t.shape) != shapes[name]:
+    dims: dict[str, int] = {"NP1": prog.np1}
+    for name, spec in _SPEC.items():
+        *names, kind = spec.split()
+        want = torch.bool if kind == "b" else (res_dt if name in RES_TYPED else torch.int32)
+        t = tensors[name]
+        if t.device != dev or t.dtype != want or t.dim() != len(names):
             raise ValueError(
-                f"{name}: want {want} {shapes[name]} on {dev}, "
+                f"{name}: want {want} [{' '.join(names)}] on {dev}, "
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
+        for d, size in zip(names, t.shape):
+            if dims.setdefault(d, size) != size:
+                raise ValueError(f"{name}: dim {d} is {size}, elsewhere {dims[d]}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
     S = len(prog.scores)
-    if weights is not None and (weights.device != dev or weights.dtype != res_dt or tuple(weights.shape) != (S,) \
-            or not weights.is_contiguous()):
+    if weights is not None and (weights.device != dev or weights.dtype != res_dt
+                                or tuple(weights.shape) != (S,) or not weights.is_contiguous()):
         raise ValueError(f"weights: want contiguous {res_dt} ({S},) on {dev}")
+
+    def ptr(name):
+        return tensors[name].data_ptr() if name else None
+
+    def node_terms(pre, tm):
+        names = [f"{pre}_key", f"{pre}_op", f"{pre}_vals", f"{pre}_num", f"{pre}_num_ok",
+                 f"{pre}_term_valid", "paff_weight" if pre == "paff" else None]
+        return _NodeTerms(*map(ptr, names), dims[tm], dims["E"], dims["VV"])
+
+    def terms(d):
+        def have(n):
+            return n if n in tensors else None
+
+        names = [f"{d}_key", f"{d}_ctype", f"{d}_ckey", f"{d}_cpairs", have(f"{d}_skew"),
+                 _TERM_FLAG.get(d), have(f"{d}_nsall"), have(f"{d}_ns"), have(f"{d}_weight")]
+        return _Terms(*map(ptr, names), dims[f"{d}_T"], dims[f"{d}_C"], dims[f"{d}_VP"])
+
     planes = _Planes(
-        *[tensors[n].data_ptr() for n in _PLANE_PTRS], N, P, R, T, L
+        *map(ptr, _PLANE_PTRS), node_terms("raff", "TM"), node_terms("paff", "PR"),
+        *map(terms, encode_rel.DOMAINS), *(dims[d] for d in _PLANE_DIMS),
     )
-    state = _State(*[tensors[n].data_ptr() for n in _STATE_PTRS])
+    state = _State(*map(ptr, _STATE_PTRS))
     return planes, state, "i32" if res_dt == torch.int32 else "i64"
+
+
+def _workspace(planes: "_Planes", t: str, dev) -> torch.Tensor:
+    """The relational counters' scratch for one launch (the kernel clears
+    it each step)."""
+    n = library().seq_workspace_bytes(ctypes.addressof(planes), 4 if t == "i32" else 8)
+    return torch.empty((max(int(n), 8),), dtype=torch.uint8, device=dev)
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -397,11 +503,12 @@ def seq_attempt(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights, p: i
     final = torch.empty((N, S), dtype=prog.score_dtype, device=dev)
     sel = torch.empty((), dtype=torch.int32, device=dev)
     feas = torch.empty((N,), dtype=torch.uint8, device=dev)
+    ws = _workspace(planes, t, dev)
     cfg = np.ascontiguousarray(prog.cfg)
     rc = getattr(lib, f"seq_attempt_{t}")(
         cfg.ctypes.data, ctypes.addressof(planes), ctypes.addressof(state),
         weights.data_ptr(), p, codes.data_ptr(), raw.data_ptr(), final.data_ptr(),
-        sel.data_ptr(), feas.data_ptr(), _stream(),
+        sel.data_ptr(), feas.data_ptr(), ws.data_ptr(), _stream(),
     )
     _raise_on(rc, "seq_attempt")
     LAUNCHES["seq_attempt"] += 1
@@ -460,6 +567,7 @@ def seq_run(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue, weigh
         raw_s = torch.empty((N, S), dtype=dt, device=dev)
     if Q:
         feas = torch.empty((N,), dtype=torch.uint8, device=dev)
+        ws = _workspace(planes, t, dev)
         cfg = np.ascontiguousarray(prog.cfg)
 
         def ptr(x):
@@ -468,7 +576,8 @@ def seq_run(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue, weigh
         rc = getattr(library(), f"seq_run_{t}")(
             cfg.ctypes.data, ctypes.addressof(planes), ctypes.addressof(state),
             weights.data_ptr(), queue.data_ptr(), Q, int(record), ptr(codes), ptr(raw),
-            ptr(final), sel.data_ptr(), feas.data_ptr(), ptr(codes_s), ptr(raw_s), _stream(),
+            ptr(final), sel.data_ptr(), feas.data_ptr(), ptr(codes_s), ptr(raw_s),
+            ws.data_ptr(), _stream(),
         )
         _raise_on(rc, "seq_run")
         LAUNCHES["seq_run"] += 1

@@ -19,8 +19,10 @@ Two dtype policies:
   * TPU32 — int32/float32 with per-resource unit scaling (memory in Mi);
     exact whenever quantities are Mi-granular, which real manifests are.
 
-Planes of plugins outside this slice (node labels and affinity terms, host
-ports, images, volumes, pod relations) are not encoded yet.
+The node-label, affinity, host-port, image and pod-relational planes are
+encoded whatever the configuration (the spread kernels read the
+NodeAffinity filter body even where NodeAffinity is disabled). The volume
+planes are not encoded yet.
 """
 
 from __future__ import annotations
@@ -41,7 +43,13 @@ from ..models.objects import (
 )
 from ..models.vocab import Vocab
 from ..sched.config import SchedulerConfiguration
+from ..sched.oracle_plugins import (
+    _IMG_MAX_CONTAINERS,
+    _normalized_image_name,
+    resolve_spread_constraints,
+)
 from ..sched.resources import to_int_resources
+from .encode_rel import PodRelArrays, encode_pod_relations
 
 # Node index sentinels in pod_node_name: -1 = no nodeName requested,
 # -2 = names a node that does not exist (fails NodeName everywhere,
@@ -107,16 +115,29 @@ EFFECTS = {"NoSchedule": 0, "PreferNoSchedule": 1, "NoExecute": 2}
 # The taint every unschedulable node implicitly carries (oracle
 # taint_toleration semantics).
 UNSCHED_TAINT = {"key": "node.kubernetes.io/unschedulable", "effect": "NoSchedule"}
+# node-selector expression operator ids.
+OPS = {"In": 0, "NotIn": 1, "Exists": 2, "DoesNotExist": 3, "Gt": 4, "Lt": 5}
+OP_NEVER = 6  # unknown operator: matches nothing
+# Pseudo label key carrying the node name for matchFields (kept out of the
+# real label-key namespace by the NUL prefix).
+FIELD_NAME_KEY = "\x00metadata.name"
+VAL_PAD = -3  # padding slot in expression value lists; matches no value id
 
 
-def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-    return t.to(device) if t.device != device else t
+def _to(t, device: torch.device):
+    """`t` (a tensor or a nested tensor dataclass) on `device`."""
+    if isinstance(t, torch.Tensor):
+        return t.to(device) if t.device != device else t
+    return t.to(device)
 
 
 @dataclass
 class ClusterArrays:
     """Static per-problem tensors. Axes: N = padded nodes, P = padded pods,
-    R = resource kinds, T = taint slots, L = toleration slots."""
+    R = resource kinds, T = taint slots, L = toleration slots, K = label
+    keys, NS = nodeSelector slots, TM/PR = required/preferred affinity
+    terms, E = expressions per term, VV = values per expression, Q =
+    (proto,port) pairs, V2 = (proto,ip,port) triples, I = images."""
 
     node_alloc: torch.Tensor  # [N, R] allocatable, device units
     node_unsched: torch.Tensor  # [N] bool
@@ -136,6 +157,37 @@ class ClusterArrays:
     tol_val: torch.Tensor  # [P, L] int32
     tol_effect: torch.Tensor  # [P, L] int32 effect id | -1 = any effect
     tol_op: torch.Tensor  # [P, L] int32 0=Equal 1=Exists | -1 pad
+    # node labels (NodeAffinity / nodeSelector)
+    label_val: torch.Tensor  # [N, K] int32 value id | -1 absent
+    label_num: torch.Tensor  # [N, K] numeric value (Gt/Lt), res dtype
+    label_num_ok: torch.Tensor  # [N, K] bool parseable
+    nsel_key: torch.Tensor  # [P, NS] int32 key col | -1 pad
+    nsel_val: torch.Tensor  # [P, NS] int32
+    raff_key: torch.Tensor  # [P, TM, E] int32 key col | -1 pad
+    raff_op: torch.Tensor  # [P, TM, E] int32 op id
+    raff_vals: torch.Tensor  # [P, TM, E, VV] int32 | VAL_PAD
+    raff_num: torch.Tensor  # [P, TM, E] numeric rhs, res dtype
+    raff_num_ok: torch.Tensor  # [P, TM, E] bool
+    raff_term_valid: torch.Tensor  # [P, TM] bool — term has >=1 expr
+    pod_has_raff: torch.Tensor  # [P] bool — required terms present
+    paff_key: torch.Tensor  # [P, PR, E] int32 | -1 pad
+    paff_op: torch.Tensor  # [P, PR, E] int32
+    paff_vals: torch.Tensor  # [P, PR, E, VV] int32
+    paff_num: torch.Tensor  # [P, PR, E] res dtype
+    paff_num_ok: torch.Tensor  # [P, PR, E] bool
+    paff_weight: torch.Tensor  # [P, PR] int32
+    paff_term_valid: torch.Tensor  # [P, PR] bool
+    # host ports (NodePorts)
+    want_wild: torch.Tensor  # [P, Q] int32 wildcard-ip port counts
+    want_trip: torch.Tensor  # [P, V2] int32 specific-ip port counts
+    want_pair: torch.Tensor  # [P, Q] int32 all users of (proto,port)
+    trip_pair: torch.Tensor  # [V2] int32 triple -> pair index
+    # images (ImageLocality)
+    img_contrib: torch.Tensor  # [N, I] size*have//total per node-image (Ki), res dtype
+    pod_img: torch.Tensor  # [P, I] int32 image occurrence counts
+    pod_ncont: torch.Tensor  # [P] int32 container count
+    # pod-relational encodings (PodTopologySpread, InterPodAffinity)
+    rel: PodRelArrays
 
     def to(self, device: torch.device) -> "ClusterArrays":
         return ClusterArrays(
@@ -151,6 +203,9 @@ class SchedState:
     s_requested: torch.Tensor  # [N, R] sum of scoring requests
     n_pods: torch.Tensor  # [N] int32 bound-pod count
     assignment: torch.Tensor  # [P] int32 node idx | -1
+    used_pair: torch.Tensor  # [N, Q] int32 users of (proto,port), any ip
+    used_wild: torch.Tensor  # [N, Q] int32 wildcard-ip users of (proto,port)
+    used_trip: torch.Tensor  # [N, V2] int32 users of (proto,ip,port)
     # bind chronology: pre-bound pods get their input index, pass-bound
     # pods get P + step, unschedulable pods -1
     bound_seq: torch.Tensor  # [P] int32 | -1 unbound
@@ -194,7 +249,7 @@ class EncodedCluster:
         self.config = config
         self.n_nodes = n_nodes  # real (unpadded) counts
         self.n_pods = n_pods
-        self.aux = aux or {}  # decode tables (node_taints)
+        self.aux = aux or {}  # decode tables (node_taints), n_node_pairs
 
     @property
     def N(self) -> int:
@@ -296,6 +351,271 @@ def _encode_taints(node_views, pod_views, N, P):
     ), {"node_taints": node_taints}
 
 
+# Fields that hold the policy's integer type (`DTypePolicy.res`).
+RES_TYPED = frozenset({
+    "node_alloc", "pod_req", "pod_sreq", "requested", "s_requested",
+    "label_num", "raff_num", "paff_num", "img_contrib",
+})
+
+
+def _num_or_none(s, policy: DTypePolicy):
+    """Parse an int for Gt/Lt; values outside the policy's integer range
+    count as unparseable (they could not be compared exactly)."""
+    try:
+        v = int(s)
+    except (TypeError, ValueError):
+        return None
+    lim = 2**62 if policy.name == "exact" else 2**31 - 1
+    if not -lim <= v <= lim:
+        return None
+    return v
+
+
+def _parse_pod_terms(pv, keys, vals, policy: DTypePolicy):
+    """Parse ONE pod's nodeSelector and node-affinity terms against the
+    key/value vocabularies. Returns (nsel_pairs, req_terms, pref_terms) in
+    the shapes `_fill_terms`/`_fill_nsel_rows` pack."""
+
+    def parse_expr(e, is_field):
+        if is_field:
+            # matchFields evaluate against {"metadata.name": node.name}
+            # only; any other field key is a never-populated pseudo key, so
+            # Exists/In miss and DoesNotExist matches
+            raw = e.get("key") or ""
+            key = FIELD_NAME_KEY if raw == "metadata.name" else "\x00" + raw
+        else:
+            key = e.get("key") or ""
+        op = OPS.get(e.get("operator") or "", OP_NEVER)
+        values = [str(v) for v in (e.get("values") or [])]
+        num = _num_or_none(values[0], policy) if values else None
+        return (keys.intern(key), op, [vals.intern(v) for v in values], num)
+
+    def parse_term(term):
+        exprs = [parse_expr(e, False) for e in term.get("matchExpressions") or []]
+        exprs += [parse_expr(e, True) for e in term.get("matchFields") or []]
+        return exprs
+
+    nsel = [(keys.intern(k), vals.intern(str(v))) for k, v in pv.node_selector.items()]
+    req = pv.node_affinity.get("requiredDuringSchedulingIgnoredDuringExecution") or {}
+    req_terms = [parse_term(t) for t in req.get("nodeSelectorTerms") or []]
+    prefs = pv.node_affinity.get("preferredDuringSchedulingIgnoredDuringExecution") or []
+    pref_terms = [
+        (int(pr.get("weight", 0)), parse_term(pr.get("preference") or {})) for pr in prefs
+    ]
+    return nsel, req_terms, pref_terms
+
+
+def _fill_nsel_rows(pod_nsel, n, NS):
+    nsel_key = np.full((n, NS), -1, np.int32)
+    nsel_val = np.full((n, NS), -1, np.int32)
+    for i, sel in enumerate(pod_nsel):
+        for j, (k, v) in enumerate(sel):
+            nsel_key[i, j] = k
+            nsel_val[i, j] = v
+    return nsel_key, nsel_val
+
+
+def _fill_terms(all_terms, n, TM, E, VV):
+    """Pack parsed (key, op, value-ids, num) term lists into dense rows for
+    `n` pods at fixed dims."""
+    key = np.full((n, TM, E), -1, np.int32)
+    op = np.full((n, TM, E), OP_NEVER, np.int32)
+    vvals = np.full((n, TM, E, VV), VAL_PAD, np.int32)
+    num = np.zeros((n, TM, E), np.int64)
+    num_ok = np.zeros((n, TM, E), bool)
+    term_valid = np.zeros((n, TM), bool)
+    for i, terms in enumerate(all_terms):
+        for ti, exprs in enumerate(terms):
+            term_valid[i, ti] = len(exprs) > 0
+            for ei, (k, o, vv, nnum) in enumerate(exprs):
+                key[i, ti, ei] = k
+                op[i, ti, ei] = o
+                for vi, v in enumerate(vv):
+                    vvals[i, ti, ei, vi] = v
+                if nnum is not None:
+                    num[i, ti, ei] = nnum
+                    num_ok[i, ti, ei] = True
+    return key, op, vvals, num, num_ok, term_valid
+
+
+def _encode_labels_affinity(node_views, pod_views, N, P, policy: DTypePolicy, extra_keys=()):
+    """NodeAffinity / nodeSelector encodings. `extra_keys` are interned up
+    front so the other readers of the key vocabulary (spread and
+    inter-pod topology keys) index the same label_val columns."""
+    keys, vals = Vocab(), Vocab()
+    for k in extra_keys:
+        keys.intern(k)
+
+    # parse every pod-side term first so the vocabularies are final before
+    # the arrays are sized
+    pod_nsel, pod_req_terms, pod_pref_terms = [], [], []
+    for pv in pod_views:
+        nsel, req_terms, pref_terms = _parse_pod_terms(pv, keys, vals, policy)
+        pod_nsel.append(nsel)
+        pod_req_terms.append(req_terms)
+        pod_pref_terms.append(pref_terms)
+    field_col = keys.intern(FIELD_NAME_KEY)
+    for nv in node_views:
+        for k in nv.labels:
+            keys.intern(k)
+        vals.intern(nv.name)
+    K = len(keys)
+    label_val = np.full((N, K), -1, np.int32)
+    label_num = np.zeros((N, K), np.int64)
+    label_num_ok = np.zeros((N, K), bool)
+    for i, nv in enumerate(node_views):
+        for k, v in list(nv.labels.items()) + [(FIELD_NAME_KEY, nv.name)]:
+            col = field_col if k == FIELD_NAME_KEY else keys.get(k)
+            label_val[i, col] = vals.intern(str(v))
+            num = _num_or_none(v, policy)
+            if num is not None:
+                label_num[i, col] = num
+                label_num_ok[i, col] = True
+
+    NS = max(1, max((len(s) for s in pod_nsel), default=0))
+    nsel_key, nsel_val = _fill_nsel_rows(pod_nsel, P, NS)
+
+    pref_exprs = [[e for _, e in t] for t in pod_pref_terms]
+    TM = max(1, max((len(t) for t in pod_req_terms), default=0))
+    all_terms = pod_req_terms + pref_exprs
+    E = max((len(e) for terms in all_terms for e in terms), default=1) or 1
+    VV = max((len(x[2]) for terms in all_terms for e in terms for x in e), default=1) or 1
+    rk, ro, rv, rn, rno, rtv = _fill_terms(pod_req_terms, P, TM, E, VV)
+    PR = max(1, max((len(t) for t in pod_pref_terms), default=0))
+    pk, po, pvv, pn, pno, ptv = _fill_terms(pref_exprs, P, PR, E, VV)
+    paff_weight = np.zeros((P, PR), np.int32)
+    for i, prefs in enumerate(pod_pref_terms):
+        for j, (w, _) in enumerate(prefs):
+            paff_weight[i, j] = w
+    pod_has_raff = np.zeros(P, bool)
+    pod_has_raff[: len(pod_req_terms)] = [len(t) > 0 for t in pod_req_terms]
+    return dict(
+        label_val=label_val,
+        label_num=label_num,
+        label_num_ok=label_num_ok,
+        nsel_key=nsel_key,
+        nsel_val=nsel_val,
+        raff_key=rk,
+        raff_op=ro,
+        raff_vals=rv,
+        raff_num=rn,
+        raff_num_ok=rno,
+        raff_term_valid=rtv,
+        pod_has_raff=pod_has_raff,
+        paff_key=pk,
+        paff_op=po,
+        paff_vals=pvv,
+        paff_num=pn,
+        paff_num_ok=pno,
+        paff_weight=paff_weight,
+        paff_term_valid=ptv,
+    ), keys
+
+
+def _fill_port_rows(wants, pair_ids, trip_ids, Q, V2):
+    """Port-demand rows for pods' host-port lists against fixed pair /
+    triple vocabularies."""
+    n = len(wants)
+    want_wild = np.zeros((n, Q), np.int32)
+    want_trip = np.zeros((n, V2), np.int32)
+    want_pair = np.zeros((n, Q), np.int32)
+    for i, ports in enumerate(wants):
+        for proto, ip, port in ports:
+            q = pair_ids[(proto, port)]
+            want_pair[i, q] += 1
+            if ip == "0.0.0.0":
+                want_wild[i, q] += 1
+            else:
+                want_trip[i, trip_ids[(proto, ip, port)]] += 1
+    return want_wild, want_trip, want_pair
+
+
+def _encode_ports(pod_views, N, P):
+    """NodePorts encodings. (proto, port) pairs index Q; specific-ip
+    (proto, ip, port) triples index V2; hostIP defaults to the wildcard
+    0.0.0.0 (PodView.host_ports)."""
+    pair_ids: dict[tuple[str, int], int] = {}
+    trip_ids: dict[tuple[str, str, int], int] = {}
+    wants = [pv.host_ports for pv in pod_views]
+    for ports in wants:
+        for proto, ip, port in ports:
+            pair_ids.setdefault((proto, port), len(pair_ids))
+            if ip != "0.0.0.0":
+                trip_ids.setdefault((proto, ip, port), len(trip_ids))
+    Q = max(1, len(pair_ids))
+    V2 = max(1, len(trip_ids))
+    trip_pair = np.zeros(V2, np.int32)
+    for (proto, ip, port), v in trip_ids.items():
+        trip_pair[v] = pair_ids[(proto, port)]
+    ww, wt, wp = _fill_port_rows(wants, pair_ids, trip_ids, Q, V2)
+    pad = P - len(wants)
+    return dict(
+        want_wild=np.concatenate([ww, np.zeros((pad, Q), np.int32)]),
+        want_trip=np.concatenate([wt, np.zeros((pad, V2), np.int32)]),
+        want_pair=np.concatenate([wp, np.zeros((pad, Q), np.int32)]),
+        trip_pair=trip_pair,
+    )
+
+
+def _fill_pod_image_rows(pod_views, img_ids, I):
+    """pod_img/pod_ncont rows against a fixed node-image vocabulary (images
+    no node holds do not count)."""
+    n = len(pod_views)
+    pod_img = np.zeros((n, I), np.int32)
+    pod_ncont = np.zeros(n, np.int32)
+    for p, pv in enumerate(pod_views):
+        pod_ncont[p] = min(pv.num_containers, _IMG_MAX_CONTAINERS)
+        for name in pv.container_images:
+            i = img_ids.get(_normalized_image_name(name))
+            if i is not None:
+                pod_img[p, i] += 1
+    return pod_img, pod_ncont
+
+
+def _encode_images(node_views, pod_views, N, P, n_real_nodes):
+    """ImageLocality encodings: per node-image, size × (share of nodes
+    holding it), in Ki."""
+    img_ids: dict[str, int] = {}
+    node_imgs = []  # per node: {img_id: size}
+    for nv in node_views:
+        m = {}
+        for names, size in nv.images:
+            for name in names:
+                i = img_ids.setdefault(_normalized_image_name(name), len(img_ids))
+                m[i] = size
+        node_imgs.append(m)
+    I = max(1, len(img_ids))
+    have = np.zeros(I, np.int64)
+    for m in node_imgs:
+        for i in m:
+            have[i] += 1
+    img_contrib = np.zeros((N, I), np.int64)
+    total = max(1, n_real_nodes)
+    for n, m in enumerate(node_imgs):
+        for i, size in m.items():
+            img_contrib[n, i] = (size * int(have[i]) // total) >> 10  # Ki
+    pi, pc = _fill_pod_image_rows(pod_views, img_ids, I)
+    pad = P - len(pod_views)
+    return dict(
+        img_contrib=img_contrib,
+        pod_img=np.concatenate([pi, np.zeros((pad, I), np.int32)]),
+        pod_ncont=np.concatenate([pc, np.zeros(pad, np.int32)]),
+    )
+
+
+def _topology_keys(pod_views, pod_constraints) -> list[str]:
+    """Every topology key a spread constraint or an inter-pod term names,
+    in encounter order (they index the same label_val columns)."""
+    keys = [c["topologyKey"] for h, s, _ in pod_constraints for c in h + s]
+    for pv in pod_views:
+        for aff in (pv.pod_affinity, pv.pod_anti_affinity):
+            for t in aff.get("requiredDuringSchedulingIgnoredDuringExecution") or []:
+                keys.append(t.get("topologyKey", ""))
+            for pr in aff.get("preferredDuringSchedulingIgnoredDuringExecution") or []:
+                keys.append((pr.get("podAffinityTerm") or {}).get("topologyKey", ""))
+    return keys
+
+
 def encode_cluster(
     nodes: list[dict],
     pods: list[dict],
@@ -303,6 +623,7 @@ def encode_cluster(
     *,
     policy: DTypePolicy = TPU32,
     priorityclasses: "list[dict] | None" = None,
+    namespaces: "list[dict] | None" = None,
     node_capacity: "int | None" = None,
     pod_capacity: "int | None" = None,
     device: "str | torch.device | None" = None,
@@ -310,7 +631,9 @@ def encode_cluster(
     """Build the padded tensor encoding of a cluster on `device` (the CUDA
     card unless the caller names another).
 
-    `node_capacity`/`pod_capacity` fix the padded shapes (masked rows)."""
+    `namespaces` are the Namespace objects inter-pod terms with a
+    namespaceSelector resolve against. `node_capacity`/`pod_capacity` fix
+    the padded shapes (masked rows)."""
     device = resolve_device(device)
     config = config or SchedulerConfiguration.default()
     N = node_capacity or max(len(nodes), 1)
@@ -377,7 +700,25 @@ def encode_cluster(
         pod_tol_unsched[i] = tolerations_tolerate_taint(pv.tolerations, UNSCHED_TAINT)
         pod_priority[i] = resolve_pod_priority(pv, pcs)
 
+    spread_args = config.plugin_args("PodTopologySpread")
+    pod_constraints = [
+        resolve_spread_constraints(pv.topology_spread_constraints, spread_args)
+        for pv in pod_views
+    ]
     taint_arrays, taint_aux = _encode_taints(node_views, pod_views, N, P)
+    label_arrays, label_keys = _encode_labels_affinity(
+        node_views, pod_views, N, P, policy,
+        extra_keys=_topology_keys(pod_views, pod_constraints),
+    )
+    port_arrays = _encode_ports(pod_views, N, P)
+    img_arrays = _encode_images(node_views, pod_views, N, P, len(nodes))
+    rel, rel_aux = encode_pod_relations(
+        node_views, pod_views, N, P,
+        label_keys=label_keys, constraints=pod_constraints,
+        namespaces=namespaces, device=device,
+    )
+    Q = port_arrays["want_pair"].shape[1]
+    V2 = port_arrays["want_trip"].shape[1]
 
     # Initial binding state: pods whose nodeName names an existing node are
     # already bound (oracle: sched/oracle.py Oracle.__init__); the rest are
@@ -386,6 +727,9 @@ def encode_cluster(
     s_requested = np.zeros((N, R), res_np)
     n_pods = np.zeros(N, np.int32)
     assignment = np.full(P, -1, np.int32)
+    used_pair = np.zeros((N, Q), np.int32)
+    used_wild = np.zeros((N, Q), np.int32)
+    used_trip = np.zeros((N, V2), np.int32)
     bound_seq = np.full(P, -1, np.int32)
     pending: list[int] = []
     for i in range(len(pods)):
@@ -395,6 +739,9 @@ def encode_cluster(
             requested[tgt] += pod_req[i]
             s_requested[tgt] += pod_sreq[i]
             n_pods[tgt] += 1
+            used_pair[tgt] += port_arrays["want_pair"][i]
+            used_wild[tgt] += port_arrays["want_wild"][i]
+            used_trip[tgt] += port_arrays["want_trip"][i]
             bound_seq[i] = i
         else:
             pending.append(i)
@@ -416,12 +763,19 @@ def encode_cluster(
         pod_priority=put(pod_priority),
         pod_mask=put(pod_mask),
         **{k: put(v) for k, v in taint_arrays.items()},
+        # Gt/Lt numerics and image sums carry the policy's integer type
+        **{k: put(v, policy.res if k in RES_TYPED else None)
+           for k, v in {**label_arrays, **port_arrays, **img_arrays}.items()},
+        rel=rel,
     )
     state0 = SchedState(
         requested=put(requested, policy.res),
         s_requested=put(s_requested, policy.res),
         n_pods=put(n_pods),
         assignment=put(assignment),
+        used_pair=put(used_pair),
+        used_wild=put(used_wild),
+        used_trip=put(used_trip),
         bound_seq=put(bound_seq),
     )
     return EncodedCluster(
@@ -435,12 +789,12 @@ def encode_cluster(
         config=config,
         n_nodes=len(nodes),
         n_pods=len(pods),
-        aux=taint_aux,
+        aux={**taint_aux, **rel_aux},
     )
 
 
 def from_reference_arrays(
-    arrays: "dict[str, np.ndarray]",
+    arrays: "dict",
     state: "dict[str, np.ndarray]",
     queue,
     meta: dict,
@@ -450,32 +804,37 @@ def from_reference_arrays(
     """Build the port's encoding from the reference encoder's leaves.
 
     `arrays` and `state` map field names to numpy arrays (the reference's
-    `ClusterArrays` and `SchedState` leaves); `queue` is its pending queue.
-    `meta` carries `node_names`, `pod_keys`, `resource_names`, `policy`
-    (the policy name, "exact" or "i32"), `config` (the configuration
-    dict, as `SchedulerConfiguration.to_dict()` gives it) and, for the
-    TaintToleration messages, `node_taints` (each node's taint list).
+    `ClusterArrays` and `SchedState` leaves); `arrays["rel"]` maps the
+    nested `PodRelArrays` leaves the same way. `queue` is the reference's
+    pending queue. `meta` carries `node_names`, `pod_keys`,
+    `resource_names`, `policy` (the policy name, "exact" or "i32"),
+    `config` (the configuration dict, as `SchedulerConfiguration.to_dict()`
+    gives it) and, for the TaintToleration messages, `node_taints` (each
+    node's taint list).
 
-    Raises KeyError on a missing field. The planes of plugins outside this
-    slice are ignored: label_val, label_num, label_num_ok, nsel_key,
-    nsel_val, raff_*, pod_has_raff, paff_*, want_wild, want_trip,
-    want_pair, trip_pair, img_contrib, pod_img, pod_ncont, vb_row,
-    vb_code, vz_code, vb_pf, pod_claim, pod_disk_any, pod_disk_rw,
-    pod_vol3 and rel, and in the state used_pair, used_wild, used_trip,
-    used_claims, node_disk_any, node_disk_rw and node_vol3.
+    Raises KeyError on a missing field. Only the volume planes are ignored:
+    vb_row, vb_code, vz_code, vb_pf, pod_claim, pod_disk_any, pod_disk_rw
+    and pod_vol3, and in the state used_claims, node_disk_any,
+    node_disk_rw and node_vol3.
     """
     device = resolve_device(device)
     policy = POLICIES[meta["policy"]]
-    exact = {"node_alloc", "pod_req", "pod_sreq", "requested", "s_requested"}
 
     def put(name, src):
         if name not in src:
             raise KeyError(f"reference encoding lacks field {name!r}")
-        dtype = policy.res if name in exact else None
+        dtype = policy.res if name in RES_TYPED else None
         return torch.tensor(np.asarray(src[name]), dtype=dtype, device=device)
 
+    if "rel" not in arrays:
+        raise KeyError("reference encoding lacks field 'rel'")
+    rel = PodRelArrays(
+        **{f.name: put(f.name, arrays["rel"]) for f in dataclasses.fields(PodRelArrays)}
+    )
     ca = ClusterArrays(
-        **{f.name: put(f.name, arrays) for f in dataclasses.fields(ClusterArrays)}
+        **{f.name: put(f.name, arrays) for f in dataclasses.fields(ClusterArrays)
+           if f.name != "rel"},
+        rel=rel,
     )
     st = SchedState(
         **{f.name: put(f.name, state) for f in dataclasses.fields(SchedState)}
@@ -496,5 +855,9 @@ def from_reference_arrays(
         config=SchedulerConfiguration.from_dict(meta["config"]),
         n_nodes=len(node_names),
         n_pods=len(pod_keys),
-        aux={"node_taints": list(meta.get("node_taints") or [[] for _ in node_names])},
+        aux={
+            "node_taints": list(meta.get("node_taints") or [[] for _ in node_names]),
+            # node-pair ids run 1..n_node_pairs
+            "n_node_pairs": int(rel.node_pair.max()) if rel.node_pair.numel() else 0,
+        },
     )

@@ -42,33 +42,58 @@ class UnsupportedPluginError(NotImplementedError):
 TRACE_SLOTS_PLAIN = ("pf_codes", "codes", "raw", "final", "sel")
 
 
-def supported_config() -> "SchedulerConfiguration":
-    """The default-plugin-order configuration restricted to the extension
-    points and plugins the port has kernels for (this slice's set), with
-    default weights."""
+def _restricted_config(names: "dict[str, set[str]]") -> "SchedulerConfiguration":
+    """The default-plugin-order configuration with only the named plugins
+    enabled at each extension point (disable "*", then enable), at default
+    weights."""
     from ..sched.config import SchedulerConfiguration, default_plugins
 
     dp = default_plugins()
-    star = [{"name": "*"}]
-
-    def keep(point, names):
-        return {
-            "disabled": star,
-            "enabled": [e for e in dp[point] if e["name"] in names],
-        }
-
     plugins = {
-        "preFilter": keep(
-            "preFilter", set(K.PREFILTER_KERNELS) | K.TRIVIAL_PREFILTER
-        ),
-        "filter": keep("filter", set(K.FILTER_KERNELS)),
-        "postFilter": keep("postFilter", set(K.POSTFILTER_KERNELS)),
-        "preScore": keep("preScore", set(K.PRESCORE_KERNELS) | K.TRIVIAL_PRESCORE),
-        "score": keep("score", set(K.SCORE_KERNELS)),
+        point: {
+            "disabled": [{"name": "*"}],
+            "enabled": [e for e in dp[point] if e["name"] in keep],
+        }
+        for point, keep in names.items()
     }
     return SchedulerConfiguration.from_dict(
         {"profiles": [{"schedulerName": "default-scheduler", "plugins": plugins}]}
     )
+
+
+def supported_config() -> "SchedulerConfiguration":
+    """The default-plugin-order configuration restricted to the extension
+    points and plugins the port has kernels for, with default weights: the
+    default profile without the volume family and DefaultPreemption."""
+    return _restricted_config({
+        "preFilter": set(K.PREFILTER_KERNELS) | K.TRIVIAL_PREFILTER,
+        "filter": set(K.FILTER_KERNELS),
+        "postFilter": set(K.POSTFILTER_KERNELS),
+        "preScore": set(K.PRESCORE_KERNELS) | K.TRIVIAL_PRESCORE,
+        "score": set(K.SCORE_KERNELS),
+    })
+
+
+# The first slice's plugin set: resource fit, node name, unschedulable and
+# taints, with the fit, balanced-allocation and taint scores.
+FIT_PLUGINS = {
+    "preFilter": {"NodeResourcesFit"},
+    "filter": {"NodeUnschedulable", "NodeName", "TaintToleration", "NodeResourcesFit"},
+    "postFilter": set(),
+    "preScore": {
+        "TaintToleration",
+        "NodeAffinity",
+        "NodeResourcesFit",
+        "NodeResourcesBalancedAllocation",
+    },
+    "score": {"NodeResourcesFit", "NodeResourcesBalancedAllocation", "TaintToleration"},
+}
+
+
+def fit_config() -> "SchedulerConfiguration":
+    """The first slice's configuration (FIT_PLUGINS in default order, at
+    default weights): the fit path `chip_smoke.py` keeps measuring."""
+    return _restricted_config(FIT_PLUGINS)
 
 
 def unsupported_plugins(cfg: "SchedulerConfiguration") -> list[str]:

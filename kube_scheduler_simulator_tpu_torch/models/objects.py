@@ -85,6 +85,10 @@ class _View:
     def namespace(self) -> str:
         return _get(self.obj, "metadata", "namespace", default="default")
 
+    @property
+    def labels(self) -> dict[str, str]:
+        return _get(self.obj, "metadata", "labels", default={}) or {}
+
 
 class PodView(_View):
     @property
@@ -104,8 +108,58 @@ class PodView(_View):
         return self.spec.get("priorityClassName") or ""
 
     @property
+    def node_selector(self) -> dict[str, str]:
+        return self.spec.get("nodeSelector") or {}
+
+    @property
+    def affinity(self) -> dict:
+        return self.spec.get("affinity") or {}
+
+    @property
+    def node_affinity(self) -> dict:
+        return self.affinity.get("nodeAffinity") or {}
+
+    @property
+    def pod_affinity(self) -> dict:
+        return self.affinity.get("podAffinity") or {}
+
+    @property
+    def pod_anti_affinity(self) -> dict:
+        return self.affinity.get("podAntiAffinity") or {}
+
+    @property
     def tolerations(self) -> list[dict]:
         return self.spec.get("tolerations") or []
+
+    @property
+    def topology_spread_constraints(self) -> list[dict]:
+        return self.spec.get("topologySpreadConstraints") or []
+
+    @property
+    def host_ports(self) -> list[tuple[str, str, int]]:
+        """(protocol, hostIP, hostPort) triples for every declared hostPort."""
+        out = []
+        for c in self.spec.get("containers", []) or []:
+            for p in c.get("ports", []) or []:
+                hp = p.get("hostPort")
+                if hp:
+                    out.append(
+                        (p.get("protocol") or "TCP", p.get("hostIP") or "0.0.0.0", int(hp))
+                    )
+        return out
+
+    @property
+    def container_images(self) -> list[str]:
+        return [c.get("image", "") for c in self.spec.get("containers", []) or [] if c.get("image")]
+
+    @property
+    def num_containers(self) -> int:
+        return len(self.spec.get("containers", []) or [])
+
+    @property
+    def deleted(self) -> bool:
+        """metadata.deletionTimestamp is set (the pod is terminating)."""
+        return bool(_get(self.obj, "metadata", "deletionTimestamp"))
 
 
 class NodeView(_View):
@@ -126,6 +180,64 @@ class NodeView(_View):
     @property
     def taints(self) -> list[dict]:
         return _get(self.obj, "spec", "taints", default=[]) or []
+
+    @property
+    def images(self) -> list[tuple[list[str], int]]:
+        """[(names, sizeBytes)] from status.images."""
+        out = []
+        for img in _get(self.obj, "status", "images", default=[]) or []:
+            out.append((img.get("names") or [], int(img.get("sizeBytes") or 0)))
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Label-selector semantics shared with the relational encoder.
+# ---------------------------------------------------------------------------
+
+
+def match_label_selector(selector: "dict | None", labels: dict[str, str]) -> bool:
+    """metav1.LabelSelector match (matchLabels AND matchExpressions).
+
+    A nil selector matches nothing; an empty selector matches everything.
+    """
+    if selector is None:
+        return False
+    for k, v in (selector.get("matchLabels") or {}).items():
+        if labels.get(k) != v:
+            return False
+    for req in selector.get("matchExpressions") or []:
+        if not _match_expression(req, labels, allow_numeric=False):
+            return False
+    return True
+
+
+def _match_expression(req: dict, labels: dict[str, str], allow_numeric: bool) -> bool:
+    """One requirement. Gt/Lt are only legal in node-selector expressions
+    (`allow_numeric=True`); a metav1.LabelSelector carrying them matches
+    nothing. NotIn matches when the key is absent (upstream
+    labels.Requirement.Matches)."""
+    key, op = req.get("key", ""), req.get("operator", "")
+    values = req.get("values") or []
+    present = key in labels
+    val = labels.get(key)
+    if op == "In":
+        return present and val in values
+    if op == "NotIn":
+        return (not present) or (val not in values)
+    if op == "Exists":
+        return present
+    if op == "DoesNotExist":
+        return not present
+    if (op == "Gt" or op == "Lt") and allow_numeric:
+        if not present:
+            return False
+        try:
+            lhs = int(val)  # type: ignore[arg-type]
+            rhs = int(values[0])
+        except (ValueError, IndexError):
+            return False
+        return lhs > rhs if op == "Gt" else lhs < rhs
+    return False
 
 
 # ---------------------------------------------------------------------------

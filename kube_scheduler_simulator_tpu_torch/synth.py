@@ -1,10 +1,11 @@
-"""Synthetic cluster generator for benchmarks and `chip_smoke.py`.
+"""Synthetic cluster generators for benchmarks and `chip_smoke.py`.
 
-Mirrors the workload shapes in BASELINE.json's configs (100 pods × 10
-nodes … 100k pods × 10k nodes): heterogeneous node capacities, mixed pod
-sizes, optional priorities — all Mi-granular so the 32-bit dtype policy is
-exact (engine/encode.py TPU32). Same generator, same seed, same cluster as
-the reference package's `synth.synthetic_cluster`.
+Mirror the workload shapes in BASELINE.json's configs (100 pods × 10 nodes
+… 100k pods × 10k nodes, and config #3's anti-affinity chains):
+heterogeneous node capacities, mixed pod sizes, optional priorities — all
+Mi-granular so the 32-bit dtype policy is exact (engine/encode.py TPU32).
+Same generator, same seed, same cluster as the reference package's
+`synth.synthetic_cluster` and `synth.synthetic_affinity_cluster`.
 """
 
 from __future__ import annotations
@@ -59,3 +60,83 @@ def synthetic_cluster(
         )
     return nodes, pods
 
+
+
+def synthetic_affinity_cluster(
+    n_nodes: int,
+    n_pods: int,
+    seed: int = 0,
+    *,
+    replicas_per_service: int = 10,
+) -> tuple[list[dict], list[dict]]:
+    """InterPodAffinity-heavy workload (BASELINE config #3): pods grouped
+    into services whose replicas carry required anti-affinity to their own
+    service on the hostname topology (one replica per node: an
+    anti-affinity chain per service), and a third of the services carry
+    required affinity to the previous service on the zone topology
+    (co-location chains across services). Nodes are labelled with their
+    hostname and one of eight zones."""
+    rng = random.Random(seed)
+    nodes = []
+    for i in range(n_nodes):
+        cores = rng.choice([8, 16, 32])
+        nodes.append(
+            {
+                "metadata": {
+                    "name": f"node-{i}",
+                    "labels": {
+                        "kubernetes.io/hostname": f"node-{i}",
+                        "topology.kubernetes.io/zone": f"z{i % 8}",
+                    },
+                },
+                "status": {
+                    "allocatable": {
+                        "cpu": str(cores),
+                        "memory": f"{cores * 4}Gi",
+                        "pods": "110",
+                    }
+                },
+            }
+        )
+    pods = []
+    n_services = max(1, n_pods // replicas_per_service)
+    for i in range(n_pods):
+        svc = i % n_services
+        anti = {
+            "requiredDuringSchedulingIgnoredDuringExecution": [
+                {
+                    "labelSelector": {"matchLabels": {"app": f"svc-{svc}"}},
+                    "topologyKey": "kubernetes.io/hostname",
+                }
+            ]
+        }
+        affinity: dict = {"podAntiAffinity": anti}
+        if svc % 3 == 0 and svc > 0:
+            # co-locate with the previous service's zone (a chain)
+            affinity["podAffinity"] = {
+                "requiredDuringSchedulingIgnoredDuringExecution": [
+                    {
+                        "labelSelector": {"matchLabels": {"app": f"svc-{svc - 1}"}},
+                        "topologyKey": "topology.kubernetes.io/zone",
+                    }
+                ]
+            }
+        pods.append(
+            {
+                "metadata": {
+                    "name": f"pod-{i}",
+                    "namespace": "default",
+                    "labels": {"app": f"svc-{svc}"},
+                },
+                "spec": {
+                    "containers": [
+                        {
+                            "name": "c",
+                            "resources": {"requests": {"cpu": "250m", "memory": "256Mi"}},
+                        }
+                    ],
+                    "affinity": affinity,
+                },
+            }
+        )
+    return nodes, pods

@@ -6,7 +6,10 @@ skipped where `torch.cuda.is_available()` is False. On the card:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 (`--noconftest`: the suite's conftest configures JAX, which the port and
-this file do not use). Tolerance: exact equality.
+this file do not use). Tolerance: exact equality. Each test runs under the
+first slice's plugin set (`fit_config()`) and the default profile without
+volumes and preemption (`slice_config()`); `rel_cluster` (test_torch_clusters)
+reaches the relational plugins.
 """
 
 import numpy as np
@@ -16,10 +19,14 @@ import torch
 import kube_scheduler_simulator_tpu_torch as kp
 from kube_scheduler_simulator_tpu_torch.engine import cuda
 
+from test_torch_clusters import NAMESPACES, rel_cluster
+
 pytestmark = pytest.mark.cuda
 
-STATE_FIELDS = ("requested", "s_requested", "n_pods", "assignment", "bound_seq")
+STATE_FIELDS = ("requested", "s_requested", "n_pods", "assignment", "used_pair",
+                "used_wild", "used_trip", "bound_seq")
 POLICIES = {"exact": kp.EXACT, "i32": kp.TPU32}
+CONFIGS = {"fit": kp.fit_config, "slice": kp.slice_config}
 
 
 @pytest.fixture
@@ -53,9 +60,13 @@ def cluster(n_nodes, n_pods, seed):
     return nodes, pods
 
 
-def engine(policy, n_nodes=40, n_pods=300, seed=0):
-    nodes, pods = cluster(n_nodes, n_pods, seed)
-    enc = kp.encode_cluster(nodes, pods, kp.slice_config(), policy=POLICIES[policy])
+def engine(policy, n_nodes=40, n_pods=300, seed=0, config="slice", rel=False):
+    if rel:
+        nodes, pods = rel_cluster(seed, n_nodes, n_pods)
+    else:
+        nodes, pods = cluster(n_nodes, n_pods, seed)
+    enc = kp.encode_cluster(nodes, pods, CONFIGS[config](), policy=POLICIES[policy],
+                            namespaces=NAMESPACES)
     return kp.BatchedScheduler(enc)
 
 
@@ -65,9 +76,13 @@ def padded_queue(eng):
     return torch.as_tensor(np.concatenate([q, pad]).astype(np.int32), device=eng.device)
 
 
+CASES = [("fit", False), ("slice", False), ("slice", True)]
+
+
+@pytest.mark.parametrize("config,rel", CASES, ids=["fit", "slice", "slice-rel"])
 @pytest.mark.parametrize("policy", sorted(POLICIES))
-def test_attempt_and_bind_match_plain(card, policy):
-    eng = engine(policy)
+def test_attempt_and_bind_match_plain(card, policy, config, rel):
+    eng = engine(policy, config=config, rel=rel)
     enc, prog, w = eng.enc, eng.program, eng.weights
     state = enc.state0.clone()
     for qi, p in enumerate(enc.queue[:60].tolist()):
@@ -82,10 +97,11 @@ def test_attempt_and_bind_match_plain(card, policy):
             assert torch.equal(getattr(state, f), getattr(other, f)), (qi, f)
 
 
+@pytest.mark.parametrize("config,rel", CASES, ids=["fit", "slice", "slice-rel"])
 @pytest.mark.parametrize("policy", sorted(POLICIES))
 @pytest.mark.parametrize("record", [True, False])
-def test_run_matches_plain(card, policy, record):
-    eng = engine(policy, seed=1)
+def test_run_matches_plain(card, policy, record, config, rel):
+    eng = engine(policy, seed=1, config=config, rel=rel)
     enc, q = eng.enc, padded_queue(eng)
     s_k, t_k = cuda.seq_run(eng.program, enc.arrays, enc.state0, q, eng.weights, record=record)
     s_p, t_p = cuda.seq_run_plain(eng.program, enc.arrays, enc.state0, q, eng.weights,
@@ -96,8 +112,9 @@ def test_run_matches_plain(card, policy, record):
         assert torch.equal(getattr(s_k, f), getattr(s_p, f)), f
 
 
-def test_schedule_on_the_card_launches_seq_run(card):
-    nodes, pods = cluster(24, 120, seed=2)
+@pytest.mark.parametrize("rel", [False, True], ids=["fit-cluster", "rel-cluster"])
+def test_schedule_on_the_card_launches_seq_run(card, rel):
+    nodes, pods = rel_cluster(2) if rel else cluster(24, 120, seed=2)
     cuda.reset_counts()
     placements, results = kp.schedule(nodes, pods)
     assert cuda.LAUNCHES["seq_run"] == 1 and not any(cuda.PLAIN_CALLS.values())
@@ -117,3 +134,25 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         cuda.seq_attempt(prog, enc.arrays, bad, w, 0)
     with pytest.raises(ValueError, match="pod index"):
         cuda.seq_attempt(prog, enc.arrays, enc.state0, w, enc.P)
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+@pytest.mark.parametrize("prescore", ["on", "off"])
+def test_custom_normalizes_with_no_feasible_node(card, policy, prescore):
+    """A pod no node can take: the custom normalizes meet their sentinels
+    (int32 wrap under TPU32), and with PreScore disabled both scores are 0."""
+    from kube_scheduler_simulator_tpu_torch.sched.config import SchedulerConfiguration
+
+    nodes, pods = rel_cluster(3, 16, 40)
+    pods[7]["spec"]["containers"][0]["resources"]["requests"] = {"cpu": "999"}
+    cfg = kp.slice_config().to_dict()
+    if prescore == "off":
+        cfg["profiles"][0]["plugins"]["preScore"]["enabled"] = []
+    enc = kp.encode_cluster(nodes, pods, SchedulerConfiguration.from_dict(cfg),
+                            policy=POLICIES[policy], namespaces=NAMESPACES)
+    eng = kp.BatchedScheduler(enc)
+    got = cuda.seq_attempt(eng.program, enc.arrays, enc.state0, eng.weights, 7)
+    want = cuda.seq_attempt_plain(eng.program, enc.arrays, enc.state0, eng.weights, 7)
+    assert int(got[3]) == -1
+    for g, h in zip(got, want):
+        assert g.dtype == h.dtype and torch.equal(g, h)

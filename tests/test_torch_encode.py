@@ -1,8 +1,9 @@
 """The PyTorch port's encoder against the reference encoder.
 
-Every leaf the two encodings share (the cluster planes, the initial state
-and the PrioritySort queue) must be equal field by field: same dtype, same
-shape, same values. Tolerance: exact equality.
+Every leaf the two encodings share (the cluster planes, the nested
+pod-relational planes, the initial state and the PrioritySort queue) must be
+equal field by field: same dtype, same shape, same values. Tolerance: exact
+equality.
 """
 
 import dataclasses
@@ -17,7 +18,10 @@ from kube_scheduler_simulator_tpu.sched.config import SchedulerConfiguration as 
 
 import kube_scheduler_simulator_tpu_torch as kp
 from kube_scheduler_simulator_tpu_torch.engine.encode import ClusterArrays, SchedState
+from kube_scheduler_simulator_tpu_torch.engine.encode_rel import PodRelArrays
 from kube_scheduler_simulator_tpu_torch.sched.config import SchedulerConfiguration as PConfig
+
+from test_torch_clusters import NAMESPACES, rel_cluster
 
 POLICIES = {"exact": (J_EXACT, kp.EXACT), "i32": (J_TPU32, kp.TPU32)}
 
@@ -96,26 +100,16 @@ def assert_same_leaf(name, ref, got):
     assert np.array_equal(got, ref), name
 
 
-@pytest.mark.parametrize("policy", sorted(POLICIES))
-@pytest.mark.parametrize("seed", [0, 3])
-@pytest.mark.parametrize("capacity", [None, (40, 130)])
-def test_encoding_matches_reference(policy, seed, capacity):
-    nodes, pods = port_cluster(seed)
-    cfg = kp.slice_config().to_dict()
-    kw = {}
-    if capacity:
-        kw = {"node_capacity": capacity[0], "pod_capacity": capacity[1]}
-    j_pol, p_pol = POLICIES[policy]
-    ref = j_encode_cluster(
-        nodes, pods, JConfig.from_dict(cfg), policy=j_pol,
-        priorityclasses=PRIORITY_CLASSES, **kw,
-    )
-    got = kp.encode_cluster(
-        nodes, pods, PConfig.from_dict(cfg), policy=p_pol,
-        priorityclasses=PRIORITY_CLASSES, device="cpu", **kw,
-    )
+def assert_encodings_equal(ref, got):
+    """Every leaf of the port's encoding (the nested rel planes too) equals
+    the reference's, and so do the decode tables."""
     for f in dataclasses.fields(ClusterArrays):
-        assert_same_leaf(f.name, getattr(ref.arrays, f.name), to_numpy(getattr(got.arrays, f.name)))
+        if f.name != "rel":
+            assert_same_leaf(f.name, getattr(ref.arrays, f.name),
+                             to_numpy(getattr(got.arrays, f.name)))
+    for f in dataclasses.fields(PodRelArrays):
+        assert_same_leaf(f.name, getattr(ref.arrays.rel, f.name),
+                         to_numpy(getattr(got.arrays.rel, f.name)))
     for f in dataclasses.fields(SchedState):
         assert_same_leaf(f.name, getattr(ref.state0, f.name), to_numpy(getattr(got.state0, f.name)))
     assert_same_leaf("queue", np.asarray(ref.queue, np.int32), np.asarray(got.queue))
@@ -123,11 +117,67 @@ def test_encoding_matches_reference(policy, seed, capacity):
     assert got.pod_keys == ref.pod_keys
     assert got.resource_names == ref.resource_names
     assert got.aux["node_taints"] == ref.aux["node_taints"]
+    assert got.aux["n_node_pairs"] == ref.aux["n_node_pairs"]
     assert (got.N, got.P, got.n_nodes, got.n_pods) == (ref.N, ref.P, ref.n_nodes, ref.n_pods)
+
+
+def encode_both(nodes, pods, cfg, policy, **kw):
+    """(reference encoding, the port's) of one cluster."""
+    j_pol, p_pol = POLICIES[policy]
+    ref = j_encode_cluster(nodes, pods, JConfig.from_dict(cfg), policy=j_pol, **kw)
+    got = kp.encode_cluster(nodes, pods, PConfig.from_dict(cfg), policy=p_pol, device="cpu", **kw)
+    return ref, got
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+@pytest.mark.parametrize("seed", [0, 3])
+@pytest.mark.parametrize("capacity", [None, (40, 130)])
+def test_encoding_matches_reference(policy, seed, capacity):
+    nodes, pods = port_cluster(seed)
+    kw = {}
+    if capacity:
+        kw = {"node_capacity": capacity[0], "pod_capacity": capacity[1]}
+    ref, got = encode_both(nodes, pods, kp.slice_config().to_dict(), policy,
+                           priorityclasses=PRIORITY_CLASSES, **kw)
+    assert_encodings_equal(ref, got)
     # the cluster really carries what the docstring promises
     assert int(got.state0.n_pods.sum()) > 0  # pre-bound pods
     assert (got.arrays.pod_node_name == -2).any()  # a missing nodeName
     assert (got.arrays.taint_effect == 1).any() and (got.arrays.tol_op == 2).any()
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+@pytest.mark.parametrize("seed", [1, 4])
+@pytest.mark.parametrize("capacity", [None, (30, 160)])
+def test_relational_encoding_matches_reference(policy, seed, capacity):
+    """Node labels and affinity terms, host ports (pre-bound port counters
+    included), images and every PodRelArrays leaf, with namespace selectors
+    resolved against Namespace objects."""
+    nodes, pods = rel_cluster(seed)
+    kw = {"node_capacity": capacity[0], "pod_capacity": capacity[1]} if capacity else {}
+    ref, got = encode_both(nodes, pods, kp.slice_config().to_dict(), policy,
+                           namespaces=NAMESPACES, **kw)
+    assert_encodings_equal(ref, got)
+    assert got.arrays.label_num.dtype == got.policy.res
+    assert int(got.state0.used_pair.sum()) > 0  # pre-bound pods hold host ports
+
+
+def test_pre_bound_pods_hold_their_ports():
+    from helpers import node, pod
+
+    nodes = [node("n0"), node("n1")]
+    pods = [
+        pod("a", ports=[{"hostPort": 80}], node_name="n0"),
+        pod("b", ports=[{"hostPort": 80, "hostIP": "10.0.0.1", "protocol": "UDP"}],
+            node_name="n1"),
+        pod("c", ports=[{"hostPort": 80}]),
+    ]
+    for policy in sorted(POLICIES):
+        ref, got = encode_both(nodes, pods, kp.slice_config().to_dict(), policy)
+        assert_encodings_equal(ref, got)
+        assert got.state0.used_pair.tolist() == [[1, 0], [0, 1]]
+        assert got.state0.used_wild.tolist() == [[1, 0], [0, 0]]
+        assert got.state0.used_trip.tolist() == [[0], [1]]
 
 
 def test_capacity_below_live_counts_raises():

@@ -2,9 +2,12 @@
 
 `BatchedScheduler(..., device="cpu").run()` (the plain PyTorch versions of
 the kernels) and the reference's JAX `BatchedScheduler.run()` run the same
-clusters under the same configurations; placements, every trace tensor of
-TRACE_SLOTS_PLAIN (bucket-padding rows included), the final state and every
-pod's `to_annotations()` must be equal. Tolerance: exact equality.
+clusters under the same configurations — the first slice's plugin set
+(`fit_config()`), the default profile without volumes and preemption
+(`slice_config()`) and the reference tests' restricted set; placements,
+every trace tensor of TRACE_SLOTS_PLAIN (bucket-padding rows included), the
+final state and every pod's `to_annotations()` must be equal. Tolerance:
+exact equality.
 """
 
 import dataclasses
@@ -26,13 +29,16 @@ from kube_scheduler_simulator_tpu_torch.engine.engine import (
 from kube_scheduler_simulator_tpu_torch.sched.config import SchedulerConfiguration as PConfig
 
 from test_engine_parity import restricted_config
+from test_torch_clusters import NAMESPACES, rel_cluster
 from test_torch_encode import POLICIES, port_cluster
 from test_torch_kernels import reference_pair
 
 CONFIGS = {
+    "fit": lambda: kp.fit_config().to_dict(),
     "slice": lambda: kp.slice_config().to_dict(),
     "restricted": lambda: restricted_config().to_dict(),
 }
+PORT_CONFIGS = ("fit", "slice")
 
 
 def assert_same(name, ref, got):
@@ -83,22 +89,63 @@ def test_sequential_pass_matches_reference(config, policy, seed):
     assert statuses == {"Scheduled", "Unschedulable"}
 
 
+@pytest.mark.parametrize("config", PORT_CONFIGS)
 @pytest.mark.parametrize("policy", sorted(POLICIES))
-def test_pass_on_reference_arrays(policy):
+def test_pass_on_reference_arrays(policy, config):
     """The port's engine on the very tensors the reference engine ran on,
     so an engine fault is told apart from an encoder fault."""
-    cfg = kp.slice_config().to_dict()
-    ref, got = reference_pair(policy, cfg, seed=4)
+    ref, got = reference_pair(policy, CONFIGS[config](), seed=4, rel=config == "slice")
     assert_engines_agree(JBatchedScheduler(ref), kp.BatchedScheduler(got, device="cpu"))
 
 
 @pytest.mark.parametrize("policy", sorted(POLICIES))
-def test_empty_queue(policy):
+@pytest.mark.parametrize("seed", [1, 2])
+def test_relational_pass_matches_reference(policy, seed):
+    """The default profile without volumes and preemption on the dressed
+    relational cluster: every filter code and both custom normalizes."""
+    nodes, pods = rel_cluster(seed)
+    cfg = kp.slice_config().to_dict()
+    j_pol, p_pol = POLICIES[policy]
+    kw = {"node_capacity": 28, "namespaces": NAMESPACES}
+    j_eng = JBatchedScheduler(j_encode_cluster(nodes, pods, JConfig.from_dict(cfg),
+                                               policy=j_pol, **kw))
+    p_eng = kp.BatchedScheduler(
+        kp.encode_cluster(nodes, pods, PConfig.from_dict(cfg), policy=p_pol, device="cpu", **kw),
+        device="cpu",
+    )
+    results = assert_engines_agree(j_eng, p_eng)
+    codes = p_eng.run()[1][1][: len(p_eng.enc.queue)]
+    # NodeAffinity, NodePorts, PodTopologySpread and InterPodAffinity all fail somewhere
+    assert [sorted(set(codes[:, :, f].flatten().tolist())) for f in (3, 4, 6, 7)] == [
+        [0, 1], [0, 1], [0, 1, 2], [0, 1, 2, 3]]
+    assert {r.status for r in results} == {"Scheduled", "Unschedulable"}
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_affinity_cluster_matches_reference(policy):
+    """BASELINE config #3's workload (anti-affinity chains and zone
+    co-location chains), cut to 8 nodes × 120 pods: more replicas than
+    nodes, so some replicas find no node."""
+    nodes, pods = kp.synthetic_affinity_cluster(8, 120, seed=11)
+    cfg = kp.slice_config().to_dict()
+    j_pol, p_pol = POLICIES[policy]
+    j_eng = JBatchedScheduler(j_encode_cluster(nodes, pods, JConfig.from_dict(cfg), policy=j_pol))
+    p_eng = kp.BatchedScheduler(
+        kp.encode_cluster(nodes, pods, PConfig.from_dict(cfg), policy=p_pol, device="cpu"),
+        device="cpu",
+    )
+    results = assert_engines_agree(j_eng, p_eng)
+    assert {r.status for r in results} == {"Scheduled", "Unschedulable"}
+
+
+@pytest.mark.parametrize("config", PORT_CONFIGS)
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_empty_queue(policy, config):
     """Every pod pre-bound: a zero-length pass with empty trace tensors."""
     nodes, pods = port_cluster(2, n_nodes=6, n_pods=10)
     for i, pd in enumerate(pods):
         pd["spec"]["nodeName"] = nodes[i % len(nodes)]["metadata"]["name"]
-    cfg = kp.slice_config().to_dict()
+    cfg = CONFIGS[config]()
     j_pol, p_pol = POLICIES[policy]
     j_eng = JBatchedScheduler(j_encode_cluster(nodes, pods, JConfig.from_dict(cfg), policy=j_pol))
     p_eng = kp.BatchedScheduler(
@@ -108,12 +155,15 @@ def test_empty_queue(policy):
     assert assert_engines_agree(j_eng, p_eng) == []
 
 
-def test_single_pod_step_matches_the_pass():
+@pytest.mark.parametrize("config", PORT_CONFIGS)
+def test_single_pod_step_matches_the_pass(config):
     """attempt_bind_fn walked over the queue reproduces run()'s trace rows
     and final state (the per-pod path the extender loop drives)."""
-    nodes, pods = port_cluster(1, n_nodes=12, n_pods=40)
+    nodes, pods = (rel_cluster(1, 12, 40) if config == "slice"
+                   else port_cluster(1, n_nodes=12, n_pods=40))
+    cfg = PConfig.from_dict(CONFIGS[config]())
     eng = kp.BatchedScheduler(
-        kp.encode_cluster(nodes, pods, kp.slice_config(), device="cpu"), device="cpu"
+        kp.encode_cluster(nodes, pods, cfg, namespaces=NAMESPACES, device="cpu"), device="cpu"
     )
     state, trace = eng.run()
     step_state = eng.enc.state0.clone()

@@ -5,13 +5,19 @@ reference's, carried across with `from_reference_arrays`) at random node
 states and pods made with numpy from a seed. Covered: all three
 NodeResourcesFit scoring strategies (RequestedToCapacityRatio with a
 negative slope, a weighted spec list naming a resource no node has),
-BalancedAllocation over 2 and 3 resources under both dtype policies, and
-TaintToleration's default_reverse normalize with and without a zero max.
-Tolerance: exact equality (same dtype, same values).
+BalancedAllocation over 2 and 3 resources under both dtype policies,
+TaintToleration's default_reverse normalize with and without a zero max,
+and on the relational cluster (test_torch_clusters.rel_cluster) the
+NodeAffinity, NodePorts, PodTopologySpread and InterPodAffinity filters and
+the NodeAffinity, ImageLocality, PodTopologySpread and InterPodAffinity
+scores with both custom normalizes (an all-infeasible node set included),
+at random bindings and port counters. Tolerance: exact equality (same
+dtype, same values).
 """
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +33,7 @@ import kube_scheduler_simulator_tpu_torch as kp
 from kube_scheduler_simulator_tpu_torch.engine import kernels as PK
 from kube_scheduler_simulator_tpu_torch.engine.encode import SchedState
 
+from test_torch_clusters import NAMESPACES, rel_cluster
 from test_torch_encode import POLICIES, port_cluster
 
 FILTERS = ("NodeUnschedulable", "NodeName", "TaintToleration", "NodeResourcesFit")
@@ -94,16 +101,20 @@ def config_dict(fit="least", balanced=2):
     }
 
 
-def reference_pair(policy, cfg, seed=0, strip_prefer=False):
-    """(reference encoding, the port's encoding of the same leaves)."""
-    nodes, pods = port_cluster(seed)
+def reference_pair(policy, cfg, seed=0, strip_prefer=False, rel=False):
+    """(reference encoding, the port's encoding of the same leaves); `rel`
+    takes the relational cluster."""
+    nodes, pods = rel_cluster(seed) if rel else port_cluster(seed)
     if strip_prefer:
         for nd in nodes:
             nd["spec"].pop("taints", None)
     j_pol, _ = POLICIES[policy]
-    ref = j_encode_cluster(nodes, pods, JConfig.from_dict(cfg), policy=j_pol)
+    ref = j_encode_cluster(nodes, pods, JConfig.from_dict(cfg), policy=j_pol,
+                           namespaces=NAMESPACES)
     arrays = {f: np.asarray(getattr(ref.arrays, f)) for f in
               [f.name for f in dataclasses.fields(ref.arrays) if f.name != "rel"]}
+    arrays["rel"] = {f.name: np.asarray(getattr(ref.arrays.rel, f.name))
+                     for f in dataclasses.fields(ref.arrays.rel)}
     state = {f: np.asarray(getattr(ref.state0, f)) for f in
              [f.name for f in dataclasses.fields(ref.state0)]}
     meta = {
@@ -118,24 +129,43 @@ def reference_pair(policy, cfg, seed=0, strip_prefer=False):
     return ref, got
 
 
-def random_states(ref, rng, count):
+def random_states(ref, rng, count, bind=False, aux_seed=17):
     """Node states as (reference SchedState, port SchedState) pairs: usage
-    up to 130% of capacity, pod counts around the 110-pod limit."""
+    up to 130% of capacity, pod counts around the 110-pod limit, port
+    counters of 0..2 users. `bind`: besides the pre-bound pods, about 70%
+    of the others are bound, mostly to the first third of the nodes (so
+    topology counts are skewed)."""
     alloc = np.asarray(ref.arrays.node_alloc)
     dt = alloc.dtype
+    N = alloc.shape[0]
+    # ports and bindings come from their own generator, so rng's draws stay
+    # those the fit-path tests were written against
+    aux = np.random.default_rng(aux_seed)
     for _ in range(count):
         frac = rng.uniform(0.0, 1.3, size=alloc.shape)
         req = np.floor(alloc * frac).astype(dt)
         sreq = np.floor(alloc * rng.uniform(0.0, 1.3, size=alloc.shape)).astype(dt)
-        n_pods = rng.integers(0, 112, size=alloc.shape[0]).astype(np.int32)
+        n_pods = rng.integers(0, 112, size=N).astype(np.int32)
+        ports = {k: aux.integers(0, 3, size=np.asarray(getattr(ref.state0, k)).shape)
+                 .astype(np.int32) * (aux.random() < 0.7)
+                 for k in ("used_pair", "used_wild", "used_trip")}
+        assignment = np.asarray(ref.state0.assignment).copy()
+        if bind:
+            free = (assignment < 0) & (aux.random(assignment.shape) < 0.7)
+            free[ref.n_pods:] = False
+            hi = np.where(aux.random(int(free.sum())) < 0.8, max(1, ref.n_nodes // 3),
+                          ref.n_nodes)
+            assignment[free] = aux.integers(0, hi)
         j_state = ref.state0.replace(
             requested=jnp.asarray(req), s_requested=jnp.asarray(sreq),
-            n_pods=jnp.asarray(n_pods),
+            n_pods=jnp.asarray(n_pods), assignment=jnp.asarray(assignment),
+            **{k: jnp.asarray(v) for k, v in ports.items()},
         )
         p_state = SchedState(
             requested=torch.as_tensor(req), s_requested=torch.as_tensor(sreq),
             n_pods=torch.as_tensor(n_pods),
-            assignment=torch.tensor(np.asarray(ref.state0.assignment)),
+            assignment=torch.tensor(assignment),
+            **{k: torch.as_tensor(v) for k, v in ports.items()},
             bound_seq=torch.tensor(np.asarray(ref.state0.bound_seq)),
         )
         yield j_state, p_state
@@ -207,3 +237,89 @@ def test_attempt_normalize_matches_reference(policy, strip_prefer):
         assert maxes == {False}
     else:
         assert True in maxes
+
+
+REL_FILTERS = ("NodeAffinity", "NodePorts", "PodTopologySpread", "InterPodAffinity")
+REL_SCORES = ("NodeAffinity", "ImageLocality", "PodTopologySpread", "InterPodAffinity")
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+@pytest.mark.parametrize("seed", [1, 2])
+def test_relational_bodies_match_reference(policy, seed):
+    """The slice's new filter and score bodies, and both custom normalizes,
+    at random bindings, port counters and feasible sets (all-infeasible and
+    all-feasible included)."""
+    ref, got = reference_pair(policy, kp.slice_config().to_dict(), seed=seed, rel=True)
+    rng = np.random.default_rng(seed)
+    filters = [(n, jax.jit(JK.FILTER_KERNELS[n][0](ref)), PK.FILTER_KERNELS[n][0](got))
+               for n in REL_FILTERS]
+    scores = []
+    for n in REL_SCORES:
+        jk = JK.SCORE_KERNELS[n][0](ref)
+        norm = getattr(jk, "_normalize", None)
+        scores.append((n, jax.jit(jk), norm and jax.jit(norm), PK.SCORE_KERNELS[n][0](got)))
+    N = got.N
+    rel = got.arrays.rel
+    # pods with hard spread constraints, inter-pod terms, node affinity and
+    # host ports first, then any
+    picks = torch.nonzero((rel.sph_key >= 0).any(dim=1))[:3, 0].tolist()
+    picks += [int(torch.nonzero(m)[0]) for m in (
+        (rel.ia_key >= 0).any(dim=1), (rel.ian_key >= 0).sum(dim=1) > 1,
+        (rel.ipan_key >= 0).any(dim=1), got.arrays.pod_has_raff,
+        (got.arrays.want_trip > 0).any(dim=1), (rel.sps_key >= 0).all(dim=1))]
+    seen = {n: set() for n in REL_FILTERS}
+    for j_state, p_state in random_states(ref, rng, 3, bind=True, aux_seed=seed):
+        pods = picks + rng.choice(ref.n_pods, size=3, replace=False).tolist()
+        for p in pods:
+            for name, jk, pk in filters:
+                want = jk(ref.arrays, j_state, p)
+                assert_equal((name, p), want, pk(got.arrays, p_state, p))
+                seen[name] |= set(np.asarray(want).tolist())
+            node_mask = np.asarray(ref.arrays.node_mask)
+            for feas in (rng.random(N) < 0.6, np.zeros(N, bool), np.ones(N, bool)):
+                feas = feas & node_mask
+                jf, pf = jnp.asarray(feas), torch.as_tensor(feas)
+                for name, jk, jnorm, pk in scores:
+                    raw_j = jk(ref.arrays, j_state, p, jf)
+                    raw_p = pk(got.arrays, p_state, p, pf)
+                    assert_equal((name, p, "raw"), raw_j, raw_p)
+                    if jnorm is not None:
+                        assert_equal((name, p, "normalize"),
+                                     jnorm(ref.arrays, j_state, p, raw_j, jf),
+                                     pk._normalize(got.arrays, p_state, p, raw_p, pf))
+    # every failure code of the four filters was reached
+    assert seen == {"NodeAffinity": {0, 1}, "NodePorts": {0, 1},
+                    "PodTopologySpread": {0, 1, 2}, "InterPodAffinity": {0, 1, 2, 3}}
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_custom_normalizes_with_no_feasible_node(policy):
+    """The interpod normalize's sentinels meet when no node is feasible:
+    int32 max minus int32 min wraps to 2 under TPU32, so every node gets
+    100 * (raw - BIG) // 2 (floored, wrapped), and 0 under EXACT."""
+    ref, got = reference_pair(policy, kp.slice_config().to_dict(), seed=2, rel=True)
+    jk = JK.SCORE_KERNELS["InterPodAffinity"][0](ref)
+    pk = PK.SCORE_KERNELS["InterPodAffinity"][0](got)
+    none = np.zeros(got.N, bool)
+    raw = torch.arange(-3, got.N - 3, dtype=got.policy.score)
+    want = jk._normalize(ref.arrays, ref.state0, 0, jnp.asarray(raw.numpy()), jnp.asarray(none))
+    have = pk._normalize(got.arrays, got.state0, 0, raw, torch.as_tensor(none))
+    assert_equal("interpod normalize", want, have)
+    assert bool((have != 0).any()) == (policy == "i32")
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_slice_attempt_matches_reference(policy):
+    """attempt_fn under slice_config(): every filter, score and normalize
+    of the default profile without volumes and preemption, at random
+    bindings."""
+    ref, got = reference_pair(policy, kp.slice_config().to_dict(), seed=3, rel=True)
+    j_eng = JBatchedScheduler(ref)
+    p_eng = kp.BatchedScheduler(got, device="cpu")
+    rng = np.random.default_rng(5)
+    for j_state, p_state in random_states(ref, rng, 2, bind=True):
+        for p in rng.choice(ref.n_pods, size=4, replace=False).tolist():
+            want = j_eng.attempt_fn(ref.arrays, j_state, j_eng.weights, p)
+            have = p_eng.attempt_fn(got.arrays, p_state, p_eng.weights, p)
+            for name, w, h in zip(("pf_codes", "codes", "raw", "final", "sel"), want, have):
+                assert_equal((name, p), w, h)
