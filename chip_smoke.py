@@ -19,13 +19,9 @@ exits non-zero:
    and EXACT, exact equality: (fit) three fit-path configurations on a
    256-node x 2,000-pod cluster dressed with taints, tolerations, cordoned
    nodes, nodeName pods and pods too large for any node; (affinity)
-   `slice_config()` on a 256 x 2,000 cluster dressed with zone, hostname
-   and numeric node labels, nodeSelector, required and preferred node
-   affinity with all six operators and a matchFields term, wildcard and
-   IP-specific host ports, images, hard and soft spread constraints (and
-   pods left to System defaulting), required and preferred pod affinity
-   and anti-affinity across two namespaces, pre-bound pods and a pod being
-   deleted. Each: `seq_attempt` at 64 pods x random states (random
+   `slice_config()` on `synth.dressed_affinity_cluster(256, 2000)` (every
+   feature the affinity plugins read; the port's tests use the same
+   generator). Each: `seq_attempt` at 64 pods x random states (random
    bindings and port counters for the affinity path), `seq_bind` on those
    pods, `seq_run` over the whole queue (trace, final state, placements);
 4. the fit path at full width: `schedule()` on 1,024 nodes x 10,000 pods
@@ -39,9 +35,11 @@ exits non-zero:
 4b. the affinity path at full width, the same way: BASELINE config #3,
    `synthetic_affinity_cluster(500, 5000, seed=11)`;
 5. kernel times on both paths (CUDA events; the per-pod kernels replayed
-   from a CUDA graph so host enqueue time is not counted), the plain
-   versions' times and each kernel's bound, printed as one JSON line with a
-   `path` field per entry;
+   from a CUDA graph so host enqueue time is not counted, at the state
+   half-way through the queue), the plain versions' times and each
+   kernel's bound (`attempt_bound`: the bytes that attempt reads and
+   writes), printed as one JSON line with a `path` field per entry; 5b:
+   each plugin body the second slice added, alone inside `seq_attempt`;
 6. the card's name and power limit, then the result line.
 
 It imports nothing of JAX or of the reference package.
@@ -145,129 +143,6 @@ def dressed_cluster(kp, n_nodes, n_pods, seed):
     return nodes, pods
 
 
-NAMESPACES = [
-    {"metadata": {"name": "default", "labels": {"team": "core"}}},
-    {"metadata": {"name": "prod", "labels": {"team": "core", "tier": "prod"}}},
-]
-ZONE, HOST = "topology.kubernetes.io/zone", "kubernetes.io/hostname"
-OPERATORS = ("In", "NotIn", "Exists", "DoesNotExist", "Gt", "Lt")
-
-
-def rel_dressed_cluster(kp, n_nodes, n_pods, seed):
-    """The port's synthetic affinity cluster (services with hostname
-    anti-affinity chains and zone affinity chains) dressed with every path
-    of the affinity plugins: rack (numeric) and disk node labels, nodes
-    without a zone, images on nodes; pods in two namespaces with a second
-    label, nodeSelector, required node affinity cycling through all six
-    operators (some with a matchFields term), preferred node affinity, host
-    ports (wildcard and IP-specific), images, hard and soft spread
-    constraints with multi-clause selectors (a nil selector, and pods left
-    to System defaulting), preferred and extra required pod (anti-)affinity
-    terms with namespace lists and selectors, pre-bound pods and one pod
-    being deleted. Choices from a numpy generator seeded with `seed`."""
-    nodes, pods = kp.synthetic_affinity_cluster(n_nodes, n_pods, seed=seed,
-                                                replicas_per_service=6)
-    rng = np.random.default_rng(seed)
-    images = ["nginx", "redis:6", "reg.io/app/db"]
-    for i, nd in enumerate(nodes):
-        lab = nd["metadata"]["labels"]
-        lab["rack"] = str(int(rng.integers(0, 20)))
-        if rng.random() < 0.6:
-            lab["disk"] = str(rng.choice(["ssd", "hdd", "nvme"]))
-        if i % 9 == 4:
-            del lab[ZONE]
-        if rng.random() < 0.5:
-            nd["status"]["images"] = [{"names": [str(rng.choice(images))],
-                                       "sizeBytes": int(rng.integers(30, 900)) << 20}]
-    n_aff = 0
-    for j, pd in enumerate(pods):
-        spec, meta = pd["spec"], pd["metadata"]
-        app = meta["labels"]["app"]
-        if j % 5 == 1:
-            meta["labels"]["tier"] = str(rng.choice(["web", "db"]))
-        if j % 7 == 1:
-            meta["namespace"] = "prod"
-        aff = spec["affinity"]
-        r = rng.random()
-        if r < 0.12:
-            spec["nodeSelector"] = {"disk": str(rng.choice(["ssd", "hdd"]))}
-        elif r < 0.35:
-            op = OPERATORS[n_aff % 6]
-            n_aff += 1
-            expr = ({"key": "rack", "operator": op, "values": [str(int(rng.integers(2, 18)))]}
-                    if op in ("Gt", "Lt") else
-                    {"key": "disk", "operator": op,
-                     "values": ["ssd", "nvme"] if op in ("In", "NotIn") else []})
-            terms = [{"matchExpressions": [expr]}]
-            if rng.random() < 0.3:
-                terms.append({"matchFields": [{"key": "metadata.name", "operator": "In",
-                                               "values": [f"node-{int(rng.integers(n_nodes))}"]}]})
-            aff["nodeAffinity"] = {"requiredDuringSchedulingIgnoredDuringExecution": {
-                "nodeSelectorTerms": terms}}
-        if rng.random() < 0.3:
-            aff.setdefault("nodeAffinity", {})["preferredDuringSchedulingIgnoredDuringExecution"] = [
-                {"weight": int(rng.integers(1, 100)), "preference": {"matchExpressions": [
-                    {"key": "rack", "operator": str(rng.choice(["Gt", "Lt"])),
-                     "values": [str(int(rng.integers(0, 20)))]}]}},
-                {"weight": int(rng.integers(1, 100)), "preference": {"matchExpressions": [
-                    {"key": "disk", "operator": "In", "values": ["nvme"]}]}}]
-        c = spec["containers"][0]
-        if rng.random() < 0.2:
-            c["ports"] = [{"hostPort": int(rng.choice([80, 443])),
-                           "hostIP": str(rng.choice(["0.0.0.0", "10.0.0.1", "10.0.0.2"])),
-                           "protocol": str(rng.choice(["TCP", "UDP"]))}]
-        if rng.random() < 0.4:
-            c["image"] = str(rng.choice(images + ["nginx:latest", "mysql"]))
-        if rng.random() < 0.1:
-            spec["containers"].append({"name": "side", "image": "nginx"})
-        r = rng.random()
-        if r < 0.15:
-            spec["topologySpreadConstraints"] = [{
-                "maxSkew": int(rng.integers(1, 3)), "topologyKey": ZONE,
-                "whenUnsatisfiable": "DoNotSchedule",
-                "labelSelector": {"matchLabels": {"app": app}, "matchExpressions": [
-                    {"key": "tier", "operator": "In", "values": ["web", "db"]}]}}]
-        elif r < 0.25:
-            spec["topologySpreadConstraints"] = [{
-                "maxSkew": 1, "topologyKey": HOST, "whenUnsatisfiable": "DoNotSchedule",
-                "labelSelector": {"matchExpressions": [
-                    {"key": "app", "operator": "NotIn", "values": [app, "svc-0"]}]}}]
-        elif r < 0.4:
-            spec["topologySpreadConstraints"] = [
-                {"maxSkew": 1, "topologyKey": HOST, "whenUnsatisfiable": "ScheduleAnyway",
-                 "labelSelector": {"matchExpressions": [
-                     {"key": "tier", "operator": str(rng.choice(["Exists", "DoesNotExist"]))}]}},
-                {"maxSkew": 2, "topologyKey": ZONE, "whenUnsatisfiable": "ScheduleAnyway",
-                 "labelSelector": {"matchLabels": {"app": app}}}]
-        elif r < 0.43:
-            spec["topologySpreadConstraints"] = [
-                {"maxSkew": 1, "topologyKey": ZONE, "whenUnsatisfiable": "ScheduleAnyway"}]
-        r = rng.random()
-        t = {"topologyKey": str(rng.choice([HOST, ZONE])),
-             "labelSelector": {"matchLabels": {"app": f"svc-{int(rng.integers(0, 12))}"}}}
-        r2 = rng.random()
-        if r2 < 0.15:
-            t["namespaceSelector"] = {"matchLabels": {"tier": "prod"}}
-        elif r2 < 0.25:
-            t["namespaceSelector"] = {}
-        elif r2 < 0.35:
-            t["namespaces"] = ["prod", "default"]
-        if r < 0.15:
-            aff["podAffinity"] = {"preferredDuringSchedulingIgnoredDuringExecution": [
-                {"weight": int(rng.integers(1, 100)), "podAffinityTerm": t}]}
-        elif r < 0.3:
-            aff["podAntiAffinity"]["preferredDuringSchedulingIgnoredDuringExecution"] = [
-                {"weight": int(rng.integers(1, 100)), "podAffinityTerm": t}]
-        elif r < 0.36:
-            aff["podAntiAffinity"]["requiredDuringSchedulingIgnoredDuringExecution"].append(t)
-        if j % 13 == 3:
-            spec["nodeName"] = f"node-{int(rng.integers(n_nodes))}"
-    pods[5]["metadata"]["deletionTimestamp"] = "2024-01-01T00:00:00Z"
-    pods[5]["spec"]["nodeName"] = "node-0"
-    return nodes, pods
-
-
-
 def configs(kp):
     """The fit path's configuration, and two that reach the other
     NodeResourcesFit strategies and BalancedAllocation's 3-resource branch
@@ -351,12 +226,12 @@ def random_state(enc, rng, bind):
     return st
 
 
-def compare_kernels(kp, cuda, diff, path, nodes, pods, cfgs, bind):
+def compare_kernels(kp, cuda, diff, path, nodes, pods, cfgs, bind, namespaces=None):
     """Phase 3: every kernel against its plain version, exact, for each
     configuration in `cfgs` under TPU32 and EXACT."""
     for pol in (kp.TPU32, kp.EXACT):
         for cname, cfg in cfgs.items():
-            enc = kp.encode_cluster(nodes, pods, cfg, policy=pol, namespaces=NAMESPACES)
+            enc = kp.encode_cluster(nodes, pods, cfg, policy=pol, namespaces=namespaces)
             eng = kp.BatchedScheduler(enc)
             prog, a, w = eng.program, enc.arrays, eng.weights
             rng = np.random.default_rng(3)
@@ -472,27 +347,6 @@ def ops_per_node(enc, prog):
             + sum(per_score[n] for n in prog.score_names) + normalize_select + rel_node)
 
 
-def ops_per_pod(enc, prog):
-    """A rough count of the integer operations one step's relational
-    prologue does per pod: each term of each enabled domain tests its
-    clauses (every pair id of every clause) and its namespace."""
-    rel = enc.arrays.rel
-    names = set(prog.filter_names) | set(prog.score_names)
-
-    def dom(d):
-        _, T, C, VP = getattr(rel, f"{d}_cpairs").shape
-        return T * (C * (VP + 3) + 6)
-
-    ops = 4
-    if "PodTopologySpread" in names:
-        ops += dom("sph") + dom("sps")
-    if "InterPodAffinity" in prog.filter_names:
-        ops += 2 * dom("ian") + dom("ia")
-    if "InterPodAffinity" in prog.score_names:
-        ops += 2 * (dom("ipa") + dom("ipan")) + dom("ia")
-    return ops if names & {"PodTopologySpread", "InterPodAffinity"} else 0
-
-
 def bound(bytes_moved, ops):
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -507,31 +361,192 @@ def cluster_bytes(enc):
             + nbytes(*(getattr(a.rel, f.name) for f in dataclasses.fields(a.rel))))
 
 
-# planes and state indexed by node (or by neither axis); the others are
-# indexed by pod
+# planes and state indexed by node (or by neither axis), read whole; of the
+# others, indexed by pod, an attempt reads the step pod's row
 NODE_PLANES = {"node_alloc", "node_unsched", "node_mask", "taint_key", "taint_val",
                "taint_effect", "label_val", "label_num", "label_num_ok", "trip_pair",
                "img_contrib", "node_pair", "spread_lut", "requested", "s_requested",
                "n_pods", "used_pair", "used_wild", "used_trip"}
+LABELS = ("label_val", "label_num", "label_num_ok")
+NODE_AFFINITY = ("nsel_key", "nsel_val", "pod_has_raff", "raff_key", "raff_op", "raff_vals",
+                 "raff_num", "raff_num_ok", "raff_term_valid")
+TAINTS = ("taint_key", "taint_val", "taint_effect", "tol_key", "tol_val", "tol_effect",
+          "tol_op")
+FLAG = {"sph": "sph_self", "sps": "sps_host", "ia": "ia_self"}
 
 
-def attempt_bytes(enc, prog):
-    """What one attempt must read: every node plane, the pod's own row of
-    every pod plane and, where a relational plugin is enabled, every pod's
-    relational rows and binding (the counts run over all pods)."""
+def domain(d):
+    """The planes of relational term domain d."""
+    return tuple(f"{d}_{m}" for m in ("key", "ctype", "ckey", "cpairs", "skew", "nsall", "ns",
+                                      "weight")) + ((FLAG[d],) if d in FLAG else ())
+
+
+# What each plugin reads in the kernel (csrc/seq_kernels.cu filter_code,
+# score_raw and the node phases), besides the other pods' relational rows
+# that `rel_reads` counts. The spread plugins run the NodeAffinity body.
+READS = {
+    ("filter", "NodeUnschedulable"): ("node_unsched", "pod_tol_unsched"),
+    ("filter", "NodeName"): ("pod_node_name",),
+    ("filter", "TaintToleration"): TAINTS,
+    ("filter", "NodeResourcesFit"): ("node_alloc", "requested", "n_pods", "pod_req",
+                                     "pod_req_rank"),
+    ("filter", "NodeAffinity"): LABELS + NODE_AFFINITY,
+    ("filter", "NodePorts"): ("used_pair", "used_wild", "used_trip", "trip_pair", "want_wild",
+                              "want_trip"),
+    ("filter", "PodTopologySpread"): LABELS + NODE_AFFINITY + ("node_pair", "ns_id")
+    + domain("sph"),
+    ("filter", "InterPodAffinity"): ("node_pair", "ns_id") + domain("ia") + domain("ian"),
+    ("score", "NodeResourcesFit"): ("node_alloc", "s_requested", "pod_sreq"),
+    ("score", "NodeResourcesBalancedAllocation"): ("node_alloc", "s_requested", "pod_sreq"),
+    ("score", "TaintToleration"): TAINTS,
+    ("score", "NodeAffinity"): LABELS + ("paff_key", "paff_op", "paff_vals", "paff_num",
+                                         "paff_num_ok", "paff_weight", "paff_term_valid"),
+    ("score", "ImageLocality"): ("img_contrib", "pod_img", "pod_ncont"),
+    ("score", "PodTopologySpread"): LABELS + NODE_AFFINITY
+    + ("node_pair", "ns_id", "req_all", "spread_lut") + domain("sps"),
+    ("score", "InterPodAffinity"): ("node_pair", "ns_id") + domain("ipa") + domain("ipan")
+    + domain("ia"),
+}
+
+
+def relational(enc, prog):
+    """Which relational phases the kernel runs for this program (its
+    `need_of`): spread filter, spread score, inter-pod filter and score,
+    and hardPodAffinityWeight."""
+    from kube_scheduler_simulator_tpu_torch.engine import kernels as K
+
+    prescore = enc.config.enabled("preScore")
+    return ("PodTopologySpread" in prog.filter_names,
+            "PodTopologySpread" in prog.score_names and "PodTopologySpread" in prescore,
+            "InterPodAffinity" in prog.filter_names,
+            "InterPodAffinity" in prog.score_names and "InterPodAffinity" in prescore,
+            K.interpod_hard_weight(enc))
+
+
+def term_ops(C, VP):
+    return C * (VP + 3) + 6
+
+
+def rel_reads(enc, prog, st, p):
+    """(bytes, operations) of one attempt's walk over the other pods for
+    step pod p at state st, as the kernel's `rel_pod` reads them: every
+    pod's assignment; for each bound pod its mask, namespace and (spread)
+    deletion flag; the key row of each of its terms the reverse directions
+    test and, for a term whose topology pair is on the pod's node and whose
+    namespace matches, that term's namespace and clause rows; and one 32-byte
+    sector for each distinct sector of the pod-label bitsets a clause
+    gathers (the other pod's row in the forward directions, p's in the
+    reverse). A term's clauses are counted whole where the kernel stops at
+    the first that fails."""
+    f_spread, s_spread, f_ipa, s_ipa, hard_w = relational(enc, prog)
+    if not (f_spread or s_spread or f_ipa or s_ipa):
+        return 0, 0
     import dataclasses
 
-    a, st = enc.arrays, enc.state0
-    rel_on = ops_per_pod(enc, prog) > 0
-    planes = [(f.name, getattr(a, f.name)) for f in dataclasses.fields(a) if f.name != "rel"]
-    rel = [(f.name, getattr(a.rel, f.name)) for f in dataclasses.fields(a.rel)]
-    state = [(f.name, getattr(st, f.name)) for f in dataclasses.fields(st)]
-    all_pods = {n for n, _ in rel} | {"assignment", "pod_mask"} if rel_on else set()
-    total = 0
-    for name, t in planes + rel + state:
-        whole = name in NODE_PLANES or name in all_pods
-        total += nbytes(t) if whole else nbytes(t) // enc.P
-    return total
+    rel = {f.name: getattr(enc.arrays.rel, f.name).cpu().numpy()
+           for f in dataclasses.fields(enc.arrays.rel)}
+    asg = st.assignment.cpu().numpy()
+    live = (asg >= 0) & enc.arrays.pod_mask.cpu().numpy()
+    P, LP = rel["pair_present"].shape
+    KK = rel["key_present"].shape[1]
+    byts, ops = 4 * P + int((asg >= 0).sum()), 2 * P
+    qs = np.nonzero(live)[0]
+    npq = rel["node_pair"][asg[qs]]  # [Q, K] the bound pods' nodes' pair ids
+    ns_q, ns_p = rel["ns_id"][qs], int(rel["ns_id"][p])
+    byts += 4 * len(qs)
+    ops += 4 * len(qs)
+    gathers = {"pair_present": [], "key_present": []}  # flat element indices
+
+    def cols(d, owners, t):
+        """Per owner, the pair ids and key ids term t's clauses gather."""
+        ct = rel[f"{d}_ctype"][owners, t]  # [O, C]
+        cp = np.where(((ct == 0) | (ct == 1))[..., None], rel[f"{d}_cpairs"][owners, t], -1)
+        ck = np.where((ct == 2) | (ct == 3), rel[f"{d}_ckey"][owners, t], -1)
+        return cp.reshape(len(owners), cp.shape[1] * cp.shape[2]), ck
+
+    def gather(rows, pids, kids, width_p=LP, width_k=KK):
+        for plane, ids, width in (("pair_present", pids, width_p), ("key_present", kids, width_k)):
+            flat = (rows[:, None].astype(np.int64) * width + ids)[ids >= 0]
+            gathers[plane].append(flat)
+
+    def forward(d, extra):
+        nonlocal ops
+        _, T, C, VP = rel[f"{d}_cpairs"].shape
+        for t in range(T):
+            key = int(rel[f"{d}_key"][p, t])
+            if key < 0:
+                continue
+            sel = extra(d, t, key)
+            pids, kids = cols(d, np.array([p]), t)
+            tq = qs[sel]
+            gather(tq, np.repeat(pids, len(tq), 0), np.repeat(kids, len(tq), 0))
+            ops += int(sel.sum()) * term_ops(C, VP)
+
+    def spread_ok(d, t, key):
+        return (ns_q == ns_p) & ~rel["deleted"][qs]
+
+    def ipa_ok(d, t, key):
+        ns_ok = rel[f"{d}_nsall"][p, t] | rel[f"{d}_ns"][p, t][ns_q]
+        return (npq[:, key] > 0) & ns_ok
+
+    if f_spread or s_spread:
+        byts += int((ns_q == ns_p).sum())  # deleted
+        for d, on in (("sph", f_spread), ("sps", s_spread)):
+            if on:
+                forward(d, spread_ok)
+    fwd = (("ian", "ia") if f_ipa else ()) + (("ipa", "ipan") if s_ipa else ())
+    for d in fwd:
+        forward(d, ipa_ok)
+    rev = (("ian",) if f_ipa else ()) + ((("ipa", "ipan", "ia") if hard_w > 0
+                                          else ("ipa", "ipan")) if s_ipa else ())
+    for d in rev:
+        _, T, C, VP = rel[f"{d}_cpairs"].shape
+        row = 4 * C * (2 + VP) + (4 if f"{d}_weight" in rel else 0)
+        for t in range(T):
+            keys = rel[f"{d}_key"][qs, t]
+            on = (keys >= 0) & (npq[np.arange(len(qs)), np.maximum(keys, 0)] > 0)
+            nsall = rel[f"{d}_nsall"][qs, t]
+            ok = on & (nsall | rel[f"{d}_ns"][qs, t, ns_p])
+            byts += 4 * len(qs) + int(on.sum()) + int((on & ~nsall).sum()) + row * int(ok.sum())
+            ops += 3 * len(qs) + term_ops(C, VP) * int(ok.sum())
+            pids, kids = cols(d, qs[ok], t)
+            gather(np.full(len(pids), p), pids, kids)
+    for plane, parts in gathers.items():
+        if parts:
+            byts += 32 * np.unique(np.concatenate(parts) // 32).size
+    return byts, ops
+
+
+def attempt_bound(enc, prog, st, p, weights):
+    """The least time of one attempt of pod p at state st: the node planes
+    its plugins read, whole, the pod's own rows, the other pods' relational
+    reads (`rel_reads`), the weights and one trace row written, against
+    the rough operation count."""
+    planes = {"node_mask"}
+    for n in prog.filter_names:
+        planes.update(READS["filter", n])
+    for n in prog.score_names:
+        planes.update(READS["score", n])
+    a, P = enc.arrays, enc.P
+    byts = 0
+    for name in planes:
+        t = next((getattr(o, name) for o in (a, a.rel, st) if hasattr(o, name)), None)
+        if t is not None:
+            byts += nbytes(t) if name in NODE_PLANES else nbytes(t) // P
+    F, S, isz = len(prog.filter_names), len(prog.score_names), a.node_alloc.element_size()
+    rel_b, rel_ops = rel_reads(enc, prog, st, p)
+    byts += rel_b + nbytes(weights) + enc.N * (4 * F + 2 * isz * S) + 4
+    return bound(byts, ops_per_node(enc, prog) * enc.N + rel_ops)
+
+
+def mid_state(cuda, eng):
+    """The state after the first half of the queue (the kernel's pass, not
+    recorded), and the next pod: the work an attempt does mid-pass."""
+    enc = eng.enc
+    half = len(enc.queue) // 2
+    queue = padded_queue(eng)[:half].contiguous()
+    st, _ = cuda.seq_run(eng.program, enc.arrays, enc.state0, queue, eng.weights, record=False)
+    return st, int(enc.queue[half])
 
 
 def drive_path(kp, cuda, diff, path, nodes, pods, cfg, sample, smi):
@@ -618,32 +633,35 @@ def drive_path(kp, cuda, diff, path, nodes, pods, cfg, sample, smi):
     log(f"    single-pod step path: {n_q} steps in {step_s:.3f} s, every trace row and the "
         f"final state equal the pass's; launches {step_counts}")
     return dict(enc=enc, eng=eng, trace=trace_k, pass_counts=pass_counts,
-                step_counts=step_counts, plain_run_s=plain_run_s)
+                step_counts=step_counts, plain_run_s=plain_run_s, mid=mid_state(cuda, eng))
 
 
 def kernel_rows(cuda, diff, path, run):
     """Phase 5 for one path: each kernel's time, its plain version's time
-    and its bound, as entries of the kernels line."""
+    and its bound, as entries of the kernels line. The per-pod kernels are
+    timed at the state half-way through the queue, on the next pod."""
     enc, eng, trace_k = run["enc"], run["eng"], run["trace"]
     a, w, prog = enc.arrays, eng.weights, eng.program
-    q = enc.queue[0].item()
     queue = padded_queue(eng)
-    st = enc.state0.clone()
+    st, q = run["mid"]
+    st = st.clone()
     codes, raw, final, sel = cuda.seq_attempt(prog, a, st, w, q)
     attempt_ms = graph_ms(lambda: cuda.seq_attempt(prog, a, st, w, q))
     attempt_plain_ms = events_ms(lambda: cuda.seq_attempt_plain(prog, a, st, w, q), 20)
+    b_att = attempt_bound(enc, prog, st, q, w)
+    # binding the pod again and again only grows the counters it adds to
     bind_ms = graph_ms(lambda: cuda.seq_bind(prog, a, st, q, sel, 0))
     bind_plain_ms = events_ms(lambda: cuda.seq_bind_plain(prog, a, st, q, sel, 0), 20)
     run_ms = events_ms(lambda: cuda.seq_run(prog, a, enc.state0, queue, w, record=True), 1, 3)
     state_bytes = nbytes(*(getattr(enc.state0, f) for f in STATE_FIELDS))
-    step_out = nbytes(codes, raw, final, sel)
-    per_step_ops = ops_per_node(enc, prog) * enc.N + ops_per_pod(enc, prog) * enc.P
-    b_att = bound(attempt_bytes(enc, prog) + nbytes(w) + step_out, per_step_ops)
     port_row = nbytes(a.want_pair[0], a.want_wild[0], a.want_trip[0])
     b_bind = bound(nbytes(a.pod_req[0], a.pod_sreq[0]) + 2 * 2 * nbytes(st.requested[0])
                    + 3 * port_row + 2 * 4 + 3 * 4, 3 * enc.R + 4 + port_row // 4)
+    # the mid-pass step's operations for every step: the relational walk
+    # grows with the bound pods, so the middle step is about the mean
+    step_ops = ops_per_node(enc, prog) * enc.N + rel_reads(enc, prog, run["mid"][0], q)[1]
     b_run = bound(cluster_bytes(enc) + state_bytes + nbytes(queue, w) + nbytes(*trace_k)
-                  + state_bytes, per_step_ops * len(queue))
+                  + state_bytes, step_ops * len(queue))
     rows = [
         ("seq_attempt", run["step_counts"], attempt_ms, attempt_plain_ms, b_att),
         ("seq_bind", run["step_counts"], bind_ms, bind_plain_ms, b_bind),
@@ -656,41 +674,27 @@ def kernel_rows(cuda, diff, path, run):
     } for k, counts, ms, plain_ms, b in rows]
 
 
-# The plugin bodies this slice added (K4/K5 of the reference), each with the
-# planes it reads (relational counts come from the `rel` planes and the
-# state's assignment).
-BODIES = {
-    ("filter", "NodeAffinity"): ("label_val", "label_num", "label_num_ok", "nsel_key",
-                                 "nsel_val", "raff_key", "raff_op", "raff_vals", "raff_num",
-                                 "raff_num_ok", "raff_term_valid", "pod_has_raff"),
-    ("filter", "NodePorts"): ("want_wild", "want_trip", "trip_pair"),
-    ("filter", "PodTopologySpread"): ("rel", "label_val"),
-    ("filter", "InterPodAffinity"): ("rel",),
-    ("score", "NodeAffinity"): ("label_val", "label_num", "label_num_ok", "paff_key",
-                                "paff_op", "paff_vals", "paff_num", "paff_num_ok",
-                                "paff_weight", "paff_term_valid"),
-    ("score", "ImageLocality"): ("img_contrib", "pod_img", "pod_ncont"),
-    ("score", "PodTopologySpread"): ("rel", "label_val"),
-    ("score", "InterPodAffinity"): ("rel",),
-}
+# The plugin bodies this slice added (K4/K5 of the reference)
+BODIES = (("filter", "NodeAffinity"), ("filter", "NodePorts"), ("filter", "PodTopologySpread"),
+          ("filter", "InterPodAffinity"), ("score", "NodeAffinity"), ("score", "ImageLocality"),
+          ("score", "PodTopologySpread"), ("score", "InterPodAffinity"))
 
 
-def body_times(kp, cuda, enc, smi):
+def body_times(kp, cuda, run, smi):
     """Phase 5b: each plugin body this slice added, timed inside
     `seq_attempt` with that plugin alone enabled (its PreScore too), beside
-    its plain body on the same inputs and a bound from the planes it reads
-    and the trace row it writes. On the affinity path's cluster at the pass's
-    initial state. The time includes the launch and the select that every
-    attempt does."""
-    import dataclasses
-
+    its plain body on the same inputs and the bound of that attempt
+    (`attempt_bound`). On the affinity path's cluster at the state half-way
+    through its queue, on the next pod. The time includes the launch and
+    the select that every attempt does."""
     from kube_scheduler_simulator_tpu_torch.engine import kernels as K
     from kube_scheduler_simulator_tpu_torch.sched.config import SchedulerConfiguration
 
-    a, st = enc.arrays, enc.state0
-    p = int(enc.queue[0])
+    enc = run["enc"]
+    a = enc.arrays
+    st, p = run["mid"]
     out = []
-    for (point, name), planes in BODIES.items():
+    for point, name in BODIES:
         star = [{"name": "*"}]
         plugins = {pt: {"disabled": star, "enabled": []}
                    for pt in ("preFilter", "filter", "postFilter", "preScore", "score")}
@@ -700,7 +704,7 @@ def body_times(kp, cuda, enc, smi):
             plugins["preScore"]["enabled"] = [{"name": name}]
         cfg = SchedulerConfiguration.from_dict(
             {"profiles": [{"schedulerName": "default-scheduler", "plugins": plugins}]})
-        enc1 = type(enc)(a, st, node_names=enc.node_names, pod_keys=enc.pod_keys,
+        enc1 = type(enc)(a, enc.state0, node_names=enc.node_names, pod_keys=enc.pod_keys,
                          resource_names=enc.resource_names, queue=enc.queue,
                          policy=enc.policy, config=cfg, n_nodes=enc.n_nodes,
                          n_pods=enc.n_pods, aux=enc.aux)
@@ -713,14 +717,7 @@ def body_times(kp, cuda, enc, smi):
         plain = (lambda: body(a, st, p)) if point == "filter" else (
             lambda: body(a, st, p, feasible))
         plain_ms = events_ms(plain, 20)
-        read = 0
-        for f in planes:
-            if f == "rel":
-                read += nbytes(*(getattr(a.rel, g.name) for g in dataclasses.fields(a.rel)))
-                read += nbytes(st.assignment)
-            else:
-                read += nbytes(getattr(a, f))
-        b = bound(read + 4 * enc.N * 3, 0)
+        b = attempt_bound(enc1, prog, st, p, w)
         out.append((point, name, ms, plain_ms, b))
         log(f"    {point:6s} {name:18s} seq_attempt alone {ms:.6f} ms (plain body "
             f"{plain_ms:.3f} ms, bound {b[0]:.6f} ms by {b[1]}) [{smi}]")
@@ -735,6 +732,7 @@ def main() -> int:
     t_start = time.perf_counter()
     import kube_scheduler_simulator_tpu_torch as kp
     from kube_scheduler_simulator_tpu_torch.engine import cuda
+    from kube_scheduler_simulator_tpu_torch.synth import DRESSED_NAMESPACES, dressed_affinity_cluster
 
     # -- 1. device --------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -754,9 +752,9 @@ def main() -> int:
     diff = Diff()
     nodes, pods = dressed_cluster(kp, 256, 2000, seed=11)
     compare_kernels(kp, cuda, diff, "fit", nodes, pods, configs(kp), bind=False)
-    nodes, pods = rel_dressed_cluster(kp, 256, 2000, seed=11)
+    nodes, pods = dressed_affinity_cluster(256, 2000, seed=11)
     compare_kernels(kp, cuda, diff, "affinity", nodes, pods, {"slice": kp.slice_config()},
-                    bind=True)
+                    bind=True, namespaces=DRESSED_NAMESPACES)
     log(f"    phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. the fit path at full width --------------------------------------
@@ -786,7 +784,7 @@ def main() -> int:
             f"{kr['launches']} launches")
     log(f"[5b] the slice's plugin bodies inside seq_attempt, affinity path's cluster, "
         f"TPU32 [{smi}]")
-    body_times(kp, cuda, aff["enc"], smi)
+    body_times(kp, cuda, aff, smi)
     log(f"    total {time.perf_counter() - t_start:.1f} s")
     faulthandler.cancel_dump_traceback_later()
 

@@ -1,0 +1,113 @@
+"""Time the fit path of two checkouts of the port on one card, A B B A.
+
+    python -m kube_scheduler_simulator_tpu_torch.abtime OTHER_ROOT
+
+runs, in a fresh process for each and in the order this checkout, OTHER,
+OTHER, this checkout, the same measurement against each checkout's own
+package: `synthetic_cluster(1024, 10000, seed=7)` under the fit
+configuration (`fit_config()`, or `slice_config()` where a checkout has no
+`fit_config`), TPU32, trace recorded —
+
+  * `run_ms`: `seq_run` over the bucket-padded queue, CUDA events around
+    one launch, median of 5 after one warm-up;
+  * `schedule_s`: `schedule()` wall time (encode, pass, decode of 100
+    pods), median of 3 after one warm-up;
+  * `step_s`: the single-pod step path (`attempt_bind_fn`, one
+    `seq_attempt` and one `seq_bind` launch a pod) over the whole queue,
+    host wall time to the last synchronize.
+
+Each process builds its checkout's kernels into that checkout's
+build/kernels/. One JSON line per run, then one with the medians of each
+checkout and the card's name and power limit from `nvidia-smi`. Needs one
+CUDA card and imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# run in each checkout's root, importing that checkout's package
+MEASURE = r"""
+import json, statistics, time
+import numpy as np, torch
+import kube_scheduler_simulator_tpu_torch as kp
+
+cfg = kp.fit_config() if hasattr(kp, "fit_config") else kp.slice_config()
+nodes, pods = kp.synthetic_cluster(1024, 10000, seed=7)
+rng = np.random.default_rng(7)
+sample = {("default", f"pod-{i}") for i in rng.choice(10000, 100, replace=False)}
+
+def wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+run = lambda: kp.schedule(nodes, pods, config=cfg, policy=kp.TPU32, decode=sample)
+run()
+schedule_s = statistics.median(wall(run) for _ in range(3))
+enc = kp.encode_cluster(nodes, pods, cfg, policy=kp.TPU32)
+eng = kp.BatchedScheduler(enc)
+q = enc.queue
+queue = torch.as_tensor(np.concatenate([q, np.full(eng.queue_bucket(len(q)) - len(q), -1)])
+                        .astype(np.int32), device=eng.device)
+seq_run = eng.run_fn
+seq_run(enc.arrays, enc.state0, queue, eng.weights)
+times = []
+for _ in range(5):
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    seq_run(enc.arrays, enc.state0, queue, eng.weights)
+    e1.record()
+    torch.cuda.synchronize()
+    times.append(e0.elapsed_time(e1))
+
+def steps():
+    st = enc.state0.clone()
+    for qi, p in enumerate(q.tolist()):
+        st = eng.attempt_bind_fn(enc.arrays, st, eng.weights, p, qi)[-1]
+
+print(json.dumps({"run_ms": statistics.median(times), "schedule_s": schedule_s,
+                  "step_s": wall(steps), "steps": len(q)}))
+"""
+
+
+def measure(root: Path) -> dict:
+    out = subprocess.run([sys.executable, "-c", MEASURE], cwd=root, capture_output=True,
+                         text=True, timeout=900)
+    if out.returncode != 0:
+        raise RuntimeError(f"measurement in {root} failed ({out.returncode}):\n{out.stderr}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def main(argv: list[str]) -> int:
+    if len(argv) != 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    other = Path(argv[0]).resolve()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    runs: dict[str, list[dict]] = {"this": [], "other": []}
+    for name in ("this", "other", "other", "this"):
+        r = measure(ROOT if name == "this" else other)
+        runs[name].append(r)
+        print(json.dumps({"checkout": name, **r, "card": card}), flush=True)
+    print(json.dumps({
+        "card": card, "this": str(ROOT), "other": str(other),
+        **{f"{name}_{k}": statistics.median(r[k] for r in rs)
+           for name, rs in runs.items() for k in ("run_ms", "schedule_s", "step_s")},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -58,13 +58,10 @@
 #include <climits>
 #include <type_traits>
 
+#include "seq_layout.h"
+
 namespace {
 
-constexpr int MAX_F = 8;
-constexpr int MAX_S = 8;
-constexpr int MAX_SPEC = 16;
-constexpr int MAX_PTS = 16;
-constexpr int MAX_BAL = 16;
 constexpr int PODS_RES = 3;
 constexpr int MAX_NODE_SCORE = 100;
 constexpr long long BALANCED_SCALE = 1LL << 16;
@@ -89,116 +86,6 @@ enum { CL_PAD = -1, PAIR_ANY = 0, NOTIN = 1, EXISTS = 2, DNE = 3 };
 
 }  // namespace
 
-// The enabled plugins, their order, weights and static arguments: plain
-// ints, packed by engine/cuda.py `pack_config` in this field order.
-struct Cfg {
-  int n_filters;
-  int filter[MAX_F];
-  int n_scores;
-  int score[MAX_S];
-  int mode[MAX_S];
-  int fit_type;
-  int fit_wsum;
-  int fit_n;
-  int fit_r[MAX_SPEC];
-  int fit_w[MAX_SPEC];
-  int rtcr_n;
-  int rtcr_x[MAX_PTS];
-  int rtcr_y[MAX_PTS];
-  int bal_n;
-  int bal_r[MAX_BAL];
-  // PreScore of PodTopologySpread / InterPodAffinity enabled (without it
-  // the plugin's score is 0 and normalizes to 0)
-  int spread_on;
-  int interpod_on;
-  int hard_w;  // InterPodAffinityArgs.hardPodAffinityWeight
-};
-
-// Required or preferred node-affinity terms of every pod
-// (ClusterArrays raff_* / paff_*): [P, TM, E(, VV)].
-struct NodeTerms {
-  const int* key;               // [P, TM, E] label key column | -1 pad
-  const int* op;                // [P, TM, E] operator id
-  const int* vals;              // [P, TM, E, VV] value ids | VAL_PAD
-  const void* num;              // [P, TM, E] Gt/Lt operand, policy type
-  const unsigned char* num_ok;  // [P, TM, E]
-  const unsigned char* valid;   // [P, TM] term has an expression
-  const int* weight;            // [P, TM] preferred terms only, else null
-  int TM, E, VV;
-};
-
-// One relational term domain of every pod (PodRelArrays): spread hard or
-// soft constraints, or one InterPodAffinity term kind. Unused members are
-// null.
-struct Terms {
-  const int* key;              // [P, T] node-label key column | -1 pad
-  const int* ctype;            // [P, T, C] clause type | CL_PAD
-  const int* ckey;             // [P, T, C] pod-label key id | -1
-  const int* cpairs;           // [P, T, C, VP] pod-label pair id | -1
-  const int* skew;             // [P, T] spread maxSkew
-  const unsigned char* flag;   // [P, T] sph_self / sps_host / ia_self
-  const unsigned char* nsall;  // [P, T] term selects every namespace
-  const unsigned char* ns;     // [P, T, NSV] term selects namespace
-  const int* weight;           // [P, T] preferred-term weight
-  int T, C, VP;
-};
-
-// Device pointers of the cluster planes (engine/encode.py ClusterArrays and
-// engine/encode_rel.py PodRelArrays). Planes of the policy's integer type
-// are void*; bools are one byte.
-struct Planes {
-  const void* node_alloc;
-  const unsigned char* node_unsched;
-  const unsigned char* node_mask;
-  const void* pod_req;
-  const void* pod_sreq;
-  const int* pod_req_rank;
-  const int* pod_node_name;
-  const unsigned char* pod_tol_unsched;
-  const unsigned char* pod_mask;
-  const int* taint_key;
-  const int* taint_val;
-  const int* taint_effect;
-  const int* tol_key;
-  const int* tol_val;
-  const int* tol_effect;
-  const int* tol_op;
-  const int* label_val;               // [N, K] value id | -1 absent
-  const void* label_num;              // [N, K] policy type
-  const unsigned char* label_num_ok;  // [N, K]
-  const int* nsel_key;                // [P, NS]
-  const int* nsel_val;                // [P, NS]
-  const unsigned char* pod_has_raff;  // [P]
-  const int* want_wild;               // [P, Q]
-  const int* want_trip;               // [P, V2]
-  const int* want_pair;               // [P, Q]
-  const int* trip_pair;               // [V2]
-  const void* img_contrib;            // [N, I] policy type
-  const int* pod_img;                 // [P, I]
-  const int* pod_ncont;               // [P]
-  const unsigned char* pair_present;  // [P, LP]
-  const unsigned char* key_present;   // [P, KK]
-  const int* ns_id;                   // [P]
-  const unsigned char* deleted;       // [P]
-  const int* node_pair;               // [N, K] pair id + 1 | 0 absent
-  const unsigned char* req_all;       // [P]
-  const int* spread_lut;              // [LUT]
-  NodeTerms raff, paff;
-  Terms sph, sps, ia, ian, ipa, ipan;
-  int N, P, R, T, L, K, NS, Q, V2, I, LP, KK, NSV, NP1, LUT;
-};
-
-// Device pointers of the state (engine/encode.py SchedState), updated in place.
-struct State {
-  void* requested;
-  void* s_requested;
-  int* n_pods;
-  int* assignment;
-  int* used_pair;
-  int* used_wild;
-  int* used_trip;
-  int* bound_seq;
-};
 
 namespace {
 
@@ -427,7 +314,7 @@ __device__ bool expr_match(const Planes& a, const NodeTerms& nt, size_t e, int n
 template <typename I>
 __device__ bool term_match(const Planes& a, const NodeTerms& nt, int ps, int t, int n) {
   const size_t tr = (size_t)ps * nt.TM + t;
-  if (!nt.valid[tr]) return false;
+  if (!nt.term_valid[tr]) return false;
   for (int e = 0; e < nt.E; ++e)
     if (!expr_match<I>(a, nt, tr * nt.E + e, n)) return false;
   return true;
@@ -1054,11 +941,10 @@ __device__ I norm_custom(const Cfg& c, int j, const Ws& ws, int n, I r, I maxv, 
 // raw[N,S] and (when fin is not null) final[N,S]; returns sel to every
 // thread. feas[N] and the workspace ws are scratch.
 template <typename I>
-__device__ int attempt_body(const Cfg& c, const Planes& a, const State& s, const I* w, int ps,
-                            int* codes, I* raw, I* fin, unsigned char* feas, const Ws& ws,
-                            Smem<I>& sm) {
+__device__ int attempt_body(const Cfg& c, const Need& nd, const Planes& a, const State& s,
+                            const I* w, int ps, int* codes, I* raw, I* fin, unsigned char* feas,
+                            const Ws& ws, Smem<I>& sm) {
   const int N = a.N, F = c.n_filters, S = c.n_scores, NP1 = a.NP1;
-  const Need nd = need_of(c);
   if (nd.rel) {
     // clear the counters, then every bound pod's matches
     int* words = (int*)ws.wsum;
@@ -1204,7 +1090,7 @@ __global__ void __launch_bounds__(1024)
   __shared__ Smem<I> sm;
   Ws ws;
   ws_layout(a, sizeof(I), wsp, &ws);
-  const int r = attempt_body<I>(c, a, s, w, p, codes, raw, fin, feas, ws, sm);
+  const int r = attempt_body<I>(c, need_of(c), a, s, w, p, codes, raw, fin, feas, ws, sm);
   if (threadIdx.x == 0) *sel = r;
 }
 
@@ -1222,6 +1108,7 @@ __global__ void __launch_bounds__(1024)
   Ws ws;
   ws_layout(a, sizeof(I), wsp, &ws);
   const size_t nf = (size_t)a.N * c.n_filters, ns = (size_t)a.N * c.n_scores;
+  const Need nd = need_of(c);
   for (int qi = 0; qi < Q; ++qi) {
     const int p = queue[qi];
     // a padding step (p == -1) evaluates pod 0 and discards the result
@@ -1229,7 +1116,7 @@ __global__ void __launch_bounds__(1024)
     int* cr = record ? codes + (size_t)qi * nf : codes_scratch;
     I* rr = record ? raw + (size_t)qi * ns : raw_scratch;
     I* fr = record ? fin + (size_t)qi * ns : nullptr;
-    int sl = attempt_body<I>(c, a, s, w, ps, cr, rr, fr, feas, ws, sm);
+    int sl = attempt_body<I>(c, nd, a, s, w, ps, cr, rr, fr, feas, ws, sm);
     if (p < 0) sl = -1;
     if (threadIdx.x == 0) sel[qi] = sl;
     bind_body<I>(a, s, p, sl, qi);
@@ -1279,9 +1166,6 @@ int launch_run(const Cfg* c, const Planes* a, const State* s, const void* w, con
 
 extern "C" {
 
-int seq_cfg_ints() { return (int)(sizeof(Cfg) / sizeof(int)); }
-int seq_planes_bytes() { return (int)sizeof(Planes); }
-int seq_state_bytes() { return (int)sizeof(State); }
 long long seq_workspace_bytes(const Planes* a, int int_bytes) {
   return (long long)ws_layout(*a, (size_t)int_bytes, nullptr, nullptr);
 }

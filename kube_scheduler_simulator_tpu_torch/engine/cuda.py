@@ -28,10 +28,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
 import time
+import weakref
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable
@@ -45,6 +47,7 @@ from . import encode_rel
 from .encode import RES_TYPED, ClusterArrays, EncodedCluster, SchedState
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc" / "seq_kernels.cu"
+LAYOUT_H = CSRC.with_name("seq_layout.h")  # the structs, included by CSRC
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -55,8 +58,12 @@ KERNELS = ("seq_attempt", "seq_bind", "seq_run")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _LIB = None
+_LAYOUT = None  # the struct mirror, with the library
+# the device types whose tensors the library's launchers take
+KERNEL_DEVICE_TYPES = ("cuda",)
 
-# Capacities of the kernel's config block (csrc/seq_kernels.cu `Cfg`).
+# Capacities of the kernel's config block (csrc/seq_layout.h `Cfg`; the
+# library's own are checked against these when it loads).
 MAX_F, MAX_S, MAX_SPEC, MAX_PTS, MAX_BAL = 8, 8, 16, 16, 16
 _CFG_FIELDS = (
     ("n_filters", 1), ("filter", MAX_F),
@@ -96,6 +103,9 @@ class SeqProgram:
     cfg: np.ndarray  # int32 [CFG_INTS]
     score_dtype: torch.dtype
     np1: int  # topology pairs + 1 (the pair axis of the relational counts)
+    # the cluster planes checked for this program's launches, by id(arrays)
+    # (`_planes`); the newest _BOUND_MAX
+    bound: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
 
 def pack_config(enc: EncodedCluster, filter_names, score_names) -> np.ndarray:
@@ -270,7 +280,7 @@ def build() -> tuple[Path, float]:
     this source's library is there already. Returns (library path, build
     seconds; 0 when it was there). The compiler's report (registers,
     shared memory, spills) is kept beside the library as a .log file."""
-    src = CSRC.read_bytes()
+    src = CSRC.read_bytes() + LAYOUT_H.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libseq_kernels_{tag}.so"
     if out.exists():
@@ -295,7 +305,8 @@ def build() -> tuple[Path, float]:
 # Every tensor the kernels read: its dims and its element type ("b": bool;
 # "i": an integer — the policy's type for encode.RES_TYPED fields, int32 for
 # the rest). Dim names ending in _T, _C, _VP belong to one relational term
-# domain (encode_rel.DOMAINS).
+# domain (encode_rel.DOMAINS). The order of the kernels' struct members is
+# the library's own (`_Layout`).
 _SPEC = {
     "node_alloc": "N R i", "node_unsched": "N b", "node_mask": "N b",
     "pod_req": "P R i", "pod_sreq": "P R i", "pod_req_rank": "P R i",
@@ -335,59 +346,62 @@ _SPEC = {
     "used_trip": "N V2 i", "bound_seq": "P i",
 }
 
-# csrc/seq_kernels.cu `Planes`, `NodeTerms`, `Terms` and `State`, member by
-# member.
-_PLANE_PTRS = (
-    "node_alloc", "node_unsched", "node_mask", "pod_req", "pod_sreq", "pod_req_rank",
-    "pod_node_name", "pod_tol_unsched", "pod_mask", "taint_key", "taint_val",
-    "taint_effect", "tol_key", "tol_val", "tol_effect", "tol_op", "label_val",
-    "label_num", "label_num_ok", "nsel_key", "nsel_val", "pod_has_raff", "want_wild",
-    "want_trip", "want_pair", "trip_pair", "img_contrib", "pod_img", "pod_ncont",
-    "pair_present", "key_present", "ns_id", "deleted", "node_pair", "req_all",
-    "spread_lut",
-)
-_PLANE_DIMS = ("N", "P", "R", "T", "L", "K", "NS", "Q", "V2", "I", "LP", "KK", "NSV",
-               "NP1", "LUT")
-_NODE_TERM_PTRS = ("key", "op", "vals", "num", "num_ok", "valid", "weight")
-_TERM_PTRS = ("key", "ctype", "ckey", "cpairs", "skew", "flag", "nsall", "ns", "weight")
+# name -> (dim names, element kind)
+_SPEC_DIMS = {k: (tuple(v.split()[:-1]), v.split()[-1]) for k, v in _SPEC.items()}
 # the flag plane of each term domain that has one
 _TERM_FLAG = {"sph": "sph_self", "sps": "sps_host", "ia": "ia_self"}
-_STATE_PTRS = tuple(f.name for f in dataclasses.fields(SchedState))
+_A_FIELDS = tuple(f.name for f in dataclasses.fields(ClusterArrays) if f.name != "rel")
+_REL_FIELDS = tuple(f.name for f in dataclasses.fields(encode_rel.PodRelArrays))
+_STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SchedState))
 
 
-class _NodeTerms(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_void_p) for n in _NODE_TERM_PTRS] + [
-        (n, ctypes.c_int) for n in ("TM", "E", "VV")
-    ]
+def _struct(name: str, fields: list) -> type:
+    return type(name, (ctypes.Structure,), {"_fields_": fields})
 
 
-class _Terms(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_void_p) for n in _TERM_PTRS] + [
-        (n, ctypes.c_int) for n in ("T", "C", "VP")
-    ]
+class _Layout:
+    """The ctypes mirror of the kernels' structs, built from the member
+    lists the library reports (`seq_layout`), so their order is the C
+    declaration's."""
 
-
-class _Planes(ctypes.Structure):
-    _fields_ = (
-        [(n, ctypes.c_void_p) for n in _PLANE_PTRS]
-        + [("raff", _NodeTerms), ("paff", _NodeTerms)]
-        + [(d, _Terms) for d in encode_rel.DOMAINS]
-        + [(n, ctypes.c_int) for n in _PLANE_DIMS]
-    )
-
-
-class _State(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_void_p) for n in _STATE_PTRS]
+    def __init__(self, report: str):
+        lists = dict(part.split("=", 1) for part in report.split(";") if part)
+        self.names = {k: tuple(n for n in v.split(",") if n) for k, v in lists.items()}
+        n = self.names
+        if n["cfg"] != tuple(name for name, _ in _CFG_FIELDS):
+            raise RuntimeError(f"kernel Cfg fields {n['cfg']} differ from engine/cuda.py's")
+        if n["state_ptrs"] != _STATE_FIELDS:
+            raise RuntimeError(f"kernel State {n['state_ptrs']} differs from SchedState")
+        if n["term_domains"] != encode_rel.DOMAINS:
+            raise RuntimeError(f"kernel term domains {n['term_domains']} differ")
+        if set(_SPEC) - set(_A_FIELDS + _REL_FIELDS + _STATE_FIELDS):
+            raise RuntimeError("_SPEC names a tensor the arrays and state do not hold")
+        unknown = [x for x in n["plane_ptrs"] if x not in _SPEC]
+        if unknown:
+            raise RuntimeError(f"kernel planes {unknown} are not in engine/cuda.py's _SPEC")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        self.NodeTerms = _struct("NodeTerms", [(x, vp) for x in n["node_term_ptrs"]]
+                                 + [(x, ci) for x in n["node_term_dims"]])
+        self.Terms = _struct("Terms", [(x, vp) for x in n["term_ptrs"]]
+                             + [(x, ci) for x in n["term_dims"]])
+        self.Planes = _struct(
+            "Planes", [(x, vp) for x in n["plane_ptrs"]]
+            + [(x, self.NodeTerms) for x in n["node_term_sets"]]
+            + [(x, self.Terms) for x in n["term_domains"]]
+            + [(x, ci) for x in n["plane_dims"]])
+        self.State = _struct("State", [(x, vp) for x in n["state_ptrs"]])
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
-    global _LIB
+    global _LIB, _LAYOUT
     if _LIB is None:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.seq_cfg_ints, lib.seq_planes_bytes, lib.seq_state_bytes):
+        lib.seq_layout.argtypes, lib.seq_layout.restype = [], ctypes.c_char_p
+        lib.seq_cfg_counts.argtypes, lib.seq_cfg_counts.restype = [vp], ci
+        for fn in (lib.seq_planes_bytes, lib.seq_state_bytes):
             fn.argtypes, fn.restype = [], ci
         lib.seq_workspace_bytes.argtypes = [vp, ci]
         lib.seq_workspace_bytes.restype = ctypes.c_longlong
@@ -399,11 +413,16 @@ def library() -> ctypes.CDLL:
             f = getattr(lib, f"seq_run_{t}")
             f.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
             f.restype = ci
-        if (lib.seq_cfg_ints(), lib.seq_planes_bytes(), lib.seq_state_bytes()) != (
-            CFG_INTS, ctypes.sizeof(_Planes), ctypes.sizeof(_State)
+        layout = _Layout(lib.seq_layout().decode())
+        counts = (ctypes.c_int * len(_CFG_FIELDS))()
+        if (lib.seq_cfg_counts(counts) != len(_CFG_FIELDS)
+                or list(counts) != [c for _, c in _CFG_FIELDS]):
+            raise RuntimeError("kernel Cfg capacities differ from engine/cuda.py's")
+        if (lib.seq_planes_bytes(), lib.seq_state_bytes()) != (
+            ctypes.sizeof(layout.Planes), ctypes.sizeof(layout.State)
         ):
-            raise RuntimeError("kernel library's struct layout differs from engine/cuda.py")
-        _LIB = lib
+            raise RuntimeError("kernel library's struct sizes differ from engine/cuda.py's")
+        _LIB, _LAYOUT = lib, layout
     return _LIB
 
 
@@ -415,67 +434,136 @@ def _on_cpu(a: ClusterArrays) -> bool:
     return a.node_mask.device.type == "cpu"
 
 
-def _check(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights=None) -> tuple:
-    """Validate what the kernels read against `_SPEC` (device, element
-    type, contiguity, consistent dims); returns (Planes, State, suffix)."""
+_get_a = operator.attrgetter(*_A_FIELDS)
+_get_rel = operator.attrgetter(*_REL_FIELDS)
+_get_state = operator.attrgetter(*_STATE_FIELDS)
+
+
+def _leaves(a: ClusterArrays) -> tuple:
+    return _get_a(a) + _get_rel(a.rel)
+
+
+def _same(refs: list, objs: tuple) -> bool:
+    """Each weak reference still points at the object beside it."""
+    return len(refs) == len(objs) and all(map(operator.is_, [r() for r in refs], objs))
+
+
+def _check_tensor(name: str, t: torch.Tensor, dims: dict, dev, res_dt) -> None:
+    names, kind = _SPEC_DIMS[name]
+    want = torch.bool if kind == "b" else (res_dt if name in RES_TYPED else torch.int32)
+    if t.device != dev or t.dtype != want or t.dim() != len(names):
+        raise ValueError(
+            f"{name}: want {want} [{' '.join(names)}] on {dev}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+    for d, size in zip(names, t.shape):
+        if dims.setdefault(d, size) != size:
+            raise ValueError(f"{name}: dim {d} is {size}, elsewhere {dims[d]}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+@dataclass
+class _Bound:
+    """The checked planes of one (program, arrays) pair, and the last state
+    checked against them. The weak references pin what was checked: a hit
+    needs the arrays and every tensor to be the same objects."""
+
+    refs: list
+    planes: ctypes.Structure
+    dims: dict
+    ws_bytes: int
+    suffix: str
+    state_refs: list
+    state: "ctypes.Structure | None" = None
+
+
+_BOUND_MAX = 4
+
+
+def _planes(prog: SeqProgram, a: ClusterArrays) -> _Bound:
+    """The cluster planes of (prog, a), validated against `_SPEC` (device,
+    element type, contiguity, consistent dims) and packed into the kernels'
+    Planes struct once per pair; later calls with the same program, arrays
+    and tensors reuse it. A tensor whose storage is swapped in place
+    (`.data =`, `resize_`) is not seen."""
     dev = a.node_mask.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
+    objs = (a,) + _leaves(a)
+    hit = prog.bound.get(id(a))
+    if hit is not None and _same(hit.refs, objs):
+        return hit
     res_dt = prog.score_dtype
     if res_dt not in (torch.int32, torch.int64):
         raise ValueError(f"unsupported score dtype {res_dt}")
-    tensors = {f.name: getattr(a, f.name) for f in dataclasses.fields(a) if f.name != "rel"}
-    tensors.update({f.name: getattr(a.rel, f.name) for f in dataclasses.fields(a.rel)})
-    tensors.update({f.name: getattr(s, f.name) for f in dataclasses.fields(s)})
+    lib = library()
+    tensors = dict(zip(_A_FIELDS + _REL_FIELDS, objs[1:]))
     dims: dict[str, int] = {"NP1": prog.np1}
-    for name, spec in _SPEC.items():
-        *names, kind = spec.split()
-        want = torch.bool if kind == "b" else (res_dt if name in RES_TYPED else torch.int32)
-        t = tensors[name]
-        if t.device != dev or t.dtype != want or t.dim() != len(names):
-            raise ValueError(
-                f"{name}: want {want} [{' '.join(names)}] on {dev}, "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        for d, size in zip(names, t.shape):
-            if dims.setdefault(d, size) != size:
-                raise ValueError(f"{name}: dim {d} is {size}, elsewhere {dims[d]}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
+    for name in _SPEC:
+        if name in tensors:
+            _check_tensor(name, tensors[name], dims, dev, res_dt)
+    names = _LAYOUT.names
+
+    def ptr(name):
+        return tensors[name].data_ptr() if name in tensors else None
+
+    def node_terms(pre):
+        tm = "TM" if pre == "raff" else "PR"
+        return _LAYOUT.NodeTerms(*(ptr(f"{pre}_{m}") for m in names["node_term_ptrs"]),
+                                 *(dims[{"TM": tm}.get(x, x)] for x in names["node_term_dims"]))
+
+    def terms(d):
+        ptrs = (ptr(_TERM_FLAG.get(d) if m == "flag" else f"{d}_{m}")
+                for m in names["term_ptrs"])
+        return _LAYOUT.Terms(*ptrs, *(dims[f"{d}_{x}"] for x in names["term_dims"]))
+
+    planes = _LAYOUT.Planes(
+        *map(ptr, names["plane_ptrs"]), *map(node_terms, names["node_term_sets"]),
+        *map(terms, names["term_domains"]), *(dims[d] for d in names["plane_dims"]),
+    )
+    t = "i32" if res_dt == torch.int32 else "i64"
+    ws_bytes = int(lib.seq_workspace_bytes(ctypes.addressof(planes), 4 if t == "i32" else 8))
+    prog.bound.pop(id(a), None)
+    hit = prog.bound[id(a)] = _Bound([weakref.ref(x) for x in objs], planes, dims,
+                                     max(ws_bytes, 8), t, [])
+    if len(prog.bound) > _BOUND_MAX:
+        del prog.bound[next(iter(prog.bound))]
+    return hit
+
+
+def _state(b: _Bound, s: SchedState, dev, res_dt) -> ctypes.Structure:
+    """The kernels' State struct for s, checked against the planes of b
+    (again only when its tensors are not the ones checked last)."""
+    leaves = _get_state(s)
+    if b.state is None or not _same(b.state_refs, leaves):
+        dims = dict(b.dims)
+        for name, t in zip(_STATE_FIELDS, leaves):
+            _check_tensor(name, t, dims, dev, res_dt)
+        by_name = dict(zip(_STATE_FIELDS, leaves))
+        b.state = _LAYOUT.State(*(by_name[n].data_ptr() for n in _LAYOUT.names["state_ptrs"]))
+        b.state_refs = [weakref.ref(x) for x in leaves]
+    return b.state
+
+
+def _check(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights=None) -> tuple:
+    """What a launch reads: CUDA tensors, the cluster planes (`_planes`) and
+    the state (`_state`); returns (Planes, State, workspace bytes, type
+    suffix)."""
+    dev, res_dt = a.node_mask.device, prog.score_dtype
+    if dev.type not in KERNEL_DEVICE_TYPES:
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
+    b = _planes(prog, a)
+    state = _state(b, s, dev, res_dt)
     S = len(prog.scores)
     if weights is not None and (weights.device != dev or weights.dtype != res_dt
                                 or tuple(weights.shape) != (S,) or not weights.is_contiguous()):
         raise ValueError(f"weights: want contiguous {res_dt} ({S},) on {dev}")
-
-    def ptr(name):
-        return tensors[name].data_ptr() if name else None
-
-    def node_terms(pre, tm):
-        names = [f"{pre}_key", f"{pre}_op", f"{pre}_vals", f"{pre}_num", f"{pre}_num_ok",
-                 f"{pre}_term_valid", "paff_weight" if pre == "paff" else None]
-        return _NodeTerms(*map(ptr, names), dims[tm], dims["E"], dims["VV"])
-
-    def terms(d):
-        def have(n):
-            return n if n in tensors else None
-
-        names = [f"{d}_key", f"{d}_ctype", f"{d}_ckey", f"{d}_cpairs", have(f"{d}_skew"),
-                 _TERM_FLAG.get(d), have(f"{d}_nsall"), have(f"{d}_ns"), have(f"{d}_weight")]
-        return _Terms(*map(ptr, names), dims[f"{d}_T"], dims[f"{d}_C"], dims[f"{d}_VP"])
-
-    planes = _Planes(
-        *map(ptr, _PLANE_PTRS), node_terms("raff", "TM"), node_terms("paff", "PR"),
-        *map(terms, encode_rel.DOMAINS), *(dims[d] for d in _PLANE_DIMS),
-    )
-    state = _State(*map(ptr, _STATE_PTRS))
-    return planes, state, "i32" if res_dt == torch.int32 else "i64"
+    return b.planes, state, b.ws_bytes, b.suffix
 
 
-def _workspace(planes: "_Planes", t: str, dev) -> torch.Tensor:
+def _workspace(n_bytes: int, dev) -> torch.Tensor:
     """The relational counters' scratch for one launch (the kernel clears
     it each step)."""
-    n = library().seq_workspace_bytes(ctypes.addressof(planes), 4 if t == "i32" else 8)
-    return torch.empty((max(int(n), 8),), dtype=torch.uint8, device=dev)
+    return torch.empty((n_bytes,), dtype=torch.uint8, device=dev)
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -492,7 +580,7 @@ def seq_attempt(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights, p: i
     if _on_cpu(a):
         PLAIN_CALLS["seq_attempt"] += 1
         return seq_attempt_plain(prog, a, s, weights, p)
-    planes, state, t = _check(prog, a, s, weights)
+    planes, state, ws_bytes, t = _check(prog, a, s, weights)
     if not 0 <= p < planes.P:
         raise ValueError(f"pod index {p} outside [0, {planes.P})")
     lib = library()
@@ -503,7 +591,7 @@ def seq_attempt(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights, p: i
     final = torch.empty((N, S), dtype=prog.score_dtype, device=dev)
     sel = torch.empty((), dtype=torch.int32, device=dev)
     feas = torch.empty((N,), dtype=torch.uint8, device=dev)
-    ws = _workspace(planes, t, dev)
+    ws = _workspace(ws_bytes, dev)
     cfg = np.ascontiguousarray(prog.cfg)
     rc = getattr(lib, f"seq_attempt_{t}")(
         cfg.ctypes.data, ctypes.addressof(planes), ctypes.addressof(state),
@@ -522,7 +610,7 @@ def seq_bind(prog: SeqProgram, a: ClusterArrays, s: SchedState, p: int, sel: tor
     if _on_cpu(a):
         PLAIN_CALLS["seq_bind"] += 1
         return seq_bind_plain(prog, a, s, p, sel, qi)
-    planes, state, t = _check(prog, a, s)
+    planes, state, _, t = _check(prog, a, s)
     if p >= planes.P:
         raise ValueError(f"pod index {p} outside [0, {planes.P})")
     if sel.device != a.node_mask.device or sel.dtype != torch.int32 or sel.numel() != 1:
@@ -545,7 +633,7 @@ def seq_run(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue, weigh
         PLAIN_CALLS["seq_run"] += 1
         return seq_run_plain(prog, a, state0, queue, weights, record=record)
     s = state0.clone()
-    planes, state, t = _check(prog, a, s, weights)
+    planes, state, ws_bytes, t = _check(prog, a, s, weights)
     dev, N = a.node_mask.device, planes.N
     if queue.device != dev or queue.dtype != torch.int32 or queue.dim() != 1:
         raise ValueError("queue must be a 1-d int32 tensor on the planes' device")
@@ -567,7 +655,7 @@ def seq_run(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue, weigh
         raw_s = torch.empty((N, S), dtype=dt, device=dev)
     if Q:
         feas = torch.empty((N,), dtype=torch.uint8, device=dev)
-        ws = _workspace(planes, t, dev)
+        ws = _workspace(ws_bytes, dev)
         cfg = np.ascontiguousarray(prog.cfg)
 
         def ptr(x):
