@@ -5,25 +5,34 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Two paths run through the same three kernels: the fit path (the first
-slice's plugin set, `fit_config()`) and the affinity path (the default
-profile without volumes and preemption, `slice_config()`, on BASELINE
-config #3's workload). Phases, in order; any failure raises and the process
-exits non-zero:
+Three paths run through the same kernels: the fit path (the first slice's
+plugin set, `fit_config()`), the affinity path (the default profile without
+volumes and preemption, `affinity_config()`, on BASELINE config #3's
+workload) and the default path (the reference's whole default profile,
+`supported_config()`: the volume family and DefaultPreemption, on
+`preemption_cluster`, BASELINE config #2's width with config #5's mixed
+PriorityClass preemption). Phases, in order; any failure raises and the
+process exits non-zero:
 
 1. the device: its name, `nvidia-smi`'s name and power limit, the torch
    and CUDA versions;
 2. build: the CUDA kernels (csrc/seq_kernels.cu) compiled for sm_90a into
-   build/kernels/, with the compiler's register and spill report;
+   build/kernels/ by two `nvcc` processes at once, with the compiler's
+   register and spill report;
 3. each kernel against its plain PyTorch version on the card, under TPU32
    and EXACT, exact equality: (fit) three fit-path configurations on a
    256-node x 2,000-pod cluster dressed with taints, tolerations, cordoned
    nodes, nodeName pods and pods too large for any node; (affinity)
-   `slice_config()` on `synth.dressed_affinity_cluster(256, 2000)` (every
-   feature the affinity plugins read; the port's tests use the same
-   generator). Each: `seq_attempt` at 64 pods x random states (random
-   bindings and port counters for the affinity path), `seq_bind` on those
-   pods, `seq_run` over the whole queue (trace, final state, placements);
+   `affinity_config()` on `synth.dressed_affinity_cluster(256, 2000)`;
+   (default) `supported_config()` on `synth.dressed_default_cluster(256,
+   300)`: 256 nodes filled to 90% by some 7,400 pre-bound low-priority
+   pods with volumes and the affinity dressing, and 300 pending pods (the
+   plain pass runs each dry run in small PyTorch launches, which is what
+   bounds the queue). Each: `seq_attempt` at 64 pods x random states,
+   `seq_bind` on those pods, `seq_run` over the whole queue (trace, final
+   state, placements); on the default path also `seq_preempt` and
+   `seq_evict` at 64 random states and the decoded records of both passes,
+   victim lists included;
 4. the fit path at full width: `schedule()` on 1,024 nodes x 10,000 pods
    (TPU32, trace recorded) with the launch counters set to 0 just before
    and read just after — the pass must launch `seq_run` and no plain
@@ -34,14 +43,32 @@ exits non-zero:
    must reproduce the pass's trace row;
 4b. the affinity path at full width, the same way: BASELINE config #3,
    `synthetic_affinity_cluster(500, 5000, seed=11)`;
-5. kernel times on both paths (CUDA events; the per-pod kernels replayed
+4c. the default path at full width: `preemption_cluster(1024, 10000,
+   seed=7)` (10,000 pending pods on some 28,000 pre-bound) through
+   `schedule()` with the counters reset — `seq_run` only, no plain call;
+   its dry runs, nominations, evictions, per-filter rejections (every
+   filter but NodeVolumeLimits must reject some pod on some node; at
+   least 1,000 dry runs and 300 nominations), trace bytes and peak memory;
+   the plain version on the 1,024-step segment with the fewest dry runs
+   among those holding 100 nominations, from the kernel pass's own state
+   at the segment's first step (the whole queue's plain pass would not
+   fit the time limit); and the single-pod step path (`attempt_fn`,
+   `preempt_fn`, `evict_fn`, `bind_fn`), each step reproducing its trace
+   row and victim records;
+5. kernel times on all paths (CUDA events; the per-pod kernels replayed
    from a CUDA graph so host enqueue time is not counted, at the state
-   half-way through the queue), the plain versions' times and each
-   kernel's bound (`attempt_bound`: the bytes that attempt reads and
-   writes), printed as one JSON line with a `path` field per entry; 5b:
-   each plugin body the second slice added, alone inside `seq_attempt`;
+   half-way through the queue; the default path's `seq_run` on its plain
+   segment, `seq_preempt` and `seq_evict` on the first nominating step
+   past the middle, each first held against its plain version there), the
+   plain versions' times and each kernel's bound,
+   printed as one JSON line with a `path` field per entry; 5b: each plugin
+   body alone inside `seq_attempt` (the first slice's on the fit path's
+   cluster, the second's on the affinity path's, the volume family's on
+   the default path's);
 6. the card's name and power limit, then the result line.
 
+It runs in 8.5 to 11 minutes on an H100, the build included (the plain
+versions on the host side vary most).
 It imports nothing of JAX or of the reference package.
 """
 
@@ -60,6 +87,10 @@ import torch
 
 # the whole run, build included, stays inside 1,200 s
 TIME_LIMIT_S = 1100
+# the default path's phase-3 queue (the plain pass runs every dry run in
+# small PyTorch launches) and its plain segment at full width
+DEFAULT_PHASE3_PENDING = 300
+SEGMENT = 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 SOURCE = "kube_scheduler_simulator_tpu_torch/csrc/seq_kernels.cu"
@@ -67,6 +98,8 @@ REPLACES = {
     "seq_attempt": "kube_scheduler_simulator_tpu/engine/engine.py:404",
     "seq_bind": "kube_scheduler_simulator_tpu/engine/engine.py:466",
     "seq_run": "kube_scheduler_simulator_tpu/engine/engine.py:657",
+    "seq_preempt": "kube_scheduler_simulator_tpu/engine/preempt.py:399",
+    "seq_evict": "kube_scheduler_simulator_tpu/engine/engine.py:507",
 }
 
 
@@ -90,7 +123,7 @@ def ptxas_report(text):
     out, name, props = [], None, ""
     for ln in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?_Z\w*?"
-                      r"(seq_(?:attempt|bind|run)_kernel)I([ix])", ln)
+                      r"(seq_(?:attempt|bind|run|preempt|evict)_kernel)I([ix])", ln)
         if m:
             name = f"{m.group(1)}<{'int32' if m.group(2) == 'i' else 'int64'}>"
         elif "spill" in ln:
@@ -176,7 +209,9 @@ def configs(kp):
 
 
 STATE_FIELDS = ("requested", "s_requested", "n_pods", "assignment", "used_pair",
-                "used_wild", "used_trip", "bound_seq")
+                "used_wild", "used_trip", "used_claims", "node_disk_any", "node_disk_rw",
+                "node_vol3", "bound_seq")
+ATTEMPT_OUT = ("codes", "raw", "final", "sel", "pf_codes")
 
 
 class Diff:
@@ -202,8 +237,6 @@ def random_state(enc, rng, bind):
     the 110-pod limit (what the pass reaches only partly). `bind`: port
     counters of 0..2 users, and about half of the pending pods bound,
     mostly to the first third of the nodes (skewed topology counts)."""
-    from kube_scheduler_simulator_tpu_torch.engine.encode import SchedState
-
     alloc = enc.arrays.node_alloc.cpu().numpy()
     dt, dev = alloc.dtype, enc.device
     req = np.floor(alloc * rng.uniform(0.0, 1.3, alloc.shape)).astype(dt)
@@ -226,12 +259,22 @@ def random_state(enc, rng, bind):
     return st
 
 
-def compare_kernels(kp, cuda, diff, path, nodes, pods, cfgs, bind, namespaces=None):
+def slots(prog):
+    """The trace slots of this program's `seq_run`."""
+    from kube_scheduler_simulator_tpu_torch.engine import cuda
+
+    return cuda.TRACE_SLOTS_PREEMPT if prog.preempt is not None else cuda.TRACE_SLOTS_PLAIN
+
+
+def compare_kernels(kp, cuda, diff, path, nodes, pods, cfgs, bind, objects=None):
     """Phase 3: every kernel against its plain version, exact, for each
-    configuration in `cfgs` under TPU32 and EXACT."""
+    configuration in `cfgs` under TPU32 and EXACT. With DefaultPreemption
+    enabled, `seq_preempt` and `seq_evict` at 64 random states too, and the
+    pass's decoded records (victim lists included)."""
+    objects = objects or {}
     for pol in (kp.TPU32, kp.EXACT):
         for cname, cfg in cfgs.items():
-            enc = kp.encode_cluster(nodes, pods, cfg, policy=pol, namespaces=namespaces)
+            enc = kp.encode_cluster(nodes, pods, cfg, policy=pol, **objects)
             eng = kp.BatchedScheduler(enc)
             prog, a, w = eng.program, enc.arrays, eng.weights
             rng = np.random.default_rng(3)
@@ -240,7 +283,7 @@ def compare_kernels(kp, cuda, diff, path, nodes, pods, cfgs, bind, namespaces=No
                 for qi, p in enumerate(rng.choice(enc.n_pods, 16, replace=False).tolist()):
                     got = cuda.seq_attempt(prog, a, st, w, p)
                     want = cuda.seq_attempt_plain(prog, a, st, w, p)
-                    for name, g, h in zip(("codes", "raw", "final", "sel"), got, want):
+                    for name, g, h in zip(ATTEMPT_OUT, got, want):
                         diff.check(path, "seq_attempt", f"{pol.name}/{cname} pod {p} {name}",
                                    g, h)
                     # bind the selection, an unschedulable pick, and a padding step
@@ -251,24 +294,56 @@ def compare_kernels(kp, cuda, diff, path, nodes, pods, cfgs, bind, namespaces=No
                         for f in STATE_FIELDS:
                             diff.check(path, "seq_bind", f"{pol.name}/{cname} pod {pp} {f}",
                                        getattr(s1, f), getattr(s2, f))
+            nominated = 0
+            if prog.preempt is not None:
+                for k in range(16):
+                    st = random_state(enc, rng, bind)
+                    for p in rng.choice(enc.n_pods, 4, replace=False).tolist():
+                        got = cuda.seq_preempt(prog, a, st, p)
+                        want = cuda.seq_preempt_plain(prog, a, st, p)
+                        for name, g, h in zip(("pcode", "voff", "vidx", "nominated"), got, want):
+                            diff.check(path, "seq_preempt", f"{pol.name} pod {p} {name}", g, h)
+                        nominated += int(got[3]) >= 0
+                        mask = (st.assignment >= 0) & torch.as_tensor(
+                            rng.random(enc.P) < 0.3, device=enc.device)
+                        s1 = cuda.seq_evict(prog, a, st.clone(), mask)
+                        s2 = cuda.seq_evict_plain(prog, a, st.clone(), mask)
+                        for f in STATE_FIELDS:
+                            diff.check(path, "seq_evict", f"{pol.name} state {f}",
+                                       getattr(s1, f), getattr(s2, f))
             queue = padded_queue(eng)
             s_k, t_k = cuda.seq_run(prog, a, enc.state0, queue, w, record=True)
             s_p, t_p = cuda.seq_run_plain(prog, a, enc.state0, queue, w, record=True)
-            for name, g, h in zip(("pf_codes", "codes", "raw", "final", "sel"), t_k, t_p):
+            for name, g, h in zip(slots(prog), t_k, t_p):
                 diff.check(path, "seq_run", f"{pol.name}/{cname} {name}", g, h)
             for f in STATE_FIELDS:
                 diff.check(path, "seq_run", f"{pol.name}/{cname} state {f}",
                            getattr(s_k, f), getattr(s_p, f))
             s_n, sel_n = cuda.seq_run(prog, a, enc.state0, queue, w, record=False)
-            diff.check(path, "seq_run", f"{pol.name}/{cname} unrecorded sel", sel_n, t_p[4])
+            final_sel = t_p[slots(prog).index("final_sel" if prog.preempt else "sel")]
+            diff.check(path, "seq_run", f"{pol.name}/{cname} unrecorded sel", sel_n, final_sel)
             diff.check(path, "seq_run", f"{pol.name}/{cname} unrecorded assignment",
                        s_n.assignment, s_p.assignment)
+            extra = ""
+            if prog.preempt is not None:
+                # the decoded records of both passes, victim lists included
+                eng_p = kp.BatchedScheduler(enc)
+                eng._final_state, eng._trace = s_k, t_k
+                eng_p._final_state, eng_p._trace = s_p, t_p
+                if [r.to_annotations() for r in eng.results()] != [
+                        r.to_annotations() for r in eng_p.results()]:
+                    raise AssertionError(f"{path} {pol.name}: decoded records differ")
+                did = t_k[slots(prog).index("did")]
+                noms = t_k[slots(prog).index("nominated")]
+                extra = (f"; 64 dry runs ({nominated} nominating) and 64 evictions at random "
+                         f"states; the pass fired {int(did.sum())} dry runs, "
+                         f"{int((noms >= 0).sum())} nominating, and decodes equal")
             placed = int((s_k.assignment >= 0).sum()) - int((enc.state0.assignment >= 0).sum())
             codes = t_k[1][: len(enc.queue)]
             seen = [sorted(set(codes[:, :, f].unique().tolist())) for f in range(codes.shape[2])]
             log(f"  {path:8s} {pol.name:5s} {cname:7s}: 64 attempts, 192 binds and a "
                 f"{len(queue)}-step pass equal to plain ({placed} of "
-                f"{len(enc.queue)} pending pods placed; filter codes seen {seen})")
+                f"{len(enc.queue)} pending pods placed; filter codes seen {seen}){extra}")
 
 
 def padded_queue(eng):
@@ -326,11 +401,15 @@ def ops_per_node(enc, prog):
     taint = T * (3 + 8 * L)
     _, TM, E, VV = a.raff_vals.shape
     affinity = 3 * a.nsel_key.shape[1] + TM * E * (VV + 6)
+    n_disks = int((a.pod_disk_any > 0).sum(dim=1).max()) if a.pod_disk_any.numel() else 0
     per_filter = {"NodeUnschedulable": 3, "NodeName": 3, "TaintToleration": taint,
                   "NodeResourcesFit": 4 + 6 * R, "NodeAffinity": 2,
                   "NodePorts": 2 * a.want_wild.shape[1] + 4 * a.want_trip.shape[1],
                   "PodTopologySpread": 8 * HC,
-                  "InterPodAffinity": 3 * K_ + 4 * rel.ian_key.shape[1] + 6 * rel.ia_key.shape[1]}
+                  "InterPodAffinity": 3 * K_ + 4 * rel.ian_key.shape[1] + 6 * rel.ia_key.shape[1],
+                  "VolumeRestrictions": 2 + 5 * n_disks, "EBSLimits": 4, "GCEPDLimits": 4,
+                  "AzureDiskLimits": 4, "NodeVolumeLimits": 1, "VolumeBinding": 3,
+                  "VolumeZone": 3}
     per_score = {"NodeResourcesFit": 12 * len(K.fit_score_args(enc)[1]) + 4,
                  "NodeResourcesBalancedAllocation": 45 * len(K.balanced_resources(enc)) + 20,
                  "TaintToleration": taint,
@@ -366,7 +445,9 @@ def cluster_bytes(enc):
 NODE_PLANES = {"node_alloc", "node_unsched", "node_mask", "taint_key", "taint_val",
                "taint_effect", "label_val", "label_num", "label_num_ok", "trip_pair",
                "img_contrib", "node_pair", "spread_lut", "requested", "s_requested",
-               "n_pods", "used_pair", "used_wild", "used_trip"}
+               "n_pods", "used_pair", "used_wild", "used_trip", "used_claims", "node_vol3"}
+# planes an attempt reads one column of, [N, ·]: one 32-byte sector a node
+COLUMN_PLANES = {"vb_code", "vz_code"}
 LABELS = ("label_val", "label_num", "label_num_ok")
 NODE_AFFINITY = ("nsel_key", "nsel_val", "pod_has_raff", "raff_key", "raff_op", "raff_vals",
                  "raff_num", "raff_num_ok", "raff_term_valid")
@@ -406,6 +487,16 @@ READS = {
     + ("node_pair", "ns_id", "req_all", "spread_lut") + domain("sps"),
     ("score", "InterPodAffinity"): ("node_pair", "ns_id") + domain("ipa") + domain("ipan")
     + domain("ia"),
+    # the volume family; VolumeRestrictions' per-node disk columns are
+    # counted apart (`vol_disk_bytes`)
+    ("filter", "VolumeRestrictions"): ("pod_claim", "used_claims", "pod_disk_any", "pod_disk_rw"),
+    ("filter", "EBSLimits"): ("pod_vol3", "node_vol3"),
+    ("filter", "GCEPDLimits"): ("pod_vol3", "node_vol3"),
+    ("filter", "AzureDiskLimits"): ("pod_vol3", "node_vol3"),
+    ("filter", "NodeVolumeLimits"): (),
+    ("filter", "VolumeBinding"): ("vb_row", "vb_code"),
+    ("filter", "VolumeZone"): ("vb_row", "vz_code"),
+    ("preFilter", "VolumeBinding"): ("vb_pf",),
 }
 
 
@@ -517,26 +608,46 @@ def rel_reads(enc, prog, st, p):
     return byts, ops
 
 
+def vol_disk_bytes(enc, p):
+    """The node disk counters VolumeRestrictions reads for pod p: both
+    counters of each of its disks on every node."""
+    return 2 * 4 * enc.N * int((enc.arrays.pod_disk_any[p] > 0).sum())
+
+
 def attempt_bound(enc, prog, st, p, weights):
-    """The least time of one attempt of pod p at state st: the node planes
-    its plugins read, whole, the pod's own rows, the other pods' relational
-    reads (`rel_reads`), the weights and one trace row written, against
-    the rough operation count."""
+    """The least time of one attempt of pod p at state st (`bound` of
+    `attempt_cost`)."""
+    return bound(*attempt_cost(enc, prog, st, p, weights))
+
+
+def attempt_cost(enc, prog, st, p, weights):
+    """(bytes, operations) of one attempt of pod p at state st: the node
+    planes its plugins read, whole, the pod's own rows, the other pods'
+    relational reads (`rel_reads`), the weights and one trace row written,
+    against the rough operation count."""
     planes = {"node_mask"}
     for n in prog.filter_names:
         planes.update(READS["filter", n])
     for n in prog.score_names:
         planes.update(READS["score", n])
+    if prog.prefilters:
+        planes.update(READS["preFilter", "VolumeBinding"])
     a, P = enc.arrays, enc.P
-    byts = 0
+    byts = vol_disk_bytes(enc, p) if "VolumeRestrictions" in prog.filter_names else 0
     for name in planes:
         t = next((getattr(o, name) for o in (a, a.rel, st) if hasattr(o, name)), None)
-        if t is not None:
-            byts += nbytes(t) if name in NODE_PLANES else nbytes(t) // P
+        if t is None:
+            continue
+        if name in NODE_PLANES:
+            byts += nbytes(t)
+        elif name in COLUMN_PLANES:
+            byts += 32 * enc.N
+        else:
+            byts += nbytes(t) // t.shape[0]
     F, S, isz = len(prog.filter_names), len(prog.score_names), a.node_alloc.element_size()
     rel_b, rel_ops = rel_reads(enc, prog, st, p)
     byts += rel_b + nbytes(weights) + enc.N * (4 * F + 2 * isz * S) + 4
-    return bound(byts, ops_per_node(enc, prog) * enc.N + rel_ops)
+    return byts, ops_per_node(enc, prog) * enc.N + rel_ops
 
 
 def mid_state(cuda, eng):
@@ -636,6 +747,178 @@ def drive_path(kp, cuda, diff, path, nodes, pods, cfg, sample, smi):
                 step_counts=step_counts, plain_run_s=plain_run_s, mid=mid_state(cuda, eng))
 
 
+def segment_of(did, nominated, length, want_nominations=100):
+    """The window of `length` consecutive live steps, starting at a multiple
+    of 128, with at least `want_nominations` nominations and the fewest
+    dry runs (the plain version pays for every dry run)."""
+    best = None
+    for s0 in range(0, max(1, len(did) - length + 1), 128):
+        n_nom = int((nominated[s0:s0 + length] >= 0).sum())
+        n_did = int(did[s0:s0 + length].sum())
+        if n_nom >= want_nominations and (best is None or n_did < best[2]):
+            best = (s0, n_nom, n_did)
+    if best is None:
+        raise AssertionError(f"no {length}-step segment holds {want_nominations} nominations")
+    return best
+
+
+def drive_default(kp, cuda, diff, nodes, pods, objects, sample, smi):
+    """Phase 4c: the default path at full width — the reference's whole
+    default profile, preemption included. `schedule()` with the counters
+    set to 0 just before and read just after; the layer split and the
+    pass's counts; a segment of the pass against the plain version from the
+    kernel pass's own state; the single-pod step path (`attempt_fn`,
+    `preempt_fn`, `evict_fn`, `bind_fn`) with the counters reset again."""
+    path, cfg = "default", kp.supported_config()
+    TRACE_SLOTS_PREEMPT = cuda.TRACE_SLOTS_PREEMPT
+    n_pods = len(pods)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    placements, results = kp.schedule(nodes, pods, config=cfg, policy=kp.TPU32, decode=sample,
+                                      **objects)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    pass_counts, pass_plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() - base
+    if pass_counts["seq_run"] < 1 or any(pass_plain.values()):
+        raise AssertionError(f"the pass did not go through seq_run: {pass_counts} {pass_plain}")
+    n_placed = sum(1 for v in placements.values() if v)
+    log(f"    schedule(): {wall_s:.3f} s wall (encode + pass + decode of {len(sample)} pods), "
+        f"{len(placements) / wall_s:.1f} decisions/s, {n_placed} of {len(placements)} pending "
+        f"placed ({n_pods} pods in all), peak memory {peak / 2**30:.3f} GiB, launches "
+        f"{pass_counts}, plain calls {pass_plain} [{smi}]")
+
+    t0 = time.perf_counter()
+    enc = kp.encode_cluster(nodes, pods, cfg, policy=kp.TPU32, **objects)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng = kp.BatchedScheduler(enc)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    state_k, trace_k = eng.run()
+    e1.record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    pass_ms = e0.elapsed_time(e1)
+    eng.placements()
+    eng.results(pods=sample)
+    t3 = time.perf_counter()
+    log(f"    split: encode {t1 - t0:.3f} s (the volume verdict tables included), engine + "
+        f"pass {t2 - t1:.3f} s (seq_run {pass_ms:.1f} ms on the card), decode (placements + "
+        f"{len(sample)} records) {t3 - t2:.3f} s")
+    t = dict(zip(TRACE_SLOTS_PREEMPT, trace_k))
+    Q = len(enc.queue)
+    host = {k: t[k].cpu().numpy() for k in ("did", "nominated", "voff", "vidx")}
+    did, nominated = host["did"][:Q], host["nominated"][:Q]
+    voff, vidx = host["voff"], host["vidx"]
+    evicted = 0
+    for qi in np.nonzero(did & (nominated >= 0))[0]:
+        row = voff[qi, 0]
+        evicted += int(row[nominated[qi] + 1] - row[nominated[qi]])
+    codes = t["codes"][:Q]
+    rejections = {f: int((codes[:, :enc.n_nodes, j] != 0).sum())
+                  for j, f in enumerate(eng._filter_names)}
+    trace_bytes = nbytes(*trace_k)
+    log(f"    dry runs {int(did.sum())}, nominations {int((nominated >= 0).sum())}, evictions "
+        f"{evicted}; (pod, node) rejections by filter {rejections}; trace {trace_bytes / 2**30:.3f}"
+        f" GiB ({len(vidx)} victim entries), peak memory {peak / 2**30:.3f} GiB")
+    if int(did.sum()) < 1000 or int((nominated >= 0).sum()) < 300:
+        raise AssertionError("the default path ran fewer than 1000 dry runs or 300 nominations")
+    silent = [f for f, n in rejections.items() if n == 0 and f != "NodeVolumeLimits"]
+    if silent or rejections["NodeVolumeLimits"]:
+        raise AssertionError(f"filters that rejected nothing: {silent}")
+
+    # a segment of the pass against the plain version, from the kernel
+    # pass's own state at its first step
+    prog, a, w = eng.program, enc.arrays, eng.weights
+    queue = padded_queue(eng)
+    s0, n_nom, n_did = segment_of(did, nominated, SEGMENT)
+    seg = queue[s0:s0 + SEGMENT].contiguous()
+    st0, _ = cuda.seq_run(prog, a, enc.state0, queue[:s0].contiguous(), w, record=False)
+    e0.record()
+    s_k, t_k = cuda.seq_run(prog, a, st0, seg, w, record=True, step0=s0)
+    e1.record()
+    torch.cuda.synchronize()
+    seg_ms = e0.elapsed_time(e1)
+    t0 = time.perf_counter()
+    s_p, t_p = cuda.seq_run_plain(prog, a, st0, seg, w, record=True, step0=s0)
+    torch.cuda.synchronize()
+    seg_plain_ms = (time.perf_counter() - t0) * 1e3
+    for name, g, h in zip(TRACE_SLOTS_PREEMPT, t_k, t_p):
+        diff.check(path, "seq_run", f"segment {name}", g, h)
+    for f in STATE_FIELDS:
+        diff.check(path, "seq_run", f"segment state {f}", getattr(s_k, f), getattr(s_p, f))
+    for name in ("codes", "raw", "final", "sel", "did", "pcode", "nominated", "final_sel"):
+        diff.check(path, "seq_run", f"segment against the pass {name}",
+                   t_k[TRACE_SLOTS_PREEMPT.index(name)], t[name][s0:s0 + SEGMENT])
+    log(f"    plain version of the pass on steps {s0}..{s0 + SEGMENT - 1} ({n_did} dry runs, "
+        f"{n_nom} nominations), from the kernel pass's state at step {s0}: {seg_plain_ms:.1f} "
+        f"ms against the kernel's {seg_ms:.1f} ms; trace, victims and state equal")
+
+    # the single-pod step path over the same queue
+    st = enc.state0.clone()
+    bad = torch.zeros((), dtype=torch.bool, device=enc.device)
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    for qi, p in enumerate(enc.queue.tolist()):
+        pf, codes_, raw, final, sel, pf_ok = eng.attempt_fn(a, st, w, p)
+        for name, out in (("codes", codes_), ("raw", raw), ("final", final), ("sel", sel)):
+            bad |= (t[name][qi] != out).any()
+        fsel = sel
+        if did[qi]:
+            nom = int(nominated[qi])
+            for j, name in ((0, "pcode"), (1, "pcode2")):
+                pcode, off, idx, nom_j = eng.preempt_fn(a, st, p)
+                lo, hi = int(voff[qi, j, 0]), int(voff[qi, j, -1])
+                bad |= (pcode != t[name][qi]).any() | (nom_j != t[
+                    "nominated" if j == 0 else "nominated2"][qi])
+                if idx.shape[0] != hi - lo:
+                    raise AssertionError(f"step {qi}: dry run {j} names {idx.shape[0]} victims, "
+                                         f"the pass {hi - lo}")
+                bad |= (idx != t["vidx"][lo:hi]).any() | (off != t["voff"][qi, j] - lo).any()
+                if j == 0:
+                    if nom >= 0:
+                        mask = torch.zeros(enc.P, dtype=torch.bool, device=enc.device)
+                        row = voff[qi, 0]
+                        mask[torch.as_tensor(vidx[row[nom]:row[nom + 1]], dtype=torch.long,
+                                             device=enc.device)] = True
+                        eng.evict_fn(a, st, mask)
+                    _, codes2, raw2, final2, sel2, _ = eng.attempt_fn(a, st, w, p)
+                    for name2, out in (("codes2", codes2), ("raw2", raw2), ("final2", final2)):
+                        bad |= (t[name2][qi] != out).any()
+                    bad |= sel2 != t["sel2"][qi]
+                    if nom >= 0:
+                        fsel = sel2
+        bad |= fsel != t["final_sel"][qi]
+        eng.bind_fn(a, st, p, fsel, qi)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step_counts, step_plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    if bool(bad):
+        raise AssertionError("default: single-pod steps differ from the pass's trace rows")
+    for f in STATE_FIELDS:
+        diff.check(path, "seq_evict", f"step path state {f}", getattr(st, f),
+                   getattr(state_k, f))
+    n_fire = int(did.sum())
+    want = {"seq_attempt": Q + n_fire, "seq_bind": Q, "seq_preempt": 2 * n_fire,
+            "seq_evict": int((nominated >= 0).sum())}
+    if any(step_counts[k] != n for k, n in want.items()) or any(step_plain.values()):
+        raise AssertionError(f"default step path launches {step_counts}, plain {step_plain}")
+    log(f"    single-pod step path: {Q} steps in {step_s:.3f} s, every trace row, victim "
+        f"record and the final state equal the pass's; launches {step_counts}")
+    mid = mid_state(cuda, eng)
+    # a dry run mid-pass: the first step past the middle whose dry run
+    # nominated, at the kernel pass's state before it
+    qf = next(qi for qi in range(Q // 2, Q) if did[qi] and nominated[qi] >= 0)
+    st_f, _ = cuda.seq_run(prog, a, enc.state0, queue[:qf].contiguous(), w, record=False)
+    return dict(enc=enc, eng=eng, trace=trace_k, pass_counts=pass_counts,
+                step_counts=step_counts, pass_ms=pass_ms, seg=(s0, seg_ms, seg_plain_ms, seg),
+                mid=mid, dry=(st_f, int(enc.queue[qf]), qf), wall_s=wall_s)
+
+
 def kernel_rows(cuda, diff, path, run):
     """Phase 5 for one path: each kernel's time, its plain version's time
     and its bound, as entries of the kernels line. The per-pod kernels are
@@ -645,56 +928,182 @@ def kernel_rows(cuda, diff, path, run):
     queue = padded_queue(eng)
     st, q = run["mid"]
     st = st.clone()
-    codes, raw, final, sel = cuda.seq_attempt(prog, a, st, w, q)
+    codes, raw, final, sel, _ = cuda.seq_attempt(prog, a, st, w, q)
     attempt_ms = graph_ms(lambda: cuda.seq_attempt(prog, a, st, w, q))
     attempt_plain_ms = events_ms(lambda: cuda.seq_attempt_plain(prog, a, st, w, q), 20)
     b_att = attempt_bound(enc, prog, st, q, w)
     # binding the pod again and again only grows the counters it adds to
     bind_ms = graph_ms(lambda: cuda.seq_bind(prog, a, st, q, sel, 0))
     bind_plain_ms = events_ms(lambda: cuda.seq_bind_plain(prog, a, st, q, sel, 0), 20)
-    run_ms = events_ms(lambda: cuda.seq_run(prog, a, enc.state0, queue, w, record=True), 1, 3)
     state_bytes = nbytes(*(getattr(enc.state0, f) for f in STATE_FIELDS))
-    port_row = nbytes(a.want_pair[0], a.want_wild[0], a.want_trip[0])
-    b_bind = bound(nbytes(a.pod_req[0], a.pod_sreq[0]) + 2 * 2 * nbytes(st.requested[0])
-                   + 3 * port_row + 2 * 4 + 3 * 4, 3 * enc.R + 4 + port_row // 4)
+    pod_row = nbytes(a.pod_req[0], a.pod_sreq[0], a.want_pair[0], a.want_wild[0],
+                     a.want_trip[0], a.pod_claim[0], a.pod_disk_any[0], a.pod_disk_rw[0],
+                     a.pod_vol3[0])
+    # the pod's rows, read; its node's rows, read and written; the pod's
+    # claims' counters, the pod's count, assignment and bind order
+    node_row = 2 * nbytes(st.requested[0]) + 4 * (2 * a.want_pair.shape[1] + a.want_trip.shape[1]
+                                                  + 2 * a.pod_disk_any.shape[1] + 3 + 1)
+    b_bind = bound(pod_row + 2 * node_row + 2 * 4 * a.pod_claim.shape[1] + 3 * 4,
+                   pod_row // 4 + a.pod_claim.shape[1] + 4)
     # the mid-pass step's operations for every step: the relational walk
     # grows with the bound pods, so the middle step is about the mean
     step_ops = ops_per_node(enc, prog) * enc.N + rel_reads(enc, prog, run["mid"][0], q)[1]
-    b_run = bound(cluster_bytes(enc) + state_bytes + nbytes(queue, w) + nbytes(*trace_k)
-                  + state_bytes, step_ops * len(queue))
+    if "seg" in run:
+        # the default path: the segment both versions ran, with its own bound
+        s0, run_ms, plain_ms, seg = run["seg"]
+        seg_trace = [x[s0:s0 + len(seg)] if x.shape[0] == len(queue) else x for x in trace_k]
+        b_run = bound(cluster_bytes(enc) + 2 * state_bytes + nbytes(seg, w) + nbytes(*seg_trace),
+                      step_ops * len(seg))
+        run_row = ("seq_run", run["pass_counts"], run_ms, plain_ms, b_run)
+    else:
+        run_ms = events_ms(lambda: cuda.seq_run(prog, a, enc.state0, queue, w, record=True),
+                           1, 3)
+        b_run = bound(cluster_bytes(enc) + state_bytes + nbytes(queue, w) + nbytes(*trace_k)
+                      + state_bytes, step_ops * len(queue))
+        run_row = ("seq_run", run["pass_counts"], run_ms, run["plain_run_s"] * 1e3, b_run)
     rows = [
         ("seq_attempt", run["step_counts"], attempt_ms, attempt_plain_ms, b_att),
         ("seq_bind", run["step_counts"], bind_ms, bind_plain_ms, b_bind),
-        ("seq_run", run["pass_counts"], run_ms, run["plain_run_s"] * 1e3, b_run),
+        run_row,
     ]
-    return [{
-        "name": k, "path": path, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
-        "launches": counts[k], "max_abs_err": diff.err[path, k], "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
-    } for k, counts, ms, plain_ms, b in rows]
+    if prog.preempt is not None:
+        rows += preempt_rows(cuda, diff, path, run)
+    out = []
+    for k, counts, ms, plain_ms, b in rows:
+        row = {"name": k, "path": path, "route": "cuda", "source": SOURCE,
+               "replaces": REPLACES[k], "launches": counts[k],
+               "max_abs_err": diff.err[path, k], "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+        if k == "seq_run" and "seg" in run:
+            row["steps"] = [run["seg"][0], run["seg"][0] + len(run["seg"][3])]
+        out.append(row)
+    return out
 
 
-# The plugin bodies this slice added (K4/K5 of the reference)
-BODIES = (("filter", "NodeAffinity"), ("filter", "NodePorts"), ("filter", "PodTopologySpread"),
-          ("filter", "InterPodAffinity"), ("score", "NodeAffinity"), ("score", "ImageLocality"),
-          ("score", "PodTopologySpread"), ("score", "InterPodAffinity"))
+def preempt_bound(enc, prog, st, p, n_victims):
+    """The least time of one dry run of pod p at state st (`seq_preempt`:
+    the step's prologue, then the dry run): each pod's assignment, mask
+    and priority; each lower-priority bound pod's bind order and the rows
+    its node's enabled row filters take it out of and put it back into;
+    each such node's state rows and the stateless filters' planes (as one
+    attempt's, `attempt_bound`); the codes and the victim record written.
+    Operations: per lower-priority pod its rows three times (removal,
+    reprieve, undo) and the sort's comparisons."""
+    a, P = enc.arrays, enc.P
+    asg = st.assignment.cpu().numpy()
+    prio = a.pod_priority.cpu().numpy()
+    lower = (asg >= 0) & a.pod_mask.cpu().numpy() & (prio < prio[p])
+    per_node = np.bincount(asg[lower], minlength=enc.N)
+    row = nbytes(a.pod_req[0], a.want_pair[0], a.want_wild[0], a.want_trip[0], a.pod_claim[0],
+                 a.pod_disk_any[0], a.pod_disk_rw[0], a.pod_vol3[0]) + 4
+    node_row = nbytes(st.requested[0], st.used_pair[0], st.used_wild[0], st.used_trip[0],
+                      st.node_disk_any[0], st.node_disk_rw[0], st.node_vol3[0]) + 4
+    att_bytes, att_ops = attempt_cost(enc, prog, st, p, torch.zeros(0))
+    byts = (9 * P + int(lower.sum()) * row + int((per_node > 0).sum()) * node_row
+            + att_bytes + 4 * (2 * enc.N + 1 + n_victims))
+    ops = int(lower.sum()) * 3 * (row // 4) + int((per_node * per_node).sum()) // 4
+    return bound(byts, ops + att_ops)
 
 
-def body_times(kp, cuda, run, smi):
-    """Phase 5b: each plugin body this slice added, timed inside
-    `seq_attempt` with that plugin alone enabled (its PreScore too), beside
-    its plain body on the same inputs and the bound of that attempt
-    (`attempt_bound`). On the affinity path's cluster at the state half-way
-    through its queue, on the next pod. The time includes the launch and
-    the select that every attempt does."""
+def preempt_rows(cuda, diff, path, run):
+    """Phase 5 for the dry run and the eviction: `seq_preempt` at the
+    kernel pass's state before its first nominating step past the middle
+    of the queue, and `seq_evict` of that dry run's victims on its
+    nominated node, each held against its plain version there first."""
+    enc, eng = run["enc"], run["eng"]
+    a, prog = enc.arrays, eng.program
+    st, p, qf = run["dry"]
+    got = cuda.seq_preempt(prog, a, st, p)
+    want = cuda.seq_preempt_plain(prog, a, st, p)
+    for name, g, h in zip(("pcode", "voff", "vidx", "nominated"), got, want):
+        diff.check(path, "seq_preempt", f"full width, step {qf} {name}", g, h)
+    pcode, off, idx, nom = got
+    ms = graph_ms(lambda: cuda.preempt_launch(prog, a, st, p))
+    plain_ms = events_ms(lambda: cuda.seq_preempt_plain(prog, a, st, p), 5, 3)
+    b_pre = preempt_bound(enc, prog, st, p, int(idx.shape[0]))
+    n = int(nom)
+    mask = torch.zeros(enc.P, dtype=torch.bool, device=enc.device)
+    mask[idx[int(off[n]):int(off[n + 1])].long()] = True
+    s_k = cuda.seq_evict(prog, a, st.clone(), mask)
+    s_p = cuda.seq_evict_plain(prog, a, st.clone(), mask)
+    for f in STATE_FIELDS:
+        diff.check(path, "seq_evict", f"full width, step {qf} state {f}", getattr(s_k, f),
+                   getattr(s_p, f))
+    # evicting the same pods again and again only lowers the counters
+    st2 = st.clone()
+    evict_ms = graph_ms(lambda: cuda.seq_evict(prog, a, st2, mask))
+    st3 = st.clone()
+    evict_plain_ms = events_ms(lambda: cuda.seq_evict_plain(prog, a, st3, mask), 20)
+    k = int(mask.sum())
+    pod_row = nbytes(a.pod_req[0], a.pod_sreq[0], a.want_pair[0], a.want_wild[0],
+                     a.want_trip[0], a.pod_claim[0], a.pod_disk_any[0], a.pod_disk_rw[0],
+                     a.pod_vol3[0])
+    node_row = nbytes(st.requested[0], st.s_requested[0], st.used_pair[0], st.used_wild[0],
+                      st.used_trip[0], st.node_disk_any[0], st.node_disk_rw[0], st.node_vol3[0])
+    b_ev = bound(enc.P + 4 * enc.P + k * (pod_row + 8) + 2 * node_row,
+                 k * pod_row // 4 + enc.P)
+    log(f"    dry run at step {run['dry'][2]} (pod {p}): nominated node {n}, {k} victims of "
+        f"{int(idx.shape[0])} named")
+    return [("seq_preempt", run["step_counts"], ms, plain_ms, b_pre),
+            ("seq_evict", run["step_counts"], evict_ms, evict_plain_ms, b_ev)]
+
+
+# The plugin bodies timed alone inside seq_attempt (phase 5b), by path:
+# (extension point, plugin, its args or None). PR 2's affinity bodies; the
+# volume family (K6); the first slice's bodies, NodeResourcesFit's score
+# under each of its strategies.
+AFFINITY_BODIES = (
+    ("filter", "NodeAffinity", None), ("filter", "NodePorts", None),
+    ("filter", "PodTopologySpread", None), ("filter", "InterPodAffinity", None),
+    ("score", "NodeAffinity", None), ("score", "ImageLocality", None),
+    ("score", "PodTopologySpread", None), ("score", "InterPodAffinity", None))
+VOLUME_BODIES = (
+    ("preFilter", "VolumeBinding", None), ("filter", "VolumeBinding", None),
+    ("filter", "VolumeZone", None), ("filter", "VolumeRestrictions", None),
+    ("filter", "EBSLimits", None), ("filter", "GCEPDLimits", None),
+    ("filter", "AzureDiskLimits", None), ("filter", "NodeVolumeLimits", None))
+FIT_BODIES = (
+    ("filter", "NodeUnschedulable", None), ("filter", "NodeName", None),
+    ("filter", "TaintToleration", None), ("filter", "NodeResourcesFit", None),
+    ("score", "NodeResourcesFit", None),
+    ("score", "NodeResourcesFit", {"scoringStrategy": {"type": "MostAllocated"}}),
+    ("score", "NodeResourcesFit", {"scoringStrategy": {
+        "type": "RequestedToCapacityRatio", "requestedToCapacityRatio": {"shape": [
+            {"utilization": 0, "score": 10}, {"utilization": 100, "score": 0}]}}}),
+    ("score", "NodeResourcesBalancedAllocation", None), ("score", "TaintToleration", None))
+
+
+def body_pod(enc, st, name, q):
+    """The pod a body is timed on: the mid-queue pod `q`, or for a volume
+    body the first pending pod from the middle of the queue on that asks
+    for what the body checks (claims, disks, volumes of its type)."""
+    a = enc.arrays
+    want = {"VolumeBinding": a.vb_row >= 0, "VolumeZone": a.vb_row >= 0,
+            "VolumeRestrictions": (a.pod_disk_any > 0).any(dim=1) | a.pod_claim.any(dim=1),
+            "EBSLimits": a.pod_vol3[:, 0] > 0, "GCEPDLimits": a.pod_vol3[:, 1] > 0,
+            "AzureDiskLimits": a.pod_vol3[:, 2] > 0}.get(name)
+    if want is None:
+        return q
+    ok = (want & (st.assignment < 0)).cpu().numpy()
+    queue = enc.queue[len(enc.queue) // 2:]
+    return int(next((p for p in queue if ok[p]), q))
+
+
+def body_times(kp, cuda, run, bodies, smi):
+    """Phase 5b: each plugin body in `bodies`, timed inside `seq_attempt`
+    with that plugin alone enabled (its PreScore too), beside its plain
+    body on the same inputs and the bound of that attempt
+    (`attempt_bound`). On the path's cluster at the state half-way through
+    its queue. The time includes the launch and the select that every
+    attempt does."""
     from kube_scheduler_simulator_tpu_torch.engine import kernels as K
     from kube_scheduler_simulator_tpu_torch.sched.config import SchedulerConfiguration
 
     enc = run["enc"]
     a = enc.arrays
-    st, p = run["mid"]
+    st, q = run["mid"]
     out = []
-    for point, name in BODIES:
+    for point, name, args in bodies:
         star = [{"name": "*"}]
         plugins = {pt: {"disabled": star, "enabled": []}
                    for pt in ("preFilter", "filter", "postFilter", "preScore", "score")}
@@ -702,25 +1111,30 @@ def body_times(kp, cuda, run, smi):
             {"name": name}]
         if point == "score" and name in K.TRIVIAL_PRESCORE:
             plugins["preScore"]["enabled"] = [{"name": name}]
-        cfg = SchedulerConfiguration.from_dict(
-            {"profiles": [{"schedulerName": "default-scheduler", "plugins": plugins}]})
+        profile = {"schedulerName": "default-scheduler", "plugins": plugins}
+        if args:
+            profile["pluginConfig"] = [{"name": name, "args": args}]
+        cfg = SchedulerConfiguration.from_dict({"profiles": [profile]})
         enc1 = type(enc)(a, enc.state0, node_names=enc.node_names, pod_keys=enc.pod_keys,
                          resource_names=enc.resource_names, queue=enc.queue,
                          policy=enc.policy, config=cfg, n_nodes=enc.n_nodes,
                          n_pods=enc.n_pods, aux=enc.aux)
         eng = kp.BatchedScheduler(enc1)
         prog, w = eng.program, eng.weights
+        p = body_pod(enc, st, name, q)
         ms = graph_ms(lambda: cuda.seq_attempt(prog, a, st, w, p))
-        reg = K.FILTER_KERNELS if point == "filter" else K.SCORE_KERNELS
+        reg = {"filter": K.FILTER_KERNELS, "score": K.SCORE_KERNELS,
+               "preFilter": K.PREFILTER_KERNELS}[point]
         body = reg[name][0](enc1)
         feasible = a.node_mask.clone()
-        plain = (lambda: body(a, st, p)) if point == "filter" else (
-            lambda: body(a, st, p, feasible))
+        plain = (lambda: body(a, st, p, feasible)) if point == "score" else (
+            lambda: body(a, st, p))
         plain_ms = events_ms(plain, 20)
         b = attempt_bound(enc1, prog, st, p, w)
-        out.append((point, name, ms, plain_ms, b))
-        log(f"    {point:6s} {name:18s} seq_attempt alone {ms:.6f} ms (plain body "
-            f"{plain_ms:.3f} ms, bound {b[0]:.6f} ms by {b[1]}) [{smi}]")
+        label = name + (f" ({args['scoringStrategy']['type']})" if args else "")
+        out.append((point, label, ms, plain_ms, b))
+        log(f"    {point:9s} {label:44s} seq_attempt alone {ms:.6f} ms on pod {p} (plain body "
+            f"{plain_ms:.3f} ms, bound {b[0]:.7f} ms by {b[1]}) [{smi}]")
     return out
 
 
@@ -732,7 +1146,11 @@ def main() -> int:
     t_start = time.perf_counter()
     import kube_scheduler_simulator_tpu_torch as kp
     from kube_scheduler_simulator_tpu_torch.engine import cuda
-    from kube_scheduler_simulator_tpu_torch.synth import DRESSED_NAMESPACES, dressed_affinity_cluster
+    from kube_scheduler_simulator_tpu_torch.synth import (
+        DRESSED_NAMESPACES,
+        dressed_affinity_cluster,
+        dressed_default_cluster,
+    )
 
     # -- 1. device --------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -753,8 +1171,11 @@ def main() -> int:
     nodes, pods = dressed_cluster(kp, 256, 2000, seed=11)
     compare_kernels(kp, cuda, diff, "fit", nodes, pods, configs(kp), bind=False)
     nodes, pods = dressed_affinity_cluster(256, 2000, seed=11)
-    compare_kernels(kp, cuda, diff, "affinity", nodes, pods, {"slice": kp.slice_config()},
-                    bind=True, namespaces=DRESSED_NAMESPACES)
+    compare_kernels(kp, cuda, diff, "affinity", nodes, pods, {"affinity": kp.affinity_config()},
+                    bind=True, objects={"namespaces": DRESSED_NAMESPACES})
+    nodes, pods, objects = dressed_default_cluster(256, DEFAULT_PHASE3_PENDING, seed=11)
+    compare_kernels(kp, cuda, diff, "default", nodes, pods, {"default": kp.supported_config()},
+                    bind=True, objects=objects)
     log(f"    phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. the fit path at full width --------------------------------------
@@ -772,19 +1193,38 @@ def main() -> int:
     rng = np.random.default_rng(11)
     sample = {("default", f"pod-{i}") for i in rng.choice(n_pods, 100, replace=False)}
     log(f"[4b] affinity path at full width: {n_nodes} nodes x {n_pods} pods "
-        "(synthetic_affinity_cluster, seed 11), slice_config(), TPU32, trace recorded")
-    aff = drive_path(kp, cuda, diff, "affinity", nodes, pods, kp.slice_config(), sample, smi)
+        "(synthetic_affinity_cluster, seed 11), affinity_config(), TPU32, trace recorded")
+    aff = drive_path(kp, cuda, diff, "affinity", nodes, pods, kp.affinity_config(), sample,
+                     smi)
+    log(f"    phase 4b done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 4c. the default path at full width (BASELINE config #2's width) ----
+    n_nodes, n_pending = 1024, 10000
+    nodes, pods, objects = kp.preemption_cluster(n_nodes, n_pending, seed=7)
+    rng = np.random.default_rng(7)
+    sample = {("default", f"pod-{i}") for i in rng.choice(n_pending, 100, replace=False)}
+    n_bound = sum(1 for pd in pods if pd["spec"].get("nodeName", "").startswith("node-"))
+    log(f"[4c] default path at full width: {n_nodes} nodes x {n_pending} pending pods on "
+        f"{n_bound} pre-bound (preemption_cluster, seed 7), supported_config(), TPU32, trace "
+        "recorded")
+    dflt = drive_default(kp, cuda, diff, nodes, pods, objects, sample, smi)
+    log(f"    phase 4c done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 5. kernel times --------------------------------------------------
-    kernels = kernel_rows(cuda, diff, "fit", fit) + kernel_rows(cuda, diff, "affinity", aff)
+    kernels = (kernel_rows(cuda, diff, "fit", fit) + kernel_rows(cuda, diff, "affinity", aff)
+               + kernel_rows(cuda, diff, "default", dflt))
     log(f"[5] kernel times at full width, TPU32 [{smi}]")
     for kr in kernels:
         log(f"    {kr['path']:8s} {kr['name']:11s} {kr['ms']:.6f} ms (plain "
-            f"{kr['plain_ms']:.3f} ms, bound {kr['bound_ms']:.6f} ms by {kr['bound_by']}), "
-            f"{kr['launches']} launches")
-    log(f"[5b] the slice's plugin bodies inside seq_attempt, affinity path's cluster, "
-        f"TPU32 [{smi}]")
-    body_times(kp, cuda, aff, smi)
+            f"{kr['plain_ms']:.3f} ms, bound {kr['bound_ms']:.7f} ms by {kr['bound_by']}), "
+            f"{kr['launches']} launches" + (f", steps {kr['steps']}" if "steps" in kr else ""))
+    log(f"[5b] plugin bodies alone inside seq_attempt at the mid-queue state, TPU32 [{smi}]")
+    log("    fit path's cluster (the first slice's bodies):")
+    body_times(kp, cuda, fit, FIT_BODIES, smi)
+    log("    affinity path's cluster (the second slice's bodies):")
+    body_times(kp, cuda, aff, AFFINITY_BODIES, smi)
+    log("    default path's cluster (the volume family):")
+    body_times(kp, cuda, dflt, VOLUME_BODIES, smi)
     log(f"    total {time.perf_counter() - t_start:.1f} s")
     faulthandler.cancel_dump_traceback_later()
 

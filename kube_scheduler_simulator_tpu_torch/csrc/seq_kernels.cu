@@ -1,18 +1,26 @@
 // Hand-written Hopper (sm_90a) kernels for the sequential scheduling pass.
 //
-// Three kernels share the plugin bodies below (`filter_code`, `score_raw`):
+// Five kernels share the plugin bodies below (`filter_code`, `score_raw`),
+// the dry run (`dry_run`) and the eviction (`evict_pod`):
 //
 //   seq_attempt  replaces kube_scheduler_simulator_tpu/engine/engine.py
 //                BatchedScheduler._build_run.attempt (`seq.attempt`): for one
-//                pod, every enabled filter and score plugin over all N
-//                nodes, the normalize step, the weights and the masked
-//                argmax with lowest-index tie-break.
+//                pod, the VolumeBinding prefilter, every enabled filter and
+//                score plugin over all N nodes, the normalize step, the
+//                weights and the masked argmax with lowest-index tie-break.
 //   seq_bind     replaces _build_run.bind (`seq.bind`): the scatter of the
 //                chosen pod's rows into per-node state, in place.
+//   seq_evict    replaces _build_run.evict_all: the masked scatter-subtract
+//                of preemption victims, in place.
+//   seq_preempt  replaces engine/preempt.py build_preemption's `preempt`:
+//                the DefaultPreemption dry run for one pod.
 //   seq_run      replaces _build_run.step / run_segment / run (`seq.run`,
 //                the lax.scan over the queue): one persistent block walks
 //                the bucket-padded queue, attempt then bind per step, and
-//                writes each step's trace row.
+//                writes each step's trace row; with DefaultPreemption, an
+//                unschedulable pod's step runs the dry run, evicts the
+//                nominated node's victims, retries and runs a second dry
+//                run (recorded, never evicting) before the bind.
 //
 // Bound on the card. A step reads the node planes ([N,R] allocatable,
 // requested and scoring-requested, [N] pod counts and masks, [N,T] taints)
@@ -42,6 +50,18 @@
 // (filters), the spread score's prologue over feasible nodes, the raw
 // scores with their block reductions, and the normalize, argmax and bind.
 // Plugins that are not enabled skip their phases.
+//
+// The dry run (one thread per candidate node) appends each bound pod of
+// lower priority to its node's list with an atomic cursor, sorts each list
+// into reprieve order, keeps every state-dependent filter's counters for
+// the node with its victims removed (only what the pod's check reads),
+// then returns them one by one, keeping each that leaves the pod feasible.
+// The spread row's minimum over topology pairs comes from the step's base
+// table (its two smallest entries) and the node's own changed entries, not
+// from a per-node copy of the table. Three block reductions in 64 bits
+// rank the candidates. A dry run costs O(P) for the lists, O(V^2) per node
+// for the sort and O(V x rows) per node for the reprieve; it is latency
+// bound as the step is.
 //
 // Arithmetic follows the reference bit for bit. Integer `//` floors (C++
 // `/` truncates), every intermediate stays in the policy's type (int32 for
@@ -73,8 +93,14 @@ constexpr int BIG = INT_MAX;  // the custom normalizes' min/max sentinel
 // plugin ids, as engine/kernels.py's registries name them
 enum {
   F_UNSCHED = 0, F_NODENAME = 1, F_TAINT = 2, F_FIT = 3,
-  F_AFFINITY = 4, F_PORTS = 5, F_SPREAD = 6, F_INTERPOD = 7
+  F_AFFINITY = 4, F_PORTS = 5, F_SPREAD = 6, F_INTERPOD = 7,
+  F_VOLRESTR = 8, F_EBS = 9, F_GCEPD = 10, F_AZURE = 11, F_NODEVOL = 12,
+  F_VOLBIND = 13, F_VOLZONE = 14
 };
+// DefaultPreemption's per-node codes (engine/preempt.py PREEMPT_*)
+enum { P_NO_LOWER = 0, P_NO_FIT = 1, P_CANDIDATE = 2, P_SELECTED = 3, P_SILENT = 4 };
+// VolumeRestrictions reason codes (engine/kernels.py VR_*)
+enum { VR_RWOP = 1, VR_DISK = 2 };
 enum {
   S_FIT = 0, S_BALANCED = 1, S_TAINT = 2,
   S_AFFINITY = 3, S_IMAGE = 4, S_SPREAD = 5, S_INTERPOD = 6
@@ -143,6 +169,37 @@ __device__ __forceinline__ void atomic_add(long long* p, long long v) {
 // the per-step workspace of the relational plugins
 // ---------------------------------------------------------------------------
 
+// The dry run's per-node counters (DefaultPreemption), laid out after the
+// step workspace when the configuration enables it. Each node's thread
+// owns its rows: the victims it may evict, their reprieve flags, and every
+// row filter's counters with the victims removed (engine/preempt.py).
+struct Pws {
+  int* vlist;             // [N, V] lower-priority pods per node, reprieve order
+  unsigned char* vflag;   // [N, V] 1: the pod stays a victim after reprieve
+  int* vcount;            // [N] lower-priority pods per node (append cursor)
+  int* nrec;              // [N] victims recorded (candidate nodes only)
+  int* code;              // [N] the node's code
+  int* maxp;              // [N] highest victim priority
+  long long* sump;        // [N] victim priorities summed in 64 bits
+  long long* total3;      // [N] InterPodAffinity affinity matches over all pairs
+  unsigned char* alive;   // [N] still a candidate in the ranking
+  char* req;              // [N, R] NodeResourcesFit's requested, policy type
+  int* npods;             // [N]
+  int* upair;             // [N, Q] NodePorts' counters
+  int* uwild;             // [N, Q]
+  int* utrip;             // [N, V2]
+  int* sp_cur;            // [N, HC] spread counts at the node's own pairs
+  int* sp_min;            // [HC, 4] base minimum over present pairs, its pair,
+                          //   the second minimum, any pair present
+  int* ea_cur;            // [N, K] existing anti-affinity hits at the node's pairs
+  int* f2_cur;            // [N, T_ian] the pod's anti-affinity matches at its pairs
+  int* f3_cur;            // [N, T_ia] the pod's affinity matches at its pairs
+  int* cl_cur;            // [N, CL] users of the pod's RWOP claims (by list slot)
+  int* dk_any;            // [N, D] mounts of the pod's disks (by list slot)
+  int* dk_rw;             // [N, D]
+  int* vol3;              // [N, 3] per-type volume counts
+};
+
 // Pointers into the workspace the caller allocates once per launch. HC/SC:
 // hard/soft spread constraints of the widest pod, NP1: topology pairs + 1.
 struct Ws {
@@ -163,11 +220,18 @@ struct Ws {
   unsigned char* ign;     // [N] the spread score ignores the node
   int n_words;            // 32-bit words from wsum through scal, cleared each step
   int min_lo, min_hi;     // the words of min_h (cleared to INT_MAX)
+  int* vol;               // [4] a RWOP claim of the pod is in use, its disks, its
+                          //   RWOP claims, the dry run's overflow bits
+  int* pdl;               // [D] the pod's disks (pod_disk_any > 0)
+  int* pcl;               // [CL] the pod's RWOP claims
+  Pws pw;                 // the dry run's counters (vbound > 0)
 };
 
-// The workspace layout for these planes and an integer type of `isz`
-// bytes; fills *w from `base` when w is not null. Returns its size in bytes.
-__host__ __device__ inline size_t ws_layout(const Planes& a, size_t isz, char* base, Ws* w) {
+// The workspace layout for these planes, an integer type of `isz` bytes
+// and a dry run keeping `V` victims per node (0: no dry run); fills *w from
+// `base` when w is not null. Returns its size in bytes.
+__host__ __device__ inline size_t ws_layout(const Planes& a, size_t isz, int V, char* base,
+                                            Ws* w) {
   const size_t N = a.N, NP1 = a.NP1, HC = a.sph.T, SC = a.sps.T;
   size_t off = (NP1 * isz + 7) & ~(size_t)7;
   const size_t o_cnt_h = off;  off += HC * N * 4;
@@ -183,6 +247,9 @@ __host__ __device__ inline size_t ws_layout(const Planes& a, size_t isz, char* b
   const size_t o_affc = off;   off += (size_t)a.ia.T * NP1 * 4;
   const size_t o_scal = off;   off += 2 * 4;
   const size_t words = off / 4;
+  const size_t o_vol = off;    off += 4 * 4;
+  const size_t o_pdl = off;    off += (size_t)a.D * 4;
+  const size_t o_pcl = off;    off += (size_t)a.CL * 4;
   const size_t o_aff = off;    off += N;
   const size_t o_ign = off;    off += N;
   off = (off + 7) & ~(size_t)7;
@@ -205,7 +272,43 @@ __host__ __device__ inline size_t ws_layout(const Planes& a, size_t isz, char* b
     w->n_words = (int)words;
     w->min_lo = (int)(o_min_h / 4);
     w->min_hi = (int)(o_min_h / 4 + HC);
+    w->vol = (int*)(base + o_vol);
+    w->pdl = (int*)(base + o_pdl);
+    w->pcl = (int*)(base + o_pcl);
   }
+  if (V <= 0) return off;
+  // the dry run's rows: 8-byte members first, then 4-byte, then bytes
+  const size_t K = a.K;
+  Pws p;
+  auto take = [&](size_t bytes) {
+    char* at = base ? base + off : nullptr;
+    off += (bytes + 7) & ~(size_t)7;
+    return at;
+  };
+  p.sump = (long long*)take(N * 8);
+  p.total3 = (long long*)take(N * 8);
+  p.req = take(N * a.R * isz);
+  p.vlist = (int*)take(N * (size_t)V * 4);
+  p.vcount = (int*)take(N * 4);
+  p.nrec = (int*)take(N * 4);
+  p.code = (int*)take(N * 4);
+  p.maxp = (int*)take(N * 4);
+  p.npods = (int*)take(N * 4);
+  p.upair = (int*)take(N * a.Q * 4);
+  p.uwild = (int*)take(N * a.Q * 4);
+  p.utrip = (int*)take(N * a.V2 * 4);
+  p.sp_cur = (int*)take(N * HC * 4);
+  p.sp_min = (int*)take(HC * 4 * 4);
+  p.ea_cur = (int*)take(N * K * 4);
+  p.f2_cur = (int*)take(N * (size_t)a.ian.T * 4);
+  p.f3_cur = (int*)take(N * (size_t)a.ia.T * 4);
+  p.cl_cur = (int*)take(N * (size_t)a.CL * 4);
+  p.dk_any = (int*)take(N * (size_t)a.D * 4);
+  p.dk_rw = (int*)take(N * (size_t)a.D * 4);
+  p.vol3 = (int*)take(N * N_VOL3 * 4);
+  p.vflag = (unsigned char*)take(N * (size_t)V);
+  p.alive = (unsigned char*)take(N);
+  if (w) w->pw = p;
   return off;
 }
 
@@ -217,14 +320,21 @@ struct Need {
   bool f_ipa;     // InterPodAffinity filter
   bool s_ipa;     // InterPodAffinity score, PreScore enabled
   bool rel;       // any of the four: the workspace is cleared and filled
+  bool vr;        // VolumeRestrictions filter: the pod's claims and disks
+  bool fit, ports, lim[N_VOL3];  // the other state-dependent filters
 };
 
 __device__ Need need_of(const Cfg& c) {
-  Need nd = {false, false, false, false, false, false};
+  Need nd = {};
   for (int f = 0; f < c.n_filters; ++f) {
-    nd.aff |= c.filter[f] == F_AFFINITY;
-    nd.f_spread |= c.filter[f] == F_SPREAD;
-    nd.f_ipa |= c.filter[f] == F_INTERPOD;
+    const int id = c.filter[f];
+    nd.aff |= id == F_AFFINITY;
+    nd.f_spread |= id == F_SPREAD;
+    nd.f_ipa |= id == F_INTERPOD;
+    nd.vr |= id == F_VOLRESTR;
+    nd.fit |= id == F_FIT;
+    nd.ports |= id == F_PORTS;
+    if (id >= F_EBS && id <= F_AZURE) nd.lim[id - F_EBS] = true;
   }
   for (int j = 0; j < c.n_scores; ++j) {
     nd.s_spread |= c.score[j] == S_SPREAD && c.spread_on;
@@ -233,6 +343,13 @@ __device__ Need need_of(const Cfg& c) {
   nd.aff |= nd.f_spread || nd.s_spread;
   nd.rel = nd.f_spread || nd.s_spread || nd.f_ipa || nd.s_ipa;
   return nd;
+}
+
+// Filters whose codes read no state (engine/preempt.py STATELESS_FILTERS):
+// the dry run evaluates them once on the unmodified state.
+__device__ __forceinline__ bool stateless(int fid) {
+  return fid == F_UNSCHED || fid == F_NODENAME || fid == F_TAINT || fid == F_AFFINITY ||
+         fid == F_VOLBIND || fid == F_VOLZONE || fid == F_NODEVOL;
 }
 
 // ---------------------------------------------------------------------------
@@ -511,9 +628,38 @@ __device__ int interpod_filter(const Planes& a, const Ws& w, int ps, int n) {
   return 3;
 }
 
+// The volume-table filters (VolumeBinding, VolumeZone): the host's verdict
+// for the pod's claims on node n, 0 for a pod without claims.
+__device__ __forceinline__ int vol_table(const Planes& a, const int* table, int ps, int n) {
+  const int row = a.vb_row[ps];
+  return row >= 0 ? table[(size_t)n * a.VB + row] : 0;
+}
+
+// VolumeRestrictions: a RWOP claim of the pod in use anywhere fails every
+// node (w.vol[0], from the step's volume phase); else a disk of the pod
+// that node n mounts, unless both mounts are read-only.
+__device__ int vol_restrictions(const Planes& a, const State& s, const Ws& w, int ps, int n) {
+  if (w.vol[0]) return VR_RWOP;
+  for (int i = 0; i < w.vol[1]; ++i) {
+    const int d = w.pdl[i];
+    const size_t nd = (size_t)n * a.D + d;
+    if (s.node_disk_rw[nd] > 0 || (a.pod_disk_rw[(size_t)ps * a.D + d] > 0 &&
+                                   s.node_disk_any[nd] > 0))
+      return VR_DISK;
+  }
+  return 0;
+}
+
+// A volume-count limit: the pod's volumes of type j on top of node n's.
+__device__ __forceinline__ int vol_limit(const Cfg& c, const Planes& a, const int* have, int ps,
+                                         int j) {
+  const int want = a.pod_vol3[(size_t)ps * N_VOL3 + j];
+  return (want > 0 && wadd<int>(have[j], want) > c.vol_limit[j]) ? 1 : 0;
+}
+
 template <typename I>
-__device__ int filter_code(int fid, const Planes& a, const State& s, const Ws& w, int ps,
-                           int n) {
+__device__ int filter_code(const Cfg& c, int fid, const Planes& a, const State& s, const Ws& w,
+                           int ps, int n) {
   switch (fid) {
     case F_UNSCHED:
       return (a.node_unsched[n] && !a.pod_tol_unsched[ps]) ? 1 : 0;
@@ -567,8 +713,18 @@ __device__ int filter_code(int fid, const Planes& a, const State& s, const Ws& w
       return spread_filter(a, w, ps, n);
     case F_INTERPOD:
       return interpod_filter(a, w, ps, n);
+    case F_VOLRESTR:
+      return vol_restrictions(a, s, w, ps, n);
+    case F_EBS:
+    case F_GCEPD:
+    case F_AZURE:
+      return vol_limit(c, a, s.node_vol3 + (size_t)n * N_VOL3, ps, fid - F_EBS);
+    case F_VOLBIND:
+      return vol_table(a, a.vb_code, ps, n);
+    case F_VOLZONE:
+      return vol_table(a, a.vz_code, ps, n);
   }
-  return 0;
+  return 0;  // F_NODEVOL: a pass-through
 }
 
 // helper.BuildBrokenLinearFunction with Go's truncating division, as the
@@ -937,14 +1093,28 @@ __device__ I norm_custom(const Cfg& c, int j, const Ws& ws, int n, I r, I maxv, 
   return 0;
 }
 
-// One Filter→Score→Normalize→select pass for pod ps. Writes codes[N,F],
-// raw[N,S] and (when fin is not null) final[N,S]; returns sel to every
-// thread. feas[N] and the workspace ws are scratch.
+// The step's prologue for pod ps at state s: the relational counts over
+// every bound pod and node, and the pod's volume lists. What it leaves in
+// the workspace is what the filters, the scores and the dry run read.
 template <typename I>
-__device__ int attempt_body(const Cfg& c, const Need& nd, const Planes& a, const State& s,
-                            const I* w, int ps, int* codes, I* raw, I* fin, unsigned char* feas,
-                            const Ws& ws, Smem<I>& sm) {
-  const int N = a.N, F = c.n_filters, S = c.n_scores, NP1 = a.NP1;
+__device__ void prologue(const Cfg& c, const Need& nd, const Planes& a, const State& s, int ps,
+                         const Ws& ws) {
+  const int N = a.N, NP1 = a.NP1;
+  if (nd.vr) {
+    // a RWOP claim of the pod in use anywhere, the pod's disks and (for
+    // the dry run) its RWOP claims; list order is free, readers only ask
+    // whether any entry conflicts
+    if (threadIdx.x == 0) ws.vol[0] = ws.vol[1] = ws.vol[2] = 0;
+    __syncthreads();
+    for (int k = threadIdx.x; k < a.CL; k += blockDim.x) {
+      if (!a.pod_claim[(size_t)ps * a.CL + k]) continue;
+      if (s.used_claims[k] > 0) ws.vol[0] = 1;
+      if (c.preempt) ws.pcl[atomicAdd(&ws.vol[2], 1)] = k;
+    }
+    for (int d = threadIdx.x; d < a.D; d += blockDim.x)
+      if (a.pod_disk_any[(size_t)ps * a.D + d] > 0) ws.pdl[atomicAdd(&ws.vol[1], 1)] = d;
+    __syncthreads();
+  }
   if (nd.rel) {
     // clear the counters, then every bound pod's matches
     int* words = (int*)ws.wsum;
@@ -964,6 +1134,23 @@ __device__ int attempt_body(const Cfg& c, const Need& nd, const Planes& a, const
       __syncthreads();
     }
   }
+}
+
+// The VolumeBinding prefilter's code for pod ps (0: passes, or disabled).
+__device__ __forceinline__ int prefilter_code(const Cfg& c, const Planes& a, int ps) {
+  return c.pf_vb ? a.vb_pf[ps] : 0;
+}
+
+// One PreFilter→Filter→Score→Normalize→select pass for pod ps. Writes
+// codes[N,F], raw[N,S] and (when fin is not null) final[N,S]; returns sel
+// to every thread. feas[N] and the workspace ws are scratch.
+template <typename I>
+__device__ int attempt_body(const Cfg& c, const Need& nd, const Planes& a, const State& s,
+                            const I* w, int ps, int* codes, I* raw, I* fin, unsigned char* feas,
+                            const Ws& ws, Smem<I>& sm) {
+  const int N = a.N, F = c.n_filters, S = c.n_scores, NP1 = a.NP1;
+  prologue<I>(c, nd, a, s, ps, ws);
+  const bool pf_ok = prefilter_code(c, a, ps) == 0;
   Norms<I> nm;
   for (int j = 0; j < S; ++j) {
     nm.mx[j] = Lim<I>::lo;
@@ -973,9 +1160,9 @@ __device__ int attempt_body(const Cfg& c, const Need& nd, const Planes& a, const
   // the node sweep: filter codes and feasibility (and the raw scores, when
   // no score needs a count over the feasible nodes first)
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    bool ok = a.node_mask[n] != 0;
+    bool ok = a.node_mask[n] != 0 && pf_ok;
     for (int f = 0; f < F; ++f) {
-      const int code = filter_code<I>(c.filter[f], a, s, ws, ps, n);
+      const int code = filter_code<I>(c, c.filter[f], a, s, ws, ps, n);
       codes[(size_t)n * F + f] = code;
       ok = ok && code == 0;
     }
@@ -1052,6 +1239,13 @@ __device__ int attempt_body(const Cfg& c, const Need& nd, const Planes& a, const
 // Scatter pod p onto node sel (engine.py bind). p < 0 (a queue-bucket
 // padding step) is an exact no-op; sel < 0 only records the pod as
 // unschedulable.
+// Thread threadIdx.x's index in a block-wide loop handed to warp `w` and
+// on: the bind's independent counter families start on different warps so
+// their dependent loads overlap (a permutation of the block's threads).
+__device__ __forceinline__ int from_warp(int w) {
+  return (threadIdx.x + 32 * w) % blockDim.x;
+}
+
 template <typename I>
 __device__ void bind_body(const Planes& a, const State& s, int p, int sel, int qi) {
   if (p < 0) return;
@@ -1066,14 +1260,30 @@ __device__ void bind_body(const Planes& a, const State& s, int p, int sel, int q
       srq[r] = wadd<I>(srq[r], psr[r]);
     }
     // the host-port counters (NodePorts)
-    for (int q = threadIdx.x; q < a.Q; q += blockDim.x) {
+    for (int q = from_warp(1); q < a.Q; q += blockDim.x) {
       const size_t i = (size_t)sel * a.Q + q, k = (size_t)p * a.Q + q;
       s.used_pair[i] = wadd<int>(s.used_pair[i], a.want_pair[k]);
       s.used_wild[i] = wadd<int>(s.used_wild[i], a.want_wild[k]);
     }
-    for (int v = threadIdx.x; v < a.V2; v += blockDim.x) {
+    for (int v = from_warp(2); v < a.V2; v += blockDim.x) {
       const size_t i = (size_t)sel * a.V2 + v;
       s.used_trip[i] = wadd<int>(s.used_trip[i], a.want_trip[(size_t)p * a.V2 + v]);
+    }
+    // the volume counters: RWOP claims (global), disks and volume counts;
+    // a pod's zero entries leave them as they are, so only the pod's rows
+    // are read for a pod without volumes
+    for (int k = from_warp(3); k < a.CL; k += blockDim.x)
+      if (a.pod_claim[(size_t)p * a.CL + k]) s.used_claims[k] = wadd<int>(s.used_claims[k], 1);
+    for (int d = from_warp(4); d < a.D; d += blockDim.x) {
+      const size_t i = (size_t)sel * a.D + d, k = (size_t)p * a.D + d;
+      const int x = a.pod_disk_any[k], y = a.pod_disk_rw[k];
+      if (x) s.node_disk_any[i] = wadd<int>(s.node_disk_any[i], x);
+      if (y) s.node_disk_rw[i] = wadd<int>(s.node_disk_rw[i], y);
+    }
+    for (int j = from_warp(5); j < N_VOL3; j += blockDim.x) {
+      const size_t i = (size_t)sel * N_VOL3 + j;
+      const int x = a.pod_vol3[(size_t)p * N_VOL3 + j];
+      if (x) s.node_vol3[i] = wadd<int>(s.node_vol3[i], x);
     }
   }
   if (threadIdx.x == 0) {
@@ -1083,15 +1293,442 @@ __device__ void bind_body(const Planes& a, const State& s, int p, int sel, int q
   }
 }
 
+// ---------------------------------------------------------------------------
+// eviction (K2 evict_all) and the DefaultPreemption dry run (K7)
+// ---------------------------------------------------------------------------
+
+// Remove bound pod v from node n (engine.py evict_all for one pod): its
+// rows leave every per-node counter, its claims leave used_claims, and its
+// assignment and bind order become -1. Integer atomics, so several threads
+// may evict pods of one node at once.
+template <typename I>
+__device__ void evict_pod(const Planes& a, const State& s, int v, int n) {
+  const int R = a.R;
+  for (int r = 0; r < R; ++r) {
+    atomic_add((I*)s.requested + (size_t)n * R + r,
+               wsub<I>(0, ((const I*)a.pod_req)[(size_t)v * R + r]));
+    atomic_add((I*)s.s_requested + (size_t)n * R + r,
+               wsub<I>(0, ((const I*)a.pod_sreq)[(size_t)v * R + r]));
+  }
+  atomicAdd(&s.n_pods[n], -1);
+  for (int q = 0; q < a.Q; ++q) {
+    const size_t k = (size_t)v * a.Q + q;
+    if (a.want_pair[k]) atomicAdd(&s.used_pair[(size_t)n * a.Q + q], -a.want_pair[k]);
+    if (a.want_wild[k]) atomicAdd(&s.used_wild[(size_t)n * a.Q + q], -a.want_wild[k]);
+  }
+  for (int t = 0; t < a.V2; ++t) {
+    const int x = a.want_trip[(size_t)v * a.V2 + t];
+    if (x) atomicAdd(&s.used_trip[(size_t)n * a.V2 + t], -x);
+  }
+  for (int k = 0; k < a.CL; ++k)
+    if (a.pod_claim[(size_t)v * a.CL + k]) atomicAdd(&s.used_claims[k], -1);
+  for (int d = 0; d < a.D; ++d) {
+    const int x = a.pod_disk_any[(size_t)v * a.D + d], y = a.pod_disk_rw[(size_t)v * a.D + d];
+    if (x) atomicAdd(&s.node_disk_any[(size_t)n * a.D + d], -x);
+    if (y) atomicAdd(&s.node_disk_rw[(size_t)n * a.D + d], -y);
+  }
+  for (int j = 0; j < N_VOL3; ++j) {
+    const int x = a.pod_vol3[(size_t)v * N_VOL3 + j];
+    if (x) atomicAdd(&s.node_vol3[(size_t)n * N_VOL3 + j], -x);
+  }
+  s.assignment[v] = -1;
+  s.bound_seq[v] = -1;
+}
+
+// The reprieve order: priority descending (its int32 negation ascending,
+// wrapping as the reference's), then bind order ascending, then pod index
+// (the reference's stable sort). bound_seq is unique among the pods a pass
+// binds; the index decides only for states built by hand.
+__device__ __forceinline__ bool reprieve_before(const Planes& a, const State& s, int u, int v) {
+  const int ku = (int)(0u - (unsigned)a.pod_priority[u]);
+  const int kv = (int)(0u - (unsigned)a.pod_priority[v]);
+  if (ku != kv) return ku < kv;
+  if (s.bound_seq[u] != s.bound_seq[v]) return s.bound_seq[u] < s.bound_seq[v];
+  return u < v;
+}
+
+// Node n is eligible for the spread counts of pod ps (the reference's
+// _SpreadRow `elig`).
+template <typename I>
+__device__ __forceinline__ bool spread_elig(const Planes& a, const Ws& ws, int ps, int n) {
+  return ws.aff_ok[n] && a.node_mask[n] && has_all_keys(a, a.sph, ps, n);
+}
+
+// Every row filter's counters of node n, with pod v's contribution added
+// (sign +1) or taken away (sign -1): the reference's node_init (each victim
+// taken away) and add_back, and the undo of a failed add_back.
+template <typename I>
+__device__ void row_apply(int sign, const Need& nd, const Planes& a, const Ws& ws, int ps, int n,
+                          bool elig, int v) {
+  const Pws& pw = ws.pw;
+  if (nd.fit) {
+    I* req = (I*)pw.req + (size_t)n * a.R;
+    const I* pr = (const I*)a.pod_req + (size_t)v * a.R;
+    for (int r = 0; r < a.R; ++r) req[r] = sign > 0 ? wadd<I>(req[r], pr[r]) : wsub<I>(req[r], pr[r]);
+    pw.npods[n] = wadd<int>(pw.npods[n], sign);
+  }
+  if (nd.ports) {
+    for (int q = 0; q < a.Q; ++q) {
+      const size_t i = (size_t)n * a.Q + q, k = (size_t)v * a.Q + q;
+      pw.upair[i] = wadd<int>(pw.upair[i], sign * a.want_pair[k]);
+      pw.uwild[i] = wadd<int>(pw.uwild[i], sign * a.want_wild[k]);
+    }
+    for (int t = 0; t < a.V2; ++t) {
+      const size_t i = (size_t)n * a.V2 + t;
+      pw.utrip[i] = wadd<int>(pw.utrip[i], sign * a.want_trip[(size_t)v * a.V2 + t]);
+    }
+  }
+  if (nd.f_spread && elig && a.ns_id[v] == a.ns_id[ps] && !a.deleted[v] && a.pod_mask[v]) {
+    for (int t = 0; t < a.sph.T; ++t)
+      if (a.sph.key[(size_t)ps * a.sph.T + t] >= 0 && clauses_match(a, a.sph, ps, t, v))
+        pw.sp_cur[(size_t)n * a.sph.T + t] += sign;
+  }
+  if (nd.f_ipa) {
+    const int* npn = a.node_pair + (size_t)n * a.K;
+    const int nsp = a.ns_id[ps], nsv = a.ns_id[v];
+    // (1) v's required anti-affinity against ps, at v's pairs on node n
+    for (int t = 0; t < a.ian.T; ++t) {
+      const int key = a.ian.key[(size_t)v * a.ian.T + t];
+      if (key >= 0 && npn[key] > 0 && ns_ok(a, a.ian, v, t, nsp) &&
+          clauses_match(a, a.ian, v, t, ps))
+        pw.ea_cur[(size_t)n * a.K + key] += sign;
+    }
+    if (a.pod_mask[v]) {
+      // (2) ps's required anti-affinity and (3) affinity against v
+      for (int t = 0; t < a.ian.T; ++t) {
+        const int key = a.ian.key[(size_t)ps * a.ian.T + t];
+        if (key >= 0 && npn[key] > 0 && ns_ok(a, a.ian, ps, t, nsv) &&
+            clauses_match(a, a.ian, ps, t, v))
+          pw.f2_cur[(size_t)n * a.ian.T + t] += sign;
+      }
+      for (int t = 0; t < a.ia.T; ++t) {
+        const int key = a.ia.key[(size_t)ps * a.ia.T + t];
+        if (key >= 0 && npn[key] > 0 && ns_ok(a, a.ia, ps, t, nsv) &&
+            clauses_match(a, a.ia, ps, t, v)) {
+          pw.f3_cur[(size_t)n * a.ia.T + t] += sign;
+          pw.total3[n] += sign;
+        }
+      }
+    }
+  }
+  if (nd.vr) {
+    for (int i = 0; i < ws.vol[2]; ++i)
+      if (a.pod_claim[(size_t)v * a.CL + ws.pcl[i]]) pw.cl_cur[(size_t)n * a.CL + i] += sign;
+    for (int i = 0; i < ws.vol[1]; ++i) {
+      const size_t k = (size_t)v * a.D + ws.pdl[i], j = (size_t)n * a.D + i;
+      pw.dk_any[j] = wadd<int>(pw.dk_any[j], sign * a.pod_disk_any[k]);
+      pw.dk_rw[j] = wadd<int>(pw.dk_rw[j], sign * a.pod_disk_rw[k]);
+    }
+  }
+  for (int j = 0; j < N_VOL3; ++j)
+    if (nd.lim[j])
+      pw.vol3[(size_t)n * N_VOL3 + j] =
+          wadd<int>(pw.vol3[(size_t)n * N_VOL3 + j], sign * a.pod_vol3[(size_t)v * N_VOL3 + j]);
+}
+
+// Node n's row counters from the state, before any victim is taken away.
+template <typename I>
+__device__ void row_init(const Need& nd, const Planes& a, const State& s, const Ws& ws, int ps,
+                         int n) {
+  const Pws& pw = ws.pw;
+  const int NP1 = a.NP1;
+  if (nd.fit) {
+    for (int r = 0; r < a.R; ++r)
+      ((I*)pw.req)[(size_t)n * a.R + r] = ((const I*)s.requested)[(size_t)n * a.R + r];
+    pw.npods[n] = s.n_pods[n];
+  }
+  if (nd.ports) {
+    for (int q = 0; q < a.Q; ++q) {
+      pw.upair[(size_t)n * a.Q + q] = s.used_pair[(size_t)n * a.Q + q];
+      pw.uwild[(size_t)n * a.Q + q] = s.used_wild[(size_t)n * a.Q + q];
+    }
+    for (int t = 0; t < a.V2; ++t) pw.utrip[(size_t)n * a.V2 + t] = s.used_trip[(size_t)n * a.V2 + t];
+  }
+  const int* npn = a.node_pair + (size_t)n * a.K;
+  if (nd.f_spread)
+    for (int t = 0; t < a.sph.T; ++t) {
+      const int key = a.sph.key[(size_t)ps * a.sph.T + t];
+      const int pr = key >= 0 ? npn[key] : 0;
+      pw.sp_cur[(size_t)n * a.sph.T + t] = pr > 0 ? ws.val_h[(size_t)t * NP1 + pr] : 0;
+    }
+  if (nd.f_ipa) {
+    for (int k = 0; k < a.K; ++k) pw.ea_cur[(size_t)n * a.K + k] = npn[k] > 0 ? ws.ea[npn[k]] : 0;
+    for (int t = 0; t < a.ian.T; ++t) {
+      const int key = a.ian.key[(size_t)ps * a.ian.T + t];
+      const int pr = key >= 0 ? npn[key] : 0;
+      pw.f2_cur[(size_t)n * a.ian.T + t] = pr > 0 ? ws.anti[(size_t)t * NP1 + pr] : 0;
+    }
+    for (int t = 0; t < a.ia.T; ++t) {
+      const int key = a.ia.key[(size_t)ps * a.ia.T + t];
+      const int pr = key >= 0 ? npn[key] : 0;
+      pw.f3_cur[(size_t)n * a.ia.T + t] = pr > 0 ? ws.affc[(size_t)t * NP1 + pr] : 0;
+    }
+    pw.total3[n] = ws.scal[0];
+  }
+  if (nd.vr) {
+    for (int i = 0; i < ws.vol[2]; ++i) pw.cl_cur[(size_t)n * a.CL + i] = s.used_claims[ws.pcl[i]];
+    for (int i = 0; i < ws.vol[1]; ++i) {
+      pw.dk_any[(size_t)n * a.D + i] = s.node_disk_any[(size_t)n * a.D + ws.pdl[i]];
+      pw.dk_rw[(size_t)n * a.D + i] = s.node_disk_rw[(size_t)n * a.D + ws.pdl[i]];
+    }
+  }
+  for (int j = 0; j < N_VOL3; ++j) pw.vol3[(size_t)n * N_VOL3 + j] = s.node_vol3[(size_t)n * N_VOL3 + j];
+}
+
+// Pod ps passes every row filter on node n from the node's counters alone
+// (each row class's `check`).
+template <typename I>
+__device__ bool row_check(const Cfg& c, const Need& nd, const Planes& a, const Ws& ws, int ps,
+                          int n) {
+  const Pws& pw = ws.pw;
+  if (nd.fit) {
+    const I* alloc = (const I*)a.node_alloc + (size_t)n * a.R;
+    const I* used = (const I*)pw.req + (size_t)n * a.R;
+    const I* req = (const I*)a.pod_req + (size_t)ps * a.R;
+    if ((I)wadd<int>(pw.npods[n], 1) > alloc[PODS_RES]) return false;
+    for (int r = 0; r < a.R; ++r)
+      if (req[r] > 0 && req[r] > wsub<I>(alloc[r], used[r])) return false;
+  }
+  if (nd.ports) {
+    for (int q = 0; q < a.Q; ++q)
+      if (a.want_wild[(size_t)ps * a.Q + q] > 0 && pw.upair[(size_t)n * a.Q + q] > 0) return false;
+    for (int t = 0; t < a.V2; ++t)
+      if (a.want_trip[(size_t)ps * a.V2 + t] > 0 &&
+          (pw.utrip[(size_t)n * a.V2 + t] > 0 || pw.uwild[(size_t)n * a.Q + a.trip_pair[t]] > 0))
+        return false;
+  }
+  const int* npn = a.node_pair + (size_t)n * a.K;
+  if (nd.f_spread) {
+    const Terms& d = a.sph;
+    for (int t = 0; t < d.T; ++t) {
+      const size_t r = (size_t)ps * d.T + t;
+      const int key = d.key[r];
+      if (key < 0) continue;
+      const int pr = npn[key];
+      if (pr == 0) return false;
+      // the least count over present pairs, node n's own pair moved
+      const int* mn = pw.sp_min + (size_t)t * 4;
+      const int cur = pw.sp_cur[(size_t)n * d.T + t];
+      int min_c = 0;
+      if (mn[3]) {
+        min_c = pr == mn[1] ? mn[2] : mn[0];
+        if (ws.pres_h[(size_t)t * a.NP1 + pr] > 0 && cur < min_c) min_c = cur;
+      }
+      const int skew = wsub<int>(wadd<int>(cur, d.flag[r] ? 1 : 0), min_c);
+      if (skew > d.skew[r]) return false;
+    }
+  }
+  if (nd.f_ipa) {
+    for (int k = 0; k < a.K; ++k)
+      if (npn[k] > 0 && pw.ea_cur[(size_t)n * a.K + k] > 0) return false;
+    for (int t = 0; t < a.ian.T; ++t) {
+      const int key = a.ian.key[(size_t)ps * a.ian.T + t];
+      if (key >= 0 && npn[key] > 0 && pw.f2_cur[(size_t)n * a.ian.T + t] > 0) return false;
+    }
+    bool has_terms = false, satisfied = true, keys_all = true, self_all = true;
+    for (int t = 0; t < a.ia.T; ++t) {
+      const size_t r = (size_t)ps * a.ia.T + t;
+      const int key = a.ia.key[r];
+      if (key < 0) continue;
+      has_terms = true;
+      const int pr = npn[key];
+      if (pr == 0) keys_all = false;
+      if (pr == 0 || pw.f3_cur[(size_t)n * a.ia.T + t] <= 0) satisfied = false;
+      if (!a.ia.flag[r]) self_all = false;
+    }
+    if (has_terms && !satisfied && !(keys_all && pw.total3[n] == 0 && self_all)) return false;
+  }
+  if (nd.vr) {
+    for (int i = 0; i < ws.vol[2]; ++i)
+      if (pw.cl_cur[(size_t)n * a.CL + i] > 0) return false;
+    for (int i = 0; i < ws.vol[1]; ++i) {
+      const size_t j = (size_t)n * a.D + i;
+      if (pw.dk_rw[j] > 0 ||
+          (a.pod_disk_rw[(size_t)ps * a.D + ws.pdl[i]] > 0 && pw.dk_any[j] > 0))
+        return false;
+    }
+  }
+  for (int j = 0; j < N_VOL3; ++j)
+    if (nd.lim[j] && vol_limit(c, a, pw.vol3 + (size_t)n * N_VOL3, ps, j)) return false;
+  return true;
+}
+
+// The DefaultPreemption dry run for pod ps at state s (the reference's
+// build_preemption `preempt`), one thread per candidate node. The step's
+// prologue must have run for (ps, s): the dry run reads its relational
+// counts and volume lists as the rows' base. Writes each node's code to
+// pcode (SELECTED for the nominated node) and, when off is not null, the
+// victims of every candidate node as a CSR record: off[N+1] absolute
+// offsets into vidx, starting at status[0], which advances. Overflow sets
+// a bit of ws.vol[3] and records nothing. Returns the nominated node (-1:
+// none) to every thread.
+template <typename I>
+__device__ __noinline__ int dry_run(const Cfg& c, const Need& nd, const Planes& a, const State& s,
+                       const Ws& ws, int ps, int* pcode, int* off, int* vidx, int victim_cap,
+                       int* status, Smem<long long>& sml) {
+  const Pws& pw = ws.pw;
+  const int N = a.N, V = c.vbound;
+  // the base minima of the spread counts over present pairs: smallest, its
+  // pair, second smallest (excluding that pair), any pair present
+  if (nd.f_spread)
+    for (int t = threadIdx.x; t < a.sph.T; t += blockDim.x) {
+      int m1 = INT_MAX, a1 = -1, m2 = INT_MAX;
+      for (int x = 1; x < a.NP1; ++x) {
+        if (ws.pres_h[(size_t)t * a.NP1 + x] <= 0) continue;
+        const int v = ws.val_h[(size_t)t * a.NP1 + x];
+        if (a1 < 0 || v < m1) {
+          if (a1 >= 0) m2 = m1;
+          m1 = v;
+          a1 = x;
+        } else if (v < m2) {
+          m2 = v;
+        }
+      }
+      int* mn = pw.sp_min + (size_t)t * 4;
+      mn[0] = m1, mn[1] = a1, mn[2] = m2, mn[3] = a1 >= 0;
+    }
+  for (int n = threadIdx.x; n < N; n += blockDim.x) pw.vcount[n] = 0;
+  __syncthreads();
+  // every bound pod of lower priority, appended to its node's list
+  const int prio_p = a.pod_priority[ps];
+  for (int q = threadIdx.x; q < a.P; q += blockDim.x) {
+    const int n = s.assignment[q];
+    if (n < 0 || !a.pod_mask[q] || a.pod_priority[q] >= prio_p) continue;
+    const int slot = atomicAdd(&pw.vcount[n], 1);
+    if (slot < V)
+      pw.vlist[(size_t)n * V + slot] = q;
+    else
+      atomicOr(&ws.vol[3], 2);
+  }
+  __syncthreads();
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    const int cnt = pw.vcount[n] < V ? pw.vcount[n] : V;
+    int* list = pw.vlist + (size_t)n * V;
+    unsigned char* flag = pw.vflag + (size_t)n * V;
+    int code = P_NO_LOWER, nv = 0, maxp = -INT_MAX;
+    long long sump = 0;
+    if (pw.vcount[n] > 0) {
+      // a node the stateless filters refuse cannot fit: no counters needed
+      bool fits = a.node_mask[n] != 0;
+      for (int f = 0; f < c.n_filters && fits; ++f)
+        if (stateless(c.filter[f]) && filter_code<I>(c, c.filter[f], a, s, ws, ps, n) != 0)
+          fits = false;
+      const bool elig = nd.f_spread && spread_elig<I>(a, ws, ps, n);
+      if (fits) {
+        row_init<I>(nd, a, s, ws, ps, n);
+        for (int k = 0; k < cnt; ++k) row_apply<I>(-1, nd, a, ws, ps, n, elig, list[k]);
+        fits = row_check<I>(c, nd, a, ws, ps, n);
+      }
+      if (!fits) {
+        code = P_NO_FIT;
+      } else {
+        for (int i = 1; i < cnt; ++i) {  // insertion sort into reprieve order
+          const int v = list[i];
+          int j = i - 1;
+          while (j >= 0 && reprieve_before(a, s, v, list[j])) {
+            list[j + 1] = list[j];
+            --j;
+          }
+          list[j + 1] = v;
+        }
+        // reprieve: each victim back in turn, kept where the pod still fits
+        for (int k = 0; k < cnt; ++k) {
+          const int v = list[k];
+          row_apply<I>(1, nd, a, ws, ps, n, elig, v);
+          const bool ok = row_check<I>(c, nd, a, ws, ps, n);
+          flag[k] = !ok;
+          if (!ok) {
+            row_apply<I>(-1, nd, a, ws, ps, n, elig, v);
+            const int pv = a.pod_priority[v];
+            nv += 1;
+            maxp = pv > maxp ? pv : maxp;
+            sump += pv;
+          }
+        }
+        code = nv > 0 ? P_CANDIDATE : P_SILENT;
+      }
+    }
+    pw.code[n] = code;
+    pw.nrec[n] = code == P_CANDIDATE ? nv : 0;
+    pw.alive[n] = code == P_CANDIDATE;
+    pw.maxp[n] = maxp;
+    pw.sump[n] = sump;
+  }
+  __syncthreads();
+  // the ranking: min highest victim priority, min priority sum, fewest
+  // victims, each against the int32 max as the reference's, then the
+  // lowest index
+  for (int key = 0; key < 3; ++key) {
+    long long local = INT_MAX;
+    for (int n = threadIdx.x; n < N; n += blockDim.x) {
+      const long long k = key == 0 ? pw.maxp[n] : key == 1 ? pw.sump[n] : pw.nrec[n];
+      if (pw.alive[n] && k < local) local = k;
+    }
+    const long long best = block_min<long long>(local, sml);
+    for (int n = threadIdx.x; n < N; n += blockDim.x) {
+      const long long k = key == 0 ? pw.maxp[n] : key == 1 ? pw.sump[n] : pw.nrec[n];
+      pw.alive[n] = pw.alive[n] && k == best;
+    }
+  }
+  long long first = INT_MAX;
+  for (int n = threadIdx.x; n < N; n += blockDim.x)
+    if (pw.alive[n] && n < first) first = n;
+  const long long nom_ll = block_min<long long>(first, sml);
+  const int nom = nom_ll == INT_MAX ? -1 : (int)nom_ll;
+  if (pcode)
+    for (int n = threadIdx.x; n < N; n += blockDim.x) pcode[n] = n == nom ? P_SELECTED : pw.code[n];
+  if (off) {
+    if (threadIdx.x == 0) {
+      long long at = status[0];
+      off[0] = (int)at;
+      for (int n = 0; n < N; ++n) {
+        at += pw.nrec[n];
+        off[n + 1] = (int)(at < INT_MAX ? at : INT_MAX);
+      }
+      if (at > victim_cap)
+        ws.vol[3] |= 1;
+      else
+        status[0] = (int)at;
+    }
+    __syncthreads();
+    if (!(ws.vol[3] & 1))
+      for (int n = threadIdx.x; n < N; n += blockDim.x) {
+        if (!pw.nrec[n]) continue;
+        int at = off[n];
+        const int cnt = pw.vcount[n] < V ? pw.vcount[n] : V;
+        for (int k = 0; k < cnt; ++k)
+          if (pw.vflag[(size_t)n * V + k]) vidx[at++] = pw.vlist[(size_t)n * V + k];
+      }
+  }
+  __syncthreads();
+  return nom;
+}
+
+// Evict the nominated node's victims of the last dry run (the reference's
+// evict = vmask[nominated]).
+template <typename I>
+__device__ __noinline__ void evict_nominated(const Cfg& c, const Planes& a, const State& s, const Ws& ws,
+                                int nom) {
+  const Pws& pw = ws.pw;
+  const int V = c.vbound;
+  const int cnt = pw.vcount[nom] < V ? pw.vcount[nom] : V;
+  for (int k = threadIdx.x; k < cnt; k += blockDim.x)
+    if (pw.vflag[(size_t)nom * V + k]) evict_pod<I>(a, s, pw.vlist[(size_t)nom * V + k], nom);
+  __syncthreads();
+}
+
 template <typename I>
 __global__ void __launch_bounds__(1024)
     seq_attempt_kernel(Cfg c, Planes a, State s, const I* w, int p, int* codes, I* raw, I* fin,
-                       int* sel, unsigned char* feas, char* wsp) {
+                       int* sel, int* pf, unsigned char* feas, char* wsp) {
   __shared__ Smem<I> sm;
   Ws ws;
-  ws_layout(a, sizeof(I), wsp, &ws);
+  ws_layout(a, sizeof(I), c.vbound, wsp, &ws);
   const int r = attempt_body<I>(c, need_of(c), a, s, w, p, codes, raw, fin, feas, ws, sm);
-  if (threadIdx.x == 0) *sel = r;
+  if (threadIdx.x == 0) {
+    *sel = r;
+    if (c.pf_vb) pf[0] = prefilter_code(c, a, p);
+  }
 }
 
 template <typename I>
@@ -1101,40 +1738,123 @@ __global__ void seq_bind_kernel(Planes a, State s, int p, const int* sel, int qi
 
 template <typename I>
 __global__ void __launch_bounds__(1024)
-    seq_run_kernel(Cfg c, Planes a, State s, const I* w, const int* queue, int Q, int record,
-                   int* codes, I* raw, I* fin, int* sel, unsigned char* feas, int* codes_scratch,
-                   I* raw_scratch, char* wsp) {
-  __shared__ Smem<I> sm;
+    seq_evict_kernel(Planes a, State s, const unsigned char* mask) {
+  for (int v = threadIdx.x; v < a.P; v += blockDim.x) {
+    if (!mask[v]) continue;
+    const int n = s.assignment[v];
+    evict_pod<I>(a, s, v, n > 0 ? n : 0);
+  }
+}
+
+template <typename I>
+__global__ void __launch_bounds__(1024)
+    seq_preempt_kernel(Cfg c, Planes a, State s, int p, int* pcode, int* off, int* vidx,
+                       int* nominated, int* status, char* wsp) {
+  __shared__ Smem<long long> sml;
   Ws ws;
-  ws_layout(a, sizeof(I), wsp, &ws);
-  const size_t nf = (size_t)a.N * c.n_filters, ns = (size_t)a.N * c.n_scores;
+  ws_layout(a, sizeof(I), c.vbound, wsp, &ws);
   const Need nd = need_of(c);
+  if (threadIdx.x == 0) ws.vol[3] = 0;
+  prologue<I>(c, nd, a, s, p, ws);
+  const int nom = dry_run<I>(c, nd, a, s, ws, p, pcode, off, vidx, a.P, status, sml);
+  if (threadIdx.x == 0) {
+    *nominated = nom;
+    status[1] |= ws.vol[3];
+  }
+}
+
+// PRE: the configuration enables DefaultPreemption. Its own instantiation
+// keeps the preemption branch's code and registers out of the other
+// configurations' step.
+template <typename I, bool PRE>
+__global__ void __launch_bounds__(1024)
+    seq_run_kernel(Cfg c, Planes a, State s, const I* w, const int* queue, int Q, int step0,
+                   Trace tr, unsigned char* feas, int* codes_scratch, I* raw_scratch,
+                   char* wsp) {
+  __shared__ Smem<I> sm;
+  __shared__ Smem<long long> sml;
+  Ws ws;
+  ws_layout(a, sizeof(I), c.vbound, wsp, &ws);
+  const int N = a.N;
+  const size_t nf = (size_t)N * c.n_filters, ns = (size_t)N * c.n_scores;
+  const Need nd = need_of(c);
+  const bool record = tr.codes != nullptr;
+  if (threadIdx.x == 0) ws.vol[3] = 0;
   for (int qi = 0; qi < Q; ++qi) {
     const int p = queue[qi];
     // a padding step (p == -1) evaluates pod 0 and discards the result
     const int ps = p > 0 ? p : 0;
-    int* cr = record ? codes + (size_t)qi * nf : codes_scratch;
-    I* rr = record ? raw + (size_t)qi * ns : raw_scratch;
-    I* fr = record ? fin + (size_t)qi * ns : nullptr;
-    int sl = attempt_body<I>(c, nd, a, s, w, ps, cr, rr, fr, feas, ws, sm);
-    if (p < 0) sl = -1;
-    if (threadIdx.x == 0) sel[qi] = sl;
-    bind_body<I>(a, s, p, sl, qi);
+    const bool pf_ok = prefilter_code(c, a, ps) == 0;
+    int sl = -1, fsel = -1, nom = -1;
+    int* off = record ? tr.voff + (size_t)qi * 2 * (N + 1) : nullptr;
+    // round 0 is the pod's attempt; round 1, the preemption branch's retry
+    // on the state after eviction (one call site keeps one inlined copy)
+    for (int round = 0; round < 2; ++round) {
+      int* cr = codes_scratch;
+      I* rr = raw_scratch;
+      I* fr = nullptr;
+      if (record) {
+        cr = (round == 0 ? tr.codes : tr.codes2) + (size_t)qi * nf;
+        rr = (I*)(round == 0 ? tr.raw : tr.raw2) + (size_t)qi * ns;
+        fr = (I*)(round == 0 ? tr.fin : tr.fin2) + (size_t)qi * ns;
+      }
+      const int r = attempt_body<I>(c, nd, a, s, w, ps, cr, rr, fr, feas, ws, sm);
+      int* pc = record ? (round == 0 ? tr.pcode : tr.pcode2) + (size_t)qi * N : nullptr;
+      if (round == 0) {
+        sl = fsel = p < 0 ? -1 : r;
+        if (threadIdx.x == 0) {
+          tr.sel[qi] = sl;
+          if (record && c.pf_vb) tr.pf_codes[qi] = prefilter_code(c, a, ps);
+        }
+        if (!PRE) break;
+        if (!(sl < 0 && pf_ok && a.pod_mask[ps] && p >= 0)) {
+          // no dry run: zero codes, no nomination, empty victim records (the
+          // retry rows stay as the caller zeroed them)
+          if (record) {
+            for (int n = threadIdx.x; n < N; n += blockDim.x) pc[n] = tr.pcode2[(size_t)qi * N + n] = 0;
+            const int at = tr.status[0];
+            for (int j = threadIdx.x; j < 2 * (N + 1); j += blockDim.x) off[j] = at;
+            if (threadIdx.x == 0) {
+              tr.did[qi] = 0;
+              tr.nominated[qi] = tr.sel2[qi] = tr.nominated2[qi] = -1;
+            }
+          }
+          break;
+        }
+        // the dry run; on a nomination, evict its victims on that node
+        nom = dry_run<I>(c, nd, a, s, ws, ps, pc, off, tr.vidx, tr.victim_cap, tr.status, sml);
+        if (nom >= 0) evict_nominated<I>(c, a, s, ws, nom);
+      } else {
+        // the retry's failure is recorded and never evicts
+        const int nom2 = dry_run<I>(c, nd, a, s, ws, ps, pc, record ? off + N + 1 : nullptr,
+                                    tr.vidx, tr.victim_cap, tr.status, sml);
+        if (nom >= 0) fsel = r;
+        if (threadIdx.x == 0 && record) {
+          tr.did[qi] = 1;
+          tr.nominated[qi] = nom;
+          tr.sel2[qi] = r;
+          tr.nominated2[qi] = nom2;
+        }
+      }
+    }
+    if (PRE && threadIdx.x == 0 && tr.final_sel) tr.final_sel[qi] = fsel;
+    bind_body<I>(a, s, p, fsel, step0 + qi);
     __syncthreads();  // pod qi+1 sees pod qi's bind
   }
+  if (threadIdx.x == 0) tr.status[1] |= ws.vol[3];
 }
 
-int block_threads(int N) {
-  int t = ((N + 31) / 32) * 32;
+int block_threads(int n) {
+  int t = ((n + 31) / 32) * 32;
   return t < 32 ? 32 : (t > 1024 ? 1024 : t);
 }
 
 template <typename I>
 int launch_attempt(const Cfg* c, const Planes* a, const State* s, const void* w, int p,
-                   int* codes, void* raw, void* fin, int* sel, unsigned char* feas, void* ws,
-                   void* stream) {
+                   int* codes, void* raw, void* fin, int* sel, int* pf, unsigned char* feas,
+                   void* ws, void* stream) {
   seq_attempt_kernel<I><<<1, block_threads(a->N), 0, (cudaStream_t)stream>>>(
-      *c, *a, *s, (const I*)w, p, codes, (I*)raw, (I*)fin, sel, feas, (char*)ws);
+      *c, *a, *s, (const I*)w, p, codes, (I*)raw, (I*)fin, sel, pf, feas, (char*)ws);
   return (int)cudaGetLastError();
 }
 
@@ -1145,13 +1865,31 @@ int launch_bind(const Planes* a, const State* s, int p, const int* sel, int qi, 
 }
 
 template <typename I>
+int launch_evict(const Planes* a, const State* s, const unsigned char* mask, void* stream) {
+  seq_evict_kernel<I><<<1, block_threads(a->P), 0, (cudaStream_t)stream>>>(*a, *s, mask);
+  return (int)cudaGetLastError();
+}
+
+template <typename I>
+int launch_preempt(const Cfg* c, const Planes* a, const State* s, int p, int* pcode, int* off,
+                   int* vidx, int* nominated, int* status, void* ws, void* stream) {
+  seq_preempt_kernel<I><<<1, block_threads(a->N), 0, (cudaStream_t)stream>>>(
+      *c, *a, *s, p, pcode, off, vidx, nominated, status, (char*)ws);
+  return (int)cudaGetLastError();
+}
+
+template <typename I>
 int launch_run(const Cfg* c, const Planes* a, const State* s, const void* w, const int* queue,
-               int Q, int record, int* codes, void* raw, void* fin, int* sel,
-               unsigned char* feas, int* codes_scratch, void* raw_scratch, void* ws,
-               void* stream) {
-  seq_run_kernel<I><<<1, block_threads(a->N), 0, (cudaStream_t)stream>>>(
-      *c, *a, *s, (const I*)w, queue, Q, record, codes, (I*)raw, (I*)fin, sel, feas,
-      codes_scratch, (I*)raw_scratch, (char*)ws);
+               int Q, int step0, const Trace* tr, unsigned char* feas, int* codes_scratch,
+               void* raw_scratch, void* ws, void* stream) {
+  if (c->preempt)
+    seq_run_kernel<I, true><<<1, block_threads(a->N), 0, (cudaStream_t)stream>>>(
+        *c, *a, *s, (const I*)w, queue, Q, step0, *tr, feas, codes_scratch, (I*)raw_scratch,
+        (char*)ws);
+  else
+    seq_run_kernel<I, false><<<1, block_threads(a->N), 0, (cudaStream_t)stream>>>(
+        *c, *a, *s, (const I*)w, queue, Q, step0, *tr, feas, codes_scratch, (I*)raw_scratch,
+        (char*)ws);
   return (int)cudaGetLastError();
 }
 
@@ -1164,41 +1902,48 @@ int launch_run(const Cfg* c, const Planes* a, const State* s, const void* w, con
 // `seq_workspace_bytes` large.
 // ---------------------------------------------------------------------------
 
+// The build (engine/cuda.py `build`) compiles this file twice at once, with
+// SEQ_ONLY=32 and SEQ_ONLY=64, each translation unit holding one integer
+// type's kernels, and links the two; without SEQ_ONLY one unit holds both.
 extern "C" {
 
-long long seq_workspace_bytes(const Planes* a, int int_bytes) {
-  return (long long)ws_layout(*a, (size_t)int_bytes, nullptr, nullptr);
+#if !defined(SEQ_ONLY) || SEQ_ONLY == 32
+long long seq_workspace_bytes(const Planes* a, int int_bytes, int vbound) {
+  return (long long)ws_layout(*a, (size_t)int_bytes, vbound, nullptr, nullptr);
 }
+#endif
 
-int seq_attempt_i32(const Cfg* c, const Planes* a, const State* s, const void* w, int p,
-                    int* codes, void* raw, void* fin, int* sel, unsigned char* feas, void* ws,
-                    void* stream) {
-  return launch_attempt<int>(c, a, s, w, p, codes, raw, fin, sel, feas, ws, stream);
-}
-int seq_attempt_i64(const Cfg* c, const Planes* a, const State* s, const void* w, int p,
-                    int* codes, void* raw, void* fin, int* sel, unsigned char* feas, void* ws,
-                    void* stream) {
-  return launch_attempt<long long>(c, a, s, w, p, codes, raw, fin, sel, feas, ws, stream);
-}
-int seq_bind_i32(const Planes* a, const State* s, int p, const int* sel, int qi, void* stream) {
-  return launch_bind<int>(a, s, p, sel, qi, stream);
-}
-int seq_bind_i64(const Planes* a, const State* s, int p, const int* sel, int qi, void* stream) {
-  return launch_bind<long long>(a, s, p, sel, qi, stream);
-}
-int seq_run_i32(const Cfg* c, const Planes* a, const State* s, const void* w, const int* queue,
-                int Q, int record, int* codes, void* raw, void* fin, int* sel,
-                unsigned char* feas, int* codes_scratch, void* raw_scratch, void* ws,
-                void* stream) {
-  return launch_run<int>(c, a, s, w, queue, Q, record, codes, raw, fin, sel, feas,
-                         codes_scratch, raw_scratch, ws, stream);
-}
-int seq_run_i64(const Cfg* c, const Planes* a, const State* s, const void* w, const int* queue,
-                int Q, int record, int* codes, void* raw, void* fin, int* sel,
-                unsigned char* feas, int* codes_scratch, void* raw_scratch, void* ws,
-                void* stream) {
-  return launch_run<long long>(c, a, s, w, queue, Q, record, codes, raw, fin, sel, feas,
-                               codes_scratch, raw_scratch, ws, stream);
-}
+#define SEQ_ENTRY_POINTS(T, I)                                                                \
+  int seq_attempt_##T(const Cfg* c, const Planes* a, const State* s, const void* w, int p,    \
+                      int* codes, void* raw, void* fin, int* sel, int* pf,                    \
+                      unsigned char* feas, void* ws, void* stream) {                          \
+    return launch_attempt<I>(c, a, s, w, p, codes, raw, fin, sel, pf, feas, ws, stream);      \
+  }                                                                                           \
+  int seq_bind_##T(const Planes* a, const State* s, int p, const int* sel, int qi,            \
+                   void* stream) {                                                            \
+    return launch_bind<I>(a, s, p, sel, qi, stream);                                          \
+  }                                                                                           \
+  int seq_evict_##T(const Planes* a, const State* s, const unsigned char* mask,              \
+                    void* stream) {                                                           \
+    return launch_evict<I>(a, s, mask, stream);                                               \
+  }                                                                                           \
+  int seq_preempt_##T(const Cfg* c, const Planes* a, const State* s, int p, int* pcode,       \
+                      int* off, int* vidx, int* nominated, int* status, void* ws,             \
+                      void* stream) {                                                         \
+    return launch_preempt<I>(c, a, s, p, pcode, off, vidx, nominated, status, ws, stream);    \
+  }                                                                                           \
+  int seq_run_##T(const Cfg* c, const Planes* a, const State* s, const void* w,               \
+                  const int* queue, int Q, int step0, const Trace* tr, unsigned char* feas,   \
+                  int* codes_scratch, void* raw_scratch, void* ws, void* stream) {            \
+    return launch_run<I>(c, a, s, w, queue, Q, step0, tr, feas, codes_scratch, raw_scratch,   \
+                         ws, stream);                                                         \
+  }
+
+#if !defined(SEQ_ONLY) || SEQ_ONLY == 32
+SEQ_ENTRY_POINTS(i32, int)
+#endif
+#if !defined(SEQ_ONLY) || SEQ_ONLY == 64
+SEQ_ENTRY_POINTS(i64, long long)
+#endif
 
 }  // extern "C"

@@ -1,16 +1,21 @@
 """The sequential pass's kernels: build, load and launch, beside their plain
 PyTorch versions.
 
-Three hand-written CUDA kernels (`csrc/seq_kernels.cu`) carry the pass on
-the card, each replacing one device program of the reference package's
-`engine/engine.py`:
+Five hand-written CUDA kernels (`csrc/seq_kernels.cu`) carry the pass on
+the card, each replacing one device program of the reference package:
 
-  * `seq_attempt` — K1, `_build_run.attempt` (`seq.attempt`): one pod's
-    filters, scores, normalize, weights and masked argmax over all nodes;
+  * `seq_attempt` — K1, `engine.py` `_build_run.attempt` (`seq.attempt`):
+    one pod's prefilter, filters, scores, normalize, weights and masked
+    argmax over all nodes;
   * `seq_bind` — K2, `_build_run.bind` (`seq.bind`): the pod's scatter
     into per-node state;
+  * `seq_evict` — K2, `_build_run.evict_all`: the masked scatter-subtract
+    of preemption victims;
+  * `seq_preempt` — K7, `preempt.py` `build_preemption`: the
+    DefaultPreemption dry run for one pod (victims, reprieve, ranking);
   * `seq_run` — K3, `_build_run.step`/`run` (`seq.run`): the whole
-    bucket-padded queue in one persistent launch.
+    bucket-padded queue in one persistent launch, the preemption branch
+    (dry run, eviction, retry, second dry run) inside its step.
 
 Each wrapper takes its plain version (`*_plain`, a line-by-line PyTorch
 rendering of the reference's closure) only for tensors that lie on the CPU;
@@ -19,8 +24,15 @@ with `nvcc` for sm_90a into `build/kernels/` at first use and bound through
 a plain C interface with ctypes. Module state is the library handle and the
 per-wrapper counters `LAUNCHES` (kernel launches) and `PLAIN_CALLS`.
 
-`seq_bind` (both versions) updates the state it is given in place, where
-the reference returns a new state; `seq_run` clones its initial state first.
+`seq_bind` and `seq_evict` (both versions) update the state they are given
+in place, where the reference returns a new state; `seq_run` clones its
+initial state first.
+
+The victims of a dry run are a CSR record, not the reference's dense
+[N, P] mask: node offsets [N+1] into a list of victim pod indices, each
+node's victims in reprieve order (priority descending, then bind order).
+`seq_run` keeps every dry run's victims in one such list
+(`TRACE_SLOTS_PREEMPT`).
 """
 
 from __future__ import annotations
@@ -44,17 +56,19 @@ import torch
 from ..sched.config import MAX_NODE_SCORE
 from . import kernels as K
 from . import encode_rel
+from . import preempt as PR
 from .encode import RES_TYPED, ClusterArrays, EncodedCluster, SchedState
+from .encode_vol import VOL_LIMIT_PLUGINS
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc" / "seq_kernels.cu"
 LAYOUT_H = CSRC.with_name("seq_layout.h")  # the structs, included by CSRC
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNELS = ("seq_attempt", "seq_bind", "seq_run")
+KERNELS = ("seq_attempt", "seq_bind", "seq_run", "seq_preempt", "seq_evict")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _LIB = None
@@ -64,7 +78,8 @@ KERNEL_DEVICE_TYPES = ("cuda",)
 
 # Capacities of the kernel's config block (csrc/seq_layout.h `Cfg`; the
 # library's own are checked against these when it loads).
-MAX_F, MAX_S, MAX_SPEC, MAX_PTS, MAX_BAL = 8, 8, 16, 16, 16
+MAX_F, MAX_S, MAX_SPEC, MAX_PTS, MAX_BAL = 16, 8, 16, 16, 16
+N_VOL3 = len(VOL_LIMIT_PLUGINS)
 _CFG_FIELDS = (
     ("n_filters", 1), ("filter", MAX_F),
     ("n_scores", 1), ("score", MAX_S), ("mode", MAX_S),
@@ -73,6 +88,7 @@ _CFG_FIELDS = (
     ("rtcr_n", 1), ("rtcr_x", MAX_PTS), ("rtcr_y", MAX_PTS),
     ("bal_n", 1), ("bal_r", MAX_BAL),
     ("spread_on", 1), ("interpod_on", 1), ("hard_w", 1),
+    ("pf_vb", 1), ("preempt", 1), ("vbound", 1), ("vol_limit", N_VOL3),
 )
 CFG_INTS = sum(n for _, n in _CFG_FIELDS)
 _NORM_IDS = {None: 0, "default": 1, "default_reverse": 2, "custom": 3}
@@ -92,8 +108,9 @@ def reset_counts() -> None:
 
 @dataclass(frozen=True)
 class SeqProgram:
-    """The enabled filter and score plugins of one engine: the plain bodies
-    the CPU version calls, and the packed config block the kernels read."""
+    """The enabled prefilter, filter, score and postFilter plugins of one
+    engine: the plain bodies the CPU version calls, and the packed config
+    block the kernels read."""
 
     filter_names: tuple[str, ...]
     score_names: tuple[str, ...]
@@ -103,12 +120,16 @@ class SeqProgram:
     cfg: np.ndarray  # int32 [CFG_INTS]
     score_dtype: torch.dtype
     np1: int  # topology pairs + 1 (the pair axis of the relational counts)
+    prefilters: tuple[Callable, ...] = ()  # VolumeBinding's, when enabled
+    preempt: "Callable | None" = None  # the plain dry run (preempt.py)
+    vbound: int = 0  # victims per node the dry run keeps (0: no preemption)
     # the cluster planes checked for this program's launches, by id(arrays)
     # (`_planes`); the newest _BOUND_MAX
     bound: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
 
-def pack_config(enc: EncodedCluster, filter_names, score_names) -> np.ndarray:
+def pack_config(enc: EncodedCluster, filter_names, score_names, prefilter_names=(),
+                vbound: int = 0) -> np.ndarray:
     """The kernel's config block for these plugins (field order of `Cfg`).
     Raises ValueError where the block cannot hold the configuration."""
     vals: dict[str, list[int]] = {}
@@ -139,6 +160,10 @@ def pack_config(enc: EncodedCluster, filter_names, score_names) -> np.ndarray:
     vals["spread_on"] = [int("PodTopologySpread" in prescore)]
     vals["interpod_on"] = [int("InterPodAffinity" in prescore)]
     vals["hard_w"] = [K.interpod_hard_weight(enc)]
+    vals["pf_vb"] = [int("VolumeBinding" in prefilter_names)]
+    vals["preempt"] = [int(vbound > 0)]
+    vals["vbound"] = [vbound]
+    vals["vol_limit"] = [K.volume_limit(n)[1] for n in VOL_LIMIT_PLUGINS]
     out: list[int] = []
     for name, n in _CFG_FIELDS:
         xs = vals[name]
@@ -149,19 +174,27 @@ def pack_config(enc: EncodedCluster, filter_names, score_names) -> np.ndarray:
     return np.asarray(out, np.int32)
 
 
-def build_program(enc: EncodedCluster, filter_names, score_names) -> SeqProgram:
+def build_program(enc: EncodedCluster, filter_names, score_names, prefilter_names=(),
+                  preempt: bool = False) -> SeqProgram:
+    """The program of these plugins. `prefilter_names`: the enabled
+    prefilters with a body (PREFILTER_KERNELS); `preempt`: DefaultPreemption
+    is enabled."""
     np1 = enc.aux["n_node_pairs"] + 1
     if enc.arrays.rel.node_pair.numel() and int(enc.arrays.rel.node_pair.max()) >= np1:
         raise ValueError("node_pair holds pair ids beyond n_node_pairs")
+    vbound = PR.victim_bound(enc, filter_names) if preempt else 0
     return SeqProgram(
         filter_names=tuple(filter_names),
         score_names=tuple(score_names),
         filters=tuple(K.FILTER_KERNELS[n][0](enc) for n in filter_names),
         scores=tuple(K.SCORE_KERNELS[n][0](enc) for n in score_names),
         normalize=tuple(K.SCORE_KERNELS[n][1] for n in score_names),
-        cfg=pack_config(enc, filter_names, score_names),
+        cfg=pack_config(enc, filter_names, score_names, prefilter_names, vbound),
         score_dtype=enc.policy.score,
         np1=np1,
+        prefilters=tuple(K.PREFILTER_KERNELS[n][0](enc) for n in prefilter_names),
+        preempt=PR.build_preemption(enc, filter_names) if preempt else None,
+        vbound=vbound,
     )
 
 
@@ -171,16 +204,22 @@ def build_program(enc: EncodedCluster, filter_names, score_names) -> SeqProgram:
 
 
 def seq_attempt_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights, p: int):
-    """One full Filter→Score→Normalize→select pass for pod p. Returns
-    (codes [N,F] int32, raw [N,S], final [N,S], sel [] int32)."""
+    """One full PreFilter→Filter→Score→Normalize→select pass for pod p.
+    Returns (codes [N,F] int32, raw [N,S], final [N,S], sel [] int32,
+    pf_codes [n_pf] int32)."""
     N = a.node_mask.shape[0]
     dev = a.node_mask.device
     score_dt = prog.score_dtype
+    if prog.prefilters:
+        pf_codes = torch.stack([k(a, s, p) for k in prog.prefilters]).to(torch.int32)
+    else:
+        pf_codes = torch.zeros((0,), dtype=torch.int32, device=dev)
+    pf_ok = (pf_codes == 0).all()
     if prog.filters:
         codes = torch.stack([k(a, s, p) for k in prog.filters], dim=1)  # [N,F]
     else:
         codes = torch.zeros((N, 0), dtype=torch.int32, device=dev)
-    feasible = (codes == 0).all(dim=1) & a.node_mask
+    feasible = (codes == 0).all(dim=1) & a.node_mask & pf_ok
     if prog.scores:
         raw = torch.stack([k(a, s, p, feasible) for k in prog.scores], dim=1)  # [N,S]
         finals = []
@@ -210,7 +249,7 @@ def seq_attempt_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights
     masked = torch.where(feasible, total, torch.full_like(total, neg))
     sel = torch.argmax(masked).to(torch.int32)  # first occurrence: lowest index
     sel = torch.where(feasible.any(), sel, torch.full_like(sel, -1))
-    return codes, raw, final, sel
+    return codes, raw, final, sel, pf_codes
 
 
 def seq_bind_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, p: int,
@@ -230,44 +269,171 @@ def seq_bind_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, p: int,
     s.used_pair.index_add_(0, tgt, (a.want_pair[p] * vi)[None])
     s.used_wild.index_add_(0, tgt, (a.want_wild[p] * vi)[None])
     s.used_trip.index_add_(0, tgt, (a.want_trip[p] * vi)[None])
+    s.used_claims += a.pod_claim[p].to(torch.int32) * vi
+    s.node_disk_any.index_add_(0, tgt, (a.pod_disk_any[p] * vi)[None])
+    s.node_disk_rw.index_add_(0, tgt, (a.pod_disk_rw[p] * vi)[None])
+    s.node_vol3.index_add_(0, tgt, (a.pod_vol3[p] * vi)[None])
     s.assignment[p] = sel
     s.bound_seq[p] = torch.where(valid, sel.new_tensor(P + qi), sel.new_tensor(-1))
     return s
 
 
-def _trace(rows, record, N, F, S, score_dt, dev):
-    """Stack per-step outputs into the TRACE_SLOTS_PLAIN layout."""
-    Q = len(rows)
-    if not record:
-        return torch.stack(rows) if Q else torch.zeros((0,), dtype=torch.int32, device=dev)
-    if Q:
-        codes, raw, final, sel = (torch.stack(x) for x in zip(*rows))
-    else:
-        codes = torch.zeros((0, N, F), dtype=torch.int32, device=dev)
-        raw = torch.zeros((0, N, S), dtype=score_dt, device=dev)
-        final = raw.clone()
-        sel = torch.zeros((0,), dtype=torch.int32, device=dev)
-    pf_codes = torch.zeros((Q, 0), dtype=torch.int32, device=dev)
-    return pf_codes, codes, raw, final, sel
+def seq_evict_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, mask: torch.Tensor):
+    """Remove every pod of `mask` ([P] bool; bound pods) from its node, in
+    place (the reference's evict_all): its rows leave every per-node
+    counter, its claims leave `used_claims`, and its assignment and bind
+    order become -1. Returns `s`."""
+    tgt = torch.clamp(s.assignment, min=0).long()
+    mf = mask.to(a.pod_req.dtype)[:, None]
+    mi = mask.to(torch.int32)
+    s.requested.index_add_(0, tgt, -(a.pod_req * mf))
+    s.s_requested.index_add_(0, tgt, -(a.pod_sreq * mf))
+    s.n_pods.index_add_(0, tgt, -mi)
+    s.used_pair.index_add_(0, tgt, -(a.want_pair * mi[:, None]))
+    s.used_wild.index_add_(0, tgt, -(a.want_wild * mi[:, None]))
+    s.used_trip.index_add_(0, tgt, -(a.want_trip * mi[:, None]))
+    s.used_claims -= (a.pod_claim.to(torch.int32) * mi[:, None]).sum(dim=0, dtype=torch.int32)
+    s.node_disk_any.index_add_(0, tgt, -(a.pod_disk_any * mi[:, None]))
+    s.node_disk_rw.index_add_(0, tgt, -(a.pod_disk_rw * mi[:, None]))
+    s.node_vol3.index_add_(0, tgt, -(a.pod_vol3 * mi[:, None]))
+    s.assignment.masked_fill_(mask, -1)
+    s.bound_seq.masked_fill_(mask, -1)
+    return s
+
+
+def victims_csr(a: ClusterArrays, s: SchedState, vmask: torch.Tensor):
+    """A dense [N, P] victim mask as the kernels record it: (node offsets
+    [N+1] int32, victim pod indices int32), each node's victims in
+    reprieve order (`preempt.reprieve_order` at state s)."""
+    counts = vmask.sum(dim=1)
+    order = PR.reprieve_order(a, s, vmask)
+    take = torch.arange(vmask.shape[1], device=vmask.device)[None, :] < counts[:, None]
+    idx = order[take].to(torch.int32)
+    off = torch.zeros(vmask.shape[0] + 1, dtype=torch.int32, device=vmask.device)
+    off[1:] = torch.cumsum(counts, 0).to(torch.int32)
+    return off, idx
+
+
+def csr_mask(off: torch.Tensor, idx: torch.Tensor, P: int) -> torch.Tensor:
+    """The dense [N, P] bool mask of a CSR victim record."""
+    N = off.shape[0] - 1
+    rows = torch.repeat_interleave(torch.arange(N, device=off.device),
+                                   (off[1:] - off[:-1]).long())
+    m = torch.zeros((N, P), dtype=torch.bool, device=off.device)
+    m[rows, (idx[off[0]:off[-1]]).long()] = True
+    return m
+
+
+def seq_preempt_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, p: int):
+    """K7 for pod p at state s: (pcode [N] int32, victim offsets [N+1]
+    int32, victim pod indices [M] int32, nominated [] int32)."""
+    pcode, vmask, nominated = prog.preempt(a, s, p)
+    off, idx = victims_csr(a, s, vmask)
+    return pcode, off, idx, nominated
+
+
+# Trace slots of `seq_run` with record=True, by tuple position: the
+# reference's TRACE_SLOTS_PLAIN, and with DefaultPreemption enabled its
+# TRACE_SLOTS_PREEMPT with the two [Q, N, P] victim masks replaced by a
+# victim record: `voff` [Q, 2, N+1] (offsets into `vidx` of the step's
+# first and second dry run's victims, by node; empty ranges where the step
+# did not fire) and `vidx` [M] (victim pod indices, each node's in reprieve
+# order). Rows of steps that did not fire are zero (-1 for node indices),
+# as the reference's.
+TRACE_SLOTS_PLAIN = ("pf_codes", "codes", "raw", "final", "sel")
+TRACE_SLOTS_PREEMPT = TRACE_SLOTS_PLAIN + (
+    "did", "pcode", "nominated", "sel2", "pcode2", "nominated2", "final_sel",
+    "codes2", "raw2", "final2", "voff", "vidx",
+)
+
+
+def _stack(rows, empty):
+    return torch.stack(rows) if rows else empty
 
 
 def seq_run_plain(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue, weights,
-                  *, record: bool):
+                  *, record: bool, step0: int = 0):
     """The sequential pass: for each queue position, attempt then bind (pod
-    i sees pod i-1's bind). Padding steps (pod -1) evaluate pod 0 and
-    discard the result. Returns (final state, trace): the trace is
-    (pf_codes, codes, raw, final, sel) when `record`, else sel."""
+    i sees pod i-1's bind), with the preemption branch when the program
+    has one. Padding steps (pod -1) evaluate pod 0 and discard the result.
+    `step0`: the pass-wide step of the queue's first pod (a segment of a
+    longer pass, as the reference's run_segment; bind order is P + step).
+    Returns (final state, trace): the trace is TRACE_SLOTS_PLAIN (or
+    TRACE_SLOTS_PREEMPT) when `record`, else the bound selection [Q]."""
     s = state0.clone()
+    N, P = a.node_mask.shape[0], a.pod_mask.shape[0]
+    F, S = len(prog.filters), len(prog.scores)
+    dev, dt = a.node_mask.device, prog.score_dtype
+    i32 = dict(dtype=torch.int32, device=dev)
     rows = []
     for qi, p in enumerate(torch.as_tensor(queue).tolist()):
-        codes, raw, final, sel = seq_attempt_plain(prog, a, s, weights, max(p, 0))
+        ps = max(p, 0)
+        codes, raw, final, sel, pf = seq_attempt_plain(prog, a, s, weights, ps)
         if p < 0:
             sel = torch.full_like(sel, -1)
-        seq_bind_plain(prog, a, s, p, sel, qi)
-        rows.append((codes, raw, final, sel) if record else sel)
-    N = a.node_mask.shape[0]
-    return s, _trace(rows, record, N, len(prog.filters), len(prog.scores),
-                     prog.score_dtype, a.node_mask.device)
+        final_sel = sel
+        extra = None
+        if prog.preempt is not None:
+            do = int(sel) < 0 and bool((pf == 0).all()) and bool(a.pod_mask[ps]) and p >= 0
+            zero_n = torch.zeros(N, **i32)
+            none = torch.tensor(-1, **i32)
+            extra = (torch.tensor(do, device=dev), zero_n, none, none, zero_n, none, None)
+            if do:
+                pcode, vmask, nom = prog.preempt(a, s, ps)
+                rec1 = victims_csr(a, s, vmask)
+                if int(nom) >= 0:
+                    seq_evict_plain(prog, a, s, vmask[int(nom)])
+                codes2, raw2, final2, sel2, _ = seq_attempt_plain(prog, a, s, weights, ps)
+                pcode2, vmask2, nom2 = prog.preempt(a, s, ps)
+                rec2 = victims_csr(a, s, vmask2)
+                final_sel = sel2 if int(nom) >= 0 else sel
+                extra = (extra[0], pcode, nom, sel2, pcode2, nom2,
+                         (codes2, raw2, final2, rec1, rec2))
+        seq_bind_plain(prog, a, s, p, final_sel, step0 + qi)
+        rows.append((pf, codes, raw, final, sel, final_sel, extra))
+    Q = len(rows)
+    if not record:
+        return s, _stack([r[5] for r in rows], torch.zeros((0,), **i32))
+    n_pf = len(prog.prefilters)
+    trace = (
+        _stack([r[0] for r in rows], torch.zeros((0, n_pf), **i32)),
+        _stack([r[1] for r in rows], torch.zeros((0, N, F), **i32)),
+        _stack([r[2] for r in rows], torch.zeros((0, N, S), dtype=dt, device=dev)),
+        _stack([r[3] for r in rows], torch.zeros((0, N, S), dtype=dt, device=dev)),
+        _stack([r[4] for r in rows], torch.zeros((0,), **i32)),
+    )
+    if prog.preempt is None:
+        return s, trace
+    ex = [r[6] for r in rows]
+    did = _stack([e[0] for e in ex], torch.zeros((0,), dtype=torch.bool, device=dev))
+    dense = [_stack([e[j] for e in ex], torch.zeros((0, N) if j in (1, 4) else (0,), **i32))
+             for j in range(1, 6)]
+    off_rows, idx_parts, base = [], [], 0
+    retry = {"codes2": [], "raw2": [], "final2": []}
+    for e, (_, codes, raw, final, *_) in zip(ex, rows):
+        if e[6] is None:  # no dry run: zero rows, empty victim records
+            off_rows.append(torch.full((2, N + 1), base, **i32))
+            for k, t in zip(retry, (codes, raw, final)):
+                retry[k].append(torch.zeros_like(t))
+            continue
+        *fired, rec1, rec2 = e[6]
+        for k, t in zip(retry, fired):
+            retry[k].append(t)
+        pair = []
+        for off, idx in (rec1, rec2):
+            pair.append(off + base)
+            idx_parts.append(idx)
+            base += len(idx)
+        off_rows.append(torch.stack(pair))
+    codes2 = _stack(retry["codes2"], torch.zeros((0, N, F), **i32))
+    raw2 = _stack(retry["raw2"], torch.zeros((0, N, S), dtype=dt, device=dev))
+    final2 = _stack(retry["final2"], torch.zeros((0, N, S), dtype=dt, device=dev))
+    voff = _stack(off_rows, torch.zeros((0, 2, N + 1), **i32))
+    vidx = torch.cat(idx_parts) if idx_parts else torch.zeros((0,), **i32)
+    final_sel = _stack([r[5] for r in rows], torch.zeros((0,), **i32))
+    pcode, nominated, sel2, pcode2, nominated2 = dense
+    return s, trace + (did, pcode, nominated, sel2, pcode2, nominated2, final_sel,
+                       codes2, raw2, final2, voff, vidx)
 
 
 # ---------------------------------------------------------------------------
@@ -277,9 +443,11 @@ def seq_run_plain(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue,
 
 def build() -> tuple[Path, float]:
     """Compile csrc/seq_kernels.cu for sm_90a into build/kernels/ unless
-    this source's library is there already. Returns (library path, build
-    seconds; 0 when it was there). The compiler's report (registers,
-    shared memory, spills) is kept beside the library as a .log file."""
+    this source's library is there already: two `nvcc` processes started
+    together, one per integer type's kernels (SEQ_ONLY=32, 64), then one
+    link. Returns (library path, build seconds; 0 when it was there). The
+    compiler's report (registers, shared memory, spills) is kept beside the
+    library as a .log file."""
     src = CSRC.read_bytes() + LAYOUT_H.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libseq_kernels_{tag}.so"
@@ -290,14 +458,23 @@ def build() -> tuple[Path, float]:
         raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    objs = [out.with_name(f"{out.stem}_{b}.{os.getpid()}.o") for b in (32, 64)]
     t0 = time.perf_counter()
-    res = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC)], capture_output=True, text=True
-    )
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, f"-DSEQ_ONLY={b}", "-c", "-o", str(o),
+                               str(CSRC)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for b, o in zip((32, 64), objs)]
+    logs = [p.communicate()[0] for p in procs]
+    if any(p.returncode for p in procs):
+        raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
     secs = time.perf_counter() - t0
+    for o in objs:
+        o.unlink()
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    out.with_suffix(".log").write_text("".join(logs) + res.stdout + res.stderr)
     os.replace(tmp, out)
     return out, secs
 
@@ -324,6 +501,9 @@ _SPEC = {
     "paff_term_valid": "P PR b",
     "want_wild": "P Q i", "want_trip": "P V2 i", "want_pair": "P Q i", "trip_pair": "V2 i",
     "img_contrib": "N I i", "pod_img": "P I i", "pod_ncont": "P i",
+    "vb_row": "P i", "vb_code": "N VB i", "vz_code": "N VB i", "vb_pf": "P i",
+    "pod_claim": "P CL b", "pod_disk_any": "P D i", "pod_disk_rw": "P D i",
+    "pod_vol3": "P V3 i",
     # PodRelArrays
     "pair_present": "P LP b", "key_present": "P KK b", "ns_id": "P i", "deleted": "P b",
     "node_pair": "N K i", "req_all": "P b", "spread_lut": "LUT i",
@@ -343,7 +523,8 @@ _SPEC = {
     # SchedState
     "requested": "N R i", "s_requested": "N R i", "n_pods": "N i",
     "assignment": "P i", "used_pair": "N Q i", "used_wild": "N Q i",
-    "used_trip": "N V2 i", "bound_seq": "P i",
+    "used_trip": "N V2 i", "used_claims": "CL i", "node_disk_any": "N D i",
+    "node_disk_rw": "N D i", "node_vol3": "N V3 i", "bound_seq": "P i",
 }
 
 # name -> (dim names, element kind)
@@ -390,6 +571,8 @@ class _Layout:
             + [(x, self.Terms) for x in n["term_domains"]]
             + [(x, ci) for x in n["plane_dims"]])
         self.State = _struct("State", [(x, vp) for x in n["state_ptrs"]])
+        self.Trace = _struct("Trace", [(x, vp) for x in n["trace_ptrs"]]
+                             + [(x, ci) for x in n["trace_dims"]])
 
 
 def library() -> ctypes.CDLL:
@@ -401,25 +584,28 @@ def library() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.seq_layout.argtypes, lib.seq_layout.restype = [], ctypes.c_char_p
         lib.seq_cfg_counts.argtypes, lib.seq_cfg_counts.restype = [vp], ci
-        for fn in (lib.seq_planes_bytes, lib.seq_state_bytes):
+        for fn in (lib.seq_planes_bytes, lib.seq_state_bytes, lib.seq_trace_bytes):
             fn.argtypes, fn.restype = [], ci
-        lib.seq_workspace_bytes.argtypes = [vp, ci]
+        lib.seq_workspace_bytes.argtypes = [vp, ci, ci]
         lib.seq_workspace_bytes.restype = ctypes.c_longlong
         for t in ("i32", "i64"):
-            f = getattr(lib, f"seq_attempt_{t}")
-            f.argtypes, f.restype = [vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp], ci
-            f = getattr(lib, f"seq_bind_{t}")
-            f.argtypes, f.restype = [vp, vp, ci, vp, ci, vp], ci
-            f = getattr(lib, f"seq_run_{t}")
-            f.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
-            f.restype = ci
+            for name, args in (
+                ("seq_attempt", [vp, vp, vp, vp, ci] + [vp] * 8),
+                ("seq_bind", [vp, vp, ci, vp, ci, vp]),
+                ("seq_evict", [vp, vp, vp, vp]),
+                ("seq_preempt", [vp, vp, vp, ci] + [vp] * 7),
+                ("seq_run", [vp, vp, vp, vp, vp, ci, ci] + [vp] * 6),
+            ):
+                f = getattr(lib, f"{name}_{t}")
+                f.argtypes, f.restype = args, ci
         layout = _Layout(lib.seq_layout().decode())
         counts = (ctypes.c_int * len(_CFG_FIELDS))()
         if (lib.seq_cfg_counts(counts) != len(_CFG_FIELDS)
                 or list(counts) != [c for _, c in _CFG_FIELDS]):
             raise RuntimeError("kernel Cfg capacities differ from engine/cuda.py's")
-        if (lib.seq_planes_bytes(), lib.seq_state_bytes()) != (
-            ctypes.sizeof(layout.Planes), ctypes.sizeof(layout.State)
+        if (lib.seq_planes_bytes(), lib.seq_state_bytes(), lib.seq_trace_bytes()) != (
+            ctypes.sizeof(layout.Planes), ctypes.sizeof(layout.State),
+            ctypes.sizeof(layout.Trace)
         ):
             raise RuntimeError("kernel library's struct sizes differ from engine/cuda.py's")
         _LIB, _LAYOUT = lib, layout
@@ -497,7 +683,7 @@ def _planes(prog: SeqProgram, a: ClusterArrays) -> _Bound:
         raise ValueError(f"unsupported score dtype {res_dt}")
     lib = library()
     tensors = dict(zip(_A_FIELDS + _REL_FIELDS, objs[1:]))
-    dims: dict[str, int] = {"NP1": prog.np1}
+    dims: dict[str, int] = {"NP1": prog.np1, "V3": N_VOL3}
     for name in _SPEC:
         if name in tensors:
             _check_tensor(name, tensors[name], dims, dev, res_dt)
@@ -521,7 +707,8 @@ def _planes(prog: SeqProgram, a: ClusterArrays) -> _Bound:
         *map(terms, names["term_domains"]), *(dims[d] for d in names["plane_dims"]),
     )
     t = "i32" if res_dt == torch.int32 else "i64"
-    ws_bytes = int(lib.seq_workspace_bytes(ctypes.addressof(planes), 4 if t == "i32" else 8))
+    ws_bytes = int(lib.seq_workspace_bytes(ctypes.addressof(planes), 4 if t == "i32" else 8,
+                                           prog.vbound))
     prog.bound.pop(id(a), None)
     hit = prog.bound[id(a)] = _Bound([weakref.ref(x) for x in objs], planes, dims,
                                      max(ws_bytes, 8), t, [])
@@ -576,7 +763,8 @@ def _stream() -> int:
 
 
 def seq_attempt(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights, p: int):
-    """K1 for pod p: (codes [N,F] int32, raw [N,S], final [N,S], sel [])."""
+    """K1 for pod p: (codes [N,F] int32, raw [N,S], final [N,S], sel [],
+    pf_codes [n_pf] int32)."""
     if _on_cpu(a):
         PLAIN_CALLS["seq_attempt"] += 1
         return seq_attempt_plain(prog, a, s, weights, p)
@@ -590,17 +778,18 @@ def seq_attempt(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights, p: i
     raw = torch.empty((N, S), dtype=prog.score_dtype, device=dev)
     final = torch.empty((N, S), dtype=prog.score_dtype, device=dev)
     sel = torch.empty((), dtype=torch.int32, device=dev)
+    pf = torch.empty((len(prog.prefilters),), dtype=torch.int32, device=dev)
     feas = torch.empty((N,), dtype=torch.uint8, device=dev)
     ws = _workspace(ws_bytes, dev)
     cfg = np.ascontiguousarray(prog.cfg)
     rc = getattr(lib, f"seq_attempt_{t}")(
         cfg.ctypes.data, ctypes.addressof(planes), ctypes.addressof(state),
         weights.data_ptr(), p, codes.data_ptr(), raw.data_ptr(), final.data_ptr(),
-        sel.data_ptr(), feas.data_ptr(), ws.data_ptr(), _stream(),
+        sel.data_ptr(), pf.data_ptr(), feas.data_ptr(), ws.data_ptr(), _stream(),
     )
     _raise_on(rc, "seq_attempt")
     LAUNCHES["seq_attempt"] += 1
-    return codes, raw, final, sel
+    return codes, raw, final, sel, pf
 
 
 def seq_bind(prog: SeqProgram, a: ClusterArrays, s: SchedState, p: int, sel: torch.Tensor,
@@ -624,14 +813,100 @@ def seq_bind(prog: SeqProgram, a: ClusterArrays, s: SchedState, p: int, sel: tor
     return s
 
 
+def seq_evict(prog: SeqProgram, a: ClusterArrays, s: SchedState, mask: torch.Tensor):
+    """K2 evict_all: remove every pod of `mask` ([P] bool) from its node,
+    in place. Returns `s`."""
+    if _on_cpu(a):
+        PLAIN_CALLS["seq_evict"] += 1
+        return seq_evict_plain(prog, a, s, mask)
+    planes, state, _, t = _check(prog, a, s)
+    if mask.device != a.node_mask.device or mask.dtype != torch.bool or tuple(mask.shape) != (
+            planes.P,):
+        raise ValueError(f"mask must be a bool ({planes.P},) tensor on the planes' device")
+    mask = mask.contiguous()
+    rc = getattr(library(), f"seq_evict_{t}")(
+        ctypes.addressof(planes), ctypes.addressof(state), mask.data_ptr(), _stream()
+    )
+    _raise_on(rc, "seq_evict")
+    LAUNCHES["seq_evict"] += 1
+    return s
+
+
+_OVERFLOW = {
+    1: "more victims than the victim capacity",
+    2: "a node holds more lower-priority pods than the victim bound",
+}
+
+
+def _raise_overflow(bits: int, name: str) -> None:
+    if bits:
+        why = "; ".join(m for b, m in _OVERFLOW.items() if bits & b)
+        raise RuntimeError(f"{name}: the preemption record overflowed ({why})")
+
+
+def _need_preempt(prog: SeqProgram) -> None:
+    if prog.preempt is None:
+        raise ValueError("the program has no DefaultPreemption")
+
+
+def preempt_launch(prog: SeqProgram, a: ClusterArrays, s: SchedState, p: int):
+    """Launch K7 for pod p at state s on CUDA tensors, without waiting:
+    returns (pcode [N], offsets [N+1], the victim buffer [P], nominated [],
+    status [2]: victims, overflow bits); `seq_preempt` reads the status and
+    trims the victims."""
+    _need_preempt(prog)
+    planes, state, ws_bytes, t = _check(prog, a, s)
+    if not 0 <= p < planes.P:
+        raise ValueError(f"pod index {p} outside [0, {planes.P})")
+    dev, N = a.node_mask.device, planes.N
+    i32 = dict(dtype=torch.int32, device=dev)
+    pcode = torch.empty((N,), **i32)
+    off = torch.empty((N + 1,), **i32)
+    idx = torch.empty((planes.P,), **i32)
+    nominated = torch.empty((), **i32)
+    status = torch.zeros((2,), **i32)
+    ws = _workspace(ws_bytes, dev)
+    cfg = np.ascontiguousarray(prog.cfg)
+    rc = getattr(library(), f"seq_preempt_{t}")(
+        cfg.ctypes.data, ctypes.addressof(planes), ctypes.addressof(state), p,
+        pcode.data_ptr(), off.data_ptr(), idx.data_ptr(), nominated.data_ptr(),
+        status.data_ptr(), ws.data_ptr(), _stream(),
+    )
+    _raise_on(rc, "seq_preempt")
+    LAUNCHES["seq_preempt"] += 1
+    return pcode, off, idx, nominated, status
+
+
+def seq_preempt(prog: SeqProgram, a: ClusterArrays, s: SchedState, p: int):
+    """K7, the dry run for pod p at state s: (pcode [N] int32, victim
+    offsets [N+1] int32, victim pod indices [M] int32, nominated [] int32),
+    as `seq_preempt_plain`."""
+    _need_preempt(prog)
+    if _on_cpu(a):
+        PLAIN_CALLS["seq_preempt"] += 1
+        return seq_preempt_plain(prog, a, s, p)
+    pcode, off, idx, nominated, status = preempt_launch(prog, a, s, p)
+    n_victims, bits = status.tolist()
+    _raise_overflow(bits, "seq_preempt")
+    return pcode, off, idx[:n_victims], nominated
+
+
+# The most victim entries a `seq_run` records (512 MiB of int32): a pass
+# whose dry runs name more raises.
+VICTIM_CAP = 1 << 27
+
+
 def seq_run(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue, weights,
-            *, record: bool):
+            *, record: bool, step0: int = 0):
     """K3: the whole sequential pass over `queue` (int32 pod indices, -1 =
-    padding) in one launch. Returns (final state, trace) as
-    `seq_run_plain` does; `state0` is left as it was."""
+    padding) in one launch, the preemption branch inside its step. Returns
+    (final state, trace) as `seq_run_plain` does; `state0` is left as it
+    was. `step0` as `seq_run_plain`'s. The victim record holds at most
+    min(2 Q P, VICTIM_CAP) entries (each dry run names at most every bound
+    pod); a pass that needs more raises."""
     if _on_cpu(a):
         PLAIN_CALLS["seq_run"] += 1
-        return seq_run_plain(prog, a, state0, queue, weights, record=record)
+        return seq_run_plain(prog, a, state0, queue, weights, record=record, step0=step0)
     s = state0.clone()
     planes, state, ws_bytes, t = _check(prog, a, s, weights)
     dev, N = a.node_mask.device, planes.N
@@ -643,33 +918,59 @@ def seq_run(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue, weigh
         raise ValueError(f"queue holds pod indices outside [-1, {planes.P})")
     F, S = len(prog.filters), len(prog.scores)
     dt = prog.score_dtype
-    sel = torch.empty((Q,), dtype=torch.int32, device=dev)
+    pre = prog.preempt is not None
+    i32 = dict(dtype=torch.int32, device=dev)
+    out = {"sel": torch.empty((Q,), **i32), "status": torch.zeros((2,), **i32)}
+    if pre:
+        out["final_sel"] = torch.empty((Q,), **i32)
+    victim_cap = 0
     if record:
-        codes = torch.empty((Q, N, F), dtype=torch.int32, device=dev)
-        raw = torch.empty((Q, N, S), dtype=dt, device=dev)
-        final = torch.empty((Q, N, S), dtype=dt, device=dev)
-        codes_s = raw_s = None
-    else:
-        codes = raw = final = None
-        codes_s = torch.empty((N, F), dtype=torch.int32, device=dev)
-        raw_s = torch.empty((N, S), dtype=dt, device=dev)
+        out.update(
+            pf_codes=torch.zeros((Q, len(prog.prefilters)), **i32),
+            codes=torch.empty((Q, N, F), **i32),
+            raw=torch.empty((Q, N, S), dtype=dt, device=dev),
+            fin=torch.empty((Q, N, S), dtype=dt, device=dev),
+        )
+        if pre:
+            victim_cap = min(2 * Q * planes.P, VICTIM_CAP)
+            out.update(
+                did=torch.empty((Q,), dtype=torch.bool, device=dev),
+                pcode=torch.empty((Q, N), **i32), nominated=torch.empty((Q,), **i32),
+                sel2=torch.empty((Q,), **i32), pcode2=torch.empty((Q, N), **i32),
+                nominated2=torch.empty((Q,), **i32),
+                # the kernel writes the retry rows of the steps that fired only
+                codes2=torch.zeros((Q, N, F), **i32),
+                raw2=torch.zeros((Q, N, S), dtype=dt, device=dev),
+                fin2=torch.zeros((Q, N, S), dtype=dt, device=dev),
+                voff=torch.empty((Q, 2, N + 1), **i32),
+                vidx=torch.empty((victim_cap,), **i32),
+            )
     if Q:
         feas = torch.empty((N,), dtype=torch.uint8, device=dev)
+        codes_s = torch.empty((N, F), **i32)
+        raw_s = torch.empty((N, S), dtype=dt, device=dev)
         ws = _workspace(ws_bytes, dev)
         cfg = np.ascontiguousarray(prog.cfg)
-
-        def ptr(x):
-            return None if x is None else x.data_ptr()
-
+        names = _LAYOUT.names
+        tr = _LAYOUT.Trace(*(out[x].data_ptr() if x in out else None
+                             for x in names["trace_ptrs"]),
+                           *({"victim_cap": victim_cap}[x] for x in names["trace_dims"]))
         rc = getattr(library(), f"seq_run_{t}")(
             cfg.ctypes.data, ctypes.addressof(planes), ctypes.addressof(state),
-            weights.data_ptr(), queue.data_ptr(), Q, int(record), ptr(codes), ptr(raw),
-            ptr(final), sel.data_ptr(), feas.data_ptr(), ptr(codes_s), ptr(raw_s),
-            ws.data_ptr(), _stream(),
+            weights.data_ptr(), queue.data_ptr(), Q, step0, ctypes.addressof(tr), feas.data_ptr(),
+            codes_s.data_ptr(), raw_s.data_ptr(), ws.data_ptr(), _stream(),
         )
         _raise_on(rc, "seq_run")
         LAUNCHES["seq_run"] += 1
+    if not pre:
+        if not record:
+            return s, out["sel"]
+        return s, (out["pf_codes"], out["codes"], out["raw"], out["fin"], out["sel"])
+    n_victims, bits = out["status"].tolist()
+    _raise_overflow(bits, "seq_run")
     if not record:
-        return s, sel
-    pf_codes = torch.zeros((Q, 0), dtype=torch.int32, device=dev)
-    return s, (pf_codes, codes, raw, final, sel)
+        return s, out["final_sel"]
+    return s, (out["pf_codes"], out["codes"], out["raw"], out["fin"], out["sel"],
+               out["did"], out["pcode"], out["nominated"], out["sel2"], out["pcode2"],
+               out["nominated2"], out["final_sel"], out["codes2"], out["raw2"], out["fin2"],
+               out["voff"], out["vidx"][:n_victims].clone())

@@ -1,4 +1,4 @@
-"""Cluster state → tensors (the featurizer), cut to this slice's planes.
+"""Cluster state → tensors (the featurizer).
 
 The reference package encodes the whole cluster once into padded,
 statically-shaped arrays; the port does the same into torch tensors on the
@@ -19,10 +19,10 @@ Two dtype policies:
   * TPU32 — int32/float32 with per-resource unit scaling (memory in Mi);
     exact whenever quantities are Mi-granular, which real manifests are.
 
-The node-label, affinity, host-port, image and pod-relational planes are
-encoded whatever the configuration (the spread kernels read the
-NodeAffinity filter body even where NodeAffinity is disabled). The volume
-planes are not encoded yet.
+Every plane is encoded whatever the configuration, as the reference does
+(the spread kernels read the NodeAffinity filter body even where
+NodeAffinity is disabled); the volume planes come from
+`engine/encode_vol.py`.
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ from ..sched.oracle_plugins import (
 )
 from ..sched.resources import to_int_resources
 from .encode_rel import PodRelArrays, encode_pod_relations
+from .encode_vol import encode_volumes
 
 # Node index sentinels in pod_node_name: -1 = no nodeName requested,
 # -2 = names a node that does not exist (fails NodeName everywhere,
@@ -186,6 +187,16 @@ class ClusterArrays:
     img_contrib: torch.Tensor  # [N, I] size*have//total per node-image (Ki), res dtype
     pod_img: torch.Tensor  # [P, I] int32 image occurrence counts
     pod_ncont: torch.Tensor  # [P] int32 container count
+    # volume family (encode_vol.py). VB = claim pods, C = RWOP claims,
+    # D = exclusive-disk identities, V3 = limit plugin count.
+    vb_row: torch.Tensor  # [P] int32 row into vb/vz code tables | -1 no claims
+    vb_code: torch.Tensor  # [N, VB] int32 VolumeBinding message id (0 = pass)
+    vz_code: torch.Tensor  # [N, VB] int32 VolumeZone message id
+    vb_pf: torch.Tensor  # [P] int32 VolumeBinding prefilter message id
+    pod_claim: torch.Tensor  # [P, C] bool — pod references RWOP claim c
+    pod_disk_any: torch.Tensor  # [P, D] int32 mounts of disk d
+    pod_disk_rw: torch.Tensor  # [P, D] int32 non-read-only mounts
+    pod_vol3: torch.Tensor  # [P, V3] int32 per-type volume counts
     # pod-relational encodings (PodTopologySpread, InterPodAffinity)
     rel: PodRelArrays
 
@@ -197,7 +208,7 @@ class ClusterArrays:
 
 @dataclass
 class SchedState:
-    """Per-step state of the sequential pass (the slice's fields)."""
+    """Per-step state of the sequential pass."""
 
     requested: torch.Tensor  # [N, R] sum of effective requests of bound pods
     s_requested: torch.Tensor  # [N, R] sum of scoring requests
@@ -206,6 +217,11 @@ class SchedState:
     used_pair: torch.Tensor  # [N, Q] int32 users of (proto,port), any ip
     used_wild: torch.Tensor  # [N, Q] int32 wildcard-ip users of (proto,port)
     used_trip: torch.Tensor  # [N, V2] int32 users of (proto,ip,port)
+    # volume counters (VolumeRestrictions and the volume-count limits)
+    used_claims: torch.Tensor  # [C] int32 bound pods using RWOP claim c
+    node_disk_any: torch.Tensor  # [N, D] int32 mounts of disk d on the node
+    node_disk_rw: torch.Tensor  # [N, D] int32 non-read-only mounts on the node
+    node_vol3: torch.Tensor  # [N, V3] int32 per-type volume counts on the node
     # bind chronology: pre-bound pods get their input index, pass-bound
     # pods get P + step, unschedulable pods -1
     bound_seq: torch.Tensor  # [P] int32 | -1 unbound
@@ -624,6 +640,9 @@ def encode_cluster(
     policy: DTypePolicy = TPU32,
     priorityclasses: "list[dict] | None" = None,
     namespaces: "list[dict] | None" = None,
+    pvcs: "list[dict] | None" = None,
+    pvs: "list[dict] | None" = None,
+    storageclasses: "list[dict] | None" = None,
     node_capacity: "int | None" = None,
     pod_capacity: "int | None" = None,
     device: "str | torch.device | None" = None,
@@ -632,8 +651,9 @@ def encode_cluster(
     card unless the caller names another).
 
     `namespaces` are the Namespace objects inter-pod terms with a
-    namespaceSelector resolve against. `node_capacity`/`pod_capacity` fix
-    the padded shapes (masked rows)."""
+    namespaceSelector resolve against; `pvcs`, `pvs` and `storageclasses`
+    the objects the volume plugins consult. `node_capacity`/`pod_capacity`
+    fix the padded shapes (masked rows)."""
     device = resolve_device(device)
     config = config or SchedulerConfiguration.default()
     N = node_capacity or max(len(nodes), 1)
@@ -717,6 +737,9 @@ def encode_cluster(
         label_keys=label_keys, constraints=pod_constraints,
         namespaces=namespaces, device=device,
     )
+    vol_arrays, vol_aux = encode_volumes(
+        pod_views, nodes, N, P, pvcs or [], pvs or [], storageclasses or [], config
+    )
     Q = port_arrays["want_pair"].shape[1]
     V2 = port_arrays["want_trip"].shape[1]
 
@@ -730,6 +753,10 @@ def encode_cluster(
     used_pair = np.zeros((N, Q), np.int32)
     used_wild = np.zeros((N, Q), np.int32)
     used_trip = np.zeros((N, V2), np.int32)
+    used_claims = np.zeros(vol_arrays["pod_claim"].shape[1], np.int32)
+    node_disk_any = np.zeros((N, vol_arrays["pod_disk_any"].shape[1]), np.int32)
+    node_disk_rw = np.zeros_like(node_disk_any)
+    node_vol3 = np.zeros((N, vol_arrays["pod_vol3"].shape[1]), np.int32)
     bound_seq = np.full(P, -1, np.int32)
     pending: list[int] = []
     for i in range(len(pods)):
@@ -742,6 +769,10 @@ def encode_cluster(
             used_pair[tgt] += port_arrays["want_pair"][i]
             used_wild[tgt] += port_arrays["want_wild"][i]
             used_trip[tgt] += port_arrays["want_trip"][i]
+            used_claims += vol_arrays["pod_claim"][i]
+            node_disk_any[tgt] += vol_arrays["pod_disk_any"][i]
+            node_disk_rw[tgt] += vol_arrays["pod_disk_rw"][i]
+            node_vol3[tgt] += vol_arrays["pod_vol3"][i]
             bound_seq[i] = i
         else:
             pending.append(i)
@@ -766,6 +797,7 @@ def encode_cluster(
         # Gt/Lt numerics and image sums carry the policy's integer type
         **{k: put(v, policy.res if k in RES_TYPED else None)
            for k, v in {**label_arrays, **port_arrays, **img_arrays}.items()},
+        **{k: put(v) for k, v in vol_arrays.items()},
         rel=rel,
     )
     state0 = SchedState(
@@ -776,6 +808,10 @@ def encode_cluster(
         used_pair=put(used_pair),
         used_wild=put(used_wild),
         used_trip=put(used_trip),
+        used_claims=put(used_claims),
+        node_disk_any=put(node_disk_any),
+        node_disk_rw=put(node_disk_rw),
+        node_vol3=put(node_vol3),
         bound_seq=put(bound_seq),
     )
     return EncodedCluster(
@@ -789,7 +825,7 @@ def encode_cluster(
         config=config,
         n_nodes=len(nodes),
         n_pods=len(pods),
-        aux={**taint_aux, **rel_aux},
+        aux={**taint_aux, **rel_aux, **vol_aux},
     )
 
 
@@ -809,13 +845,11 @@ def from_reference_arrays(
     pending queue. `meta` carries `node_names`, `pod_keys`,
     `resource_names`, `policy` (the policy name, "exact" or "i32"),
     `config` (the configuration dict, as `SchedulerConfiguration.to_dict()`
-    gives it) and, for the TaintToleration messages, `node_taints` (each
-    node's taint list).
+    gives it), for the TaintToleration messages `node_taints` (each node's
+    taint list) and for the volume messages `vol_messages` (the interned
+    message table).
 
-    Raises KeyError on a missing field. Only the volume planes are ignored:
-    vb_row, vb_code, vz_code, vb_pf, pod_claim, pod_disk_any, pod_disk_rw
-    and pod_vol3, and in the state used_claims, node_disk_any,
-    node_disk_rw and node_vol3.
+    Raises KeyError on a missing field.
     """
     device = resolve_device(device)
     policy = POLICIES[meta["policy"]]
@@ -857,6 +891,7 @@ def from_reference_arrays(
         n_pods=len(pod_keys),
         aux={
             "node_taints": list(meta.get("node_taints") or [[] for _ in node_names]),
+            "vol_messages": list(meta.get("vol_messages") or [""]),
             # node-pair ids run 1..n_node_pairs
             "n_node_pairs": int(rel.node_pair.max()) if rel.node_pair.numel() else 0,
         },

@@ -8,11 +8,18 @@ queue in PrioritySort order with a scatter-update of node state after each
 pod gives the placements of the one-pod-at-a-time reference scheduler (pod
 i sees pod i-1's binding).
 
+When DefaultPreemption is enabled and a pod is unschedulable, the step
+runs the dry run, evicts the nominated node's victims, retries the pod on
+the state after eviction and records a second dry run (never evicting),
+then binds the retry's selection (the reference's `lax.cond` branch).
+
 On the card the whole pass is one launch of the `seq_run` kernel
 (engine/cuda.py); on the CPU its plain PyTorch version runs. `results()`
-converts the dense trace host-side into the reference's exact annotation
-wire format (sched/results.py). This is the reference package's
-`engine/engine.py` without preemption, PACKED, chunked runs or sweeps.
+converts the trace host-side into the reference's exact annotation wire
+format (sched/results.py). This is the reference package's
+`engine/engine.py` with `preempt_mode="cond"`, without PACKED, chunked runs
+or sweeps. Its victim masks are recorded as CSR lists (engine/cuda.py
+TRACE_SLOTS_PREEMPT), not as dense [N, P] masks.
 """
 
 from __future__ import annotations
@@ -30,16 +37,13 @@ from ..sched.results import (
 )
 from . import cuda
 from . import kernels as K
+from . import preempt as PR
+from .cuda import TRACE_SLOTS_PLAIN, TRACE_SLOTS_PREEMPT  # noqa: F401  (the trace layouts)
 from .encode import TPU32, DTypePolicy, EncodedCluster, encode_cluster, resolve_device
 
 
 class UnsupportedPluginError(NotImplementedError):
     pass
-
-
-# Trace slot layout of run()'s record=True output, by tuple position
-# (the reference's engine.py:53; no preemption slots in this slice).
-TRACE_SLOTS_PLAIN = ("pf_codes", "codes", "raw", "final", "sel")
 
 
 def _restricted_config(names: "dict[str, set[str]]") -> "SchedulerConfiguration":
@@ -64,7 +68,8 @@ def _restricted_config(names: "dict[str, set[str]]") -> "SchedulerConfiguration"
 def supported_config() -> "SchedulerConfiguration":
     """The default-plugin-order configuration restricted to the extension
     points and plugins the port has kernels for, with default weights: the
-    default profile without the volume family and DefaultPreemption."""
+    reference's whole default profile (15 filters, the VolumeBinding
+    prefilter, DefaultPreemption, 7 scores) — the default path."""
     return _restricted_config({
         "preFilter": set(K.PREFILTER_KERNELS) | K.TRIVIAL_PREFILTER,
         "filter": set(K.FILTER_KERNELS),
@@ -94,6 +99,28 @@ def fit_config() -> "SchedulerConfiguration":
     """The first slice's configuration (FIT_PLUGINS in default order, at
     default weights): the fit path `chip_smoke.py` keeps measuring."""
     return _restricted_config(FIT_PLUGINS)
+
+
+# The second slice's plugin set: the default profile without the volume
+# family and DefaultPreemption (8 filters, 7 scores).
+AFFINITY_PLUGINS = {
+    "preFilter": {"NodeResourcesFit", "NodeAffinity", "NodePorts", "PodTopologySpread",
+                  "InterPodAffinity"},
+    "filter": {"NodeUnschedulable", "NodeName", "TaintToleration", "NodeResourcesFit",
+               "NodeAffinity", "NodePorts", "PodTopologySpread", "InterPodAffinity"},
+    "postFilter": set(),
+    "preScore": {"InterPodAffinity", "PodTopologySpread", "TaintToleration", "NodeAffinity",
+                 "NodeResourcesFit", "NodeResourcesBalancedAllocation"},
+    "score": {"NodeResourcesFit", "NodeResourcesBalancedAllocation", "TaintToleration",
+              "NodeAffinity", "ImageLocality", "PodTopologySpread", "InterPodAffinity"},
+}
+
+
+def affinity_config() -> "SchedulerConfiguration":
+    """The second slice's configuration (AFFINITY_PLUGINS in default order,
+    at default weights): the affinity path `chip_smoke.py` keeps
+    measuring."""
+    return _restricted_config(AFFINITY_PLUGINS)
 
 
 def unsupported_plugins(cfg: "SchedulerConfiguration") -> list[str]:
@@ -133,12 +160,16 @@ class BatchedScheduler:
         self.enc = enc = enc.to(self.device)
         self.record = record
         cfg = enc.config
-        # All prefilter names emitted into the trace (oracle order); every
-        # one in this slice is trivially "success".
+        # All prefilter names emitted into the trace (oracle order); the
+        # kernel-backed subset contributes codes, the trivial subset is
+        # always "success".
         self._prefilter_names = [
             n
             for n in cfg.enabled("preFilter")
             if n in K.PREFILTER_KERNELS or n in K.TRIVIAL_PREFILTER
+        ]
+        self._prefilter_kernel_names = [
+            n for n in self._prefilter_names if n in K.PREFILTER_KERNELS
         ]
         self._filter_names = [n for n in cfg.enabled("filter") if n in K.FILTER_KERNELS]
         self._prescore_names = [
@@ -156,8 +187,10 @@ class BatchedScheduler:
                     f"no kernel for enabled plugins: {missing} "
                     "(pass strict=False to skip them)"
                 )
+        self.preempts = "DefaultPreemption" in cfg.enabled("postFilter")
         self.program = cuda.build_program(
-            enc, self._filter_names, [n for n, _ in self._score_specs]
+            enc, self._filter_names, [n for n, _ in self._score_specs],
+            self._prefilter_kernel_names, preempt=self.preempts,
         )
         self.weights = torch.tensor(
             [w for _, w in self._score_specs], dtype=enc.policy.score, device=self.device
@@ -169,15 +202,15 @@ class BatchedScheduler:
         self._final_state = None
 
     # -- single-pod segments (the reference's seq.attempt / seq.bind /
-    # seq.step programs) -----------------------------------------------------
+    # seq.step programs, and the extender loop's preempt / evict) ---------
 
     def attempt_fn(self, arrays, state, weights, p):
-        """One Filter→Score→Normalize→select pass for pod p: (pf_codes,
-        codes, raw, final, sel, pf_ok) as the reference's attempt_fn."""
-        codes, raw, final, sel = cuda.seq_attempt(self.program, arrays, state, weights, int(p))
-        pf_codes = torch.zeros((0,), dtype=torch.int32, device=self.device)
-        pf_ok = torch.ones((), dtype=torch.bool, device=self.device)
-        return pf_codes, codes, raw, final, sel, pf_ok
+        """One PreFilter→Filter→Score→Normalize→select pass for pod p:
+        (pf_codes, codes, raw, final, sel, pf_ok) as the reference's
+        attempt_fn."""
+        codes, raw, final, sel, pf_codes = cuda.seq_attempt(
+            self.program, arrays, state, weights, int(p))
+        return pf_codes, codes, raw, final, sel, (pf_codes == 0).all()
 
     def bind_fn(self, arrays, state, p, sel, qi):
         """Bind pod p to node `sel` at queue position qi, updating `state`
@@ -189,6 +222,17 @@ class BatchedScheduler:
         place). Returns the attempt outputs and the state."""
         out = self.attempt_fn(arrays, state, weights, p)
         return (*out, self.bind_fn(arrays, state, p, out[4], qi))
+
+    def preempt_fn(self, arrays, state, p):
+        """The DefaultPreemption dry run for pod p at `state`: (pcode [N],
+        victim offsets [N+1], victim pod indices, nominated) — the
+        reference's preempt closure, victims as a CSR record."""
+        return cuda.seq_preempt(self.program, arrays, state, int(p))
+
+    def evict_fn(self, arrays, state, mask):
+        """Remove the pods of `mask` ([P] bool) from their nodes, in place
+        (the reference's evict_all); returns the state."""
+        return cuda.seq_evict(self.program, arrays, state, mask)
 
     # -- execution ----------------------------------------------------------
 
@@ -264,11 +308,40 @@ class BatchedScheduler:
         record_bind_points(enc.config, res)
         return True
 
+    def _ordered_victims(self, off, vidx, seq) -> "dict[int, list[int]]":
+        """Per node, the victim pod indices of one dry run's CSR record
+        (offsets `off` [N+1] into `vidx`) in the order the records promise:
+        priority descending, bind order `seq` ascending."""
+        prio = self._priority
+        out = {}
+        for n in range(self.enc.n_nodes):
+            vs = [int(v) for v in vidx[off[n]:off[n + 1]]]
+            vs.sort(key=lambda v: (-int(prio[v]), int(seq[v])))
+            out[n] = vs
+        return out
+
+    def _fill_postfilter(self, res, pcode_row, off, vidx, seq):
+        """Attach DefaultPreemption's per-node messages. Returns the victim
+        names by node."""
+        enc = self.enc
+        victims = self._ordered_victims(off, vidx, seq)
+        victims_by_node = {}
+        for n in range(enc.n_nodes):
+            code = int(pcode_row[n])
+            names = [f"{enc.pod_keys[v][0]}/{enc.pod_keys[v][1]}" for v in victims[n]]
+            victims_by_node[n] = names
+            if code == PR.PREEMPT_SILENT:
+                continue
+            res.post_filter.setdefault(enc.node_names[n], {})[
+                "DefaultPreemption"
+            ] = PR.decode_preemption(code, enc, n, names)
+        return victims_by_node
+
     def results(
         self, pods: "set[tuple[str, str]] | None" = None
     ) -> list[PodSchedulingResult]:
-        """Convert the dense trace into the reference's per-pod scheduling
-        records (the oracle's output shape).
+        """Convert the trace into the reference's per-pod scheduling records
+        (the oracle's output shape).
 
         `pods`: optional set of (namespace, name) keys — decode only those
         pods' records. A record is O(N x plugins) host objects, so at full
@@ -279,17 +352,85 @@ class BatchedScheduler:
         if self._trace is None:
             self.run()
         enc = self.enc
-        _, codes, raw, final, sel = (x.cpu().numpy() for x in self._trace)
+        if self.preempts:
+            # the retry rows are read only where the dry run fired: copy those
+            tr = self._trace
+            n_retry = cuda.TRACE_SLOTS_PREEMPT.index("codes2")
+            did_t = tr[cuda.TRACE_SLOTS_PREEMPT.index("did")]
+            vals = [x.cpu().numpy() for x in tr[:n_retry]]
+            retry = [x[did_t].cpu().numpy() for x in tr[n_retry:n_retry + 3]]
+            (pf_codes, codes, raw, final, sel, did, pcode, nominated, sel2, pcode2,
+             nominated2, final_sel) = vals
+            codes2, raw2, final2 = retry
+            voff, vidx = (x.cpu().numpy() for x in tr[n_retry + 3:])
+            fired = np.cumsum(did) - 1  # the step's row in the retry rows
+            self._priority = enc.arrays.pod_priority.cpu().numpy()
+        else:
+            pf_codes, codes, raw, final, sel = (x.cpu().numpy() for x in self._trace)
+            final_sel = sel
         results = []
+
+        def evicted(qi):
+            """The victims the step qi's dry run evicted (on its nominated
+            node), or none."""
+            if not self.preempts or not did[qi] or int(nominated[qi]) < 0:
+                return np.zeros(0, np.int64)
+            off, nom = voff[qi, 0], int(nominated[qi])
+            return vidx[off[nom]:off[nom + 1]]
+
+        # bind chronology for victim ordering (mirrors state.bound_seq)
+        seq = enc.state0.bound_seq.cpu().numpy().copy()
         for qi, p in enumerate(enc.queue):
             ns, name = enc.pod_keys[p]
             if pods is not None and (ns, name) not in pods:
+                # the chronology must still advance so later decoded pods
+                # order their victim lists correctly
+                if int(final_sel[qi]) >= 0:
+                    seq[p] = enc.P + qi
+                seq[evicted(qi)] = -1
                 continue
             res = PodSchedulingResult(pod_namespace=ns, pod_name=name)
+            pf_failed = False
             for pname in self._prefilter_names:
-                res.pre_filter_status[pname] = SUCCESS_MESSAGE
+                c = 0
+                if pname in K.PREFILTER_KERNELS:
+                    c = int(pf_codes[qi, self._prefilter_kernel_names.index(pname)])
+                res.pre_filter_status[pname] = (
+                    K.PREFILTER_KERNELS[pname][1](c, enc) if c else SUCCESS_MESSAGE)
+                pf_failed = pf_failed or c != 0
+            if pf_failed:
+                res.status = "Unschedulable"
+                results.append(res)
+                continue
             self._fill_attempt(res, codes[qi], raw[qi], final[qi], sel[qi])
-            results.append(res)
+            if self.preempts and did[qi]:
+                f = fired[qi]
+                victims_by_node = self._fill_postfilter(res, pcode[qi], voff[qi, 0], vidx, seq)
+                nom = int(nominated[qi])
+                if nom >= 0:
+                    res.status = "Nominated"
+                    res.nominated_node = enc.node_names[nom]
+                    res.preemption_victims = victims_by_node[nom]
+                    results.append(res)
+                    # the retry (the pod re-queued at the head; a second
+                    # failure is terminally Unschedulable)
+                    res2 = PodSchedulingResult(pod_namespace=ns, pod_name=name)
+                    res2.pre_filter_status = dict(res.pre_filter_status)
+                    if not self._fill_attempt(res2, codes2[f], raw2[f], final2[f], sel2[qi]):
+                        self._fill_postfilter(res2, pcode2[qi], voff[qi, 1], vidx, seq)
+                        nom2 = int(nominated2[qi])
+                        if nom2 >= 0:
+                            res2.nominated_node = enc.node_names[nom2]
+                        res2.status = "Unschedulable"
+                    results.append(res2)
+                else:
+                    res.status = "Unschedulable"
+                    results.append(res)
+            else:
+                results.append(res)
+            if int(final_sel[qi]) >= 0:
+                seq[p] = enc.P + qi
+            seq[evicted(qi)] = -1
         return results
 
 
@@ -301,16 +442,19 @@ def schedule(
     policy: DTypePolicy = TPU32,
     device: "str | torch.device | None" = None,
     decode: "set[tuple[str, str]] | None" = None,
+    **objects,
 ) -> tuple[dict, list[PodSchedulingResult]]:
     """One sequential scheduling pass over a cluster: encode, run, decode.
 
     Returns (placements, results): pod (ns, name) → node name ("" =
     unschedulable), and the per-pod scheduling records in queue order.
-    `config` defaults to this slice's plugin set (`supported_config()`).
-    `decode`: the (namespace, name) keys whose records to decode (None:
-    every pending pod). Runs on the CUDA card unless `device` names another."""
+    `config` defaults to the reference's default profile
+    (`supported_config()`). `decode`: the (namespace, name) keys whose
+    records to decode (None: every pending pod). `objects`: the other
+    kinds `encode_cluster` takes (priorityclasses, namespaces, pvcs, pvs,
+    storageclasses). Runs on the CUDA card unless `device` names another."""
     enc = encode_cluster(
-        nodes, pods, config or supported_config(), policy=policy, device=device
+        nodes, pods, config or supported_config(), policy=policy, device=device, **objects
     )
     eng = BatchedScheduler(enc, device=enc.device)
     eng.run()

@@ -5,8 +5,8 @@ Each body replaces one upstream scheduler-framework plugin's per-node
 callback (reference: the wrapped plugins' Filter/Score delegation,
 simulator/scheduler/plugin/wrappedplugin.go:491-516 and :388-413) with one
 vectorized pass over every node at once. They are line-by-line renderings
-of the reference package's `engine/kernels.py` closures, and they are what
-the CPU runs. On the card the same arithmetic runs inside the hand-written
+of the reference package's `engine/kernels.py` and `engine/kernels_vol.py`
+closures, and they are what the CPU runs. On the card the same arithmetic runs inside the hand-written
 kernels of `csrc/seq_kernels.cu`, which read each plugin's static
 arguments from the config block `engine/cuda.py` packs with the helpers
 below (`fit_score_args`, `balanced_resources`).
@@ -37,12 +37,14 @@ from ..sched.config import MAX_NODE_SCORE
 from ..sched.oracle_plugins import (
     _IMG_MAX_CONTAINER_KI,
     _IMG_MIN_KI,
+    _VOLUME_LIMITS,
     BALANCED_SCALE,
     SPREAD_SCALE,
     rtcr_shape,
 )
 from .encode import PODS_RES, ClusterArrays, EncodedCluster, SchedState
 from .encode_rel import match_clauses, match_clauses_rev
+from .encode_vol import VOL_LIMIT_PLUGINS
 
 # int32 max: the reference's sentinel in the custom normalizes' min/max
 BIG = (1 << 31) - 1
@@ -844,7 +846,110 @@ def build_interpod_score(enc: EncodedCluster):
 
 
 # ---------------------------------------------------------------------------
-# registries: the slice's plugins. Each entry also names the plugin's id in
+# Volume family  (reference: engine/kernels_vol.py; oracle volume plugins).
+# VolumeBinding and VolumeZone gather host-precomputed verdict tables
+# (engine/encode_vol.py); VolumeRestrictions and the limits read the volume
+# counters of SchedState.
+# ---------------------------------------------------------------------------
+
+# VolumeRestrictions reason codes
+VR_RWOP, VR_DISK = 1, 2
+_VR_MESSAGES = {
+    VR_RWOP: (
+        "node has pod using PersistentVolumeClaim with the same name and "
+        "ReadWriteOncePod access mode"
+    ),
+    VR_DISK: "node(s) conflicted with the pod's volumes",
+}
+
+
+def vol_message(code: int, enc: EncodedCluster, node_idx: int = -1) -> str:
+    return enc.aux["vol_messages"][code]
+
+
+def build_volume_binding_prefilter(enc: EncodedCluster):
+    def kernel(a: ClusterArrays, s: SchedState, p) -> torch.Tensor:
+        return a.vb_pf[p]
+
+    return kernel
+
+
+def decode_volume_binding_prefilter(code: int, enc: EncodedCluster) -> str:
+    return enc.aux["vol_messages"][code]
+
+
+def _build_static_table_filter(field: str):
+    def build(enc: EncodedCluster):
+        def kernel(a: ClusterArrays, s: SchedState, p) -> torch.Tensor:
+            row = a.vb_row[p]
+            codes = getattr(a, field)[:, torch.clamp(row, min=0)]  # [N]
+            return torch.where(row >= 0, codes, torch.zeros_like(codes)).to(torch.int32)
+
+        return kernel
+
+    return build
+
+
+def build_volume_restrictions_filter(enc: EncodedCluster):
+    def kernel(a: ClusterArrays, s: SchedState, p) -> torch.Tensor:
+        # ReadWriteOncePod: any bound pod anywhere using one of p's RWOP
+        # claims fails every node
+        rwop = (a.pod_claim[p] & (s.used_claims > 0)).any()
+        # exclusive disks: a conflict unless both mounts are read-only
+        mine_any = a.pod_disk_any[p] > 0  # [D]
+        mine_rw = a.pod_disk_rw[p] > 0
+        disk = (
+            (mine_any[None, :] & (s.node_disk_rw > 0))
+            | (mine_rw[None, :] & (s.node_disk_any > 0))
+        ).any(dim=1)  # [N]
+        zero = torch.zeros(disk.shape, dtype=torch.int32, device=disk.device)
+        return torch.where(rwop, zero + VR_RWOP, torch.where(disk, zero + VR_DISK, zero))
+
+    return kernel
+
+
+def decode_volume_restrictions(code: int, enc: EncodedCluster, node_idx: int) -> str:
+    return _VR_MESSAGES[code]
+
+
+def volume_limit(plugin: str) -> tuple[int, int]:
+    """(column of the per-type volume counts, the per-node limit)."""
+    return VOL_LIMIT_PLUGINS.index(plugin), _VOLUME_LIMITS[plugin][1]
+
+
+def _build_volume_limits_filter(plugin: str):
+    idx, limit = volume_limit(plugin)
+
+    def build(enc: EncodedCluster):
+        def kernel(a: ClusterArrays, s: SchedState, p) -> torch.Tensor:
+            want = a.pod_vol3[p, idx]
+            return ((want > 0) & (s.node_vol3[:, idx] + want > limit)).to(torch.int32)
+
+        return kernel
+
+    return build
+
+
+def decode_volume_limits(code: int, enc: EncodedCluster, node_idx: int) -> str:
+    return "node(s) exceed max volume count"
+
+
+def build_node_volume_limits_filter(enc: EncodedCluster):
+    # CSI limits need CSINode objects, which the simulator's store does not
+    # model: a pass-through, as the oracle's node_volume_limits_filter
+    def kernel(a: ClusterArrays, s: SchedState, p) -> torch.Tensor:
+        return torch.zeros(a.node_mask.shape[0], dtype=torch.int32, device=a.node_mask.device)
+
+    return kernel
+
+
+def decode_never(code: int, enc: EncodedCluster, node_idx: int) -> str:
+    raise AssertionError("NodeVolumeLimits never fails")
+
+
+# ---------------------------------------------------------------------------
+# registries. Each entry also names the plugin's id in the kernel's config
+# block (csrc/seq_kernels.cu F_* / S_*). Each entry also names the plugin's id in
 # the kernel's config block (csrc/seq_kernels.cu FILTER_* / SCORE_*).
 # ---------------------------------------------------------------------------
 
@@ -858,6 +963,14 @@ FILTER_KERNELS: dict[str, tuple[Callable, Callable, int]] = {
     "NodePorts": (build_node_ports_filter, decode_node_ports, 5),
     "PodTopologySpread": (build_spread_filter, decode_spread, 6),
     "InterPodAffinity": (build_interpod_filter, decode_interpod, 7),
+    "VolumeRestrictions": (build_volume_restrictions_filter, decode_volume_restrictions, 8),
+    "EBSLimits": (_build_volume_limits_filter("EBSLimits"), decode_volume_limits, 9),
+    "GCEPDLimits": (_build_volume_limits_filter("GCEPDLimits"), decode_volume_limits, 10),
+    "AzureDiskLimits": (_build_volume_limits_filter("AzureDiskLimits"), decode_volume_limits,
+                        11),
+    "NodeVolumeLimits": (build_node_volume_limits_filter, decode_never, 12),
+    "VolumeBinding": (_build_static_table_filter("vb_code"), vol_message, 13),
+    "VolumeZone": (_build_static_table_filter("vz_code"), vol_message, 14),
 }
 
 # name -> (builder(enc) -> score body, normalize mode, kernel id)
@@ -871,9 +984,11 @@ SCORE_KERNELS: dict[str, tuple[Callable, "str | None", int]] = {
     "InterPodAffinity": (build_interpod_score, "custom", 6),
 }
 
-# preFilter plugins that can veto a pod before the per-node loop: none yet
-# (VolumeBinding comes with the volume family).
-PREFILTER_KERNELS: dict[str, tuple[Callable, Callable]] = {}
+# preFilter plugins that can veto a pod before the per-node loop:
+# name -> (builder(enc) -> body(a, s, p) -> code [] int32, decode(code, enc))
+PREFILTER_KERNELS: dict[str, tuple[Callable, Callable]] = {
+    "VolumeBinding": (build_volume_binding_prefilter, decode_volume_binding_prefilter),
+}
 
 # preFilter plugins whose oracle implementation only caches state and can
 # never fail — the engine just records "success" for them.
@@ -883,9 +998,11 @@ TRIVIAL_PREFILTER: set[str] = {
     "NodePorts",
     "PodTopologySpread",
     "InterPodAffinity",
+    "VolumeRestrictions",
+    "VolumeZone",
 }
 
-# preScore plugins that can fail/skip: none in this slice.
+# preScore plugins that can fail or skip: none in the default profile.
 PRESCORE_KERNELS: dict[str, tuple[Callable, Callable]] = {}
 
 TRIVIAL_PRESCORE: set[str] = {
@@ -897,5 +1014,11 @@ TRIVIAL_PRESCORE: set[str] = {
     "NodeResourcesBalancedAllocation",
 }
 
-# postFilter (preemption) kernels: none in this slice.
+# postFilter kernels: DefaultPreemption (engine/preempt.py), a builder
+# (enc, filter_names) -> the plain dry run.
 POSTFILTER_KERNELS: dict[str, Callable] = {}
+
+
+from .preempt import build_preemption  # noqa: E402  (preempt reads the registries)
+
+POSTFILTER_KERNELS["DefaultPreemption"] = build_preemption

@@ -161,6 +161,21 @@ class PodView(_View):
         """metadata.deletionTimestamp is set (the pod is terminating)."""
         return bool(_get(self.obj, "metadata", "deletionTimestamp"))
 
+    @property
+    def volumes(self) -> list[dict]:
+        return self.spec.get("volumes", []) or []
+
+    @property
+    def pvc_names(self) -> list[str]:
+        """The claim names of the pod's persistentVolumeClaim volumes, in
+        volume order."""
+        out = []
+        for v in self.volumes:
+            claim = _get(v, "persistentVolumeClaim", "claimName")
+            if claim:
+                out.append(claim)
+        return out
+
 
 class NodeView(_View):
     @property
@@ -191,7 +206,8 @@ class NodeView(_View):
 
 
 # ---------------------------------------------------------------------------
-# Label-selector semantics shared with the relational encoder.
+# Label- and node-selector semantics shared with the relational and volume
+# encoders.
 # ---------------------------------------------------------------------------
 
 
@@ -238,6 +254,26 @@ def _match_expression(req: dict, labels: dict[str, str], allow_numeric: bool) ->
             return False
         return lhs > rhs if op == "Gt" else lhs < rhs
     return False
+
+
+def match_node_selector_term(term: dict, node: NodeView) -> bool:
+    """One nodeSelectorTerm: AND of matchExpressions and matchFields."""
+    exprs = term.get("matchExpressions") or []
+    fields = term.get("matchFields") or []
+    if not exprs and not fields:
+        return False  # empty term matches nothing (upstream semantics)
+    for req in exprs:
+        if not _match_expression(req, node.labels, allow_numeric=True):
+            return False
+    for req in fields:
+        if not _match_expression(req, {"metadata.name": node.name}, allow_numeric=True):
+            return False
+    return True
+
+
+def match_node_selector_terms(terms: list[dict], node: NodeView) -> bool:
+    """nodeSelectorTerms are ORed (a PersistentVolume's node affinity)."""
+    return any(match_node_selector_term(t, node) for t in terms)
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,7 @@ def rel_cluster(seed, n_nodes=24, n_pods=120):
 
 def test_rel_cluster_reaches_every_path():
     nodes, pods = rel_cluster(1)
-    enc = kp.encode_cluster(nodes, pods, kp.slice_config(), namespaces=NAMESPACES,
+    enc = kp.encode_cluster(nodes, pods, kp.affinity_config(), namespaces=NAMESPACES,
                             device="cpu")
     a, rel = enc.arrays, enc.arrays.rel
     assert set(a.raff_op[a.raff_key >= 0].tolist()) >= {0, 1, 2, 3, 4, 5}

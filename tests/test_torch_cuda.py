@@ -8,8 +8,10 @@ skipped where `torch.cuda.is_available()` is False. On the card:
 (`--noconftest`: the suite's conftest configures JAX, which the port and
 this file do not use). Tolerance: exact equality. Each test runs under the
 first slice's plugin set (`fit_config()`) and the default profile without
-volumes and preemption (`slice_config()`); `rel_cluster` (test_torch_clusters)
-reaches the relational plugins.
+volumes and preemption (`affinity_config()`); `rel_cluster` (test_torch_clusters)
+reaches the relational plugins. The default profile's kernels (the volume
+family, `seq_preempt`, `seq_evict`, `seq_run`'s preemption branch) run on
+`synth.dressed_default_cluster`.
 """
 
 import numpy as np
@@ -24,9 +26,10 @@ from test_torch_clusters import NAMESPACES, rel_cluster
 pytestmark = pytest.mark.cuda
 
 STATE_FIELDS = ("requested", "s_requested", "n_pods", "assignment", "used_pair",
-                "used_wild", "used_trip", "bound_seq")
+                "used_wild", "used_trip", "used_claims", "node_disk_any", "node_disk_rw",
+                "node_vol3", "bound_seq")
 POLICIES = {"exact": kp.EXACT, "i32": kp.TPU32}
-CONFIGS = {"fit": kp.fit_config, "slice": kp.slice_config}
+CONFIGS = {"fit": kp.fit_config, "slice": kp.affinity_config}
 
 
 @pytest.fixture
@@ -145,7 +148,7 @@ def test_custom_normalizes_with_no_feasible_node(card, policy, prescore):
 
     nodes, pods = rel_cluster(3, 16, 40)
     pods[7]["spec"]["containers"][0]["resources"]["requests"] = {"cpu": "999"}
-    cfg = kp.slice_config().to_dict()
+    cfg = kp.affinity_config().to_dict()
     if prescore == "off":
         cfg["profiles"][0]["plugins"]["preScore"]["enabled"] = []
     enc = kp.encode_cluster(nodes, pods, SchedulerConfiguration.from_dict(cfg),
@@ -156,3 +159,46 @@ def test_custom_normalizes_with_no_feasible_node(card, policy, prescore):
     assert int(got[3]) == -1
     for g, h in zip(got, want):
         assert g.dtype == h.dtype and torch.equal(g, h)
+
+
+def default_engine(policy, seed=3):
+    nodes, pods, objects = kp.synth.dressed_default_cluster(48, 200, seed=seed)
+    enc = kp.encode_cluster(nodes, pods, kp.supported_config(), policy=POLICIES[policy],
+                            **objects)
+    return kp.BatchedScheduler(enc)
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_preempt_and_evict_match_plain(card, policy):
+    from test_torch_kernel_host import random_state
+
+    eng = default_engine(policy)
+    enc, prog, a = eng.enc, eng.program, eng.enc.arrays
+    enc_cpu = enc.to(torch.device("cpu"))
+    rng = np.random.default_rng(9)
+    for k in range(4):
+        st = random_state(enc_cpu, rng).to(card)
+        for p in rng.choice(enc.n_pods, 8, replace=False).tolist():
+            got = cuda.seq_preempt(prog, a, st, p)
+            want = cuda.seq_preempt_plain(prog, a, st, p)
+            for g, h in zip(got, want):
+                assert g.dtype == h.dtype and torch.equal(g, h), (k, p)
+        mask = (st.assignment >= 0) & torch.as_tensor(rng.random(enc.P) < 0.3, device=card)
+        s1 = cuda.seq_evict(prog, a, st.clone(), mask)
+        s2 = cuda.seq_evict_plain(prog, a, st.clone(), mask)
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(s1, f), getattr(s2, f)), (k, f)
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_run_with_preemption_matches_plain(card, policy):
+    eng = default_engine(policy, seed=4)
+    enc, q = eng.enc, padded_queue(eng)
+    args = (eng.program, enc.arrays, enc.state0, q, eng.weights)
+    s_k, t_k = cuda.seq_run(*args, record=True)
+    s_p, t_p = cuda.seq_run_plain(*args, record=True)
+    for name, g, h in zip(cuda.TRACE_SLOTS_PREEMPT, t_k, t_p):
+        assert g.dtype == h.dtype and torch.equal(g, h), name
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(s_k, f), getattr(s_p, f)), f
+    assert int(t_k[5].sum()) > 0

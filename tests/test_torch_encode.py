@@ -137,7 +137,7 @@ def test_encoding_matches_reference(policy, seed, capacity):
     kw = {}
     if capacity:
         kw = {"node_capacity": capacity[0], "pod_capacity": capacity[1]}
-    ref, got = encode_both(nodes, pods, kp.slice_config().to_dict(), policy,
+    ref, got = encode_both(nodes, pods, kp.affinity_config().to_dict(), policy,
                            priorityclasses=PRIORITY_CLASSES, **kw)
     assert_encodings_equal(ref, got)
     # the cluster really carries what the docstring promises
@@ -155,7 +155,7 @@ def test_relational_encoding_matches_reference(policy, seed, capacity):
     resolved against Namespace objects."""
     nodes, pods = rel_cluster(seed)
     kw = {"node_capacity": capacity[0], "pod_capacity": capacity[1]} if capacity else {}
-    ref, got = encode_both(nodes, pods, kp.slice_config().to_dict(), policy,
+    ref, got = encode_both(nodes, pods, kp.affinity_config().to_dict(), policy,
                            namespaces=NAMESPACES, **kw)
     assert_encodings_equal(ref, got)
     assert got.arrays.label_num.dtype == got.policy.res
@@ -173,7 +173,7 @@ def test_pre_bound_pods_hold_their_ports():
         pod("c", ports=[{"hostPort": 80}]),
     ]
     for policy in sorted(POLICIES):
-        ref, got = encode_both(nodes, pods, kp.slice_config().to_dict(), policy)
+        ref, got = encode_both(nodes, pods, kp.affinity_config().to_dict(), policy)
         assert_encodings_equal(ref, got)
         assert got.state0.used_pair.tolist() == [[1, 0], [0, 1]]
         assert got.state0.used_wild.tolist() == [[1, 0], [0, 0]]

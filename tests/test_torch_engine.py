@@ -4,7 +4,7 @@
 the kernels) and the reference's JAX `BatchedScheduler.run()` run the same
 clusters under the same configurations — the first slice's plugin set
 (`fit_config()`), the default profile without volumes and preemption
-(`slice_config()`) and the reference tests' restricted set; placements,
+(`affinity_config()`) and the reference tests' restricted set; placements,
 every trace tensor of TRACE_SLOTS_PLAIN (bucket-padding rows included), the
 final state and every pod's `to_annotations()` must be equal. Tolerance:
 exact equality.
@@ -35,7 +35,7 @@ from test_torch_kernels import reference_pair
 
 CONFIGS = {
     "fit": lambda: kp.fit_config().to_dict(),
-    "slice": lambda: kp.slice_config().to_dict(),
+    "slice": lambda: kp.affinity_config().to_dict(),
     "restricted": lambda: restricted_config().to_dict(),
 }
 PORT_CONFIGS = ("fit", "slice")
@@ -104,7 +104,7 @@ def test_relational_pass_matches_reference(policy, seed):
     """The default profile without volumes and preemption on the dressed
     relational cluster: every filter code and both custom normalizes."""
     nodes, pods = rel_cluster(seed)
-    cfg = kp.slice_config().to_dict()
+    cfg = kp.affinity_config().to_dict()
     j_pol, p_pol = POLICIES[policy]
     kw = {"node_capacity": 28, "namespaces": NAMESPACES}
     j_eng = JBatchedScheduler(j_encode_cluster(nodes, pods, JConfig.from_dict(cfg),
@@ -127,7 +127,7 @@ def test_affinity_cluster_matches_reference(policy):
     co-location chains), cut to 8 nodes × 120 pods: more replicas than
     nodes, so some replicas find no node."""
     nodes, pods = kp.synthetic_affinity_cluster(8, 120, seed=11)
-    cfg = kp.slice_config().to_dict()
+    cfg = kp.affinity_config().to_dict()
     j_pol, p_pol = POLICIES[policy]
     j_eng = JBatchedScheduler(j_encode_cluster(nodes, pods, JConfig.from_dict(cfg), policy=j_pol))
     p_eng = kp.BatchedScheduler(
@@ -183,7 +183,7 @@ def test_schedule_entry_point():
     placements, results = kp.schedule(nodes, pods, device="cpu")
     assert cuda.PLAIN_CALLS["seq_run"] == 1 and cuda.LAUNCHES["seq_run"] == 0
     eng = kp.BatchedScheduler(
-        kp.encode_cluster(nodes, pods, kp.slice_config(), device="cpu"), device="cpu"
+        kp.encode_cluster(nodes, pods, kp.supported_config(), device="cpu"), device="cpu"
     )
     assert placements == eng.placements()
     want = {(r.pod_namespace, r.pod_name): r.to_annotations() for r in eng.results()}
@@ -195,6 +195,10 @@ def test_schedule_entry_point():
 
 def test_strict_mode_refuses_plugins_outside_the_slice():
     nodes, pods = port_cluster(0, n_nodes=4, n_pods=4)
-    enc = kp.encode_cluster(nodes, pods, PConfig.default(), device="cpu")
+    # the default profile is the port's whole set now: a plugin the port
+    # has no kernel for (the simulator's NodeNumber example) is refused
+    cfg = PConfig.default().to_dict()
+    cfg["profiles"][0]["plugins"]["filter"]["enabled"].append({"name": "NodeNumber"})
+    enc = kp.encode_cluster(nodes, pods, PConfig.from_dict(cfg), device="cpu")
     with pytest.raises(UnsupportedPluginError):
         kp.BatchedScheduler(enc, device="cpu")

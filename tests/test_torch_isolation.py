@@ -64,7 +64,7 @@ def test_default_device_is_the_card(monkeypatch):
         kp.schedule(nodes, pods)
     with pytest.raises(RuntimeError, match="CUDA"):
         kp.encode_cluster(nodes, pods)
-    enc = kp.encode_cluster(nodes, pods, kp.slice_config(), device="cpu")
+    enc = kp.encode_cluster(nodes, pods, kp.affinity_config(), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         kp.BatchedScheduler(enc)
 
@@ -76,23 +76,48 @@ def test_wrappers_take_plain_versions_on_cpu_tensors(monkeypatch):
     monkeypatch.setattr(cuda, "library", no_library)
     nodes, pods = port_cluster(1, n_nodes=8, n_pods=12)
     eng = kp.BatchedScheduler(
-        kp.encode_cluster(nodes, pods, kp.slice_config(), device="cpu"), device="cpu"
+        kp.encode_cluster(nodes, pods, kp.supported_config(), device="cpu"), device="cpu"
     )
     cuda.reset_counts()
     a, state, p = eng.enc.arrays, eng.enc.state0.clone(), int(eng.enc.queue[0])
     _, _, _, _, sel, _ = eng.attempt_fn(a, state, eng.weights, p)
     eng.bind_fn(a, state, p, sel, 0)
+    eng.preempt_fn(a, state, p)
+    eng.evict_fn(a, state, state.assignment >= 0)
     eng.run()
-    assert cuda.PLAIN_CALLS == {"seq_attempt": 1, "seq_bind": 1, "seq_run": 1}
-    assert cuda.LAUNCHES == {"seq_attempt": 0, "seq_bind": 0, "seq_run": 0}
+    assert cuda.PLAIN_CALLS == dict.fromkeys(cuda.KERNELS, 1)
+    assert cuda.LAUNCHES == dict.fromkeys(cuda.KERNELS, 0)
 
 
 def test_wrappers_refuse_tensors_they_cannot_take():
     nodes, pods = port_cluster(1, n_nodes=8, n_pods=12)
     eng = kp.BatchedScheduler(
-        kp.encode_cluster(nodes, pods, kp.slice_config(), device="cpu"), device="cpu"
+        kp.encode_cluster(nodes, pods, kp.affinity_config(), device="cpu"), device="cpu"
     )
     meta = eng.enc.arrays.to(torch.device("meta"))
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda.seq_attempt(eng.program, meta, eng.enc.state0.to(torch.device("meta")),
                          eng.weights.to("meta"), 0)
+
+
+def test_supported_config_is_the_references():
+    """The port's whole set equals the reference's: the default profile,
+    every plugin of it with a kernel; the earlier slices' sets stay."""
+    from kube_scheduler_simulator_tpu.engine.engine import supported_config as ref_supported
+    from kube_scheduler_simulator_tpu.engine.engine import unsupported_plugins as ref_missing
+    from kube_scheduler_simulator_tpu.sched.config import SchedulerConfiguration as JConfig
+
+    from kube_scheduler_simulator_tpu_torch.engine.engine import unsupported_plugins
+    from kube_scheduler_simulator_tpu_torch.sched.config import SchedulerConfiguration
+
+    assert kp.supported_config().to_dict() == ref_supported().to_dict()
+    assert kp.slice_config().to_dict() == kp.supported_config().to_dict()
+    assert unsupported_plugins(SchedulerConfiguration.default()) == []
+    assert ref_missing(JConfig.default()) == []
+    dflt = SchedulerConfiguration.default()
+    for point in ("preFilter", "filter", "postFilter", "preScore", "score"):
+        assert kp.supported_config().enabled(point) == dflt.enabled(point), point
+    # the affinity path: the default profile without volumes and preemption
+    aff = kp.affinity_config()
+    assert aff.enabled("postFilter") == [] and "VolumeBinding" not in aff.enabled("filter")
+    assert len(aff.enabled("filter")) == 8 and len(aff.score_plugins()) == 7

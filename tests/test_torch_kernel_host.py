@@ -35,6 +35,7 @@ HOST_CUDA = r"""
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__
 #define __shared__ static
 #define __launch_bounds__(x)
 struct Dim3 { unsigned x, y, z; };
@@ -56,6 +57,7 @@ inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v)
   unsigned long long o = *p; *p += v; return o;
 }
 inline int atomicMin(int* p, int v) { int o = *p; if (v < o) *p = v; return o; }
+inline int atomicOr(int* p, int v) { int o = *p; *p |= v; return o; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -103,7 +105,7 @@ def engine(policy, kind, config, seed=1):
         nodes, pods = rel_cluster(seed, 20, 120)
     else:
         nodes, pods = kp.synthetic_affinity_cluster(16, 90, seed=seed)
-    cfg = kp.fit_config() if config == "fit" else kp.slice_config()
+    cfg = kp.fit_config() if config == "fit" else kp.affinity_config()
     enc = kp.encode_cluster(nodes, pods, cfg, policy=POLICIES[policy], namespaces=NAMESPACES,
                             device="cpu")
     return kp.BatchedScheduler(enc, device="cpu")
@@ -190,7 +192,7 @@ def test_run_matches_plain(host, policy, kind, config):
 def test_custom_normalizes_with_no_feasible_node(host, policy, prescore):
     nodes, pods = rel_cluster(3, 16, 40)
     pods[7]["spec"]["containers"][0]["resources"]["requests"] = {"cpu": "999"}
-    cfg = kp.slice_config().to_dict()
+    cfg = kp.affinity_config().to_dict()
     if prescore == "off":
         cfg["profiles"][0]["plugins"]["preScore"]["enabled"] = []
     enc = kp.encode_cluster(nodes, pods, SchedulerConfiguration.from_dict(cfg),
@@ -201,3 +203,72 @@ def test_custom_normalizes_with_no_feasible_node(host, policy, prescore):
     assert int(got[3]) == -1
     for name, g, h in zip(("codes", "raw", "final", "sel"), got, want):
         same(g, h, name)
+
+
+def preempt_engine(policy, kind, seed=3):
+    """The default profile on a preemption_cluster, or on the dressed
+    relational cluster with random priorities (spread and inter-pod rows in
+    the dry run)."""
+    objects = {}
+    if kind == "preempt":
+        nodes, pods, objects = kp.preemption_cluster(16, 100, seed=seed)
+    else:
+        nodes, pods = rel_cluster(seed, 20, 120)
+        rng = np.random.default_rng(seed)
+        for pd in pods:
+            pd["spec"]["priority"] = int(rng.choice([0, 3, 7, 50]))
+    enc = kp.encode_cluster(nodes, pods, kp.supported_config(), policy=POLICIES[policy],
+                            namespaces=NAMESPACES, device="cpu", **objects)
+    return kp.BatchedScheduler(enc, device="cpu")
+
+
+PREEMPT_KINDS = ["preempt", "rel"]
+
+
+@pytest.mark.parametrize("kind", PREEMPT_KINDS)
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_preempt_and_evict_match_plain(host, policy, kind):
+    eng = preempt_engine(policy, kind)
+    enc, prog, a = eng.enc, eng.program, eng.enc.arrays
+    rng = np.random.default_rng(9)
+    nominated = 0
+    for k in range(3):
+        st = random_state(enc, rng)
+        for p in rng.choice(enc.n_pods, 8, replace=False).tolist():
+            got = cuda.seq_preempt(prog, a, st, p)
+            want = cuda.seq_preempt_plain(prog, a, st, p)
+            for name, g, h in zip(("pcode", "voff", "vidx", "nominated"), got, want):
+                same(g, h, (k, p, name))
+            nominated += int(got[3]) >= 0
+        mask = (st.assignment >= 0) & torch.as_tensor(rng.random(enc.P) < 0.3)
+        s1 = cuda.seq_evict(prog, a, st.clone(), mask)
+        s2 = cuda.seq_evict_plain(prog, a, st.clone(), mask)
+        for f in STATE_FIELDS:
+            same(getattr(s1, f), getattr(s2, f), (k, "evict", f))
+    assert nominated > 0
+    assert cuda.LAUNCHES["seq_preempt"] == 24 and cuda.LAUNCHES["seq_evict"] == 3
+
+
+@pytest.mark.parametrize("kind", PREEMPT_KINDS)
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_run_with_preemption_matches_plain(host, policy, kind, monkeypatch):
+    eng = preempt_engine(policy, kind, seed=4)
+    enc, q = eng.enc, padded_queue(eng)
+    args = (eng.program, enc.arrays, enc.state0, q, eng.weights)
+    s_k, t_k = cuda.seq_run(*args, record=True)
+    s_p, t_p = cuda.seq_run_plain(*args, record=True)
+    assert len(t_k) == len(cuda.TRACE_SLOTS_PREEMPT)
+    for name, g, h in zip(cuda.TRACE_SLOTS_PREEMPT, t_k, t_p):
+        same(g, h, name)
+    for f in STATE_FIELDS:
+        same(getattr(s_k, f), getattr(s_p, f), f)
+    # dry runs fired (and on the preemption cluster, nominated and evicted)
+    assert int(t_k[5].sum()) > 0 and (kind == "rel" or int((t_k[7] >= 0).sum()) > 0)
+    s_n, sel_n = cuda.seq_run(*args, record=False)
+    same(sel_n, t_p[cuda.TRACE_SLOTS_PREEMPT.index("final_sel")], "unrecorded final_sel")
+    same(s_n.assignment, s_p.assignment, "unrecorded assignment")
+    # a victim record too small for the pass raises; it never truncates
+    if kind == "preempt":
+        monkeypatch.setattr(cuda, "VICTIM_CAP", len(t_k[-1]) - 1)
+        with pytest.raises(RuntimeError, match="victim capacity"):
+            cuda.seq_run(*args, record=True)

@@ -166,6 +166,8 @@ def random_states(ref, rng, count, bind=False, aux_seed=17):
             n_pods=torch.as_tensor(n_pods),
             assignment=torch.tensor(assignment),
             **{k: torch.as_tensor(v) for k, v in ports.items()},
+            **{k: torch.tensor(np.asarray(getattr(ref.state0, k)))
+               for k in ("used_claims", "node_disk_any", "node_disk_rw", "node_vol3")},
             bound_seq=torch.tensor(np.asarray(ref.state0.bound_seq)),
         )
         yield j_state, p_state
@@ -249,7 +251,7 @@ def test_relational_bodies_match_reference(policy, seed):
     """The slice's new filter and score bodies, and both custom normalizes,
     at random bindings, port counters and feasible sets (all-infeasible and
     all-feasible included)."""
-    ref, got = reference_pair(policy, kp.slice_config().to_dict(), seed=seed, rel=True)
+    ref, got = reference_pair(policy, kp.affinity_config().to_dict(), seed=seed, rel=True)
     rng = np.random.default_rng(seed)
     filters = [(n, jax.jit(JK.FILTER_KERNELS[n][0](ref)), PK.FILTER_KERNELS[n][0](got))
                for n in REL_FILTERS]
@@ -297,7 +299,7 @@ def test_custom_normalizes_with_no_feasible_node(policy):
     """The interpod normalize's sentinels meet when no node is feasible:
     int32 max minus int32 min wraps to 2 under TPU32, so every node gets
     100 * (raw - BIG) // 2 (floored, wrapped), and 0 under EXACT."""
-    ref, got = reference_pair(policy, kp.slice_config().to_dict(), seed=2, rel=True)
+    ref, got = reference_pair(policy, kp.affinity_config().to_dict(), seed=2, rel=True)
     jk = JK.SCORE_KERNELS["InterPodAffinity"][0](ref)
     pk = PK.SCORE_KERNELS["InterPodAffinity"][0](got)
     none = np.zeros(got.N, bool)
@@ -310,10 +312,10 @@ def test_custom_normalizes_with_no_feasible_node(policy):
 
 @pytest.mark.parametrize("policy", sorted(POLICIES))
 def test_slice_attempt_matches_reference(policy):
-    """attempt_fn under slice_config(): every filter, score and normalize
+    """attempt_fn under affinity_config(): every filter, score and normalize
     of the default profile without volumes and preemption, at random
     bindings."""
-    ref, got = reference_pair(policy, kp.slice_config().to_dict(), seed=3, rel=True)
+    ref, got = reference_pair(policy, kp.affinity_config().to_dict(), seed=3, rel=True)
     j_eng = JBatchedScheduler(ref)
     p_eng = kp.BatchedScheduler(got, device="cpu")
     rng = np.random.default_rng(5)

@@ -45,7 +45,7 @@ def mirror(layout_lib, monkeypatch):
 
     class Lib:
         @staticmethod
-        def seq_workspace_bytes(planes, int_bytes):
+        def seq_workspace_bytes(planes, int_bytes, vbound):
             return 8
 
     monkeypatch.setattr(cuda, "_LAYOUT", layout)
@@ -59,6 +59,7 @@ def test_layout_report_matches_mirror(layout_lib, mirror):
     assert list(counts) == [c for _, c in cuda._CFG_FIELDS]
     assert layout_lib.seq_planes_bytes() == ctypes.sizeof(mirror.Planes)
     assert layout_lib.seq_state_bytes() == ctypes.sizeof(mirror.State)
+    assert layout_lib.seq_trace_bytes() == ctypes.sizeof(mirror.Trace)
     assert mirror.names["term_domains"] == encode_rel.DOMAINS
     assert mirror.names["state_ptrs"] == cuda._STATE_FIELDS
     assert set(mirror.names["plane_ptrs"]) <= set(cuda._SPEC)
@@ -68,7 +69,7 @@ def test_layout_report_matches_mirror(layout_lib, mirror):
 def test_planes_point_at_their_tensors(mirror, policy):
     pol = {"i32": kp.TPU32, "exact": kp.EXACT}[policy]
     nodes, pods = rel_cluster(2, 16, 48)
-    enc = kp.encode_cluster(nodes, pods, kp.slice_config(), policy=pol, namespaces=NAMESPACES,
+    enc = kp.encode_cluster(nodes, pods, kp.affinity_config(), policy=pol, namespaces=NAMESPACES,
                             device="cpu")
     prog = kp.BatchedScheduler(enc, device="cpu").program
     a, rel = enc.arrays, enc.arrays.rel
@@ -96,7 +97,7 @@ def test_planes_point_at_their_tensors(mirror, policy):
 
 def test_planes_checked_once_per_pair(mirror):
     nodes, pods = rel_cluster(3, 16, 40)
-    enc = kp.encode_cluster(nodes, pods, kp.slice_config(), namespaces=NAMESPACES,
+    enc = kp.encode_cluster(nodes, pods, kp.affinity_config(), namespaces=NAMESPACES,
                             device="cpu")
     prog = kp.BatchedScheduler(enc, device="cpu").program
     a = enc.arrays
@@ -113,7 +114,7 @@ def test_planes_checked_once_per_pair(mirror):
 
 def test_check_refuses_cpu_and_checks_state(mirror):
     nodes, pods = rel_cluster(3, 16, 40)
-    enc = kp.encode_cluster(nodes, pods, kp.slice_config(), namespaces=NAMESPACES,
+    enc = kp.encode_cluster(nodes, pods, kp.affinity_config(), namespaces=NAMESPACES,
                             device="cpu")
     prog = kp.BatchedScheduler(enc, device="cpu").program
     a, dt = enc.arrays, prog.score_dtype

@@ -5,7 +5,7 @@ and InterPodAffinity (test_engine_parity_interpod.py).
 
 The scenarios are re-built here from the same manifest builders
 (`helpers.node`/`pod`) and run under the same plugin configurations as the
-reference tests, then under `slice_config()`; each runs through the JAX
+reference tests, then under `affinity_config()`; each runs through the JAX
 engine and the port (plain versions, CPU) under EXACT and TPU32. Placements,
 every trace tensor (padding rows included), the final state and every pod's
 annotations must be equal. Tolerance: exact equality.
@@ -195,16 +195,16 @@ SCENARIOS = {
 
 
 def no_prescore_config():
-    """slice_config() with PodTopologySpread's and InterPodAffinity's
+    """affinity_config() with PodTopologySpread's and InterPodAffinity's
     PreScore disabled: both scores are then 0 everywhere."""
-    cfg = kp.slice_config().to_dict()
+    cfg = kp.affinity_config().to_dict()
     pre = cfg["profiles"][0]["plugins"]["preScore"]
     pre["enabled"] = [e for e in pre["enabled"]
                       if e["name"] not in ("PodTopologySpread", "InterPodAffinity")]
     return cfg
 
 
-# (scenario, configuration): every scenario under slice_config(), some
+# (scenario, configuration): every scenario under affinity_config(), some
 # under the reference test's own configuration too
 CASES = [(name, "slice") for name in SCENARIOS] + [
     ("m3", "scenario"), ("spread-soft", "scenario"), ("interpod", "scenario"),
@@ -219,7 +219,7 @@ def test_scenario_matches_reference(scenario, config, policy):
     nodes, pods = build()
     cfg = {
         "scenario": lambda: scenario_config().to_dict(),
-        "slice": lambda: kp.slice_config().to_dict(),
+        "slice": lambda: kp.affinity_config().to_dict(),
         "no-prescore": no_prescore_config,
     }[config]()
     j_pol, p_pol = POLICIES[policy]
