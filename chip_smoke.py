@@ -11,13 +11,16 @@ volumes and preemption, `affinity_config()`, on BASELINE config #3's
 workload) and the default path (the reference's whole default profile,
 `supported_config()`: the volume family and DefaultPreemption, on
 `preemption_cluster`, BASELINE config #2's width with config #5's mixed
-PriorityClass preemption). Phases, in order; any failure raises and the
-process exits non-zero:
+PriorityClass preemption). A fourth, the serving path, drives
+`SimulatorService.scheduler.schedule()` pass after pass over a store,
+through the delta encoder and its K10 row scatters. Phases, in order; any
+failure raises and the process exits non-zero:
 
 1. the device: its name, `nvidia-smi`'s name and power limit, the torch
    and CUDA versions;
-2. build: the CUDA kernels (csrc/seq_kernels.cu) compiled for sm_90a into
-   build/kernels/ by two `nvcc` processes at once, with the compiler's
+2. build: the CUDA kernels compiled for sm_90a into one library in
+   build/kernels/, all at once (csrc/seq_kernels.cu by two `nvcc`
+   processes, csrc/delta_kernels.cu by a third), with the compiler's
    register and spill report;
 3. each kernel against its plain PyTorch version on the card, under TPU32
    and EXACT, exact equality: (fit) three fit-path configurations on a
@@ -32,7 +35,12 @@ process exits non-zero:
    `seq_bind` on those pods, `seq_run` over the whole queue (trace, final
    state, placements); on the default path also `seq_preempt` and
    `seq_evict` at 64 random states and the decoded records of both passes,
-   victim lists included;
+   victim lists included; (K10) the three delta scatters on random bool,
+   int32 and int64 planes with rows of rank 0 to 3 (repeated add indices,
+   int32 wraparound, a zero-width plane), then every scatter of three delta
+   passes over a dressed 256-node store under TPU32 and EXACT (arrivals from
+   the reference's delta templates), the encoder on the card against the
+   one on the CPU and a from-scratch encode;
 4. the fit path at full width: `schedule()` on 1,024 nodes x 10,000 pods
    (TPU32, trace recorded) with the launch counters set to 0 just before
    and read just after — the pass must launch `seq_run` and no plain
@@ -55,6 +63,19 @@ process exits non-zero:
    fit the time limit); and the single-pod step path (`attempt_fn`,
    `preempt_fn`, `evict_fn`, `bind_fn`), each step reproducing its trace
    row and victim records;
+4d. the serving path at BASELINE config #2's width: `synthetic_cluster(1024,
+   13072, seed=7)`, its first 10,000 pods bound by one kernel pass and
+   imported with the next 256 pending into a `SimulatorService` on the
+   card; 12 `schedule()` passes, each after 256 arrivals and a cordon (one
+   arrival before pass 8 must preempt), then two with no event between.
+   After each pass the service's retained encoding must equal a
+   from-scratch encode of the store, its records, placements, victims and
+   written-back annotations a fresh kernel pass's, and the launch counters
+   (set to 0 just before the pass) must show K10 on delta passes only,
+   `seq_run` on every pass with a queue, and no plain version; on passes
+   5 and 8 (8 holds the preemptor's dry run) the plain version of the
+   whole pass on the card over the from-scratch encode must give the
+   served pass's trace, victims, final state and records;
 5. kernel times on all paths (CUDA events; the per-pod kernels replayed
    from a CUDA graph so host enqueue time is not counted, at the state
    half-way through the queue; the default path's `seq_run` on its plain
@@ -64,10 +85,13 @@ process exits non-zero:
    printed as one JSON line with a `path` field per entry; 5b: each plugin
    body alone inside `seq_attempt` (the first slice's on the fit path's
    cluster, the second's on the affinity path's, the volume family's on
-   the default path's);
+   the default path's); 5c: the K10 kernels at the real dirty lists of
+   serving delta passes (set and add: pass 5's calls; vector add: pass
+   2's, the pass that replays the claim pods' binds), beside their plain
+   versions and the one PyTorch call that computes each;
 6. the card's name and power limit, then the result line.
 
-It runs in 8.5 to 11 minutes on an H100, the build included (the plain
+It runs in 8.5 to 12 minutes on an H100, the build included (the plain
 versions on the host side vary most).
 It imports nothing of JAX or of the reference package.
 """
@@ -100,6 +124,9 @@ REPLACES = {
     "seq_run": "kube_scheduler_simulator_tpu/engine/engine.py:657",
     "seq_preempt": "kube_scheduler_simulator_tpu/engine/preempt.py:399",
     "seq_evict": "kube_scheduler_simulator_tpu/engine/engine.py:507",
+    "delta_scatter_set": "kube_scheduler_simulator_tpu/engine/delta.py:183",
+    "delta_scatter_add": "kube_scheduler_simulator_tpu/engine/delta.py:188",
+    "delta_vec_add": "kube_scheduler_simulator_tpu/engine/delta.py:193",
 }
 
 
@@ -120,12 +147,15 @@ def ptxas_report(text):
     spills."""
     import re
 
+    types = {"i": "int32", "x": "int64", "l": "int64", "h": "uint8", "j": "uint32",
+             "m": "uint64"}
     out, name, props = [], None, ""
     for ln in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?_Z\w*?"
-                      r"(seq_(?:attempt|bind|run|preempt|evict)_kernel)I([ix])", ln)
+                      r"(seq_(?:attempt|bind|run|preempt|evict)_kernel|scatter_set_kernel|"
+                      r"scatter_add_kernel|vec_add_kernel)I([ixlhjm])", ln)
         if m:
-            name = f"{m.group(1)}<{'int32' if m.group(2) == 'i' else 'int64'}>"
+            name = f"{m.group(1)}<{types[m.group(2)]}>"
         elif "spill" in ln:
             props = ln.strip()
         elif "registers" in ln and name:
@@ -1138,6 +1168,506 @@ def body_times(kp, cuda, run, bodies, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the serving path: the delta encoder's K10 scatters (phases 3 and 4d)
+# ---------------------------------------------------------------------------
+
+# The reference's delta templates (tests/test_delta_encode.py): tolerations,
+# labels, a nodeSelector, a spread constraint; every append field gets a row.
+TEMPLATES = [
+    {"metadata": {"name": "plain"}, "spec": {"containers": [
+        {"name": "c", "resources": {"requests": {"cpu": "100m", "memory": "64Mi"}}}]}},
+    {"metadata": {"name": "tol"}, "spec": {
+        "tolerations": [{"key": "flaky", "operator": "Exists", "effect": "NoSchedule"}],
+        "containers": [{"name": "c", "resources": {"requests": {"cpu": "50m"}}}]}},
+    {"metadata": {"name": "lab", "labels": {"app": "web", "tier": "fe"}}, "spec": {
+        "containers": [{"name": "c", "resources": {"requests": {"memory": "32Mi"}}}]}},
+    {"metadata": {"name": "sel"}, "spec": {
+        "nodeSelector": {"zone": "a"},
+        "containers": [{"name": "c", "resources": {"requests": {"cpu": "25m"}}}]}},
+    {"metadata": {"name": "spread", "labels": {"app": "web"}}, "spec": {
+        "topologySpreadConstraints": [{
+            "maxSkew": 1, "topologyKey": "kubernetes.io/hostname",
+            "whenUnsatisfiable": "DoNotSchedule",
+            "labelSelector": {"matchLabels": {"app": "web"}}}],
+        "containers": [{"name": "c", "resources": {"requests": {"cpu": "10m"}}}]}},
+]
+K10_WRAPPERS = {"scatter_set": "delta_scatter_set", "scatter_add": "delta_scatter_add",
+                "vec_add": "delta_vec_add"}
+# phase 4d: BASELINE config #2's width (1,024 nodes), 10,000 pods bound
+# and 12 passes of 256 arrivals (13,072 pods in all)
+SERVING_NODES, SERVING_PODS, SERVING_BOUND = 1024, 13072, 10000
+SERVING_PASSES = 12
+SERVING_ARRIVALS = 256
+PREEMPT_PASS = 8
+# the delta passes whose K10 calls phase 5c times: pass 5's set and add
+# calls, pass 2's vector add (it replays the claim pods' binds)
+K10_TIMED_PASSES = {"delta_scatter_set": 5, "delta_scatter_add": 5, "delta_vec_add": 2}
+# the passes whose served run is held against the plain version of the
+# whole pass (pass 8 holds the preemptor's dry run)
+PLAIN_PASSES = (5, PREEMPT_PASS)
+CARD = torch.device("cuda")
+
+
+def from_template(t, name):
+    return {"metadata": {**t["metadata"], "name": name}, "spec": dict(t["spec"])}
+
+
+class K10Recorder:
+    """Wraps the K10 wrappers the delta encoder calls (engine/scatter.py)
+    and keeps each call: (kernel, target, the target's contents before the
+    call, the host rows). Calls go through unchanged."""
+
+    def __init__(self, scatter):
+        self.scatter = scatter
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.scatter, n) for n in K10_WRAPPERS}
+        for n, f in self.orig.items():
+            setattr(self.scatter, n, self._wrap(K10_WRAPPERS[n], f))
+        return self
+
+    def _wrap(self, kernel, f):
+        def call(arr, *rows):
+            self.calls.append((kernel, arr, arr.clone(), [r.clone() for r in rows]))
+            return f(arr, *rows)
+        return call
+
+    def __exit__(self, *exc):
+        for n, f in self.orig.items():
+            setattr(self.scatter, n, f)
+
+
+def k10_plain(scatter, kernel):
+    return {"delta_scatter_set": scatter.scatter_set_plain,
+            "delta_scatter_add": scatter.scatter_add_plain,
+            "delta_vec_add": scatter.vec_add_plain}[kernel]
+
+
+def k10_launch(scatter, kernel):
+    return {"delta_scatter_set": scatter.launch_set, "delta_scatter_add": scatter.launch_add,
+            "delta_vec_add": scatter.launch_vec}[kernel]
+
+
+def replay_k10(scatter, diff, calls, what):
+    """Each recorded call again: the kernel on a copy of the target as it
+    was, against the plain version on the CPU, exact."""
+    for kernel, arr, before, rows in calls:
+        dev = before.device
+        got = k10_launch(scatter, kernel)(before.clone(), *(r.to(dev) for r in rows))
+        want = k10_plain(scatter, kernel)(before.cpu(), *rows)
+        diff.check("serving", kernel, f"{what} {tuple(before.shape)} {before.dtype}",
+                   got.cpu(), want)
+
+
+def store_encode(kp, store, cfg, policy):
+    """A from-scratch encode of a store on the card, at the delta encoder's
+    capacity buckets."""
+    from kube_scheduler_simulator_tpu_torch.utils.compilecache import capacity_buckets
+
+    nodes, pods = store.list("nodes"), store.list("pods")
+    ncap, pcap = capacity_buckets(len(nodes), len(pods))
+    return kp.encode_cluster(
+        nodes, pods, cfg, policy=policy, priorityclasses=store.list("priorityclasses"),
+        namespaces=store.list("namespaces"), pvcs=store.list("pvcs"), pvs=store.list("pvs"),
+        storageclasses=store.list("storageclasses"), node_capacity=ncap, pod_capacity=pcap)
+
+
+def same_encoding(got, want, what):
+    """Every tensor of two encodings (cluster planes, relational planes,
+    initial state), the queue and the host tables, exactly equal."""
+    for g, w in ((got.arrays, want.arrays), (got.arrays.rel, want.arrays.rel),
+                 (got.state0, want.state0)):
+        for f in g.__dataclass_fields__:
+            x, y = getattr(g, f), getattr(w, f)
+            if isinstance(x, torch.Tensor) and not (
+                    x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y.to(x.device))):
+                raise AssertionError(f"{what}: {f} differs from the from-scratch encode")
+    if not (np.array_equal(got.queue, want.queue) and got.pod_keys == want.pod_keys
+            and got.node_names == want.node_names and (got.n_pods, got.n_nodes) == (
+                want.n_pods, want.n_nodes)):
+        raise AssertionError(f"{what}: the queue or host tables differ")
+
+
+def compare_k10(kp, scatter, diff):
+    """Phase 3 for K10: each kernel against its plain version, exact, on
+    random planes (bool, int32, int64; rows of rank 0 to 3; repeated add
+    indices with int32 wraparound; a zero-width plane that launches
+    nothing), then on the real dirty lists of a dressed store's delta passes
+    under TPU32 and EXACT (arrivals from the reference's delta templates,
+    write-back binds, cordons): the encoder on the card and on the CPU keep
+    equal encodings, both equal to a from-scratch encode."""
+    from kube_scheduler_simulator_tpu_torch.engine.delta import DeltaEncoder
+    from kube_scheduler_simulator_tpu_torch.models.store import ResourceStore
+    from kube_scheduler_simulator_tpu_torch.sched.config import SchedulerConfiguration
+
+    card = CARD
+    rng = np.random.default_rng(5)
+    P, k = 4096, 256
+
+    def rand(dtype, shape):
+        if dtype == torch.bool:
+            return torch.as_tensor(rng.random(shape) < 0.5)
+        info = torch.iinfo(dtype)
+        edge = rng.integers(info.min, info.max, shape, dtype=np.int64, endpoint=True)
+        return torch.as_tensor(np.where(rng.random(shape) < 0.5, edge,
+                                        rng.integers(-5, 6, shape))).to(dtype)
+
+    scatter.reset_counts()
+    n_cmp = 0
+    for dtype in (torch.bool, torch.int32, torch.int64):
+        for shape in ((), (3,), (2, 5), (2, 3, 4), (0,)):
+            arr = rand(dtype, (P, *shape))
+            idx = torch.as_tensor(rng.choice(P, k, replace=False).astype(np.int32))
+            rows = rand(dtype, (k, *shape))
+            cases = [("delta_scatter_set", scatter.scatter_set, (idx, rows))]
+            if dtype != torch.bool:
+                add_idx = torch.as_tensor(rng.integers(0, 16, 4 * k).astype(np.int32))
+                cases += [("delta_scatter_add", scatter.scatter_add,
+                           (add_idx, rand(dtype, (4 * k, *shape)))),
+                          ("delta_vec_add", scatter.vec_add, (rand(dtype, (P, *shape)),))]
+            for kernel, wrapper, args in cases:
+                got = wrapper(arr.to(card, copy=True), *args).cpu()
+                want = k10_plain(scatter, kernel)(arr.clone(), *args)
+                diff.check("serving", kernel, f"random {dtype} rows{shape}", got, want)
+                n_cmp += 1
+    if scatter.LAUNCHES != {"delta_scatter_set": 12, "delta_scatter_add": 8,
+                            "delta_vec_add": 8} or any(scatter.PLAIN_CALLS.values()):
+        raise AssertionError(f"K10 random cases launched {scatter.LAUNCHES}, "
+                             f"plain {scatter.PLAIN_CALLS}")
+    log(f"  k10      random planes: {n_cmp} updates equal to plain (zero-width planes "
+        "launched nothing)")
+
+    for pol in (kp.TPU32, kp.EXACT):
+        nodes, _ = kp.synthetic_cluster(256, 0, seed=13)
+        store = ResourceStore()
+        for i, nd in enumerate(nodes):
+            nd["metadata"]["labels"] = {"zone": "a" if i % 2 else "b",
+                                        "kubernetes.io/hostname": nd["metadata"]["name"]}
+            if i % 9 == 4:
+                nd["spec"] = {"taints": [{"key": "flaky", "effect": "NoSchedule"}]}
+            store.apply("nodes", nd)
+        for j in range(1500):
+            pd = from_template(TEMPLATES[j % len(TEMPLATES)], f"seed-{j}")
+            if j % 3:
+                pd["spec"]["nodeName"] = nodes[j % 256]["metadata"]["name"]
+            store.apply("pods", pd)
+        cfg = SchedulerConfiguration.default()
+        on_card, on_cpu = DeltaEncoder(policy=pol), DeltaEncoder(policy=pol, device="cpu")
+        on_card.encode(store, cfg)
+        on_cpu.encode(store, cfg)
+        n_calls, fields = 0, set()
+        for step in range(3):
+            for j in range(64):
+                store.apply("pods", from_template(TEMPLATES[(j + step) % len(TEMPLATES)],
+                                                  f"arrival-{step}-{j}"))
+            pending = [p for p in store.list("pods") if not p["spec"].get("nodeName")]
+            for j, p in enumerate(pending[:64]):
+                store.apply("pods", {"metadata": {"name": p["metadata"]["name"],
+                                                  "annotations": {"result": "Scheduled"}},
+                                     "spec": {"nodeName": nodes[(7 * j) % 256]["metadata"][
+                                         "name"]}})
+            store.apply("nodes", {"metadata": {"name": nodes[step]["metadata"]["name"]},
+                                  "spec": {"unschedulable": True}})
+            scatter.reset_counts()
+            with K10Recorder(scatter) as rec:
+                enc_k, info = on_card.encode(store, cfg)
+            launches = dict(scatter.LAUNCHES)
+            enc_c, info_c = on_cpu.encode(store, cfg)
+            if info["mode"] != "delta" or info != info_c or not sum(launches.values()):
+                raise AssertionError(f"{pol.name} step {step}: {info} / {info_c}, {launches}")
+            same_encoding(enc_k, enc_c, f"{pol.name} step {step} card against CPU")
+            same_encoding(enc_k, store_encode(kp, store, cfg, pol),
+                          f"{pol.name} step {step} card against from scratch")
+            replay_k10(scatter, diff, rec.calls, f"{pol.name} step {step}")
+            n_calls += len(rec.calls)
+            fields |= {tuple(c[2].shape[1:]) for c in rec.calls}
+        log(f"  k10      {pol.name:5s} dressed store (256 nodes, 1,500 pods, 3 delta passes of 64 "
+            f"arrivals, 64 binds, a cordon): {n_calls} scatters ({len(fields)} row shapes) equal "
+            "to plain; the card's encoding equals the CPU's and a from-scratch encode")
+
+
+def serving_snapshot(kp, n_nodes, n_pods, n_bound, seed):
+    """BASELINE config #2's width as an imported snapshot: the first
+    `n_bound` pods of `synthetic_cluster(n_nodes, n_pods, seed)` bound by one
+    kernel pass (unplaced ones dropped), then the next `SERVING_ARRIVALS`
+    pending, 8 of them mounting a ReadWriteOncePod claim (so a later pass's
+    binds move the claim counters). Returns (snapshot, the later arrivals)."""
+    nodes, pods = kp.synthetic_cluster(n_nodes, n_pods, seed=seed)
+    enc = kp.encode_cluster(nodes, pods[:n_bound], kp.supported_config(), policy=kp.TPU32)
+    eng = kp.BatchedScheduler(enc, record=False)
+    eng.run()
+    placed = eng.placements()
+    bound = []
+    for pd in pods[:n_bound]:
+        sel = placed[("default", pd["metadata"]["name"])]
+        if sel:
+            bound.append({**pd, "spec": {**pd["spec"], "nodeName": sel}})
+    first = [dict(pd) for pd in pods[n_bound:n_bound + SERVING_ARRIVALS]]
+    pvcs, pvs = [], []
+    for c in range(8):
+        pvs.append({"metadata": {"name": f"rwop-pv-{c}"}, "spec": {
+            "capacity": {"storage": "10Gi"}, "accessModes": ["ReadWriteOncePod"]}})
+        pvcs.append({"metadata": {"name": f"rwop-{c}", "namespace": "default"}, "spec": {
+            "volumeName": f"rwop-pv-{c}", "accessModes": ["ReadWriteOncePod"],
+            "resources": {"requests": {"storage": "1Gi"}}}})
+        j = c * (len(first) // 8)
+        pd = first[j]
+        first[j] = {**pd, "spec": {**pd["spec"], "volumes": [
+            {"name": "data", "persistentVolumeClaim": {"claimName": f"rwop-{c}"}}]}}
+    snap = {"nodes": nodes, "pods": bound + first, "pvcs": pvcs, "pvs": pvs}
+    return snap, pods[n_bound + SERVING_ARRIVALS:], len(bound)
+
+
+def plain_pass(kp, cuda, diff, sched, fresh, results, k):
+    """The plain version of a whole served pass on the card: `seq_run_plain`
+    over the from-scratch encode (equal to the retained one, check (a))
+    must give the served engine's trace, victim records and final state,
+    and its decoded records the served ones, exactly."""
+    served = next(reversed(sched._engines.values()))  # the engine that ran the pass
+    eng_p = kp.BatchedScheduler(fresh)
+    eng_p.run_fn = functools.partial(cuda.seq_run_plain, eng_p.program, record=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state_p, trace_p = eng_p.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if len(served._trace) != len(cuda.TRACE_SLOTS_PREEMPT) or len(trace_p) != len(
+            served._trace):
+        raise AssertionError(f"pass {k}: the served trace has {len(served._trace)} slots")
+    for slot, g, h in zip(cuda.TRACE_SLOTS_PREEMPT, served._trace, trace_p):
+        diff.check("serving", "seq_run", f"pass {k} {slot}", g, h)
+    for f in STATE_FIELDS:
+        diff.check("serving", "seq_run", f"pass {k} state {f}",
+                   getattr(served._final_state, f), getattr(state_p, f))
+    if eng_p.results() != results:
+        raise AssertionError(f"pass {k}: the served records differ from the plain pass's")
+    did = int(trace_p[cuda.TRACE_SLOTS_PREEMPT.index("did")][:len(fresh.queue)].sum())
+    log(f"    pass {k:2d}: the plain version of the whole pass on the card ({len(fresh.queue)} "
+        f"pods, {did} dry runs) in {secs:.3f} s; trace, victims, final state and "
+        f"{len(results)} records equal the served pass's")
+
+
+def drive_serving(kp, cuda, scatter, diff, smi):
+    """Phase 4d: a serving session at BASELINE config #2's width through
+    `SimulatorService` on the card. 12 `schedule()` passes, each but the
+    first after 256 arrivals and a cordon/uncordon (pass 8's arrivals carry
+    a pod that must preempt), then two with no event between: the first
+    replays pass 12's write-backs (a delta pass), the second finds the
+    store unchanged (cached). Before each pass the store is encoded from
+    scratch; after it: (a) the service's retained encoding equals that
+    encode; (b) a fresh kernel pass over it gives the records, placements,
+    victims and 13 annotations the service wrote back; (c) a delta pass
+    launched the K10 kernels and no plain scatter, a full or cached pass
+    none, and a pass with a pending queue `seq_run` and no plain pass; (d)
+    on `PLAIN_PASSES`, the plain version of the whole pass gives the served
+    trace, state and records. The counters are set to 0 just before each
+    `schedule()` and read just after."""
+    from kube_scheduler_simulator_tpu_torch.server.service import SimulatorService
+
+    n_nodes, n_pods, n_bound = SERVING_NODES, SERVING_PODS, SERVING_BOUND
+    t_setup = time.perf_counter()
+    snap, later, n_kept = serving_snapshot(kp, n_nodes, n_pods, n_bound, seed=7)
+    sim = SimulatorService()
+    sim.import_(snap)
+    store, sched = sim.store, sim.scheduler
+    cfg = sched.config
+    cpu_max = max(int(nd["status"]["allocatable"]["cpu"]) for nd in snap["nodes"])
+    log(f"    snapshot: {n_nodes} nodes, {n_kept} of the first {n_bound} pods bound by one "
+        f"kernel pass, {SERVING_ARRIVALS} pending (8 with a ReadWriteOncePod claim); set-up "
+        f"{time.perf_counter() - t_setup:.1f} s")
+    totals = dict.fromkeys(scatter.KERNELS, 0)
+    rows, recorded, walls, placed, peak = [], {}, [], 0, 0
+    preemptor = None
+    for k in range(1, SERVING_PASSES + 3):
+        if 2 <= k <= SERVING_PASSES:
+            arrivals = later[(k - 2) * SERVING_ARRIVALS:(k - 1) * SERVING_ARRIVALS]
+            for j, pd in enumerate(arrivals):
+                if k == PREEMPT_PASS and j == 0:
+                    pd = {"metadata": {"name": "preemptor", "namespace": "default"},
+                          "spec": {"priority": 1000, "containers": [{"name": "c", "resources": {
+                              "requests": {"cpu": str(cpu_max), "memory": "1Gi"}}}]}}
+                store.apply("pods", pd)
+            store.apply("nodes", {"metadata": {"name": f"node-{k}"},
+                                  "spec": {"unschedulable": True}})
+            store.apply("nodes", {"metadata": {"name": f"node-{k - 1}"},
+                                  "spec": {"unschedulable": False}})
+        fresh = store_encode(kp, store, cfg, kp.TPU32)
+        before = sched.metrics.phases()
+        cuda.reset_counts()
+        scatter.reset_counts()
+        rec = K10Recorder(scatter) if k in K10_TIMED_PASSES.values() else None
+        torch.cuda.synchronize()
+        # the pass's own peak: above what is held before it (the service's
+        # retained encoding and engines, and the check's encode)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if rec is not None:
+            with rec:
+                results = sched.schedule()
+        else:
+            results = sched.schedule()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = max(peak, torch.cuda.max_memory_allocated() - held)
+        k10, k10_plain_calls = dict(scatter.LAUNCHES), dict(scatter.PLAIN_CALLS)
+        seq, seq_plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+        after = sched.metrics.phases()
+        info = dict(sched.last_encode_info)
+        mode = info["mode"]
+        # (c) the launch counters
+        if mode == "delta":
+            ok = sum(k10.values()) > 0 and not any(k10_plain_calls.values())
+        else:
+            ok = not any(k10.values()) and not any(k10_plain_calls.values())
+        if not ok or seq["seq_run"] != int(len(fresh.queue) > 0) or any(seq_plain.values()):
+            raise AssertionError(f"pass {k} ({mode}): K10 {k10} plain {k10_plain_calls}, "
+                                 f"seq {seq} plain {seq_plain}")
+        for name, n in k10.items():
+            totals[name] += n
+        if rec is not None:
+            if mode != "delta":
+                raise AssertionError(f"pass {k}, whose K10 calls are timed, was {mode}")
+            recorded[k] = rec.calls
+        # (a) the retained encoding against the from-scratch encode
+        same_encoding(sched._delta._st.enc, fresh, f"pass {k} ({mode})")
+        # (b) a fresh kernel pass over it: placements, victims, annotations
+        eng = kp.BatchedScheduler(fresh)
+        eng.run()
+        want = eng.results()
+        if results != want:
+            raise AssertionError(f"pass {k}: the served records differ from a fresh pass's")
+        if k in PLAIN_PASSES:
+            plain_pass(kp, cuda, diff, sched, fresh, results, k)
+        want_place = fresh.decode_assignment(eng._final_state.assignment)
+        last = {(r.pod_namespace, r.pod_name): r for r in want}
+        for (ns, name), r in last.items():
+            pd = store.get("pods", name, ns)
+            if (pd["metadata"].get("annotations") != r.to_annotations()
+                    or pd["spec"].get("nodeName", "") != want_place[ns, name]):
+                raise AssertionError(f"pass {k}: pod {ns}/{name} was written back wrong")
+        b0 = fresh.state0.assignment.cpu().numpy()
+        a1 = eng._final_state.assignment.cpu().numpy()
+        victims = [fresh.pod_keys[i] for i in np.nonzero((b0 >= 0) & (a1 < 0))[0]]
+        if any(store.get("pods", name, ns) is not None for ns, name in victims):
+            raise AssertionError(f"pass {k}: a preemption victim is still in the store")
+        if k == PREEMPT_PASS:
+            nom = [r for r in results if r.pod_name == "preemptor" and r.status == "Nominated"]
+            if not nom or not nom[0].preemption_victims or len(victims) != len(
+                    nom[0].preemption_victims):
+                raise AssertionError(f"pass {k}: the preemptor was not nominated with victims")
+            preemptor = (nom[0].nominated_node, len(victims))
+        n_sched = sum(1 for r in results if r.status == "Scheduled")
+        placed += n_sched
+        walls.append(wall)
+        d = {key: after[key] - before[key] for key in
+             ("encodeSeconds", "compileSeconds", "executeSeconds", "decodeSeconds")}
+        xfer = 0 if mode == "cached" else sched._delta.last_transfer_bytes
+        rows.append((k, info, d, xfer, sum(k10.values()), wall))
+        log(f"    pass {k:2d}: {mode:6s} {info.get('reason', ''):22s} appended "
+            f"{info.get('appended', 0):3d} rebound {info.get('rebound', 0):3d} nodes touched "
+            f"{info.get('nodesTouched', 0)}; encode {d['encodeSeconds']:.3f} s, execute "
+            f"{d['executeSeconds'] + d['compileSeconds']:.3f} s, decode + write-back "
+            f"{d['decodeSeconds']:.3f} s, wall {wall:.3f} s; {len(results)} records, "
+            f"{n_sched} scheduled, {len(victims)} victims; {rows[-1][3]} bytes to the card; "
+            f"K10 launches {k10} [{smi}]")
+    modes = [r[1]["mode"] for r in rows]
+    n_delta = modes.count("delta")
+    if (n_delta < 9 or modes[0] != "full" or modes[-2:] != ["delta", "cached"]
+            or preemptor is None):
+        raise AssertionError(f"serving modes {modes}, preemptor {preemptor}")
+    enc_s = {m: [r[2]["encodeSeconds"] for r in rows if r[1]["mode"] == m]
+             for m in ("delta", "full")}
+    total = sum(walls)
+    log(f"    {len(rows)} passes ({n_delta} delta, {modes.count('full')} full, "
+        f"{modes.count('cached')} cached) in {total:.3f} s: {len(rows) / total:.3f} passes/s, "
+        f"{placed / total:.1f} arrivals placed/s ({placed} placed); median encode delta "
+        f"{statistics.median(enc_s['delta']):.4f} s against full "
+        f"{statistics.median(enc_s['full']):.4f} s; preemptor nominated on "
+        f"{preemptor[0]} with {preemptor[1]} victims deleted; K10 launches {totals}; peak "
+        f"memory of a pass {peak / 2**30:.3f} GiB above what was held before it [{smi}]")
+    calls = [c for k, cs in recorded.items() for c in cs if K10_TIMED_PASSES[c[0]] == k]
+    return dict(calls=calls, totals=totals, n_delta=n_delta)
+
+
+def k10_rows(kp, scatter, diff, serving, smi):
+    """Phase 5 for K10, at the real dirty lists of phase 4d's delta passes
+    (`K10_TIMED_PASSES`: pass 5's set and add calls, pass 2's vector add):
+    per kernel, the mean device time of one launch over that pass's calls,
+    from a CUDA graph of 100 replays of them on copies of the targets; the
+    plain version's (CUDA events) and the one PyTorch call's (`index_copy_`,
+    `index_put_(accumulate=True)`, `add_`; a CUDA graph too). Bound: the
+    bytes each call moves (every row read and written, the add's target
+    rows read too, 4 bytes an index) over 3.35 TB/s."""
+    card = CARD
+    by_kernel = {name: [] for name in scatter.KERNELS}
+    for kernel, arr, before, rows in serving["calls"]:
+        by_kernel[kernel].append((before.clone(), [r.to(card) for r in rows]))
+    missing = [kernel for kernel, calls in by_kernel.items() if not calls]
+    if missing:
+        raise AssertionError(f"the timed serving passes made no call of {missing}")
+    out = []
+    for kernel, calls in by_kernel.items():
+        launch, plain = k10_launch(scatter, kernel), k10_plain(scatter, kernel)
+        for arr, rows in calls:  # each launch once more against the plain version
+            diff.check("serving", kernel, "timed inputs", launch(arr.clone(), *rows),
+                       plain(arr.clone(), *rows))
+
+        def run_all():
+            for arr, rows in calls:
+                launch(arr, *rows)
+
+        def run_plain():
+            for arr, rows in calls:
+                plain(arr, *rows)
+
+        if kernel == "delta_scatter_set":
+            lib = [(a, r[0].long(), r[1]) for a, r in calls]
+
+            def run_lib():
+                for a, i, r in lib:
+                    a.index_copy_(0, i, r)
+        elif kernel == "delta_scatter_add":
+            lib = [(a, (r[0].long(),), r[1]) for a, r in calls]
+
+            def run_lib():
+                for a, i, r in lib:
+                    a.index_put_(i, r, accumulate=True)
+        else:
+            def run_lib():
+                for a, r in calls:
+                    a.add_(r[0])
+        n = len(calls)
+        ms = graph_ms(run_all) / n
+        plain_ms = events_ms(run_plain, 5) / n
+        library_ms = graph_ms(run_lib) / n
+        moved = 0
+        for arr, rows in calls:
+            row = arr[0].numel() * arr.element_size() if arr.dim() else 0
+            if kernel == "delta_vec_add":
+                moved += 3 * arr.numel() * arr.element_size()
+            else:
+                k = rows[0].shape[0]
+                moved += k * ((3 if kernel == "delta_scatter_add" else 2) * row + 4)
+        b = bound(moved / n, 0)
+        per_pass = serving["totals"][kernel] / serving["n_delta"]
+        row = {"name": kernel, "path": "serving", "route": "cuda",
+               "source": "kube_scheduler_simulator_tpu_torch/csrc/delta_kernels.cu",
+               "replaces": REPLACES[kernel], "launches": serving["totals"][kernel],
+               "launches_per_delta_pass": per_pass,
+               "max_abs_err": diff.err.get(("serving", kernel), 0.0), "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+               "library_ms": library_ms, "calls_timed": n}
+        out.append(row)
+        log(f"    serving  {kernel:17s} {ms:.6f} ms a launch over the {n} calls of pass "
+            f"{K10_TIMED_PASSES[kernel]}"
+            f" (plain {plain_ms:.4f} ms, library {library_ms:.6f} ms, bound "
+            f"{b[0]:.7f} ms by {b[1]}), {per_pass:.1f} launches a delta pass [{smi}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1145,7 +1675,7 @@ def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
     import kube_scheduler_simulator_tpu_torch as kp
-    from kube_scheduler_simulator_tpu_torch.engine import cuda
+    from kube_scheduler_simulator_tpu_torch.engine import cuda, scatter
     from kube_scheduler_simulator_tpu_torch.synth import (
         DRESSED_NAMESPACES,
         dressed_affinity_cluster,
@@ -1159,9 +1689,12 @@ def main() -> int:
         f"| CUDA {torch.version.cuda} | cards: {torch.cuda.device_count()}")
 
     # -- 2. build ---------------------------------------------------------
+    # one library: seq_kernels.cu twice (SEQ_ONLY=32, 64) and
+    # delta_kernels.cu, three nvcc processes at once, then one link
+    t0 = time.perf_counter()
     path, build_s = cuda.build()
     cuda.library()
-    log(f"[2] built {path.name} in {build_s:.1f} s")
+    log(f"[2] built {path.name} in {build_s:.1f} s, {time.perf_counter() - t0:.1f} s in all")
     for ln in ptxas_report(path.with_suffix(".log").read_text()):
         log(f"    ptxas: {ln}")
 
@@ -1176,6 +1709,7 @@ def main() -> int:
     nodes, pods, objects = dressed_default_cluster(256, DEFAULT_PHASE3_PENDING, seed=11)
     compare_kernels(kp, cuda, diff, "default", nodes, pods, {"default": kp.supported_config()},
                     bind=True, objects=objects)
+    compare_k10(kp, scatter, diff)
     log(f"    phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. the fit path at full width --------------------------------------
@@ -1210,6 +1744,13 @@ def main() -> int:
     dflt = drive_default(kp, cuda, diff, nodes, pods, objects, sample, smi)
     log(f"    phase 4c done at {time.perf_counter() - t_start:.1f} s")
 
+    # -- 4d. the serving path at BASELINE config #2's width -----------------
+    log(f"[4d] serving session at full width: SimulatorService on the card, 1,024 nodes, "
+        f"SchedulerConfiguration.default(), TPU32, {SERVING_PASSES} passes of "
+        f"{SERVING_ARRIVALS} arrivals and a cordon")
+    serving = drive_serving(kp, cuda, scatter, diff, smi)
+    log(f"    phase 4d done at {time.perf_counter() - t_start:.1f} s")
+
     # -- 5. kernel times --------------------------------------------------
     kernels = (kernel_rows(cuda, diff, "fit", fit) + kernel_rows(cuda, diff, "affinity", aff)
                + kernel_rows(cuda, diff, "default", dflt))
@@ -1225,6 +1766,8 @@ def main() -> int:
     body_times(kp, cuda, aff, AFFINITY_BODIES, smi)
     log("    default path's cluster (the volume family):")
     body_times(kp, cuda, dflt, VOLUME_BODIES, smi)
+    log(f"[5c] K10 at the real dirty lists of a serving delta pass, TPU32 [{smi}]")
+    kernels += k10_rows(kp, scatter, diff, serving, smi)
     log(f"    total {time.perf_counter() - t_start:.1f} s")
     faulthandler.cancel_dump_traceback_later()
 

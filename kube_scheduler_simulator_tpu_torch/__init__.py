@@ -15,18 +15,29 @@ DefaultPreemption). On the card the pass runs in hand-written CUDA kernels
 (csrc/seq_kernels.cu, engine/cuda.py); on the CPU their plain PyTorch
 versions run.
 
+The serving path (`SimulatorService`, `SchedulerService`) keeps a
+`ResourceStore` and schedules it pass by pass: an unchanged store reuses
+its encoding, a changed one is replayed into the retained encoding by the
+delta encoder (`DeltaEncoder`, whose row scatters are the K10 kernels of
+csrc/delta_kernels.cu), and placements and the 13 result annotations are
+written back onto the pods.
+
 Entry points run on the CUDA card unless the caller passes `device="cpu"`;
 with no card and no explicit device they raise RuntimeError.
 
 Layout:
-  models/   manifest views, string vocabularies
+  models/   manifest views, string vocabularies, the resource store and
+            snapshot export/import
   sched/    scheduler configuration, per-pod result records, the volume
             plugins' snapshot
-  engine/   encoder, plugin bodies, the sequential engine, kernel bindings
+  engine/   encoder, delta encoder, plugin bodies, the sequential engine,
+            kernel bindings
+  server/   the scheduling service over a store
   csrc/     the CUDA sources
-  utils/    quantities, shape buckets
+  utils/    quantities, shape buckets, pass metrics
 """
 
+from .engine.delta import DeltaEncoder
 from .engine.encode import EXACT, TPU32, encode_cluster, from_reference_arrays
 from .engine.engine import (
     BatchedScheduler,
@@ -36,6 +47,8 @@ from .engine.engine import (
     supported_config,
 )
 from .engine.engine import supported_config as slice_config
+from .models.store import ResourceStore
+from .server.service import SchedulerService, SimulatorService
 from .synth import preemption_cluster, synthetic_affinity_cluster, synthetic_cluster
 
 __version__ = "0.1.0"
@@ -44,6 +57,10 @@ __all__ = [
     "EXACT",
     "TPU32",
     "BatchedScheduler",
+    "DeltaEncoder",
+    "ResourceStore",
+    "SchedulerService",
+    "SimulatorService",
     "affinity_config",
     "encode_cluster",
     "fit_config",

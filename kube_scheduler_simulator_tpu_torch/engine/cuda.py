@@ -20,8 +20,9 @@ the card, each replacing one device program of the reference package:
 Each wrapper takes its plain version (`*_plain`, a line-by-line PyTorch
 rendering of the reference's closure) only for tensors that lie on the CPU;
 for CUDA tensors it launches the kernel or raises. The kernels are built
-with `nvcc` for sm_90a into `build/kernels/` at first use and bound through
-a plain C interface with ctypes. Module state is the library handle and the
+with `nvcc` for sm_90a into `build/kernels/` at first use, in one library
+with the delta encoder's K10 kernels (`csrc/delta_kernels.cu`, wrapped by
+`engine/scatter.py`), and bound through a plain C interface with ctypes. Module state is the library handle and the
 per-wrapper counters `LAUNCHES` (kernel launches) and `PLAIN_CALLS`.
 
 `seq_bind` and `seq_evict` (both versions) update the state they are given
@@ -62,6 +63,7 @@ from .encode_vol import VOL_LIMIT_PLUGINS
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc" / "seq_kernels.cu"
 LAYOUT_H = CSRC.with_name("seq_layout.h")  # the structs, included by CSRC
+DELTA_CSRC = CSRC.with_name("delta_kernels.cu")  # K10, wrapped by engine/scatter.py
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -442,15 +444,16 @@ def seq_run_plain(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue,
 
 
 def build() -> tuple[Path, float]:
-    """Compile csrc/seq_kernels.cu for sm_90a into build/kernels/ unless
-    this source's library is there already: two `nvcc` processes started
-    together, one per integer type's kernels (SEQ_ONLY=32, 64), then one
+    """Compile the kernel sources for sm_90a into one library in
+    build/kernels/ unless these sources' library is there already: three
+    `nvcc` processes started together, csrc/seq_kernels.cu once per
+    integer type (SEQ_ONLY=32, 64) and csrc/delta_kernels.cu, then one
     link. Returns (library path, build seconds; 0 when it was there). The
     compiler's report (registers, shared memory, spills) is kept beside the
     library as a .log file."""
-    src = CSRC.read_bytes() + LAYOUT_H.read_bytes()
+    src = CSRC.read_bytes() + LAYOUT_H.read_bytes() + DELTA_CSRC.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libseq_kernels_{tag}.so"
+    out = BUILD_DIR / f"libkernels_{tag}.so"
     if out.exists():
         return out, 0.0
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -458,12 +461,13 @@ def build() -> tuple[Path, float]:
         raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    objs = [out.with_name(f"{out.stem}_{b}.{os.getpid()}.o") for b in (32, 64)]
+    units = [(CSRC, ["-DSEQ_ONLY=32"], "seq32"), (CSRC, ["-DSEQ_ONLY=64"], "seq64"),
+             (DELTA_CSRC, [], "delta")]
+    objs = [out.with_name(f"{out.stem}_{u}.{os.getpid()}.o") for _, _, u in units]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, f"-DSEQ_ONLY={b}", "-c", "-o", str(o),
-                               str(CSRC)],
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *defs, "-c", "-o", str(o), str(path)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for b, o in zip((32, 64), objs)]
+             for (path, defs, _), o in zip(units, objs)]
     logs = [p.communicate()[0] for p in procs]
     if any(p.returncode for p in procs):
         raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
@@ -598,6 +602,11 @@ def library() -> ctypes.CDLL:
             ):
                 f = getattr(lib, f"{name}_{t}")
                 f.argtypes, f.restype = args, ci
+        cl = ctypes.c_longlong
+        for name in ("delta_scatter_set", "delta_scatter_add"):
+            f = getattr(lib, name)
+            f.argtypes, f.restype = [vp, vp, vp, cl, cl, ci, vp], ci
+        lib.delta_vec_add.argtypes, lib.delta_vec_add.restype = [vp, vp, cl, ci, vp], ci
         layout = _Layout(lib.seq_layout().decode())
         counts = (ctypes.c_int * len(_CFG_FIELDS))()
         if (lib.seq_cfg_counts(counts) != len(_CFG_FIELDS)

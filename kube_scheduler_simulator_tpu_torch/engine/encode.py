@@ -28,6 +28,7 @@ NodeAffinity is disabled); the volume planes come from
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -110,6 +111,19 @@ EXACT = DTypePolicy("exact", torch.int64, torch.int64, torch.float64)
 TPU32 = DTypePolicy("i32", torch.int32, torch.int32, torch.float32, scale_bytes=True)
 
 POLICIES = {"exact": EXACT, "i32": TPU32}
+
+
+def policy_from_env() -> DTypePolicy:
+    """The dtype policy KSS_DTYPE_POLICY selects (default TPU32; unknown
+    spellings give TPU32, as the reference's). "packed" raises: the PACKED
+    policy's unpack kernels are not ported yet, and serving TPU32 under
+    its name would hide that."""
+    raw = os.environ.get("KSS_DTYPE_POLICY", "").strip().lower()
+    if raw == "packed":
+        raise NotImplementedError(
+            "KSS_DTYPE_POLICY=packed is not ported yet (its unpack kernels, K8)"
+        )
+    return {"exact": EXACT, "i32": TPU32, "tpu32": TPU32}.get(raw, TPU32)
 
 # Taint/toleration effect ids.
 EFFECTS = {"NoSchedule": 0, "PreferNoSchedule": 1, "NoExecute": 2}
@@ -254,18 +268,24 @@ class EncodedCluster:
         n_nodes: int,
         n_pods: int,
         aux: "dict | None" = None,
+        pods: "list[dict] | None" = None,
     ):
         self.arrays = arrays
         self.state0 = state0
         self.node_names = node_names
         self.pod_keys = pod_keys
+        self.pods = pods if pods is not None else []  # raw manifests, pod-index order
         self.resource_names = resource_names
         self.queue = queue  # pending pod indices, scheduling order
         self.policy = policy
         self.config = config
         self.n_nodes = n_nodes  # real (unpadded) counts
         self.n_pods = n_pods
-        self.aux = aux or {}  # decode tables (node_taints), n_node_pairs
+        # decode tables (node_taints), n_node_pairs, and the vocabularies the
+        # delta encoder (engine/delta.py) replays events against
+        self.aux = aux or {}
+        # the non-pod objects the encoding was made from, by kind
+        self.objects: dict[str, list[dict]] = {}
 
     @property
     def N(self) -> int:
@@ -287,11 +307,12 @@ class EncodedCluster:
         """This encoding with its tensors on `device` (self if already there)."""
         if self.device == device:
             return self
-        return EncodedCluster(
+        out = EncodedCluster(
             self.arrays.to(device),
             self.state0.to(device),
             node_names=self.node_names,
             pod_keys=self.pod_keys,
+            pods=self.pods,
             resource_names=self.resource_names,
             queue=self.queue,
             policy=self.policy,
@@ -300,6 +321,8 @@ class EncodedCluster:
             n_pods=self.n_pods,
             aux=self.aux,
         )
+        out.objects = self.objects
+        return out
 
     def decode_assignment(self, assignment) -> dict:
         """[P] pod-indexed node assignments → {(ns, name): node | ""} over
@@ -364,7 +387,7 @@ def _encode_taints(node_views, pod_views, N, P):
         taint_val=taint_val,
         taint_effect=taint_effect,
         **padded,
-    ), {"node_taints": node_taints}
+    ), {"node_taints": node_taints, "taint_vocab": kv}
 
 
 # Fields that hold the policy's integer type (`DTypePolicy.res`).
@@ -525,7 +548,7 @@ def _encode_labels_affinity(node_views, pod_views, N, P, policy: DTypePolicy, ex
         paff_num_ok=pno,
         paff_weight=paff_weight,
         paff_term_valid=ptv,
-    ), keys
+    ), keys, vals
 
 
 def _fill_port_rows(wants, pair_ids, trip_ids, Q, V2):
@@ -570,7 +593,7 @@ def _encode_ports(pod_views, N, P):
         want_trip=np.concatenate([wt, np.zeros((pad, V2), np.int32)]),
         want_pair=np.concatenate([wp, np.zeros((pad, Q), np.int32)]),
         trip_pair=trip_pair,
-    )
+    ), {"port_pair_ids": pair_ids, "port_trip_ids": trip_ids}
 
 
 def _fill_pod_image_rows(pod_views, img_ids, I):
@@ -616,7 +639,7 @@ def _encode_images(node_views, pod_views, N, P, n_real_nodes):
         img_contrib=img_contrib,
         pod_img=np.concatenate([pi, np.zeros((pad, I), np.int32)]),
         pod_ncont=np.concatenate([pc, np.zeros(pad, np.int32)]),
-    )
+    ), {"img_ids": img_ids}
 
 
 def _topology_keys(pod_views, pod_constraints) -> list[str]:
@@ -725,13 +748,13 @@ def encode_cluster(
         resolve_spread_constraints(pv.topology_spread_constraints, spread_args)
         for pv in pod_views
     ]
+    topo_keys = _topology_keys(pod_views, pod_constraints)
     taint_arrays, taint_aux = _encode_taints(node_views, pod_views, N, P)
-    label_arrays, label_keys = _encode_labels_affinity(
-        node_views, pod_views, N, P, policy,
-        extra_keys=_topology_keys(pod_views, pod_constraints),
+    label_arrays, label_keys, label_vals = _encode_labels_affinity(
+        node_views, pod_views, N, P, policy, extra_keys=topo_keys,
     )
-    port_arrays = _encode_ports(pod_views, N, P)
-    img_arrays = _encode_images(node_views, pod_views, N, P, len(nodes))
+    port_arrays, port_aux = _encode_ports(pod_views, N, P)
+    img_arrays, img_aux = _encode_images(node_views, pod_views, N, P, len(nodes))
     rel, rel_aux = encode_pod_relations(
         node_views, pod_views, N, P,
         label_keys=label_keys, constraints=pod_constraints,
@@ -814,19 +837,77 @@ def encode_cluster(
         node_vol3=put(node_vol3),
         bound_seq=put(bound_seq),
     )
-    return EncodedCluster(
+    enc = EncodedCluster(
         arrays,
         state0,
         node_names=[nv.name for nv in node_views],
         pod_keys=[(pv.namespace, pv.name) for pv in pod_views],
+        pods=list(pods),
         resource_names=resource_names,
         queue=queue,
         policy=policy,
         config=config,
         n_nodes=len(nodes),
         n_pods=len(pods),
-        aux={**taint_aux, **rel_aux, **vol_aux},
+        aux={
+            **taint_aux, **rel_aux, **vol_aux, **port_aux, **img_aux,
+            # the vocabularies the delta encoder (engine/delta.py) replays
+            # events against
+            "label_keys": label_keys,
+            "label_vals": label_vals,
+            "res_vocab": res_vocab,
+            "topo_keys": set(topo_keys),
+        },
     )
+    enc.objects = {
+        "nodes": list(nodes),
+        "pvcs": list(pvcs or []),
+        "pvs": list(pvs or []),
+        "storageclasses": list(storageclasses or []),
+        "priorityclasses": list(priorityclasses or []),
+        "namespaces": list(namespaces or []),
+    }
+    return enc
+
+
+# encodings an EncodingCache keeps (least recently used dropped first)
+ENCODING_CACHE_CAP = 8
+
+
+class EncodingCache:
+    """A bounded LRU of recent encodings keyed by (store key, configuration
+    identity): a pass over a store that has not changed since a recent
+    pass under the same configuration reuses that pass's encoding.
+
+    The store key holds the store's latest resourceVersion, which every
+    mutation bumps, so it is monotonic: `put` drops the entries at any
+    other key. The configuration is compared by identity (a restart swaps
+    the object). `MISS` keeps None cacheable ("nothing schedulable")."""
+
+    MISS = object()
+
+    def __init__(self):
+        # (key, id(config)) -> (config, enc); the config rides in the value
+        # so its id cannot be recycled while the entry lives
+        self._entries: "dict[tuple, tuple]" = {}
+
+    def get(self, key: tuple, config: object):
+        """The cached encoding for (key, config), or `EncodingCache.MISS`."""
+        k = (key, id(config))
+        hit = self._entries.get(k)
+        if hit is None or hit[0] is not config:
+            return EncodingCache.MISS
+        self._entries[k] = self._entries.pop(k)  # refresh recency
+        return hit[1]
+
+    def put(self, key: tuple, config: object, enc: object) -> None:
+        if any(k[0] != key for k in self._entries):
+            self._entries = {k: v for k, v in self._entries.items() if k[0] == key}
+        k = (key, id(config))
+        self._entries.pop(k, None)
+        self._entries[k] = (config, enc)
+        while len(self._entries) > ENCODING_CACHE_CAP:
+            self._entries.pop(next(iter(self._entries)))
 
 
 def from_reference_arrays(

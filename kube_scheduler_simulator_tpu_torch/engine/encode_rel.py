@@ -426,7 +426,10 @@ def encode_pod_relations(
         ipan_weight=qw,
     )
     rel = PodRelArrays(**{k: torch.as_tensor(v, device=device) for k, v in host.items()})
-    return rel, {"n_node_pairs": len(node_pair_vocab)}
+    # the clause builder and namespace vocabulary stay for the delta
+    # encoder, which compiles an appended pod's selectors against them
+    return rel, {"n_node_pairs": len(node_pair_vocab), "clause_builder": cb,
+                 "ns_vocab": ns_vocab}
 
 
 # ---------------------------------------------------------------------------

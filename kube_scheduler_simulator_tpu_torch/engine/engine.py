@@ -24,6 +24,7 @@ TRACE_SLOTS_PREEMPT), not as dense [N, P] masks.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -234,7 +235,7 @@ class BatchedScheduler:
         (the reference's evict_all); returns the state."""
         return cuda.seq_evict(self.program, arrays, state, mask)
 
-    # -- execution ----------------------------------------------------------
+    # -- engine reuse (the serving layer's engine cache) ---------------------
 
     @staticmethod
     def queue_bucket(n: int) -> int:
@@ -244,6 +245,62 @@ class BatchedScheduler:
         from ..utils.compilecache import shape_bucket
 
         return shape_bucket(n, lo=8)
+
+    @staticmethod
+    def compile_signature(enc: EncodedCluster, record: bool = True) -> tuple:
+        """Everything an engine's program takes from its encoding beyond the
+        tensors it is handed: the configuration, the dtype policy, the
+        resource vocabulary's order, the node-pair count (`np1`), the
+        preemption victim bound (from node capacities and the initial
+        assignment), the queue's bucket, and every tensor's shape and dtype.
+        Two encodings with equal signatures can share one engine through
+        `retarget`. The reference's signature, component for component
+        (with no custom plugin statics).
+
+        Memoised on the encoding: the delta encoder updates tensors in
+        place, so recomputing it on an older encoding would read the newer
+        content."""
+        memo = getattr(enc, "_sig_memo", None)
+        if memo is None:
+            memo = enc._sig_memo = {}
+        if record in memo:
+            return memo[record]
+        shapes = tuple(
+            (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+            for obj in (enc.arrays, enc.arrays.rel, enc.state0)
+            for f in dataclasses.fields(obj)
+            if isinstance(t := getattr(obj, f.name), torch.Tensor)
+        )
+        filter_names = [n for n in enc.config.enabled("filter") if n in K.FILTER_KERNELS]
+        has_preempt = "DefaultPreemption" in enc.config.enabled("postFilter")
+        sig = (
+            enc.config.fingerprint(),
+            enc.policy.name,
+            tuple(enc.resource_names),
+            enc.aux.get("n_node_pairs"),
+            PR.victim_bound(enc, filter_names) if has_preempt else 0,
+            BatchedScheduler.queue_bucket(len(enc.queue)),
+            record,
+            shapes,
+        )
+        memo[record] = sig
+        return sig
+
+    def retarget(self, enc: EncodedCluster) -> "BatchedScheduler":
+        """Point this engine at a new encoding with an equal compile
+        signature (same shapes and program content, other tensor contents):
+        the program is kept, the decode tables come from the new encoding.
+        Raises ValueError for an encoding that is not compatible."""
+        if self.compile_signature(enc, self.record) != self.compile_signature(
+            self.enc, self.record
+        ):
+            raise ValueError("encoding is not compile-compatible; rebuild")
+        self.enc = enc.to(self.device)
+        self._trace = None
+        self._final_state = None
+        return self
+
+    # -- execution ----------------------------------------------------------
 
     def run(self, weights: "torch.Tensor | None" = None):
         """Execute the pass; returns (final_state, trace).
@@ -277,31 +334,35 @@ class BatchedScheduler:
         """Fill one Filter→Score attempt into a result record. Returns True
         when the attempt scheduled the pod."""
         enc = self.enc
-        feasible = []
-        for n in range(enc.n_nodes):
-            ok = True
-            for j, fname in enumerate(self._filter_names):
-                c = int(codes_row[n, j])
-                if c:
-                    res.add_filter(
-                        enc.node_names[n],
-                        fname,
-                        K.FILTER_KERNELS[fname][1](c, enc, n),
-                    )
-                    ok = False
-                    break
-                res.add_filter(enc.node_names[n], fname, PASSED_FILTER_MESSAGE)
-            if ok:
-                feasible.append(n)
+        names, node_names = self._filter_names, enc.node_names
+        F = len(names)
+        if F:
+            # each node's filters pass up to its first failing one, which
+            # records its reason and ends the node's row
+            fail = np.asarray(codes_row[: enc.n_nodes]) != 0
+            first = np.where(fail.any(axis=1), fail.argmax(axis=1), F).tolist()
+            passed = [(n, PASSED_FILTER_MESSAGE) for n in names]
+            for n, f in enumerate(first):
+                row = dict(passed[:f])
+                if f < F:
+                    row[names[f]] = K.FILTER_KERNELS[names[f]][1](int(codes_row[n, f]), enc, n)
+                res.filter[node_names[n]] = row
+            feasible = [n for n, f in enumerate(first) if f == F]
+        else:
+            feasible = list(range(enc.n_nodes))
         if not feasible:
             res.status = "Unschedulable"
             return False
         for pname in self._prescore_names:
             res.pre_score[pname] = SUCCESS_MESSAGE
-        for j, (sname, _) in enumerate(self._score_specs):
-            for n in feasible:
-                res.add_score(enc.node_names[n], sname, int(raw_row[n, j]))
-                res.add_final_score(enc.node_names[n], sname, int(final_row[n, j]))
+        if self._score_specs:
+            snames = [s for s, _ in self._score_specs]
+            S = len(snames)
+            raw_l = np.asarray(raw_row)[feasible, :S].tolist()
+            final_l = np.asarray(final_row)[feasible, :S].tolist()
+            for n, r, f in zip(feasible, raw_l, final_l):
+                res.score[node_names[n]] = dict(zip(snames, map(str, r)))
+                res.final_score[node_names[n]] = dict(zip(snames, map(str, f)))
         s = int(sel_val)
         res.selected_node = enc.node_names[s]
         res.status = "Scheduled"

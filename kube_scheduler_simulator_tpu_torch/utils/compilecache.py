@@ -1,6 +1,10 @@
-"""Shape buckets for padded axes."""
+"""Shape buckets for padded axes, and the capacity buckets of the serving
+path."""
 
 from __future__ import annotations
+
+# the smallest capacity bucket of the serving path's node and pod axes
+CAPACITY_LO = 8
 
 
 def shape_bucket(n: int, lo: int = 8) -> int:
@@ -17,3 +21,14 @@ def shape_bucket(n: int, lo: int = 8) -> int:
     while c < n:
         c *= 2
     return c
+
+
+def capacity_buckets(n_nodes: int, n_pods: int) -> tuple[int, int]:
+    """(node_capacity, pod_capacity) for a cluster of live counts: the
+    bucket policy every `encode_cluster` caller of the serving path shares
+    (server/service.py, the delta encoder). Two stores whose counts land
+    in the same buckets encode to tensors of the same shapes."""
+    return (
+        max(shape_bucket(n_nodes, CAPACITY_LO), 1),
+        max(shape_bucket(n_pods, CAPACITY_LO), 1),
+    )

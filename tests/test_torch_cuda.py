@@ -31,6 +31,60 @@ STATE_FIELDS = ("requested", "s_requested", "n_pods", "assignment", "used_pair",
 POLICIES = {"exact": kp.EXACT, "i32": kp.TPU32}
 CONFIGS = {"fit": kp.fit_config, "slice": kp.affinity_config}
 
+# K10 (engine/scatter.py): random retained planes of every dtype the delta
+# encoder scatters into, rows of rank 0 to 3 and a zero-width plane
+K10_DTYPES = (torch.bool, torch.int32, torch.int64)
+K10_ROW_SHAPES = ((), (3,), (2, 5), (2, 3, 4), (0,))
+
+
+def k10_cases(seed=0, P=300, k=64):
+    """(label, plane, set indices, set rows, add indices, add rows, vector)
+    on the CPU. Set indices are distinct; add indices repeat (several rows
+    into one node); int32 values sit at the type's edges, so sums wrap.
+    Bool planes have no add (None)."""
+    rng = np.random.default_rng(seed)
+
+    def rand(dtype, shape):
+        if dtype == torch.bool:
+            return torch.as_tensor(rng.random(shape) < 0.5)
+        info = torch.iinfo(dtype)
+        edge = rng.integers(info.min, info.max, shape, dtype=np.int64, endpoint=True)
+        small = rng.integers(-5, 6, shape)
+        pick = rng.random(shape) < 0.5
+        return torch.as_tensor(np.where(pick, edge, small)).to(dtype)
+
+    for dtype in K10_DTYPES:
+        for shape in K10_ROW_SHAPES:
+            arr = rand(dtype, (P, *shape))
+            idx = torch.as_tensor(rng.choice(P, k, replace=False).astype(np.int32))
+            rows = rand(dtype, (k, *shape))
+            add = vec = None
+            if dtype != torch.bool:
+                add_idx = torch.as_tensor(rng.integers(0, 8, 3 * k).astype(np.int32))
+                add = (add_idx, rand(dtype, (3 * k, *shape)))
+                vec = rand(dtype, (P, *shape))
+            yield f"{str(dtype)[6:]} rows{shape}", arr, idx, rows, add, vec
+
+
+def check_k10(device, scatter, seed=0):
+    """Each K10 wrapper on `device` against its plain version on the CPU,
+    exact. Returns the number of comparisons."""
+    n = 0
+    for label, arr, idx, rows, add, vec in k10_cases(seed):
+        got = scatter.scatter_set(arr.to(device, copy=True), idx, rows).cpu()
+        want = scatter.scatter_set_plain(arr.clone(), idx, rows)
+        assert got.dtype == want.dtype and torch.equal(got, want), ("set", label)
+        n += 1
+        if add is not None:
+            got = scatter.scatter_add(arr.to(device, copy=True), *add).cpu()
+            want = scatter.scatter_add_plain(arr.clone(), *add)
+            assert torch.equal(got, want), ("add", label)
+            got = scatter.vec_add(arr.to(device, copy=True), vec).cpu()
+            want = scatter.vec_add_plain(arr.clone(), vec)
+            assert torch.equal(got, want), ("vec", label)
+            n += 2
+    return n
+
 
 @pytest.fixture
 def card():
@@ -202,3 +256,56 @@ def test_run_with_preemption_matches_plain(card, policy):
     for f in STATE_FIELDS:
         assert torch.equal(getattr(s_k, f), getattr(s_p, f)), f
     assert int(t_k[5].sum()) > 0
+
+
+def test_k10_kernels_match_plain(card):
+    from kube_scheduler_simulator_tpu_torch.engine import scatter
+
+    scatter.reset_counts()
+    assert check_k10(card, scatter) == 35
+    # a zero-width plane launches nothing: 3 dtypes x 4 shapes of set, 2 x 4
+    # of add and vec
+    assert scatter.LAUNCHES == {"delta_scatter_set": 12, "delta_scatter_add": 8,
+                                "delta_vec_add": 8}
+    assert not any(scatter.PLAIN_CALLS.values())
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_delta_passes_on_the_card_match_the_cpu(card, policy, monkeypatch):
+    """A dressed store's delta passes: the encoder on the card (K10
+    kernels) and on the CPU (plain versions) keep equal encodings, and the
+    service's records on the card equal the CPU service's."""
+    from kube_scheduler_simulator_tpu_torch.engine import scatter
+    from kube_scheduler_simulator_tpu_torch.server.service import SimulatorService
+
+    nodes, pods = rel_cluster(5, 24, 160)
+    monkeypatch.setenv("KSS_DTYPE_POLICY", policy)
+    sims = [SimulatorService(device=card), SimulatorService(device="cpu")]
+    for sim in sims:
+        sim.import_({"nodes": nodes, "pods": pods[:120], "namespaces": NAMESPACES})
+    modes = []
+    for k in range(4):
+        for sim in sims:
+            for pd in pods[120 + 10 * k:130 + 10 * k]:
+                pd = {**pd, "spec": {**pd["spec"]}}
+                pd["spec"].pop("affinity", None)
+                sim.store.apply("pods", pd)
+            sim.store.apply("nodes", {"metadata": {"name": nodes[k]["metadata"]["name"]},
+                                      "spec": {"unschedulable": True}})
+        scatter.reset_counts()
+        got = sims[0].scheduler.schedule()
+        launches = dict(scatter.LAUNCHES)
+        want = sims[1].scheduler.schedule()
+        info = sims[0].scheduler.last_encode_info
+        assert info == sims[1].scheduler.last_encode_info
+        modes.append(info["mode"])
+        assert (sum(launches.values()) > 0) == (info["mode"] == "delta"), (k, info, launches)
+        assert [r.to_annotations() for r in got] == [r.to_annotations() for r in want]
+        enc_k, enc_p = (s.scheduler._delta._st.enc for s in sims)
+        for obj_k, obj_p in ((enc_k.arrays, enc_p.arrays), (enc_k.arrays.rel, enc_p.arrays.rel),
+                             (enc_k.state0, enc_p.state0)):
+            for f in obj_k.__dataclass_fields__:
+                x = getattr(obj_k, f)
+                if isinstance(x, torch.Tensor):
+                    assert torch.equal(x.cpu(), getattr(obj_p, f)), (k, f)
+    assert "delta" in modes, modes

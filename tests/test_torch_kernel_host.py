@@ -1,5 +1,6 @@
-"""The CUDA source (csrc/seq_kernels.cu) run on the CPU against the plain
-versions, through the wrappers of engine/cuda.py.
+"""The CUDA sources (csrc/seq_kernels.cu, csrc/delta_kernels.cu) run on
+the CPU against the plain versions, through the wrappers of engine/cuda.py
+and engine/scatter.py.
 
 The host's C++ compiler builds the kernel source with stand-ins for the
 CUDA built-ins (`HOST_CUDA` below): a block of one thread, whose loops
@@ -22,11 +23,14 @@ import pytest
 import torch
 
 import kube_scheduler_simulator_tpu_torch as kp
-from kube_scheduler_simulator_tpu_torch.engine import cuda
+from kube_scheduler_simulator_tpu_torch.engine import cuda, scatter
+from kube_scheduler_simulator_tpu_torch.engine.delta import DeltaEncoder
+from kube_scheduler_simulator_tpu_torch.models.store import ResourceStore
 from kube_scheduler_simulator_tpu_torch.sched.config import SchedulerConfiguration
 
 from test_torch_clusters import NAMESPACES, rel_cluster
-from test_torch_cuda import STATE_FIELDS, cluster
+from test_torch_cuda import STATE_FIELDS, check_k10, cluster
+from test_torch_delta import TEMPLATES, assert_port_equal, from_template, full_encode
 
 HOST_CUDA = r"""
 #pragma once
@@ -40,6 +44,7 @@ HOST_CUDA = r"""
 #define __launch_bounds__(x)
 struct Dim3 { unsigned x, y, z; };
 static Dim3 threadIdx, blockIdx;
+static Dim3 gridDim = {1, 1, 1};
 // one thread is the block: strides of 1, and one warp for the reductions
 struct BlockDimX {
   operator unsigned() const { return 1; }
@@ -75,27 +80,40 @@ def host_lib(tmp_path_factory):
     if gxx is None:
         pytest.skip("no g++ to build the kernel source on the host")
     d = tmp_path_factory.mktemp("host_kernels")
-    (d / "cuda_runtime.h").write_text(HOST_CUDA)
     shutil.copy(cuda.LAYOUT_H, d)
-    src = d / "seq_kernels_host.cpp"
-    # a launch `k<<<grid, block, smem, stream>>>(args)` becomes the call k(args)
-    src.write_text(re.sub(r"<<<.*?>>>", "", cuda.CSRC.read_text()))
-    lib = d / "libseq_kernels_host.so"
-    # -ffp-contract=off: no fused multiply-add, as the kernels' float steps
-    subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-w",
-                    "-I", str(d), "-o", str(lib), str(src)], check=True, capture_output=True)
-    return lib
+    return host_build(d, (cuda.CSRC, cuda.DELTA_CSRC), "kernels")
 
 
 @pytest.fixture
 def host(host_lib, monkeypatch):
-    """The wrappers launch the host build of the kernels on CPU tensors."""
+    """The wrappers (engine/cuda.py's and engine/scatter.py's) launch the
+    host build of the kernels on CPU tensors."""
     monkeypatch.setattr(cuda, "build", lambda: (host_lib, 0.0))
     for name, value in (("_LIB", None), ("_LAYOUT", None), ("KERNEL_DEVICE_TYPES", ("cpu",))):
         monkeypatch.setattr(cuda, name, value)
     monkeypatch.setattr(cuda, "_on_cpu", lambda a: False)
+    monkeypatch.setattr(scatter, "_on_cpu", lambda a: False)
     monkeypatch.setattr(cuda, "_stream", lambda: 0)
     cuda.reset_counts()
+    scatter.reset_counts()
+
+
+def host_build(d, srcs, name):
+    """Compile CUDA sources for the host with the stand-ins of HOST_CUDA
+    into one shared library; returns its path."""
+    (d / "cuda_runtime.h").write_text(HOST_CUDA)
+    host_srcs = []
+    for src in srcs:
+        host_src = d / f"{src.stem}_host.cpp"
+        # a launch `k<<<grid, block, smem, stream>>>(args)` becomes the call k(args)
+        host_src.write_text(re.sub(r"<<<.*?>>>", "", src.read_text()))
+        host_srcs.append(str(host_src))
+    lib = d / f"lib{name}_host.so"
+    # -ffp-contract=off: no fused multiply-add, as the kernels' float steps
+    subprocess.run([shutil.which("g++"), "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-w", "-I", str(d), "-o", str(lib), *host_srcs],
+                   check=True, capture_output=True)
+    return lib
 
 
 def engine(policy, kind, config, seed=1):
@@ -272,3 +290,41 @@ def test_run_with_preemption_matches_plain(host, policy, kind, monkeypatch):
         monkeypatch.setattr(cuda, "VICTIM_CAP", len(t_k[-1]) - 1)
         with pytest.raises(RuntimeError, match="victim capacity"):
             cuda.seq_run(*args, record=True)
+
+
+def test_k10_kernels_match_plain(host):
+    """K10 (csrc/delta_kernels.cu): set, add (repeated indices, int32
+    wrap) and vector add over bool, int32 and int64 planes with rows of
+    rank 0 to 3; a zero-width plane launches nothing."""
+    assert check_k10(torch.device("cpu"), scatter, seed=4) == 35
+    assert scatter.LAUNCHES == {"delta_scatter_set": 12, "delta_scatter_add": 8,
+                                "delta_vec_add": 8}
+    assert not any(scatter.PLAIN_CALLS.values())
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_delta_passes_through_the_k10_kernels(host, policy):
+    """Arrivals from the delta templates, binds and a cordon: each delta
+    pass goes through the kernels, and the retained encoding equals a
+    from-scratch encode."""
+    store = ResourceStore()
+    cfg = SchedulerConfiguration.default()
+    for i in range(4):
+        store.apply("nodes", {"metadata": {"name": f"n{i}", "labels": {
+            "zone": "a" if i % 2 else "b", "kubernetes.io/hostname": f"n{i}"}},
+            "status": {"allocatable": {"cpu": "8", "memory": "16Gi", "pods": "110"}}})
+    for j, t in enumerate(TEMPLATES * 2):  # 10 pods: the 16-pod bucket holds the arrivals
+        store.apply("pods", from_template(t, f"{t['metadata']['name']}-seed{j}"))
+    delta = DeltaEncoder(policy=POLICIES[policy], device="cpu")
+    assert delta.encode(store, cfg)[1]["mode"] == "full"
+    for k in range(6):
+        store.apply("pods", from_template(TEMPLATES[k % len(TEMPLATES)], f"a{k}"))
+        seed_pod = f"{TEMPLATES[k % 5]['metadata']['name']}-seed{k % 5}"
+        store.apply("pods", {"metadata": {"name": seed_pod}, "spec": {"nodeName": f"n{k % 4}"}})
+        store.apply("nodes", {"metadata": {"name": f"n{k % 4}"},
+                              "spec": {"unschedulable": k % 2 == 0}})
+        scatter.reset_counts()
+        _, info = delta.encode(store, cfg)
+        assert info["mode"] == "delta", info
+        assert scatter.LAUNCHES["delta_scatter_set"] > 0 and not any(scatter.PLAIN_CALLS.values())
+        assert_port_equal(delta._st.enc, full_encode(store, cfg, delta.policy), k)
