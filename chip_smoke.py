@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's sequential scheduling pass on one NVIDIA card.
+"""Drive the PyTorch port's scheduling passes on one NVIDIA card.
 
 Run from the repository root with no arguments:
 
@@ -13,8 +13,11 @@ workload) and the default path (the reference's whole default profile,
 `preemption_cluster`, BASELINE config #2's width with config #5's mixed
 PriorityClass preemption). A fourth, the serving path, drives
 `SimulatorService.scheduler.schedule()` pass after pass over a store,
-through the delta encoder and its K10 row scatters. Phases, in order; any
-failure raises and the process exits non-zero:
+through the delta encoder and its K10 row scatters. A fifth, the gang
+path, runs `GangScheduler` (rounds of all pending pods through the K9
+kernels of csrc/gang_kernels.cu, preempt phases through `seq_run`) and
+`schedule_gang()`. Phases, in order; any failure raises and the process
+exits non-zero:
 
 1. the device: its name, `nvidia-smi`'s name and power limit, the torch
    and CUDA versions;
@@ -40,7 +43,12 @@ failure raises and the process exits non-zero:
    int32 wraparound, a zero-width plane), then every scatter of three delta
    passes over a dressed 256-node store under TPU32 and EXACT (arrivals from
    the reference's delta templates), the encoder on the card against the
-   one on the CPU and a from-scratch encode;
+   one on the CPU and a from-scratch encode; (gang) `gang_eval`,
+   `gang_topk`, `gang_match` and `gang_bind` at random states on
+   `dressed_default_cluster(256, 64)` and `dressed_affinity_cluster(256,
+   2000)` (required anti-affinity carriers), TPU32 and EXACT, then one
+   whole gang pass, `run_recorded()` + `results()`, kernels against plain
+   versions on `dressed_default_cluster(256, 300)`: state, rounds, records;
 4. the fit path at full width: `schedule()` on 1,024 nodes x 10,000 pods
    (TPU32, trace recorded) with the launch counters set to 0 just before
    and read just after — the pass must launch `seq_run` and no plain
@@ -76,6 +84,20 @@ failure raises and the process exits non-zero:
    5 and 8 (8 holds the preemptor's dry run) the plain version of the
    whole pass on the card over the from-scratch encode must give the
    served pass's trace, victims, final state and records;
+4e. the gang default path at full width: `GangScheduler(enc, chunk=64)` on
+   the 4c cluster — `run()` with the counters set to 0 just before and
+   read just after (K9 and the preempt phases' `seq_run`, no plain call),
+   then a second `run()` with each kernel call between CUDA events (device
+   ms per round; the wall is the first run's, with no timer), then
+   `run_recorded()` + `results()` of the sampled pods (the same
+   placements; the replay's seconds; dry runs and nominations), and round
+   1's `gang_eval` rows of 64 sampled pods against `seq_attempt`'s masked
+   totals at state0; then `run()` on the 4b cluster under
+   `affinity_config()`, one exclusive round a carrier, timed the same way;
+4f. three `schedule_gang(record=True)` passes of 256 arrivals in a
+   1,024-node `SimulatorService` session (the second with `window=64`),
+   each with K9 launched and no plain call and its records written back;
+   the third held against the plain gang on the card;
 5. kernel times on all paths (CUDA events; the per-pod kernels replayed
    from a CUDA graph so host enqueue time is not counted, at the state
    half-way through the queue; the default path's `seq_run` on its plain
@@ -88,10 +110,12 @@ failure raises and the process exits non-zero:
    the default path's); 5c: the K10 kernels at the real dirty lists of
    serving delta passes (set and add: pass 5's calls; vector add: pass
    2's, the pass that replays the claim pods' binds), beside their plain
-   versions and the one PyTorch call that computes each;
+   versions and the one PyTorch call that computes each; 5d: K9 at round 1
+   of the full-width default gang (`torch.topk` and `index_add_` as the
+   library calls of top-k and bind);
 6. the card's name and power limit, then the result line.
 
-It runs in 8.5 to 12 minutes on an H100, the build included (the plain
+It runs in 13 to 18 minutes on an H100, the build included (the plain
 versions on the host side vary most).
 It imports nothing of JAX or of the reference package.
 """
@@ -127,7 +151,13 @@ REPLACES = {
     "delta_scatter_set": "kube_scheduler_simulator_tpu/engine/delta.py:183",
     "delta_scatter_add": "kube_scheduler_simulator_tpu/engine/delta.py:188",
     "delta_vec_add": "kube_scheduler_simulator_tpu/engine/delta.py:193",
+    "gang_eval": "kube_scheduler_simulator_tpu/engine/gang.py:520",
+    "gang_topk": "kube_scheduler_simulator_tpu/engine/gang.py:859",
+    "gang_match": "kube_scheduler_simulator_tpu/engine/gang.py:740",
+    "gang_bind": "kube_scheduler_simulator_tpu/engine/gang.py:641",
 }
+GANG_SOURCE = "kube_scheduler_simulator_tpu_torch/csrc/gang_kernels.cu"
+GANG_KERNELS = ("gang_eval", "gang_topk", "gang_match", "gang_bind")
 
 
 def log(*args):
@@ -152,7 +182,8 @@ def ptxas_report(text):
     out, name, props = [], None, ""
     for ln in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?_Z\w*?"
-                      r"(seq_(?:attempt|bind|run|preempt|evict)_kernel|scatter_set_kernel|"
+                      r"(seq_(?:attempt|bind|run|preempt|evict)_kernel|"
+                      r"gang_(?:eval|topk|match|bind)_kernel|scatter_set_kernel|"
                       r"scatter_add_kernel|vec_add_kernel)I([ixlhjm])", ln)
         if m:
             name = f"{m.group(1)}<{types[m.group(2)]}>"
@@ -1668,6 +1699,502 @@ def k10_rows(kp, scatter, diff, serving, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the gang path: K9 (phases 3, 4e, 4f and its kernel rows)
+# ---------------------------------------------------------------------------
+
+
+class Swap:
+    """Module functions replaced for the block: `table` maps a name to its
+    stand-in, built from the original."""
+
+    def __init__(self, module, table):
+        self.module, self.table = module, table
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.module, n) for n in self.table}
+        for n, make in self.table.items():
+            setattr(self.module, n, make(self.orig[n]))
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.orig.items():
+            setattr(self.module, n, f)
+
+
+def plain_gang(cuda):
+    """The gang engine's kernels (and the preempt phase's seq_run) swapped
+    for their plain versions, which run on card tensors as well."""
+    return Swap(cuda, {n: (lambda f, n=n: getattr(cuda, n + "_plain"))
+                       for n in GANG_KERNELS + ("seq_run",)})
+
+
+class GangTimer(Swap):
+    """Each gang kernel call (and each preempt phase's seq_run) between two
+    CUDA events; `ms()` sums the device time by kernel."""
+
+    def __init__(self, cuda):
+        self.events = []
+
+        def timed(name):
+            def make(f):
+                def call(*args, **kw):
+                    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                        enable_timing=True)
+                    e0.record()
+                    out = f(*args, **kw)
+                    e1.record()
+                    self.events.append((name, e0, e1))
+                    return out
+                return call
+            return make
+
+        super().__init__(cuda, {n: timed(n) for n in GANG_KERNELS + ("seq_run",)})
+
+    def ms(self):
+        torch.cuda.synchronize()
+        out = dict.fromkeys(GANG_KERNELS + ("seq_run",), 0.0)
+        for name, e0, e1 in self.events:
+            out[name] += e0.elapsed_time(e1)
+        return out
+
+
+def timed_run(kp, cuda, enc, placements, rounds, **kw):
+    """A second run() of a fresh GangScheduler(enc, **kw) with each kernel
+    call between CUDA events: its device ms by kernel. It must place as the
+    untimed run did, in as many rounds."""
+    g = kp.GangScheduler(enc, **kw)
+    timer = GangTimer(cuda)
+    with timer:
+        _, n = g.run()
+    if n != rounds or g.placements() != placements:
+        raise AssertionError("a timed gang run placed differently from the untimed one")
+    return timer.ms()
+
+
+def gang_path_kernels(g):
+    """The K9 kernels a gang pass launches: gang_topk only below full width."""
+    return [k for k in GANG_KERNELS if k != "gang_topk" or g.match_width < g.enc.N]
+
+
+def gang_inputs(g, enc, rng, st, n_rows):
+    """A random row list of the queue's pods (some bound at st) and a live
+    count just below it, on the card."""
+    rows = rng.permutation(np.asarray(enc.queue))[:n_rows].astype(np.int32)
+    live = torch.tensor([max(1, len(rows) - 4)], dtype=torch.int32, device=enc.device)
+    return torch.as_tensor(rows, device=enc.device), live
+
+
+def compare_gang_kernels(kp, cuda, diff, path, enc, rng):
+    """gang_eval (score rows; trace rows), gang_topk, gang_match (with and
+    without carriers, full width and top-k) and gang_bind against their
+    plain versions at 4 random states, exact."""
+    g = kp.GangScheduler(enc)
+    g._prep()
+    prog, a, w, N = g._base.program, enc.arrays, g.weights, enc.N
+    C = a.pod_claim.shape[1]
+    n_carriers = int(g._carrier.sum()) if g._carrier is not None else 0
+    for k in range(4):
+        st = random_state(enc, rng, bind=True)
+        rows, live = gang_inputs(g, enc, rng, st, 64)
+        n = int(live)
+        got = cuda.gang_eval(prog, a, st, w, rows, live, g._order)
+        want = cuda.gang_eval_plain(prog, a, st, w, rows, live, g._order)
+        diff.check(path, "gang_eval", f"{enc.policy.name} state {k} scores", got[:n], want[:n])
+        Q = len(enc.queue)
+        slot = torch.as_tensor(rng.choice(Q, len(rows), replace=False).astype(np.int32),
+                               device=enc.device)
+        traces = []
+        for fn in (cuda.gang_eval, cuda.gang_eval_plain):
+            tr = (torch.zeros((Q, len(prog.prefilters)), dtype=torch.int32, device=enc.device),
+                  torch.zeros((Q, N, len(prog.filters)), dtype=torch.int32, device=enc.device),
+                  torch.zeros((Q, N, len(prog.scores)), dtype=prog.score_dtype,
+                              device=enc.device),
+                  torch.zeros((Q, N, len(prog.scores)), dtype=prog.score_dtype,
+                              device=enc.device))
+            fn(prog, a, st, w, rows, None, g._order, check_pending=False, slot=slot, trace=tr)
+            traces.append(tr)
+        for name, x, y in zip(("pf", "codes", "raw", "final"), *traces):
+            diff.check(path, "gang_eval", f"{enc.policy.name} state {k} trace {name}", x, y)
+        for mw in (8, N):
+            if mw < N:
+                vals, idx = cuda.gang_topk(got, live, mw)
+                pv, pi = cuda.gang_topk_plain(want, live, mw)
+                diff.check(path, "gang_topk", f"state {k} vals", vals[:n], pv[:n])
+                diff.check(path, "gang_topk", f"state {k} idx", idx[:n], pi[:n])
+            else:
+                vals, idx, pv, pi = got, None, want, None
+            for carrier in (None, g._carrier):
+                args = (rows, live, g._order, g._claims, carrier, N, C, 64)
+                sel, stat = cuda.gang_match(vals, idx, *args)
+                psel, pstat = cuda.gang_match_plain(pv, pi, *args)
+                diff.check(path, "gang_match", f"state {k} width {mw} sel", sel, psel)
+                diff.check(path, "gang_match", f"state {k} width {mw} stat", stat, pstat)
+            s1 = cuda.gang_bind(prog, a, st.clone(), rows, live, sel, g._order)
+            s2 = cuda.gang_bind_plain(prog, a, st.clone(), rows, live, sel, g._order)
+            for f in STATE_FIELDS:
+                diff.check(path, "gang_bind", f"state {k} width {mw} {f}", getattr(s1, f),
+                           getattr(s2, f))
+    log(f"  {path:13s} {enc.policy.name:5s}: gang_eval (64 rows, score and trace rows), "
+        f"gang_topk (width 8), gang_match (width 8 and {N}, with and without the "
+        f"{n_carriers} carriers) and gang_bind at 4 random states equal to plain")
+
+
+def gang_records_equal(got, want, what):
+    if [(r.pod_name, r.status, r.to_annotations()) for r in got] != [
+            (r.pod_name, r.status, r.to_annotations()) for r in want]:
+        raise AssertionError(f"{what}: the records differ")
+
+
+def compare_gang(kp, cuda, diff, smi):
+    """Phase 3 for K9: the four gang kernels against their plain versions on
+    the 256-node dressed default cluster (64 pending pods) and the dressed
+    affinity cluster (required anti-affinity carriers) under TPU32 and
+    EXACT; then one whole gang pass, run_recorded() + results(), through
+    the kernels and through the plain versions on dressed_default_cluster(256,
+    300), TPU32: final state, rounds and every record equal."""
+    from kube_scheduler_simulator_tpu_torch.synth import (
+        DRESSED_NAMESPACES,
+        dressed_affinity_cluster,
+        dressed_default_cluster,
+    )
+
+    rng = np.random.default_rng(5)
+    nodes, pods, objects = dressed_default_cluster(256, 64, seed=11)
+    an, ap = dressed_affinity_cluster(256, 2000, seed=11)
+    for pol in (kp.TPU32, kp.EXACT):
+        compare_gang_kernels(kp, cuda, diff, "gang default", kp.encode_cluster(
+            nodes, pods, kp.supported_config(), policy=pol, **objects), rng)
+        compare_gang_kernels(kp, cuda, diff, "gang affinity", kp.encode_cluster(
+            an, ap, kp.affinity_config(), policy=pol, namespaces=DRESSED_NAMESPACES), rng)
+    nodes, pods, objects = dressed_default_cluster(256, DEFAULT_PHASE3_PENDING, seed=11)
+    enc = kp.encode_cluster(nodes, pods, kp.supported_config(), policy=kp.TPU32, **objects)
+    g = kp.GangScheduler(enc)
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    got = g.results()
+    torch.cuda.synchronize()
+    k_s = time.perf_counter() - t0
+    counts = dict(cuda.LAUNCHES)
+    p = kp.GangScheduler(enc)
+    t0 = time.perf_counter()
+    with plain_gang(cuda):
+        want = p.results()
+    torch.cuda.synchronize()
+    p_s = time.perf_counter() - t0
+    for f in STATE_FIELDS:
+        diff.check("gang default", "gang_bind", f"whole pass state {f}",
+                   getattr(g._final_state, f), getattr(p._final_state, f))
+    if g._rounds != p._rounds or g.last_stats != p.last_stats:
+        raise AssertionError(f"whole gang pass: {g.last_stats} against plain {p.last_stats}")
+    gang_records_equal(got, want, "whole gang pass")
+    log(f"  gang default  TPU32: a whole gang pass, run_recorded() + results(), on "
+        f"dressed_default_cluster(256, {DEFAULT_PHASE3_PENDING}): {g.last_stats}, "
+        f"{len(got)} records; kernels {k_s:.3f} s (launches { {k: counts[k] for k in GANG_KERNELS + ('seq_run',)} }), "
+        f"plain versions {p_s:.3f} s; state, rounds and records equal [{smi}]")
+
+
+def masked_totals(cuda, prog, a, st, w, p):
+    """The attempt's masked totals for pod p (NEG where infeasible), from
+    seq_attempt's rows: what gang_eval writes for a pending pod."""
+    codes, raw, final, sel, pf = cuda.seq_attempt(prog, a, st, w, p)
+    feasible = (codes == 0).all(dim=1) & a.node_mask & (pf == 0).all()
+    total = final.sum(dim=1, dtype=prog.score_dtype)
+    return torch.where(feasible, total, torch.full_like(total, cuda._neg(prog.score_dtype)))
+
+
+def drive_gang_default(kp, cuda, diff, nodes, pods, objects, sample, smi):
+    """Phase 4e: the gang default path at full width: GangScheduler(enc,
+    chunk=64) on preemption_cluster(1024, 10000), TPU32. run() with the
+    counters set to 0 just before and read just after (K9 and the preempt
+    phases' seq_run, no plain call), then a second run() with each kernel
+    call between CUDA events; then run_recorded() and results() of the
+    sampled pods: the same placements, the replay's seconds. Round 1's gang_eval rows of 64
+    sampled pods must equal seq_attempt's masked totals at state0."""
+    path, cfg = "gang default", kp.supported_config()
+    t0 = time.perf_counter()
+    enc = kp.encode_cluster(nodes, pods, cfg, policy=kp.TPU32, **objects)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    g = kp.GangScheduler(enc, chunk=64)
+    grid, ws, scratch = cuda.gang_eval_scratch_bytes(g._base.program, enc.arrays)
+    log(f"    gang_eval: {grid} blocks of {min(256, -(-enc.N // 32) * 32)} threads, each with "
+        f"its own {ws:,} B workspace slice; {scratch:,} B of scratch a launch")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    state, rounds = g.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() - base
+    if (any(counts[k] < 1 for k in gang_path_kernels(g)) or counts["gang_topk"] and
+            g.match_width == enc.N or counts["seq_run"] != g.last_stats["phases"]
+            or any(plain.values())):
+        raise AssertionError(f"the gang pass: launches {counts}, plain calls {plain}")
+    stats = dict(g.last_stats)
+    placements = g.placements()
+    kms = timed_run(kp, cuda, enc, placements, rounds, chunk=64)
+    Q = len(enc.queue)
+    n_placed = sum(1 for v in placements.values() if v)
+    per_round = {k: kms[k] / rounds for k in GANG_KERNELS}
+    log(f"    run(): {run_s:.3f} s wall (encode {enc_s:.3f} s apart), {Q / run_s:.1f} "
+        f"decisions/s, {n_placed} of {Q} pending placed, {rounds} rounds, "
+        f"{stats['phases']} preempt phases over {stats['phase_pods']} pods, "
+        f"{stats['host_syncs']} host readbacks by the driver (and 3 in each phase's "
+        f"seq_run), peak memory {peak / 2**30:.3f} GiB; device ms per round (a second "
+        f"run, timed): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_round.items())
+        + f"; phases' seq_run {kms['seq_run']:.1f} ms in all; launches "
+        f"{ {k: counts[k] for k in GANG_KERNELS + ('seq_run',)} }, plain calls none [{smi}]")
+
+    # the record path: the same placements, the replay's seconds
+    g2 = kp.GangScheduler(enc, chunk=64)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    g2.run_recorded()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    g2._trace = g2._assemble_trace()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    results = g2.results(pods=sample)
+    t3 = time.perf_counter()
+    rec_peak = torch.cuda.max_memory_allocated() - base
+    rec_counts = dict(cuda.LAUNCHES)
+    if g2.placements() != placements or not torch.equal(g2._final_state.assignment,
+                                                        state.assignment):
+        raise AssertionError("gang default: run_recorded() places differently from run()")
+    t = dict(zip(cuda.TRACE_SLOTS_PREEMPT, g2._trace))
+    did, nominated = t["did"], t["nominated"]
+    n_did, n_nom = int(did.sum()), int((nominated >= 0).sum())
+    if len(results) < len(sample) or any(r.selected_node and r.selected_node != placements[
+            (r.pod_namespace, r.pod_name)] for r in results if r.status == "Scheduled"):
+        raise AssertionError("gang default: the sampled records disagree with the placements")
+    log(f"    run_recorded() + results(): {t3 - t0:.3f} s wall ({Q / (t3 - t0):.1f} "
+        f"decisions/s): the drive {t1 - t0:.3f} s (the phases' traces recorded), the replay "
+        f"{t2 - t1:.3f} s, decode of {len(sample)} sampled pods {t3 - t2:.3f} s; peak memory "
+        f"{rec_peak / 2**30:.3f} GiB; placements equal run()'s; the phases' dry runs {n_did}, "
+        f"nominations {n_nom}; launches { {k: rec_counts[k] for k in GANG_KERNELS + ('seq_run',)} }")
+
+    # round 1's evaluation of 64 sampled pods against the sequential attempt
+    prog, a, w = g._base.program, enc.arrays, g.weights
+    rng = np.random.default_rng(7)
+    rows = torch.as_tensor(rng.choice(np.asarray(enc.queue), 64, replace=False).astype(np.int32),
+                           device=enc.device)
+    got = cuda.gang_eval(prog, a, enc.state0, w, rows, None, g._order)
+    want = torch.stack([masked_totals(cuda, prog, a, enc.state0, w, int(p)) for p in rows])
+    diff.check(path, "gang_eval", "round 1 against seq_attempt", got, want)
+    log("    round 1's gang_eval rows of 64 sampled pods equal seq_attempt's masked totals at "
+        "state0")
+    return dict(enc=enc, g=g, counts=counts, kms=kms, rounds=rounds, stats=stats)
+
+
+def drive_gang_affinity(kp, cuda, nodes, pods, seq_placements, smi):
+    """Phase 4e, second part: run() on BASELINE config #3 under
+    affinity_config(): every pod carries a required anti-affinity term, so
+    each takes an exclusive round (rel_serialize)."""
+    enc = kp.encode_cluster(nodes, pods, kp.affinity_config(), policy=kp.TPU32)
+    g = kp.GangScheduler(enc)
+    torch.cuda.synchronize()
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    _, rounds = g.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    if (any(counts[k] < 1 for k in ("gang_eval", "gang_match", "gang_bind"))
+            or counts["gang_topk"] or any(plain.values())):
+        raise AssertionError(f"the affinity gang pass: launches {counts}, plain calls {plain}")
+    placements = g.placements()
+    kms = timed_run(kp, cuda, enc, placements, rounds)
+    same = sum(1 for k, v in placements.items() if seq_placements.get(k) == v)
+    log(f"    affinity run(): {enc.n_nodes} nodes x {len(enc.queue)} pods, "
+        f"{int(g._carrier.sum())} carriers: {run_s:.3f} s wall, {len(enc.queue) / run_s:.1f} "
+        f"decisions/s, {rounds} rounds, {g.last_stats['host_syncs']} host readbacks, "
+        f"{sum(1 for v in placements.values() if v)} placed ({same} placements equal the "
+        f"sequential pass's); device ms in all (a second run, timed): "
+        + ", ".join(f"{k} {kms[k]:.1f}" for k in GANG_KERNELS)
+        + f" (per round {sum(kms[k] for k in GANG_KERNELS) / rounds:.3f}); launches "
+        f"{ {k: counts[k] for k in GANG_KERNELS} } [{smi}]")
+    return dict(run_s=run_s, rounds=rounds, kms=kms)
+
+
+def gang_rows(kp, cuda, diff, run, smi):
+    """Phase 5 for K9 at the full-width default path's round 1 (state0, the
+    queue's 10,000 pods pending): gang_topk, gang_match and gang_bind at
+    its shapes; gang_eval, whose plain version takes about 15 ms a pod,
+    over the first 64 pending rows. Each held against its plain version
+    there first. Bounds: bytes over 3.35 TB/s or operations over 67
+    TFLOP/s, the larger; gang_eval's bytes the cluster planes and state
+    read once and the rows written, its operations 64 attempts'."""
+    enc, g = run["enc"], run["g"]
+    prog, a, w, N = g._base.program, enc.arrays, g.weights, enc.N
+    C = a.pod_claim.shape[1]
+    st0 = enc.state0
+    rows, count = g._pending(st0, sort=True)
+    K, mw, isz = rows.shape[0], g.match_width, a.node_alloc.element_size()
+    live64 = torch.tensor([64], dtype=torch.int32, device=enc.device)
+    scores = cuda.gang_eval(prog, a, st0, w, rows, count, g._order)
+    want64 = cuda.gang_eval_plain(prog, a, st0, w, rows, live64, g._order)
+    diff.check("gang default", "gang_eval", "round 1, 64 rows", scores[:64], want64[:64])
+    eval_ms = events_ms(lambda: cuda.gang_eval(prog, a, st0, w, rows, live64, g._order), 20)
+    eval_plain_ms = events_ms(lambda: cuda.gang_eval_plain(prog, a, st0, w, rows, live64,
+                                                           g._order), 1, 1)
+    eval_round_ms = events_ms(lambda: cuda.gang_eval(prog, a, st0, w, rows, count, g._order),
+                              1, 3)
+    ops = sum(attempt_cost(enc, prog, st0, int(p), w)[1] for p in rows[:64].tolist())
+    state_bytes = nbytes(*(getattr(st0, f) for f in STATE_FIELDS))
+    b_eval = bound(cluster_bytes(enc) + state_bytes + 64 * N * isz, ops)
+    vals, idx = cuda.gang_topk(scores, count, mw)
+    pv, pi = cuda.gang_topk_plain(scores, count, mw)
+    diff.check("gang default", "gang_topk", "round 1 vals", vals, pv)
+    diff.check("gang default", "gang_topk", "round 1 idx", idx, pi)
+    topk_ms = events_ms(lambda: cuda.gang_topk(scores, count, mw), 5)
+    topk_plain_ms = events_ms(lambda: cuda.gang_topk_plain(scores, count, mw), 3)
+    topk_lib_ms = events_ms(lambda: torch.topk(scores, mw, dim=1), 5)
+    b_topk = bound(K * N * isz + K * mw * (isz + 4), K * N)
+    args = (rows, count, g._order, g._claims, g._carrier, N, C, g.inner_iters)
+    sel, stat = cuda.gang_match(vals, idx, *args)
+    psel, pstat = cuda.gang_match_plain(vals, idx, *args)
+    diff.check("gang default", "gang_match", "round 1 sel", sel, psel)
+    diff.check("gang default", "gang_match", "round 1 stat", stat, pstat)
+    match_ms = events_ms(lambda: cuda.gang_match(vals, idx, *args), 5)
+    match_plain_ms = events_ms(lambda: cuda.gang_match_plain(vals, idx, *args), 1, 3)
+    b_match = bound(K * mw * (isz + 4) + K * 4 * 3 + 4 * K, K * mw)
+    s1 = cuda.gang_bind(prog, a, st0.clone(), rows, count, sel, g._order)
+    s2 = cuda.gang_bind_plain(prog, a, st0.clone(), rows, count, sel, g._order)
+    for f in STATE_FIELDS:
+        diff.check("gang default", "gang_bind", f"round 1 {f}", getattr(s1, f), getattr(s2, f))
+    committed = int(stat[0])
+    st_b = st0.clone()
+    bind_ms = events_ms(lambda: cuda.gang_bind(prog, a, st_b, rows, count, sel, g._order), 20)
+    st_p = st0.clone()
+    bind_plain_ms = events_ms(lambda: cuda.gang_bind_plain(prog, a, st_p, rows, count, sel,
+                                                           g._order), 5)
+    keep = sel >= 0
+    pods_c, tgt = rows[keep].long(), sel[keep].long()
+    srcs = {f: getattr(a, src)[pods_c] for f, src in (
+        ("requested", "pod_req"), ("s_requested", "pod_sreq"), ("used_pair", "want_pair"),
+        ("used_wild", "want_wild"), ("used_trip", "want_trip"),
+        ("node_disk_any", "pod_disk_any"), ("node_disk_rw", "pod_disk_rw"),
+        ("node_vol3", "pod_vol3"))}
+    ones = torch.ones_like(tgt, dtype=torch.int32)
+    claims = a.pod_claim[pods_c].to(torch.int32)
+    seqs = g._order[pods_c] + enc.P
+    tgt32 = tgt.to(torch.int32)
+
+    def bind_lib(st):
+        # bind_all as PyTorch calls, the committed rows gathered beforehand:
+        # index_add_ over every plane it writes, the claim counts summed,
+        # assignment and bound_seq set
+        for f, src in srcs.items():
+            getattr(st, f).index_add_(0, tgt, src)
+        st.n_pods.index_add_(0, tgt, ones)
+        st.used_claims.add_(claims.sum(dim=0, dtype=torch.int32))
+        st.assignment.index_put_((pods_c,), tgt32)
+        st.bound_seq.index_put_((pods_c,), seqs)
+
+    st_l = st0.clone()
+    bind_lib(st_l)
+    if not all(torch.equal(getattr(st_l, f), getattr(s1, f)) for f in STATE_FIELDS):
+        raise AssertionError("the index_add_ form of gang_bind disagrees with the kernel")
+    st_l = st0.clone()
+    bind_lib_ms = events_ms(lambda: bind_lib(st_l), 20)
+    pod_row = nbytes(a.pod_req[0], a.pod_sreq[0], a.want_pair[0], a.want_wild[0],
+                     a.want_trip[0], a.pod_claim[0], a.pod_disk_any[0], a.pod_disk_rw[0],
+                     a.pod_vol3[0])
+    node_row = nbytes(st0.requested[0], st0.s_requested[0], st0.used_pair[0],
+                      st0.used_wild[0], st0.used_trip[0], st0.node_disk_any[0],
+                      st0.node_disk_rw[0], st0.node_vol3[0], st0.n_pods[0])
+    b_bind = bound(4 * 3 * K + committed * (pod_row + 2 * node_row + 8),
+                   committed * (pod_row // 4 + 2))
+    log(f"    K9 at round 1 of the full-width default gang ({K} pending rows, {committed} "
+        f"committed): gang_eval over all rows {eval_round_ms:.3f} ms; gang_bind's library "
+        f"time is index_add_ over every plane bind_all writes [{smi}]")
+    rows_out = []
+    for name, ms, plain_ms, b, lib, shape in (
+            ("gang_eval", eval_ms, eval_plain_ms, b_eval, None, "64 rows"),
+            ("gang_topk", topk_ms, topk_plain_ms, b_topk, topk_lib_ms, f"{K} x {N} -> {mw}"),
+            ("gang_match", match_ms, match_plain_ms, b_match, None, f"{K} x {mw}"),
+            ("gang_bind", bind_ms, bind_plain_ms, b_bind, bind_lib_ms, f"{committed} commits")):
+        rows_out.append({"name": name, "path": "gang default", "route": "cuda",
+                         "source": GANG_SOURCE, "replaces": REPLACES[name],
+                         "launches": run["counts"][name],
+                         "max_abs_err": diff.err[("gang default", name)], "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                         "library_ms": lib, "shape": shape})
+        log(f"    gang default {name:10s} {ms:.6f} ms at {shape} (plain {plain_ms:.3f} ms, "
+            f"bound {b[0]:.7f} ms by {b[1]}, library "
+            f"{'none' if lib is None else f'{lib:.6f} ms'}), {run['counts'][name]} launches "
+            f"on the main path [{smi}]")
+    return rows_out
+
+
+def drive_serving_gang(kp, cuda, diff, smi):
+    """Phase 4f: three schedule_gang(record=True) passes of 256 arrivals in
+    a 1,024-node SimulatorService session on the card (the second with
+    window=64). The counters are set to 0 just before each pass and read
+    just after: K9 and no plain version. Each pass's records are written
+    back onto the pods; the third is held against the plain gang on the
+    card over a from-scratch encode of the store."""
+    from kube_scheduler_simulator_tpu_torch.server.service import SimulatorService, gang_chunk
+
+    t_setup = time.perf_counter()
+    snap, later, n_kept = serving_snapshot(kp, SERVING_NODES, SERVING_PODS, SERVING_BOUND, seed=7)
+    sim = SimulatorService()
+    sim.import_(snap)
+    store, sched = sim.store, sim.scheduler
+    log(f"    snapshot: {SERVING_NODES} nodes, {n_kept} pods bound, {SERVING_ARRIVALS} pending; "
+        f"set-up {time.perf_counter() - t_setup:.1f} s")
+    walls = []
+    for k, window in ((1, None), (2, 64), (3, None)):
+        if k > 1:
+            for pd in later[(k - 2) * SERVING_ARRIVALS:(k - 1) * SERVING_ARRIVALS]:
+                store.apply("pods", pd)
+        fresh = store_encode(kp, store, sched.config, kp.TPU32) if k == 3 else None
+        cuda.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        placements, rounds, results = sched.schedule_gang(record=True, window=window)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        walls.append(wall)
+        counts, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+        engine = next(reversed(sched._engines.values()))
+        if any(counts[n] < 1 for n in gang_path_kernels(engine)) or any(plain.values()):
+            raise AssertionError(f"gang pass {k}: launches {counts}, plain calls {plain}")
+        last = {(r.pod_namespace, r.pod_name): r for r in results}
+        for (ns, name), r in last.items():
+            pd = store.get("pods", name, ns)
+            if (pd["metadata"].get("annotations") != r.to_annotations()
+                    or pd["spec"].get("nodeName", "") != placements[ns, name]):
+                raise AssertionError(f"gang pass {k}: pod {ns}/{name} was written back wrong")
+        extra = ""
+        if fresh is not None:
+            p = kp.GangScheduler(fresh, chunk=gang_chunk())
+            t1 = time.perf_counter()
+            with plain_gang(cuda):
+                want = p.results()
+            torch.cuda.synchronize()
+            gang_records_equal(results, want, f"gang pass {k}")
+            if p.placements() != placements:
+                raise AssertionError(f"gang pass {k}: placements differ from the plain gang's")
+            extra = (f"; the plain gang on the card over a from-scratch encode "
+                     f"({time.perf_counter() - t1:.3f} s) gives the same records")
+        log(f"    gang pass {k} (window {window}): {sched.last_encode_info['mode']} encode, "
+            f"{rounds} rounds, {engine.last_stats['host_syncs']} host readbacks, wall "
+            f"{wall:.3f} s; {len(results)} records written back, "
+            f"{sum(1 for v in placements.values() if v)} placed; launches "
+            f"{ {n: counts[n] for n in GANG_KERNELS} }{extra} [{smi}]")
+    log(f"    3 gang passes in {sum(walls):.3f} s: {3 / sum(walls):.3f} passes/s; engines "
+        f"built {sched.metrics.phases()['engineBuilds']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1710,6 +2237,7 @@ def main() -> int:
     compare_kernels(kp, cuda, diff, "default", nodes, pods, {"default": kp.supported_config()},
                     bind=True, objects=objects)
     compare_k10(kp, scatter, diff)
+    compare_gang(kp, cuda, diff, smi)
     log(f"    phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. the fit path at full width --------------------------------------
@@ -1742,6 +2270,7 @@ def main() -> int:
         f"{n_bound} pre-bound (preemption_cluster, seed 7), supported_config(), TPU32, trace "
         "recorded")
     dflt = drive_default(kp, cuda, diff, nodes, pods, objects, sample, smi)
+    default_cluster = (nodes, pods, objects, sample)
     log(f"    phase 4c done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4d. the serving path at BASELINE config #2's width -----------------
@@ -1750,6 +2279,21 @@ def main() -> int:
         f"{SERVING_ARRIVALS} arrivals and a cordon")
     serving = drive_serving(kp, cuda, scatter, diff, smi)
     log(f"    phase 4d done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 4e. the gang default path at full width, then the affinity gang ----
+    log("[4e] gang default path at full width: GangScheduler(chunk=64) on the 4c cluster, "
+        "supported_config(), TPU32 (match width 128)")
+    gang = drive_gang_default(kp, cuda, diff, *default_cluster, smi)
+    nodes, pods = kp.synthetic_affinity_cluster(500, 5000, seed=11)
+    drive_gang_affinity(kp, cuda, nodes, pods, aff["eng"].placements(), smi)
+    log(f"    phase 4e done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 4f. gang passes through the serving path ----------------------------
+    log(f"[4f] gang serving session: SimulatorService on the card, {SERVING_NODES} nodes, "
+        f"3 schedule_gang(record=True) passes of {SERVING_ARRIVALS} arrivals (the second "
+        "with window=64)")
+    drive_serving_gang(kp, cuda, diff, smi)
+    log(f"    phase 4f done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 5. kernel times --------------------------------------------------
     kernels = (kernel_rows(cuda, diff, "fit", fit) + kernel_rows(cuda, diff, "affinity", aff)
@@ -1768,6 +2312,8 @@ def main() -> int:
     body_times(kp, cuda, dflt, VOLUME_BODIES, smi)
     log(f"[5c] K10 at the real dirty lists of a serving delta pass, TPU32 [{smi}]")
     kernels += k10_rows(kp, scatter, diff, serving, smi)
+    log(f"[5d] K9 at round 1 of the full-width default gang, TPU32 [{smi}]")
+    kernels += gang_rows(kp, cuda, diff, gang, smi)
     log(f"    total {time.perf_counter() - t_start:.1f} s")
     faulthandler.cancel_dump_traceback_later()
 

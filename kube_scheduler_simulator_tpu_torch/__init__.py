@@ -20,7 +20,10 @@ The serving path (`SimulatorService`, `SchedulerService`) keeps a
 its encoding, a changed one is replayed into the retained encoding by the
 delta encoder (`DeltaEncoder`, whose row scatters are the K10 kernels of
 csrc/delta_kernels.cu), and placements and the 13 result annotations are
-written back onto the pods.
+written back onto the pods. `SchedulerService.schedule_gang()` runs a
+store's pass through the gang (fixpoint) engine, `GangScheduler`: rounds
+that evaluate every pending pod at once (the K9 kernels of
+csrc/gang_kernels.cu), with DefaultPreemption's phases between them.
 
 Entry points run on the CUDA card unless the caller passes `device="cpu"`;
 with no card and no explicit device they raise RuntimeError.
@@ -47,6 +50,7 @@ from .engine.engine import (
     supported_config,
 )
 from .engine.engine import supported_config as slice_config
+from .engine.gang import GangScheduler
 from .models.store import ResourceStore
 from .server.service import SchedulerService, SimulatorService
 from .synth import preemption_cluster, synthetic_affinity_cluster, synthetic_cluster
@@ -58,6 +62,7 @@ __all__ = [
     "TPU32",
     "BatchedScheduler",
     "DeltaEncoder",
+    "GangScheduler",
     "ResourceStore",
     "SchedulerService",
     "SimulatorService",

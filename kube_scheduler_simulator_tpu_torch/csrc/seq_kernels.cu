@@ -1142,12 +1142,15 @@ __device__ __forceinline__ int prefilter_code(const Cfg& c, const Planes& a, int
 }
 
 // One PreFilter→Filter→Score→Normalize→select pass for pod ps. Writes
-// codes[N,F], raw[N,S] and (when fin is not null) final[N,S]; returns sel
-// to every thread. feas[N] and the workspace ws are scratch.
+// codes[N,F], raw[N,S], (when fin is not null) final[N,S] and (when tot is
+// not null) the masked totals tot[N]: the weighted sum where the node is
+// feasible, NEG (the type's minimum // 2) where not — the gang engine's
+// score row. Returns sel to every thread. feas[N] and the workspace ws are
+// scratch.
 template <typename I>
 __device__ int attempt_body(const Cfg& c, const Need& nd, const Planes& a, const State& s,
                             const I* w, int ps, int* codes, I* raw, I* fin, unsigned char* feas,
-                            const Ws& ws, Smem<I>& sm) {
+                            const Ws& ws, Smem<I>& sm, I* tot = nullptr) {
   const int N = a.N, F = c.n_filters, S = c.n_scores, NP1 = a.NP1;
   prologue<I>(c, nd, a, s, ps, ws);
   const bool pf_ok = prefilter_code(c, a, ps) == 0;
@@ -1229,6 +1232,7 @@ __device__ int attempt_body(const Cfg& c, const Need& nd, const Planes& a, const
       total = wadd<I>(total, fv);
     }
     any = any || ok;
+    if (tot) tot[n] = ok ? total : NEG;
     arg_better<I>(best, best_i, ok ? total : NEG, n);
   }
   const bool any_feasible = __syncthreads_or(any) != 0;
@@ -1768,9 +1772,9 @@ __global__ void __launch_bounds__(1024)
 // configurations' step.
 template <typename I, bool PRE>
 __global__ void __launch_bounds__(1024)
-    seq_run_kernel(Cfg c, Planes a, State s, const I* w, const int* queue, int Q, int step0,
-                   Trace tr, unsigned char* feas, int* codes_scratch, I* raw_scratch,
-                   char* wsp) {
+    seq_run_kernel(Cfg c, Planes a, State s, const I* w, const int* queue, const int* qpos,
+                   int Q, int step0, Trace tr, unsigned char* feas, int* codes_scratch,
+                   I* raw_scratch, char* wsp) {
   __shared__ Smem<I> sm;
   __shared__ Smem<long long> sml;
   Ws ws;
@@ -1838,7 +1842,10 @@ __global__ void __launch_bounds__(1024)
       }
     }
     if (PRE && threadIdx.x == 0 && tr.final_sel) tr.final_sel[qi] = fsel;
-    bind_body<I>(a, s, p, fsel, step0 + qi);
+    // bind order P + the step's queue position: step0 + qi, or qpos[qi]
+    // where the caller gives each step's position (the gang engine's
+    // preempt phase, whose pods keep their PrioritySort positions)
+    bind_body<I>(a, s, p, fsel, qpos ? qpos[qi] : step0 + qi);
     __syncthreads();  // pod qi+1 sees pod qi's bind
   }
   if (threadIdx.x == 0) tr.status[1] |= ws.vol[3];
@@ -1880,16 +1887,16 @@ int launch_preempt(const Cfg* c, const Planes* a, const State* s, int p, int* pc
 
 template <typename I>
 int launch_run(const Cfg* c, const Planes* a, const State* s, const void* w, const int* queue,
-               int Q, int step0, const Trace* tr, unsigned char* feas, int* codes_scratch,
-               void* raw_scratch, void* ws, void* stream) {
+               const int* qpos, int Q, int step0, const Trace* tr, unsigned char* feas,
+               int* codes_scratch, void* raw_scratch, void* ws, void* stream) {
   if (c->preempt)
     seq_run_kernel<I, true><<<1, block_threads(a->N), 0, (cudaStream_t)stream>>>(
-        *c, *a, *s, (const I*)w, queue, Q, step0, *tr, feas, codes_scratch, (I*)raw_scratch,
-        (char*)ws);
+        *c, *a, *s, (const I*)w, queue, qpos, Q, step0, *tr, feas, codes_scratch,
+        (I*)raw_scratch, (char*)ws);
   else
     seq_run_kernel<I, false><<<1, block_threads(a->N), 0, (cudaStream_t)stream>>>(
-        *c, *a, *s, (const I*)w, queue, Q, step0, *tr, feas, codes_scratch, (I*)raw_scratch,
-        (char*)ws);
+        *c, *a, *s, (const I*)w, queue, qpos, Q, step0, *tr, feas, codes_scratch,
+        (I*)raw_scratch, (char*)ws);
   return (int)cudaGetLastError();
 }
 
@@ -1933,10 +1940,11 @@ long long seq_workspace_bytes(const Planes* a, int int_bytes, int vbound) {
     return launch_preempt<I>(c, a, s, p, pcode, off, vidx, nominated, status, ws, stream);    \
   }                                                                                           \
   int seq_run_##T(const Cfg* c, const Planes* a, const State* s, const void* w,               \
-                  const int* queue, int Q, int step0, const Trace* tr, unsigned char* feas,   \
-                  int* codes_scratch, void* raw_scratch, void* ws, void* stream) {            \
-    return launch_run<I>(c, a, s, w, queue, Q, step0, tr, feas, codes_scratch, raw_scratch,   \
-                         ws, stream);                                                         \
+                  const int* queue, const int* qpos, int Q, int step0, const Trace* tr,       \
+                  unsigned char* feas, int* codes_scratch, void* raw_scratch, void* ws,       \
+                  void* stream) {                                                             \
+    return launch_run<I>(c, a, s, w, queue, qpos, Q, step0, tr, feas, codes_scratch,          \
+                         raw_scratch, ws, stream);                                            \
   }
 
 #if !defined(SEQ_ONLY) || SEQ_ONLY == 32
@@ -1947,3 +1955,7 @@ SEQ_ENTRY_POINTS(i64, long long)
 #endif
 
 }  // extern "C"
+
+// The gang engine's kernels (K9) share this unit's device functions: they
+// are compiled with it, once per integer type.
+#include "gang_kernels.cu"

@@ -17,6 +17,17 @@ the card, each replacing one device program of the reference package:
     bucket-padded queue in one persistent launch, the preemption branch
     (dry run, eviction, retry, second dry run) inside its step.
 
+Four more (`csrc/gang_kernels.cu`, compiled with seq_kernels.cu so they
+share its device functions) carry the gang engine's rounds, K9 of
+`gang.py` `_build_run` (engine/gang.py drives them):
+
+  * `gang_eval` — `pod_score_row`/`eval_all`/`eval_rows`: the attempt of
+    every pod of a device list against one state, as rows of masked totals
+    (or, with trace rows, the record path's per-pod evaluation);
+  * `gang_topk` — `lax.top_k` of each row (ties to the lower node);
+  * `gang_match` — one round's one-commit-per-node matching;
+  * `gang_bind` — `bind_all`, the round's commits scattered into state.
+
 Each wrapper takes its plain version (`*_plain`, a line-by-line PyTorch
 rendering of the reference's closure) only for tensors that lie on the CPU;
 for CUDA tensors it launches the kernel or raises. The kernels are built
@@ -64,13 +75,15 @@ from .encode_vol import VOL_LIMIT_PLUGINS
 CSRC = Path(__file__).resolve().parent.parent / "csrc" / "seq_kernels.cu"
 LAYOUT_H = CSRC.with_name("seq_layout.h")  # the structs, included by CSRC
 DELTA_CSRC = CSRC.with_name("delta_kernels.cu")  # K10, wrapped by engine/scatter.py
+GANG_CSRC = CSRC.with_name("gang_kernels.cu")  # K9, included by CSRC
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNELS = ("seq_attempt", "seq_bind", "seq_run", "seq_preempt", "seq_evict")
+KERNELS = ("seq_attempt", "seq_bind", "seq_run", "seq_preempt", "seq_evict",
+           "gang_eval", "gang_topk", "gang_match", "gang_bind")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _LIB = None
@@ -354,12 +367,16 @@ def _stack(rows, empty):
 
 
 def seq_run_plain(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue, weights,
-                  *, record: bool, step0: int = 0):
+                  *, record: bool, step0: int = 0, qpos=None):
     """The sequential pass: for each queue position, attempt then bind (pod
     i sees pod i-1's bind), with the preemption branch when the program
-    has one. Padding steps (pod -1) evaluate pod 0 and discard the result.
+    has one. Padding steps (pod -1) evaluate pod 0 and discard the result;
+    they bind nothing, so a run of them sees one state and shares one row.
     `step0`: the pass-wide step of the queue's first pod (a segment of a
     longer pass, as the reference's run_segment; bind order is P + step).
+    `qpos`: each step's queue position (int32 [Q]) in place of step0 + i,
+    for a segment whose pods keep their own positions (the gang engine's
+    preempt phase, bind order P + order[p]).
     Returns (final state, trace): the trace is TRACE_SLOTS_PLAIN (or
     TRACE_SLOTS_PREEMPT) when `record`, else the bound selection [Q]."""
     s = state0.clone()
@@ -368,7 +385,12 @@ def seq_run_plain(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue,
     dev, dt = a.node_mask.device, prog.score_dtype
     i32 = dict(dtype=torch.int32, device=dev)
     rows = []
+    pos = torch.as_tensor(qpos).tolist() if qpos is not None else None
+    pad_row = None
     for qi, p in enumerate(torch.as_tensor(queue).tolist()):
+        if p < 0 and pad_row is not None:
+            rows.append(pad_row)
+            continue
         ps = max(p, 0)
         codes, raw, final, sel, pf = seq_attempt_plain(prog, a, s, weights, ps)
         if p < 0:
@@ -391,8 +413,9 @@ def seq_run_plain(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue,
                 final_sel = sel2 if int(nom) >= 0 else sel
                 extra = (extra[0], pcode, nom, sel2, pcode2, nom2,
                          (codes2, raw2, final2, rec1, rec2))
-        seq_bind_plain(prog, a, s, p, final_sel, step0 + qi)
+        seq_bind_plain(prog, a, s, p, final_sel, pos[qi] if pos is not None else step0 + qi)
         rows.append((pf, codes, raw, final, sel, final_sel, extra))
+        pad_row = rows[-1] if p < 0 else None
     Q = len(rows)
     if not record:
         return s, _stack([r[5] for r in rows], torch.zeros((0,), **i32))
@@ -446,12 +469,13 @@ def seq_run_plain(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue,
 def build() -> tuple[Path, float]:
     """Compile the kernel sources for sm_90a into one library in
     build/kernels/ unless these sources' library is there already: three
-    `nvcc` processes started together, csrc/seq_kernels.cu once per
-    integer type (SEQ_ONLY=32, 64) and csrc/delta_kernels.cu, then one
-    link. Returns (library path, build seconds; 0 when it was there). The
+    `nvcc` processes started together, csrc/seq_kernels.cu (with the gang
+    kernels it includes) once per integer type (SEQ_ONLY=32, 64) and
+    csrc/delta_kernels.cu, then one link. Returns (library path, build seconds; 0 when it was there). The
     compiler's report (registers, shared memory, spills) is kept beside the
     library as a .log file."""
-    src = CSRC.read_bytes() + LAYOUT_H.read_bytes() + DELTA_CSRC.read_bytes()
+    src = (CSRC.read_bytes() + LAYOUT_H.read_bytes() + GANG_CSRC.read_bytes()
+           + DELTA_CSRC.read_bytes())
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libkernels_{tag}.so"
     if out.exists():
@@ -598,10 +622,18 @@ def library() -> ctypes.CDLL:
                 ("seq_bind", [vp, vp, ci, vp, ci, vp]),
                 ("seq_evict", [vp, vp, vp, vp]),
                 ("seq_preempt", [vp, vp, vp, ci] + [vp] * 7),
-                ("seq_run", [vp, vp, vp, vp, vp, ci, ci] + [vp] * 6),
+                ("seq_run", [vp, vp, vp, vp, vp, vp, ci, ci] + [vp] * 6),
+                ("gang_eval", [vp, vp, vp, vp, vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp, ci,
+                               vp, vp, vp, vp, ctypes.c_longlong, vp]),
+                ("gang_topk", [vp, ci, ci, vp, ci, vp, vp, vp]),
+                ("gang_match", [vp, vp, ci, ci, vp, vp, vp, vp, ci, vp, ci, ci, ci]
+                 + [vp] * 8),
+                ("gang_bind", [vp, vp, vp, ci, vp, vp, vp, vp]),
             ):
                 f = getattr(lib, f"{name}_{t}")
                 f.argtypes, f.restype = args, ci
+            f = getattr(lib, f"gang_eval_grid_{t}")
+            f.argtypes, f.restype = [ci], ci
         cl = ctypes.c_longlong
         for name in ("delta_scatter_set", "delta_scatter_add"):
             f = getattr(lib, name)
@@ -625,8 +657,9 @@ def library() -> ctypes.CDLL:
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _on_cpu(a: ClusterArrays) -> bool:
-    return a.node_mask.device.type == "cpu"
+def _on_cpu(x: "ClusterArrays | torch.Tensor") -> bool:
+    t = x if isinstance(x, torch.Tensor) else x.node_mask
+    return t.device.type == "cpu"
 
 
 _get_a = operator.attrgetter(*_A_FIELDS)
@@ -906,16 +939,17 @@ VICTIM_CAP = 1 << 27
 
 
 def seq_run(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue, weights,
-            *, record: bool, step0: int = 0):
+            *, record: bool, step0: int = 0, qpos=None):
     """K3: the whole sequential pass over `queue` (int32 pod indices, -1 =
     padding) in one launch, the preemption branch inside its step. Returns
     (final state, trace) as `seq_run_plain` does; `state0` is left as it
-    was. `step0` as `seq_run_plain`'s. The victim record holds at most
+    was. `step0` and `qpos` as `seq_run_plain`'s. The victim record holds at most
     min(2 Q P, VICTIM_CAP) entries (each dry run names at most every bound
     pod); a pass that needs more raises."""
     if _on_cpu(a):
         PLAIN_CALLS["seq_run"] += 1
-        return seq_run_plain(prog, a, state0, queue, weights, record=record, step0=step0)
+        return seq_run_plain(prog, a, state0, queue, weights, record=record, step0=step0,
+                             qpos=qpos)
     s = state0.clone()
     planes, state, ws_bytes, t = _check(prog, a, s, weights)
     dev, N = a.node_mask.device, planes.N
@@ -925,6 +959,10 @@ def seq_run(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue, weigh
     Q = queue.shape[0]
     if Q and (int(queue.max()) >= planes.P or int(queue.min()) < -1):
         raise ValueError(f"queue holds pod indices outside [-1, {planes.P})")
+    if qpos is not None:
+        if qpos.device != dev or qpos.dtype != torch.int32 or tuple(qpos.shape) != (Q,):
+            raise ValueError(f"qpos must be an int32 ({Q},) tensor on the planes' device")
+        qpos = qpos.contiguous()
     F, S = len(prog.filters), len(prog.scores)
     dt = prog.score_dtype
     pre = prog.preempt is not None
@@ -966,7 +1004,8 @@ def seq_run(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue, weigh
                            *({"victim_cap": victim_cap}[x] for x in names["trace_dims"]))
         rc = getattr(library(), f"seq_run_{t}")(
             cfg.ctypes.data, ctypes.addressof(planes), ctypes.addressof(state),
-            weights.data_ptr(), queue.data_ptr(), Q, step0, ctypes.addressof(tr), feas.data_ptr(),
+            weights.data_ptr(), queue.data_ptr(), None if qpos is None else qpos.data_ptr(), Q,
+            step0, ctypes.addressof(tr), feas.data_ptr(),
             codes_s.data_ptr(), raw_s.data_ptr(), ws.data_ptr(), _stream(),
         )
         _raise_on(rc, "seq_run")
@@ -983,3 +1022,327 @@ def seq_run(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue, weigh
                out["did"], out["pcode"], out["nominated"], out["sel2"], out["pcode2"],
                out["nominated2"], out["final_sel"], out["codes2"], out["raw2"], out["fin2"],
                out["voff"], out["vidx"][:n_victims].clone())
+
+
+# ---------------------------------------------------------------------------
+# K9: the gang engine's round kernels (csrc/gang_kernels.cu), each beside its
+# plain version. Rows [0, live) of a row list are processed; `live` is a
+# one-element int32 tensor on the rows' device (read there, so a round's
+# pending count never crosses to the host), or None for every row.
+# ---------------------------------------------------------------------------
+
+NO_ORDER = int(np.iinfo(np.int32).max)  # the queue position of a pod not queued
+
+
+def _n_live(live, K: int) -> int:
+    return K if live is None else max(0, min(int(live.reshape(-1)[0]), K))
+
+
+def _neg(dtype: torch.dtype) -> int:
+    return torch.iinfo(dtype).min // 2
+
+
+def _check_rows(rows, live, dev) -> None:
+    """`rows` (None: not taken) and `live` as the K9 kernels read them."""
+    if rows is not None and (rows.device != dev or rows.dtype != torch.int32
+                             or rows.dim() != 1):
+        raise ValueError("rows must be a 1-d int32 tensor on the planes' device")
+    if live is not None and (live.device != dev or live.dtype != torch.int32
+                             or live.numel() != 1):
+        raise ValueError("live must be one int32 on the planes' device")
+
+
+def _ptr(t) -> "int | None":
+    return None if t is None else t.data_ptr()
+
+
+def gang_eval_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights, rows, live,
+                    order, *, check_pending: bool = True, slot=None, trace=None):
+    """The gang round's evaluation (gang.py pod_score_row over a row list):
+    for rows i < live, the masked totals of pod rows[i] against s — the
+    weighted score sum where the node is feasible, NEG (the score type's
+    minimum // 2) where not, and NEG everywhere for a pod that is -1 or,
+    with `check_pending`, not pending (bound, not queued — order NO_ORDER —
+    or padding). Returns scores [K, N] (rows from live on: NEG). With
+    `slot` ([K] trace rows) and `trace` ((pf [Q, n_pf], codes [Q, N, F],
+    raw [Q, N, S], final [Q, N, S]), written in place) it records each
+    evaluated pod's rows instead and returns None."""
+    K, N = rows.shape[0], a.node_mask.shape[0]
+    dt = prog.score_dtype
+    neg = _neg(dt)
+    scores = None if slot is not None else torch.full((K, N), neg, dtype=dt,
+                                                      device=a.node_mask.device)
+    for i, p in enumerate(rows[:_n_live(live, K)].tolist()):
+        if p < 0 or (check_pending and not (int(s.assignment[p]) < 0 and int(order[p]) != NO_ORDER
+                                            and bool(a.pod_mask[p]))):
+            continue
+        codes, raw, final, _, pf = seq_attempt_plain(prog, a, s, weights, p)
+        if slot is not None:
+            q = int(slot[i])
+            for dst, src in zip(trace, (pf, codes, raw, final)):
+                dst[q] = src
+            continue
+        feasible = (codes == 0).all(dim=1) & a.node_mask & (pf == 0).all()
+        total = final.sum(dim=1, dtype=dt)
+        scores[i] = torch.where(feasible, total, torch.full_like(total, neg))
+    return scores
+
+
+def gang_eval(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights, rows, live, order,
+              *, check_pending: bool = True, slot=None, trace=None):
+    """K9 eval, as `gang_eval_plain` (rows from live on are left unwritten).
+    A grid of blocks strides over the rows, each block with its own
+    workspace slice."""
+    if _on_cpu(a):
+        PLAIN_CALLS["gang_eval"] += 1
+        return gang_eval_plain(prog, a, s, weights, rows, live, order,
+                               check_pending=check_pending, slot=slot, trace=trace)
+    planes, state, _, t = _check(prog, a, s, weights)
+    dev, N, K = a.node_mask.device, planes.N, rows.shape[0]
+    _check_rows(rows, live, dev)
+    if order.device != dev or order.dtype != torch.int32 or tuple(order.shape) != (planes.P,):
+        raise ValueError(f"order must be an int32 ({planes.P},) tensor on the planes' device")
+    F, S, dt = len(prog.filters), len(prog.scores), prog.score_dtype
+    scores = tr = None
+    if slot is None:
+        scores = torch.empty((K, N), dtype=dt, device=dev)
+    else:
+        tr = tuple(trace)
+        want = ((torch.int32, (len(prog.prefilters),)), (torch.int32, (N, F)), (dt, (N, S)),
+                (dt, (N, S)))
+        Q = tr[0].shape[0]
+        for x, (xdt, shape) in zip(tr, want):
+            if (x.device != dev or x.dtype != xdt or tuple(x.shape) != (Q, *shape)
+                    or not x.is_contiguous()):
+                raise ValueError(f"trace rows: want contiguous {xdt} ({Q}, {shape}) on {dev}")
+        if slot.device != dev or slot.dtype != torch.int32 or tuple(slot.shape) != (K,):
+            raise ValueError(f"slot must be an int32 ({K},) tensor on the planes' device")
+    lib = library()
+    grid = int(getattr(lib, f"gang_eval_grid_{t}")(N))
+    if grid < 1:
+        raise RuntimeError("gang_eval: the occupancy query failed")
+    ws_bytes = int(lib.seq_workspace_bytes(ctypes.addressof(planes), 4 if t == "i32" else 8, 0))
+    ws_bytes = max(8, ws_bytes)
+    feas = torch.empty((grid, N), dtype=torch.uint8, device=dev)
+    codes_s = torch.empty((grid, N * F), dtype=torch.int32, device=dev)
+    raw_s = torch.empty((grid, N * S), dtype=dt, device=dev)
+    ws = _workspace(grid * ws_bytes, dev)
+    cfg = np.ascontiguousarray(prog.cfg)
+    rc = getattr(lib, f"gang_eval_{t}")(
+        cfg.ctypes.data, ctypes.addressof(planes), ctypes.addressof(state), weights.data_ptr(),
+        rows.contiguous().data_ptr(), K, _ptr(live), order.contiguous().data_ptr(),
+        int(check_pending), _ptr(scores), _ptr(slot),
+        *(_ptr(x) for x in (tr if tr is not None else (None,) * 4)),
+        grid, feas.data_ptr(), codes_s.data_ptr(), raw_s.data_ptr(), ws.data_ptr(), ws_bytes,
+        _stream(),
+    )
+    _raise_on(rc, "gang_eval")
+    LAUNCHES["gang_eval"] += 1
+    return scores
+
+
+def gang_eval_scratch_bytes(prog: SeqProgram, a: ClusterArrays) -> tuple[int, int, int]:
+    """(blocks, workspace bytes a block, scratch bytes a launch allocates):
+    per block one workspace slice and the feasibility, codes and raw-score
+    rows."""
+    b = _planes(prog, a)
+    lib = library()
+    grid = int(getattr(lib, f"gang_eval_grid_{b.suffix}")(b.planes.N))
+    isz = 4 if b.suffix == "i32" else 8
+    ws = max(8, int(lib.seq_workspace_bytes(ctypes.addressof(b.planes), isz, 0)))
+    N, F, S = b.planes.N, len(prog.filters), len(prog.scores)
+    return grid, ws, grid * (ws + N + 4 * N * F + isz * N * S)
+
+
+def gang_topk_plain(scores, live, mw: int):
+    """`lax.top_k(scores, mw)` over rows [0, live): (vals [K, mw], idx [K,
+    mw] int32), each row's values descending, ties to the lower index.
+    Rows from live on are NEG and 0."""
+    K = scores.shape[0]
+    n = _n_live(live, K)
+    vals = torch.full((K, mw), _neg(scores.dtype), dtype=scores.dtype, device=scores.device)
+    idx = torch.zeros((K, mw), dtype=torch.int32, device=scores.device)
+    if n:
+        v, i = torch.sort(scores[:n], dim=1, descending=True, stable=True)
+        vals[:n], idx[:n] = v[:, :mw], i[:, :mw].to(torch.int32)
+    return vals, idx
+
+
+def gang_topk(scores, live, mw: int):
+    """K9 top-k, as `gang_topk_plain` (rows from live on are left
+    unwritten). Launched only where mw < N."""
+    if _on_cpu(scores):
+        PLAIN_CALLS["gang_topk"] += 1
+        return gang_topk_plain(scores, live, mw)
+    dev = scores.device
+    if dev.type not in KERNEL_DEVICE_TYPES:
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
+    if scores.dtype not in (torch.int32, torch.int64) or scores.dim() != 2:
+        raise ValueError("scores must be a 2-d int32 or int64 tensor")
+    K, N = scores.shape
+    if not 1 <= mw <= N:
+        raise ValueError(f"match width {mw} outside [1, {N}]")
+    _check_rows(None, live, dev)
+    vals = torch.empty((K, mw), dtype=scores.dtype, device=dev)
+    idx = torch.empty((K, mw), dtype=torch.int32, device=dev)
+    t = "i32" if scores.dtype == torch.int32 else "i64"
+    rc = getattr(library(), f"gang_topk_{t}")(scores.contiguous().data_ptr(), N, K, _ptr(live),
+                                              mw, vals.data_ptr(), idx.data_ptr(), _stream())
+    _raise_on(rc, "gang_topk")
+    LAUNCHES["gang_topk"] += 1
+    return vals, idx
+
+
+def gang_match_plain(vals, idx, rows, live, order, claims, carrier, n_nodes: int,
+                     n_claims: int, iters: int):
+    """One round's matching (gang.py make_match_step/match) over rows
+    [0, live): `vals` [K, W] candidate scores, `idx` [K, W] their nodes
+    (None: column j is node j), `rows` the rows' pods, `order` [P] queue
+    positions, `claims` [P, MC] each pod's ReadWriteOncePod claims (-1
+    padded), `carrier` [P] bool (None without rel_serialize). Returns (sel
+    [K] int32, the committed node or -1; stat [2] int32: rows committed,
+    live)."""
+    K = rows.shape[0]
+    n = _n_live(live, K)
+    dev = vals.device
+    sel = torch.full((K,), -1, dtype=torch.int32, device=dev)
+    if n == 0:
+        return sel, torch.tensor([0, 0], dtype=torch.int32, device=dev)
+    neg = _neg(vals.dtype)
+    v = vals[:n]
+    ix = None if idx is None else idx[:n].long()
+    pods = rows[:n].long()
+    o = order[pods]
+    cl = claims[pods].long()
+    pc = torch.zeros((n, n_claims + 1), dtype=torch.bool, device=dev)
+    pc.scatter_(1, torch.where(cl >= 0, cl, n_claims), True)
+    pc = pc[:, :n_claims]
+    car = None if carrier is None else carrier[pods].bool()
+    no = torch.tensor(NO_ORDER, dtype=torch.int32, device=dev)
+    c_min = no
+    if car is not None:
+        row_ok = v.max(dim=1).values > neg
+        c_min = torch.where(car & row_ok, o, no).min()
+        prefix = (row_ok & (o < c_min)).any()
+        if not bool(prefix) and int(c_min) != NO_ORDER:
+            is_pick = car & row_ok & (o == c_min)
+            col = torch.argmax(v, dim=1)
+            cand = col if ix is None else ix.gather(1, col[:, None])[:, 0]
+            sel[:n] = torch.where(is_pick, cand.to(torch.int32), -1)
+            return sel, torch.tensor([int(is_pick.sum()), n], dtype=torch.int32, device=dev)
+    taken = torch.zeros((n_nodes,), dtype=torch.bool, device=dev)
+    claim_taken = torch.zeros((n_claims,), dtype=torch.bool, device=dev)
+    sel_acc = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    for _ in range(iters):
+        node_taken = taken[ix] if ix is not None else taken[None, :].expand(n, -1)
+        m = torch.where(node_taken, neg, v)
+        m = torch.where((sel_acc >= 0)[:, None], neg, m)
+        blocked = (pc & claim_taken[None, :]).any(dim=1)
+        m = torch.where(blocked[:, None], neg, m)
+        if car is not None:
+            m = torch.where((o >= c_min)[:, None], neg, m)
+        col = torch.argmax(m, dim=1)  # the first column among ties
+        has = m.gather(1, col[:, None])[:, 0] > neg
+        cand = col if ix is None else ix.gather(1, col[:, None])[:, 0]
+        tgt = torch.where(has, cand, n_nodes)
+        winner = torch.full((n_nodes + 1,), NO_ORDER, dtype=torch.int32, device=dev)
+        winner.scatter_reduce_(0, tgt, o, reduce="amin")
+        commit = has & (winner[cand.clamp(min=0)] == o)
+        claim_order = torch.where(commit[:, None] & pc, o[:, None], no)
+        claim_min = (claim_order.min(dim=0).values if n_claims
+                     else torch.zeros((0,), dtype=torch.int32, device=dev))
+        claim_ok = torch.where(pc, claim_min[None, :] == o[:, None], True).all(dim=1)
+        commit = commit & claim_ok
+        sel_acc = torch.where(commit, cand.to(torch.int32), sel_acc)
+        taken[cand[commit]] = True
+        claim_taken |= (pc & commit[:, None]).any(dim=0)
+        if not bool(commit.any()):
+            break
+    sel[:n] = sel_acc
+    return sel, torch.tensor([int((sel_acc >= 0).sum()), n], dtype=torch.int32, device=dev)
+
+
+def gang_match(vals, idx, rows, live, order, claims, carrier, n_nodes: int, n_claims: int,
+               iters: int):
+    """K9 match, as `gang_match_plain`: one block runs the round's whole
+    matching loop."""
+    if _on_cpu(vals):
+        PLAIN_CALLS["gang_match"] += 1
+        return gang_match_plain(vals, idx, rows, live, order, claims, carrier, n_nodes,
+                                n_claims, iters)
+    dev = vals.device
+    if dev.type not in KERNEL_DEVICE_TYPES:
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
+    _check_rows(rows, live, dev)
+    K, W = vals.shape
+    if rows.shape[0] != K or vals.dtype not in (torch.int32, torch.int64):
+        raise ValueError("vals must be int32 or int64 [len(rows), W]")
+    if idx is not None and (idx.dtype != torch.int32 or tuple(idx.shape) != (K, W)):
+        raise ValueError("idx must be int32 like vals")
+    if idx is None and W != n_nodes:
+        raise ValueError("full-width vals need one column a node")
+    for name, x, xdt in (("order", order, torch.int32), ("claims", claims, torch.int32),
+                         ("carrier", carrier, torch.bool)):
+        if x is not None and (x.device != dev or x.dtype != xdt):
+            raise ValueError(f"{name} must be {xdt} on {dev}")
+    i32 = dict(dtype=torch.int32, device=dev)
+    sel, cand = torch.empty((K,), **i32), torch.empty((K,), **i32)
+    taken, winner = torch.empty((n_nodes,), **i32), torch.empty((n_nodes + 1,), **i32)
+    cmin, ctaken = torch.empty((n_claims,), **i32), torch.empty((n_claims,), **i32)
+    stat = torch.empty((2,), **i32)
+    claims = claims.contiguous()
+    t = "i32" if vals.dtype == torch.int32 else "i64"
+    rc = getattr(library(), f"gang_match_{t}")(
+        vals.contiguous().data_ptr(), _ptr(None if idx is None else idx.contiguous()), W, K,
+        _ptr(live), rows.contiguous().data_ptr(), order.contiguous().data_ptr(),
+        claims.data_ptr(), claims.shape[1], _ptr(None if carrier is None else carrier.contiguous()),
+        n_nodes, n_claims, iters, sel.data_ptr(), cand.data_ptr(), taken.data_ptr(),
+        winner.data_ptr(), cmin.data_ptr(), ctaken.data_ptr(), stat.data_ptr(), _stream(),
+    )
+    _raise_on(rc, "gang_match")
+    LAUNCHES["gang_match"] += 1
+    return sel, stat
+
+
+def gang_bind_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, rows, live, sel, order):
+    """bind_all over rows [0, live): each row with sel >= 0 binds pod
+    rows[i] to node sel[i] at bind order P + order[pod], in place; other
+    rows are no-ops. Returns `s`."""
+    n = _n_live(live, rows.shape[0])
+    keep = sel[:n] >= 0
+    p = rows[:n][keep].long()
+    tgt = sel[:n][keep].long()
+    s.requested.index_add_(0, tgt, a.pod_req[p])
+    s.s_requested.index_add_(0, tgt, a.pod_sreq[p])
+    s.n_pods.index_add_(0, tgt, torch.ones_like(tgt, dtype=torch.int32))
+    s.used_pair.index_add_(0, tgt, a.want_pair[p])
+    s.used_wild.index_add_(0, tgt, a.want_wild[p])
+    s.used_trip.index_add_(0, tgt, a.want_trip[p])
+    s.used_claims += a.pod_claim[p].to(torch.int32).sum(dim=0, dtype=torch.int32)
+    s.node_disk_any.index_add_(0, tgt, a.pod_disk_any[p])
+    s.node_disk_rw.index_add_(0, tgt, a.pod_disk_rw[p])
+    s.node_vol3.index_add_(0, tgt, a.pod_vol3[p])
+    s.assignment[p] = tgt.to(torch.int32)
+    s.bound_seq[p] = order[p] + a.pod_mask.shape[0]
+    return s
+
+
+def gang_bind(prog: SeqProgram, a: ClusterArrays, s: SchedState, rows, live, sel, order):
+    """K9 bind, as `gang_bind_plain`, in place. Returns `s`."""
+    if _on_cpu(a):
+        PLAIN_CALLS["gang_bind"] += 1
+        return gang_bind_plain(prog, a, s, rows, live, sel, order)
+    planes, state, _, t = _check(prog, a, s)
+    dev, K = a.node_mask.device, rows.shape[0]
+    _check_rows(rows, live, dev)
+    if sel.device != dev or sel.dtype != torch.int32 or tuple(sel.shape) != (K,):
+        raise ValueError(f"sel must be an int32 ({K},) tensor on the planes' device")
+    if order.device != dev or order.dtype != torch.int32 or tuple(order.shape) != (planes.P,):
+        raise ValueError(f"order must be an int32 ({planes.P},) tensor on the planes' device")
+    rc = getattr(library(), f"gang_bind_{t}")(
+        ctypes.addressof(planes), ctypes.addressof(state), rows.contiguous().data_ptr(), K,
+        _ptr(live), sel.contiguous().data_ptr(), order.contiguous().data_ptr(), _stream(),
+    )
+    _raise_on(rc, "gang_bind")
+    LAUNCHES["gang_bind"] += 1
+    return s

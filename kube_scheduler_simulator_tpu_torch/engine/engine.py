@@ -247,15 +247,19 @@ class BatchedScheduler:
         return shape_bucket(n, lo=8)
 
     @staticmethod
-    def compile_signature(enc: EncodedCluster, record: bool = True) -> tuple:
+    def compile_signature(
+        enc: EncodedCluster, record: bool = True, include_queue_len: bool = True
+    ) -> tuple:
         """Everything an engine's program takes from its encoding beyond the
         tensors it is handed: the configuration, the dtype policy, the
         resource vocabulary's order, the node-pair count (`np1`), the
         preemption victim bound (from node capacities and the initial
-        assignment), the queue's bucket, and every tensor's shape and dtype.
-        Two encodings with equal signatures can share one engine through
-        `retarget`. The reference's signature, component for component
-        (with no custom plugin statics).
+        assignment), the queue's bucket (left out with
+        `include_queue_len=False`: the gang engine takes the queue as a
+        fixed-[P] order), and every tensor's shape and dtype. Two encodings
+        with equal signatures can share one engine through `retarget`. The
+        reference's signature, component for component (with no custom
+        plugin statics).
 
         Memoised on the encoding: the delta encoder updates tensors in
         place, so recomputing it on an older encoding would read the newer
@@ -263,8 +267,9 @@ class BatchedScheduler:
         memo = getattr(enc, "_sig_memo", None)
         if memo is None:
             memo = enc._sig_memo = {}
-        if record in memo:
-            return memo[record]
+        key = (record, include_queue_len)
+        if key in memo:
+            return memo[key]
         shapes = tuple(
             (tuple(t.shape), str(t.dtype).removeprefix("torch."))
             for obj in (enc.arrays, enc.arrays.rel, enc.state0)
@@ -279,11 +284,11 @@ class BatchedScheduler:
             tuple(enc.resource_names),
             enc.aux.get("n_node_pairs"),
             PR.victim_bound(enc, filter_names) if has_preempt else 0,
-            BatchedScheduler.queue_bucket(len(enc.queue)),
+            BatchedScheduler.queue_bucket(len(enc.queue)) if include_queue_len else None,
             record,
             shapes,
         )
-        memo[record] = sig
+        memo[key] = sig
         return sig
 
     def retarget(self, enc: EncodedCluster) -> "BatchedScheduler":

@@ -9,21 +9,28 @@ synchronous sequential pass:
     runs the sequential engine, deletes preemption victims and writes
     `spec.nodeName` plus the 13 result annotations back onto each pod it
     attempted (the last record of a pod wins);
-  * engines are kept in a small LRU keyed by ("seq", compile signature):
-    built on a miss, `retarget`ed onto the new encoding on a hit;
+  * `SchedulerService.schedule_gang()` runs the same encode through the
+    gang (fixpoint) engine (engine/gang.py): rounds of all pending pods in
+    parallel, preempt phases between them; victims are deleted and, with
+    `record=True`, the records written back by the same rule (without,
+    only `spec.nodeName`);
+  * engines are kept in a small LRU keyed by ("seq", compile signature) or
+    ("gang", gang signature, effective window): built on a miss,
+    `retarget`ed onto the new encoding on a hit;
   * `SimulatorService` composes the store and the scheduler with export,
     import and reset.
 
 Not ported: the extender loop (a configuration with extenders raises
-NotImplementedError), the compile broker's speculation, the cross-tenant
-batch plane, the async pass pipeline, gang passes and the execution
-ladder's retries and CPU failover: a device fault raises.
+NotImplementedError, for gang passes as for sequential ones), the compile broker's
+speculation, the cross-tenant batch plane, the async pass pipeline and the
+execution ladder's retries and CPU failover: a device fault raises.
 
 Services run on the CUDA card unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 
@@ -33,6 +40,7 @@ import torch
 from ..engine.delta import DeltaEncoder
 from ..engine.encode import EncodingCache, policy_from_env, resolve_device
 from ..engine.engine import BatchedScheduler, unsupported_plugins
+from ..engine.gang import GangScheduler
 from ..models.snapshot import export_snapshot, import_snapshot
 from ..models.store import ResourceStore
 from ..sched.config import SchedulerConfiguration
@@ -41,6 +49,22 @@ from ..utils.metrics import SchedulingMetrics
 
 # engines kept per service (the reference broker's warm-engine capacity)
 ENGINE_CACHE_CAP = 8
+
+# The gang engine's evaluation chunk on the serving path: it sets the eval
+# window's granularity (placements do not depend on it otherwise), and it
+# is part of the engine cache key through the effective window.
+GANG_CHUNK = 64
+
+
+def gang_chunk() -> int:
+    """The serving-path gang chunk: ``KSS_GANG_CHUNK`` when it holds an
+    integer >= 1, else `GANG_CHUNK` (a malformed value falls back, as the
+    reference's lenient knob does). Read per pass."""
+    try:
+        v = int(float(os.environ.get("KSS_GANG_CHUNK", "").strip()))
+    except ValueError:
+        return GANG_CHUNK
+    return v if v >= 1 else GANG_CHUNK
 
 
 class InvalidSchedulerConfiguration(ValueError):
@@ -78,7 +102,7 @@ class SchedulerService:
         # an unchanged store, then the delta encoder
         self._enc_cache = EncodingCache()
         self._delta = DeltaEncoder(device=self.device)
-        self._engines: "dict[tuple, BatchedScheduler]" = {}
+        self._engines: "dict[tuple, BatchedScheduler | GangScheduler]" = {}
         # the last pass's encode outcome ({"mode": ..., ...})
         self.last_encode_info: "dict | None" = None
 
@@ -122,6 +146,86 @@ class SchedulerService:
                     scheduled=sum(1 for r in results if r.status == "Scheduled"),
                 )
             return results
+
+    def schedule_gang(
+        self, record: bool = True, window: "int | None" = None
+    ) -> "tuple[dict, int, list[PodSchedulingResult] | None]":
+        """One gang pass over the store's state; returns ({(ns, name): node
+        | ""}, rounds, results). `record=True` writes the 13 annotations back
+        as `schedule()` does and returns the records; `record=False` writes
+        back the node names only (results is None). `window` is the gang
+        engine's `eval_window`. Passes are serialised."""
+        if window is not None and int(window) < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        with self._schedule_lock:
+            return self._schedule_gang_timed(record, window)
+
+    def _schedule_gang_timed(self, record: bool, window: "int | None" = None):
+        config = self.config  # never has extenders: restart refuses them
+        with self.metrics.time_pass("gang") as ctx:
+            placements, rounds, results = self._schedule_gang_locked(config, record, window)
+            ctx.done(pods=len(placements), scheduled=sum(1 for v in placements.values() if v),
+                     rounds=rounds)
+        return placements, rounds, results
+
+    def _schedule_gang_locked(self, config, record: bool, window=None):
+        disp = self._gang_dispatch_once(config, record, window)
+        if disp is None:
+            return {}, 0, ([] if record else None)
+        return self._gang_finish_inner(disp, record)
+
+    def _gang_dispatch_once(self, config, record: bool, window=None):
+        """Encode and run one gang pass; returns (enc, engine), or None when
+        nothing is schedulable. The engine is reused when the gang signature
+        and the effective window match one kept."""
+        enc = self._encode_current(config)
+        if enc is None:
+            return None
+        chunk = gang_chunk()
+        sig = ("gang", GangScheduler.compile_signature(enc),
+               GangScheduler.effective_window(enc, window, chunk))
+        t0 = time.perf_counter()
+        engine = self._engines.pop(sig, None)
+        built = engine is None
+        if built:
+            engine = GangScheduler(enc, strict=True, chunk=chunk, eval_window=window,
+                                   device=self.device)
+        else:
+            engine.retarget(enc)
+        engine.run_recorded() if record else engine.run()
+        self._engines[sig] = engine  # most recent last
+        while len(self._engines) > ENGINE_CACHE_CAP:
+            del self._engines[next(iter(self._engines))]
+        self._sync()
+        if built:
+            self.metrics.record_engine_build(time.perf_counter() - t0)
+        else:
+            self.metrics.record_phase_seconds(execute=time.perf_counter() - t0)
+        return enc, engine
+
+    def _gang_finish_inner(self, disp, record: bool):
+        """Decode, delete the victims, write back: the records by the
+        sequential rule with `record`, else each placed pod's node name."""
+        enc, gang = disp
+        t_decode = time.perf_counter()
+        results = gang.results() if record else None
+        before = enc.state0.assignment.cpu().numpy()
+        after = gang._final_state.assignment.cpu().numpy()
+        placements = gang.enc.decode_assignment(after)
+        rounds = int(gang._rounds)
+        self.metrics.record_gang(fixpoint_rounds=rounds)
+        for p_idx in np.nonzero((before >= 0) & (after < 0))[0]:
+            ns, name = enc.pod_keys[int(p_idx)]
+            self.store.delete("pods", name, ns)
+        if results is not None:
+            self._write_back(results, placements)
+        else:
+            for (ns, name), node_name in placements.items():
+                if node_name and self.store.get("pods", name, ns) is not None:
+                    self.store.apply("pods", {"metadata": {"name": name, "namespace": ns},
+                                              "spec": {"nodeName": node_name}})
+        self.metrics.record_phase_seconds(decode=time.perf_counter() - t_decode)
+        return placements, rounds, results
 
     def _schedule_locked(self, config) -> list[PodSchedulingResult]:
         disp = self._seq_dispatch_once(config)
@@ -204,8 +308,14 @@ class SchedulerService:
             ns, name = enc.pod_keys[int(p_idx)]
             self.store.delete("pods", name, ns)
 
-        # the last record of a pod wins (a nominated pod's retry overwrites
-        # its first record)
+        self._write_back(results, placements)
+        self.metrics.record_phase_seconds(decode=time.perf_counter() - t_decode)
+        return results
+
+    def _write_back(self, results, placements) -> None:
+        """Write each record's annotations (and its node, when placed) onto
+        its pod; the last record of a pod wins (a nominated pod's retry
+        overwrites its first record)."""
         for res in results:
             patch: dict = {
                 "metadata": {
@@ -219,8 +329,6 @@ class SchedulerService:
                 patch["spec"] = {"nodeName": sel}
             if self.store.get("pods", res.pod_name, res.pod_namespace) is not None:
                 self.store.apply("pods", patch)
-        self.metrics.record_phase_seconds(decode=time.perf_counter() - t_decode)
-        return results
 
 
 class SimulatorService:

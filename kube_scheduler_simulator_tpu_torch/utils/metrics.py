@@ -1,7 +1,8 @@
 """Pass statistics of a scheduling service: the reference package's
 `utils/metrics.py` cut to what the serving path records.
 
-Each pass lands as a `PassRecord` (mode, pods, scheduled, wall seconds);
+Each pass lands as a `PassRecord` (mode, pods, scheduled, wall seconds,
+and for a gang pass its rounds);
 the phase breakdown splits a pass's wall time into encode, engine build,
 execute and decode seconds, and counts which encode path served it
 (delta, full, cached, empty) and how many engines were built. `phases()`
@@ -20,10 +21,11 @@ from dataclasses import dataclass
 class PassRecord:
     """One scheduling pass (one engine run over the queue)."""
 
-    mode: str  # "sequential"
+    mode: str  # "sequential" | "gang"
     pods: int  # distinct pods the pass recorded
     scheduled: int  # records that bound their pod
     wall_s: float
+    rounds: int = 0  # gang mode only
 
 
 class SchedulingMetrics:
@@ -36,6 +38,7 @@ class SchedulingMetrics:
         self._phase_s = {"encode": 0.0, "compile": 0.0, "execute": 0.0, "decode": 0.0}
         self._encode_counts = {"delta": 0, "full": 0, "cached": 0, "empty": 0}
         self._engine_builds = 0
+        self._gang_fixpoint_rounds = 0
 
     def record(self, rec: PassRecord) -> None:
         with self._lock:
@@ -57,6 +60,12 @@ class SchedulingMetrics:
             self._engine_builds += 1
             self._phase_s["compile"] += float(seconds)
 
+    def record_gang(self, *, fixpoint_rounds: int = 0) -> None:
+        """Gang-engine accounting: the rounds a gang pass used (booked at
+        decode, where they are read with the assignment)."""
+        with self._lock:
+            self._gang_fixpoint_rounds += int(fixpoint_rounds)
+
     def record_phase_seconds(self, execute: float = 0.0, decode: float = 0.0) -> None:
         """A pass's execute (engine run) and decode (results and write-back)
         seconds."""
@@ -72,13 +81,13 @@ class SchedulingMetrics:
 
         class _Ctx:
             @staticmethod
-            def done(pods: int, scheduled: int):
-                holder["args"] = (pods, scheduled)
+            def done(pods: int, scheduled: int, rounds: int = 0):
+                holder["args"] = (pods, scheduled, rounds)
 
         t0 = time.perf_counter()
         yield _Ctx
-        pods, scheduled = holder.get("args", (0, 0))
-        self.record(PassRecord(mode, pods, scheduled, time.perf_counter() - t0))
+        pods, scheduled, rounds = holder.get("args", (0, 0, 0))
+        self.record(PassRecord(mode, pods, scheduled, time.perf_counter() - t0, rounds))
 
     def passes(self) -> list[PassRecord]:
         """The most recent passes (at most `keep`), oldest first."""
@@ -98,4 +107,5 @@ class SchedulingMetrics:
                 "cachedEncodes": self._encode_counts.get("cached", 0),
                 "emptyEncodes": self._encode_counts.get("empty", 0),
                 "engineBuilds": self._engine_builds,
+                "gangFixpointRounds": self._gang_fixpoint_rounds,
             }

@@ -117,6 +117,27 @@ def cluster(n_nodes, n_pods, seed):
     return nodes, pods
 
 
+def random_state(enc, rng):
+    """Usage up to 130% of capacity, port counters of 0..2 users and about
+    half the pending pods bound, mostly to the first third of the nodes."""
+    st = enc.state0.clone()
+    alloc = enc.arrays.node_alloc
+    for f in ("requested", "s_requested"):
+        frac = torch.as_tensor(rng.uniform(0.0, 1.3, tuple(alloc.shape)))
+        setattr(st, f, torch.floor(alloc * frac).to(alloc.dtype))
+    st.n_pods = torch.as_tensor(rng.integers(0, 112, enc.N), dtype=torch.int32)
+    for f in ("used_pair", "used_wild", "used_trip"):
+        shape = tuple(getattr(st, f).shape)
+        setattr(st, f, torch.as_tensor(rng.integers(0, 3, shape), dtype=torch.int32))
+    asg = st.assignment.numpy().copy()
+    free = (asg < 0) & (rng.random(asg.shape) < 0.5)
+    free[enc.n_pods:] = False
+    hi = np.where(rng.random(int(free.sum())) < 0.8, max(1, enc.n_nodes // 3), enc.n_nodes)
+    asg[free] = rng.integers(0, hi)
+    st.assignment = torch.as_tensor(asg)
+    return st
+
+
 def engine(policy, n_nodes=40, n_pods=300, seed=0, config="slice", rel=False):
     if rel:
         nodes, pods = rel_cluster(seed, n_nodes, n_pods)
@@ -224,8 +245,6 @@ def default_engine(policy, seed=3):
 
 @pytest.mark.parametrize("policy", sorted(POLICIES))
 def test_preempt_and_evict_match_plain(card, policy):
-    from test_torch_kernel_host import random_state
-
     eng = default_engine(policy)
     enc, prog, a = eng.enc, eng.program, eng.enc.arrays
     enc_cpu = enc.to(torch.device("cpu"))
@@ -309,3 +328,61 @@ def test_delta_passes_on_the_card_match_the_cpu(card, policy, monkeypatch):
                 if isinstance(x, torch.Tensor):
                     assert torch.equal(x.cpu(), getattr(obj_p, f)), (k, f)
     assert "delta" in modes, modes
+
+
+# -- K9: the gang kernels ------------------------------------------------------
+
+
+def gang_engines(policy, n_pods=300):
+    """Gang engines on the card over the relational cluster (carriers of
+    required anti-affinity) and the dressed default cluster."""
+    rel = engine(policy, n_nodes=40, n_pods=n_pods, config="slice", rel=True).enc
+    return [kp.GangScheduler(rel, match_width=8), kp.GangScheduler(default_engine(policy).enc)]
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_gang_kernels_match_plain(card, policy):
+    for g in gang_engines(policy):
+        g._prep()
+        enc, prog, a, w = g.enc, g._base.program, g.enc.arrays, g.weights
+        N, C = enc.N, a.pod_claim.shape[1]
+        rng = np.random.default_rng(13)
+        enc_cpu = enc.to(torch.device("cpu"))
+        for k in range(3):
+            st = random_state(enc_cpu, rng).to(card)
+            rows = torch.as_tensor(rng.permutation(np.asarray(enc.queue))[:64].astype(np.int32),
+                                   device=card)
+            live = torch.tensor([60], dtype=torch.int32, device=card)
+            got = cuda.gang_eval(prog, a, st, w, rows, live, g._order)
+            want = cuda.gang_eval_plain(prog, a, st, w, rows, live, g._order)
+            assert torch.equal(got[:60], want[:60]), k
+            for mw in (4, N):
+                vals, idx = cuda.gang_topk(got, live, mw) if mw < N else (got, None)
+                pv, pi = cuda.gang_topk_plain(want, live, mw) if mw < N else (want, None)
+                if idx is not None:
+                    assert torch.equal(vals[:60], pv[:60]) and torch.equal(idx[:60], pi[:60])
+                args = (rows, live, g._order, g._claims, g._carrier, N, C, 64)
+                sel, stat = cuda.gang_match(vals, idx, *args)
+                psel, pstat = cuda.gang_match_plain(pv, pi, *args)
+                assert torch.equal(sel, psel) and torch.equal(stat, pstat), (k, mw)
+                s1 = cuda.gang_bind(prog, a, st.clone(), rows, live, sel, g._order)
+                s2 = cuda.gang_bind_plain(prog, a, st.clone(), rows, live, sel, g._order)
+                for f in STATE_FIELDS:
+                    assert torch.equal(getattr(s1, f), getattr(s2, f)), (k, mw, f)
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_gang_pass_on_the_card_matches_the_cpu(card, policy):
+    """run_recorded() + results() through the K9 kernels (and seq_run's
+    preempt phases) against the plain versions on the CPU."""
+    for g in gang_engines(policy, n_pods=100):
+        cuda.reset_counts()
+        got = g.results()
+        assert cuda.LAUNCHES["gang_eval"] > 0 and not any(cuda.PLAIN_CALLS.values())
+        p = kp.GangScheduler(g.enc.to(torch.device("cpu")), device="cpu",
+                             match_width=g.match_width)
+        want = p.results()
+        assert g._rounds == p._rounds
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(g._final_state, f).cpu(), getattr(p._final_state, f)), f
+        assert [r.to_annotations() for r in got] == [r.to_annotations() for r in want]

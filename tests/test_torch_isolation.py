@@ -85,6 +85,16 @@ def test_wrappers_take_plain_versions_on_cpu_tensors(monkeypatch):
     eng.preempt_fn(a, state, p)
     eng.evict_fn(a, state, state.assignment >= 0)
     eng.run()
+    # the gang engine's four (K9), once each
+    g = kp.GangScheduler(eng.enc, device="cpu")
+    g._prep()
+    rows = torch.as_tensor(eng.enc.queue[:4], dtype=torch.int32)
+    live = torch.tensor([4], dtype=torch.int32)
+    scores = cuda.gang_eval(eng.program, a, state, eng.weights, rows, live, g._order)
+    vals, idx = cuda.gang_topk(scores, live, 2)
+    sel, _ = cuda.gang_match(vals, idx, rows, live, g._order, g._claims, g._carrier,
+                             eng.enc.N, a.pod_claim.shape[1], 8)
+    cuda.gang_bind(eng.program, a, state, rows, live, sel, g._order)
     assert cuda.PLAIN_CALLS == dict.fromkeys(cuda.KERNELS, 1)
     assert cuda.LAUNCHES == dict.fromkeys(cuda.KERNELS, 0)
 

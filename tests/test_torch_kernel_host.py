@@ -29,7 +29,7 @@ from kube_scheduler_simulator_tpu_torch.models.store import ResourceStore
 from kube_scheduler_simulator_tpu_torch.sched.config import SchedulerConfiguration
 
 from test_torch_clusters import NAMESPACES, rel_cluster
-from test_torch_cuda import STATE_FIELDS, check_k10, cluster
+from test_torch_cuda import STATE_FIELDS, check_k10, cluster, random_state
 from test_torch_delta import TEMPLATES, assert_port_equal, from_template, full_encode
 
 HOST_CUDA = r"""
@@ -100,13 +100,21 @@ def host(host_lib, monkeypatch):
 
 def host_build(d, srcs, name):
     """Compile CUDA sources for the host with the stand-ins of HOST_CUDA
-    into one shared library; returns its path."""
+    into one shared library; returns its path. A `.cu` file a source
+    includes is rewritten beside it the same way."""
     (d / "cuda_runtime.h").write_text(HOST_CUDA)
     host_srcs = []
+
+    def for_host(src):
+        # a launch `k<<<grid, block, smem, stream>>>(args)` becomes the call k(args)
+        text = re.sub(r"<<<.*?>>>", "", src.read_text(), flags=re.S)
+        for inc in re.findall(r'#include "(\w+\.cu)"', text):
+            (d / inc).write_text(for_host(src.with_name(inc)))
+        return text
+
     for src in srcs:
         host_src = d / f"{src.stem}_host.cpp"
-        # a launch `k<<<grid, block, smem, stream>>>(args)` becomes the call k(args)
-        host_src.write_text(re.sub(r"<<<.*?>>>", "", src.read_text()))
+        host_src.write_text(for_host(src))
         host_srcs.append(str(host_src))
     lib = d / f"lib{name}_host.so"
     # -ffp-contract=off: no fused multiply-add, as the kernels' float steps
@@ -127,27 +135,6 @@ def engine(policy, kind, config, seed=1):
     enc = kp.encode_cluster(nodes, pods, cfg, policy=POLICIES[policy], namespaces=NAMESPACES,
                             device="cpu")
     return kp.BatchedScheduler(enc, device="cpu")
-
-
-def random_state(enc, rng):
-    """Usage up to 130% of capacity, port counters of 0..2 users and about
-    half the pending pods bound, mostly to the first third of the nodes."""
-    st = enc.state0.clone()
-    alloc = enc.arrays.node_alloc
-    for f in ("requested", "s_requested"):
-        frac = torch.as_tensor(rng.uniform(0.0, 1.3, tuple(alloc.shape)))
-        setattr(st, f, torch.floor(alloc * frac).to(alloc.dtype))
-    st.n_pods = torch.as_tensor(rng.integers(0, 112, enc.N), dtype=torch.int32)
-    for f in ("used_pair", "used_wild", "used_trip"):
-        shape = tuple(getattr(st, f).shape)
-        setattr(st, f, torch.as_tensor(rng.integers(0, 3, shape), dtype=torch.int32))
-    asg = st.assignment.numpy().copy()
-    free = (asg < 0) & (rng.random(asg.shape) < 0.5)
-    free[enc.n_pods:] = False
-    hi = np.where(rng.random(int(free.sum())) < 0.8, max(1, enc.n_nodes // 3), enc.n_nodes)
-    asg[free] = rng.integers(0, hi)
-    st.assignment = torch.as_tensor(asg)
-    return st
 
 
 def padded_queue(eng):
@@ -328,3 +315,102 @@ def test_delta_passes_through_the_k10_kernels(host, policy):
         assert info["mode"] == "delta", info
         assert scatter.LAUNCHES["delta_scatter_set"] > 0 and not any(scatter.PLAIN_CALLS.values())
         assert_port_equal(delta._st.enc, full_encode(store, cfg, delta.policy), k)
+
+
+# -- K9: the gang kernels (csrc/gang_kernels.cu) ------------------------------
+
+GANG_CASES = [("fit", "fit", None), ("rel", "slice", None), ("chain", "slice", None),
+              ("preempt", None, "preempt"), ("rel", None, "rel")]
+GANG_IDS = ["fit-cluster", "rel-cluster-slice", "chains-slice", "preempt-default",
+            "rel-default"]
+
+
+def gang_engine(policy, kind, config, preempt_kind, small=False, **opts):
+    if small and kind == "rel":  # a whole pass: one round a carrier
+        nodes, pods = rel_cluster(2, 12, 40)
+        enc = kp.encode_cluster(nodes, pods, kp.affinity_config(), policy=POLICIES[policy],
+                                namespaces=NAMESPACES, device="cpu")
+    else:
+        enc = (preempt_engine(policy, preempt_kind) if preempt_kind
+               else engine(policy, kind, config)).enc
+    g = kp.GangScheduler(enc, device="cpu", **opts)
+    g._prep()
+    return g
+
+
+@pytest.mark.parametrize("kind,config,preempt_kind", GANG_CASES, ids=GANG_IDS)
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_gang_kernels_match_plain(host, policy, kind, config, preempt_kind):
+    """gang_eval (score rows and trace rows), gang_topk, gang_match and
+    gang_bind at random states and row lists, each against its plain
+    version."""
+    g = gang_engine(policy, kind, config, preempt_kind)
+    enc, prog, a, w = g.enc, g._base.program, g.enc.arrays, g.weights
+    N, C = enc.N, a.pod_claim.shape[1]
+    rng = np.random.default_rng(11)
+    i32 = torch.int32
+    for k in range(2):
+        st = random_state(enc, rng)
+        rows = torch.as_tensor(rng.permutation(np.asarray(enc.queue))[:24].astype(np.int32))
+        live = torch.tensor([20], dtype=i32)
+        got = cuda.gang_eval(prog, a, st, w, rows, live, g._order)
+        want = cuda.gang_eval_plain(prog, a, st, w, rows, live, g._order)
+        same(got[:20], want[:20], (k, "scores"))
+        assert bool((want[:20] > cuda._neg(want.dtype)).any()), "no feasible row"
+        # the record form: trace rows at chosen slots, unpending pods too
+        Q = len(enc.queue)
+        slot = torch.as_tensor(rng.choice(Q, 24, replace=False).astype(np.int32))
+        traces = []
+        for fn in (cuda.gang_eval, cuda.gang_eval_plain):
+            tr = (torch.zeros((Q, len(prog.prefilters)), dtype=i32),
+                  torch.zeros((Q, N, len(prog.filters)), dtype=i32),
+                  torch.zeros((Q, N, len(prog.scores)), dtype=prog.score_dtype),
+                  torch.zeros((Q, N, len(prog.scores)), dtype=prog.score_dtype))
+            fn(prog, a, st, w, rows, None, g._order, check_pending=False, slot=slot, trace=tr)
+            traces.append(tr)
+        for name, x, y in zip(("pf", "codes", "raw", "final"), *traces):
+            same(x, y, (k, "trace", name))
+        for mw in (1, 3, N):
+            vals, idx = cuda.gang_topk(got, live, mw)
+            pv, pi = cuda.gang_topk_plain(want, live, mw)
+            same(vals[:20], pv[:20], (k, mw, "vals"))
+            same(idx[:20], pi[:20], (k, mw, "idx"))
+            for carrier in (None, g._carrier, torch.as_tensor(rng.random(enc.P) < 0.3)):
+                for iters in (1, 64):
+                    args = (rows, live, g._order, g._claims, carrier, N, C, iters)
+                    ix = None if mw == N else idx
+                    sel, stat = cuda.gang_match(vals if ix is not None else got, ix, *args)
+                    psel, pstat = cuda.gang_match_plain(pv if ix is not None else want,
+                                                        None if ix is None else pi, *args)
+                    same(sel, psel, (k, mw, iters, "sel"))
+                    same(stat, pstat, (k, mw, iters, "stat"))
+            s1 = cuda.gang_bind(prog, a, st.clone(), rows, live, sel, g._order)
+            s2 = cuda.gang_bind_plain(prog, a, st.clone(), rows, live, sel, g._order)
+            for f in STATE_FIELDS:
+                same(getattr(s1, f), getattr(s2, f), (k, mw, "bind", f))
+    assert cuda.LAUNCHES["gang_match"] == 2 * 3 * 3 * 2
+    assert not any(cuda.PLAIN_CALLS[x] for x in ("gang_eval", "gang_topk", "gang_match",
+                                                   "gang_bind"))
+
+
+@pytest.mark.parametrize("kind,config,preempt_kind", [GANG_CASES[1], GANG_CASES[3]],
+                         ids=[GANG_IDS[1], GANG_IDS[3]])
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_gang_pass_matches_plain(host, monkeypatch, policy, kind, config, preempt_kind):
+    """A whole gang pass through the kernels (rounds, preempt phases
+    through seq_run with queue positions, the record replay) against the
+    plain versions: final state, rounds and every record."""
+    opts = dict(chunk=8, match_width=3, small=True)
+    g = gang_engine(policy, kind, config, preempt_kind, **opts)
+    got = g.results()
+    assert cuda.LAUNCHES["gang_eval"] > 0 and cuda.LAUNCHES["gang_match"] > 0
+    assert (cuda.LAUNCHES["seq_run"] > 0) == g.preempts
+    with monkeypatch.context() as m:
+        m.setattr(cuda, "_on_cpu", lambda x: True)  # the plain versions again
+        p = gang_engine(policy, kind, config, preempt_kind, **opts)
+        want = p.results()
+    assert g._rounds == p._rounds and g.last_stats == p.last_stats
+    for f in STATE_FIELDS:
+        same(getattr(g._final_state, f), getattr(p._final_state, f), f)
+    assert [(r.status, r.to_annotations()) for r in got] == [
+        (r.status, r.to_annotations()) for r in want]
