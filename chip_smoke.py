@@ -16,8 +16,13 @@ PriorityClass preemption). A fourth, the serving path, drives
 through the delta encoder and its K10 row scatters. A fifth, the gang
 path, runs `GangScheduler` (rounds of all pending pods through the K9
 kernels of csrc/gang_kernels.cu, preempt phases through `seq_run`) and
-`schedule_gang()`. Phases, in order; any failure raises and the process
-exits non-zero:
+`schedule_gang()`. A sixth, the weight sweep, runs `WeightSweep` (every
+variant's pass in one launch of `sweep_run`) at BASELINE config #4. The
+plain versions of the whole passes that phases 3, 4, 4b and 5e are held
+against run on the host CPU in a second process (`chip_smoke.py
+--plain-worker DIR`, started at once and stopped at the end), beside the
+card's phases; phase 4h compares. Phases, in order; any failure raises and
+the process exits non-zero:
 
 1. the device: its name, `nvidia-smi`'s name and power limit, the torch
    and CUDA versions;
@@ -49,11 +54,15 @@ exits non-zero:
    2000)` (required anti-affinity carriers), TPU32 and EXACT, then one
    whole gang pass, `run_recorded()` + `results()`, kernels against plain
    versions on `dressed_default_cluster(256, 300)`: state, rounds, records;
+   (K11) `WeightSweep.run` with and without the trace, three weight
+   variants (the configuration's own, then two random) on the default
+   path's cluster under TPU32 and EXACT, and one `sweep_run` launch of two
+   blocks (fewer than the variants) against the first;
 4. the fit path at full width: `schedule()` on 1,024 nodes x 10,000 pods
    (TPU32, trace recorded) with the launch counters set to 0 just before
    and read just after — the pass must launch `seq_run` and no plain
    version; its placements, trace and 100 sampled pods' annotations must
-   equal the plain version's run on the card. Then the single-pod step
+   equal the plain version's run (phase 4h). Then the single-pod step
    path (`attempt_bind_fn`, launching `seq_attempt` and `seq_bind`) is
    driven over the same queue with the counters reset again, and each step
    must reproduce the pass's trace row;
@@ -98,37 +107,61 @@ exits non-zero:
    1,024-node `SimulatorService` session (the second with `window=64`),
    each with K9 launched and no plain call and its records written back;
    the third held against the plain gang on the card;
+4g. BASELINE config #4, the Monte-Carlo weight sweep: 1,000 score-weight
+   variants (the configuration's own, then integers 1-10 per plugin from
+   seed 42) of `synthetic_cluster(1024, 10000, seed=42)` under
+   `supported_config()`, TPU32, through `WeightSweep.run` with the
+   counters set to 0 just before and read just after: one `sweep_run`
+   launch and no plain call; variant 0 against the engine's own pass, two
+   sampled variants against single-variant `seq_run` launches (variant 0
+   and the first sampled one against the plain version too, in 4h and
+   5e). Then a
+   preempting sweep, one variant per SM, on the 4c cluster: variant 0
+   against phase 4c's final state, a dry run in every variant;
+4h. the second process's plain versions: phase 3's sweeps (every
+   variant's trace, victims, state and selections), phases 4's and 4b's
+   passes (trace, state, placements, sampled annotations), config #4's
+   variant 0 and first sampled variant (state and selections), each after
+   checking that both processes encoded the same inputs;
 5. kernel times on all paths (CUDA events; the per-pod kernels replayed
    from a CUDA graph so host enqueue time is not counted, at the state
    half-way through the queue; the default path's `seq_run` on its plain
    segment, `seq_preempt` and `seq_evict` on the first nominating step
    past the middle, each first held against its plain version there), the
-   plain versions' times and each kernel's bound,
-   printed as one JSON line with a `path` field per entry; 5b: each plugin
-   body alone inside `seq_attempt` (the first slice's on the fit path's
-   cluster, the second's on the affinity path's, the volume family's on
-   the default path's); 5c: the K10 kernels at the real dirty lists of
+   plain versions' times (on the card, except the fit and affinity
+   `seq_run` rows' and K11's: the second process's on the host CPU, marked
+   by `plain_basis`) and each kernel's bound, printed as one JSON line
+   with a `path` field per entry; 5b: each plugin body alone inside
+   `seq_attempt` (the first slice's on the fit path's cluster, the
+   second's on the affinity path's, the volume family's on the default
+   path's); 5c: the K10 kernels at the real dirty lists of
    serving delta passes (set and add: pass 5's calls; vector add: pass
    2's, the pass that replays the claim pods' binds), beside their plain
    versions and the one PyTorch call that computes each; 5d: K9 at round 1
    of the full-width default gang (`torch.topk` and `index_add_` as the
-   library calls of top-k and bind);
+   library calls of top-k and bind); 5e: K11 at config #4's shape (the
+   plain time is variant 0's plain pass on the host CPU: one variant, not
+   V; V times it is printed as an estimate);
 6. the card's name and power limit, then the result line.
 
-It runs in 13 to 18 minutes on an H100, the build included (the plain
-versions on the host side vary most).
+Each phase prints its seconds. It runs in 12 to 17 minutes on an H100, the
+build included (the host's speed varies most).
 It imports nothing of JAX or of the reference package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import faulthandler
 import functools
+import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -139,6 +172,16 @@ TIME_LIMIT_S = 1100
 # small PyTorch launches) and its plain segment at full width
 DEFAULT_PHASE3_PENDING = 300
 SEGMENT = 1024
+# K11: BASELINE config #4 (phase 4g), a Monte-Carlo sweep of score weights:
+# 1,000 variants of a 1,024-node cluster with 10,000 pending pods; phase 3's
+# sweep holds three variants against the plain version
+SWEEP_VARIANTS = 1000
+SWEEP_NODES, SWEEP_PODS, SWEEP_SEED = 1024, 10000, 42
+PHASE3_VARIANTS = 3
+# the plain versions of whole passes run on the host CPU in a second process
+# (`plain_worker`), beside the card's phases; their results come back here
+PLAIN_DIR = Path(__file__).resolve().parent / "build" / "smoke"
+PLAIN_THREADS = 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 SOURCE = "kube_scheduler_simulator_tpu_torch/csrc/seq_kernels.cu"
@@ -155,6 +198,7 @@ REPLACES = {
     "gang_topk": "kube_scheduler_simulator_tpu/engine/gang.py:859",
     "gang_match": "kube_scheduler_simulator_tpu/engine/gang.py:740",
     "gang_bind": "kube_scheduler_simulator_tpu/engine/gang.py:641",
+    "sweep_run": "kube_scheduler_simulator_tpu/parallel/sweep.py:113",
 }
 GANG_SOURCE = "kube_scheduler_simulator_tpu_torch/csrc/gang_kernels.cu"
 GANG_KERNELS = ("gang_eval", "gang_topk", "gang_match", "gang_bind")
@@ -182,7 +226,7 @@ def ptxas_report(text):
     out, name, props = [], None, ""
     for ln in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?_Z\w*?"
-                      r"(seq_(?:attempt|bind|run|preempt|evict)_kernel|"
+                      r"(seq_(?:attempt|bind|run|preempt|evict)_kernel|sweep_run_kernel|"
                       r"gang_(?:eval|topk|match|bind)_kernel|scatter_set_kernel|"
                       r"scatter_add_kernel|vec_add_kernel)I([ixlhjm])", ln)
         if m:
@@ -721,11 +765,40 @@ def mid_state(cuda, eng):
     return st, int(enc.queue[half])
 
 
+def path_workload(kp, path):
+    """Phase 4's and 4b's cluster, configuration and 100 sampled pods:
+    (nodes, pods, config, sample)."""
+    if path == "fit":
+        nodes, pods = kp.synthetic_cluster(1024, 10000, seed=7)
+        cfg, seed = kp.fit_config(), 7
+    else:
+        nodes, pods = kp.synthetic_affinity_cluster(500, 5000, seed=11)
+        cfg, seed = kp.affinity_config(), 11
+    rng = np.random.default_rng(seed)
+    sample = {("default", f"pod-{i}") for i in rng.choice(len(pods), 100, replace=False)}
+    return nodes, pods, cfg, sample
+
+
+def encoding_digest(enc):
+    """A hash of every tensor of an encoding and its queue: two processes
+    that encode the same cluster hold the same inputs."""
+    h = hashlib.sha256()
+    for obj in (enc.arrays, enc.arrays.rel, enc.state0):
+        for f in dataclasses.fields(obj):
+            t = getattr(obj, f.name)
+            if isinstance(t, torch.Tensor):
+                h.update(f"{f.name} {t.dtype} {tuple(t.shape)}".encode())
+                h.update(t.contiguous().cpu().numpy().tobytes())
+    h.update(np.asarray(enc.queue, np.int64).tobytes())
+    return h.hexdigest()
+
+
 def drive_path(kp, cuda, diff, path, nodes, pods, cfg, sample, smi):
     """Phase 4 / 4b: one path at full width. `schedule()` with the counters
-    set to 0 just before and read just after, the layer split, the plain
-    pass on the card against it, then the single-pod step path with the
-    counters reset again. Returns what phase 5 needs."""
+    set to 0 just before and read just after, the layer split, then the
+    single-pod step path with the counters reset again. The plain version
+    of the pass runs in the second process (`plain_worker`); phase 4h holds
+    this pass against it (`check_plain_path`). Returns what they need."""
     n_pods = len(pods)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -760,26 +833,9 @@ def drive_path(kp, cuda, diff, path, nodes, pods, cfg, sample, smi):
     split = (t1 - t0, t2 - t1, t3 - t2)
     log(f"    split: encode {split[0]:.3f} s, engine + pass {split[1]:.3f} s, decode "
         f"(placements + {len(sample)} records) {split[2]:.3f} s")
-    eng_p = kp.BatchedScheduler(enc)
-    eng_p.run_fn = functools.partial(cuda.seq_run_plain, eng_p.program, record=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state_p, trace_p = eng_p.run()
-    torch.cuda.synchronize()
-    plain_run_s = time.perf_counter() - t0
-    for slot, g, h in zip(("pf_codes", "codes", "raw", "final", "sel"), trace_k, trace_p):
-        diff.check(path, "seq_run", f"full width {slot}", g, h)
-    for f in STATE_FIELDS:
-        diff.check(path, "seq_run", f"full width state {f}", getattr(state_k, f),
-                   getattr(state_p, f))
-    if eng_p.placements() != placements:
-        raise AssertionError(f"{path} full width: placements differ from the plain run's")
-    want = {(r.pod_namespace, r.pod_name): r.to_annotations() for r in eng_p.results(pods=sample)}
     got = {(r.pod_namespace, r.pod_name): r.to_annotations() for r in results}
-    if got != want or len(got) != len(sample & set(placements)):
-        raise AssertionError(f"{path} full width: sampled annotations differ from the plain run's")
-    log(f"    plain version of the pass on the card: {plain_run_s:.3f} s; trace "
-        f"({len(trace_k[4])} steps), state, placements and {len(got)} pods' annotations equal")
+    if len(got) != len(sample & set(placements)):
+        raise AssertionError(f"{path} full width: {len(got)} sampled records decoded")
 
     # the single-pod step path: attempt_bind_fn over the same queue
     a, w = enc.arrays, eng.weights
@@ -804,8 +860,31 @@ def drive_path(kp, cuda, diff, path, nodes, pods, cfg, sample, smi):
         raise AssertionError(f"{path} step path launches {step_counts}, plain {step_plain}")
     log(f"    single-pod step path: {n_q} steps in {step_s:.3f} s, every trace row and the "
         f"final state equal the pass's; launches {step_counts}")
-    return dict(enc=enc, eng=eng, trace=trace_k, pass_counts=pass_counts,
-                step_counts=step_counts, plain_run_s=plain_run_s, mid=mid_state(cuda, eng))
+    return dict(enc=enc, eng=eng, trace=trace_k, state=state_k, placements=placements,
+                annotations=got, digest=encoding_digest(enc), pass_counts=pass_counts,
+                step_counts=step_counts, mid=mid_state(cuda, eng))
+
+
+def check_plain_path(cuda, diff, path, run, plain):
+    """Phase 4h for phase 4 / 4b: the kernel pass (trace, final state,
+    placements and the sampled pods' annotations) against the plain
+    version's run of the same encoding in the second process."""
+    if plain["digest"] != run["digest"]:
+        raise AssertionError(f"{path}: the second process encoded other inputs")
+    dev = run["enc"].device
+    for slot, g, h in zip(cuda.TRACE_SLOTS_PLAIN, run["trace"], plain["trace"]):
+        diff.check(path, "seq_run", f"full width {slot}", g, h.to(dev))
+    for f in STATE_FIELDS:
+        diff.check(path, "seq_run", f"full width state {f}", getattr(run["state"], f),
+                   plain["state"][f].to(dev))
+    if plain["placements"] != run["placements"]:
+        raise AssertionError(f"{path} full width: placements differ from the plain run's")
+    if plain["annotations"] != run["annotations"]:
+        raise AssertionError(f"{path} full width: sampled annotations differ from the plain run's")
+    run["plain_run_s"] = plain["seconds"]
+    log(f"    {path}: the plain version of the pass on the host CPU, {plain['seconds']:.3f} s; "
+        f"trace ({len(run['trace'][4])} steps), state, placements and "
+        f"{len(run['annotations'])} pods' annotations equal the kernel pass's")
 
 
 def segment_of(did, nominated, length, want_nominations=100):
@@ -1037,6 +1116,8 @@ def kernel_rows(cuda, diff, path, run):
                "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
         if k == "seq_run" and "seg" in run:
             row["steps"] = [run["seg"][0], run["seg"][0] + len(run["seg"][3])]
+        elif k == "seq_run":
+            row["plain_basis"] = "host CPU (the second process)"
         out.append(row)
     return out
 
@@ -2195,13 +2276,415 @@ def drive_serving_gang(kp, cuda, diff, smi):
         f"built {sched.metrics.phases()['engineBuilds']}")
 
 
+# ---------------------------------------------------------------------------
+# K11: the weight sweep (phases 3, 4g and its kernel row)
+# ---------------------------------------------------------------------------
+
+
+def sweep_weights(kp, enc, n_variants, seed):
+    """[V, S] int32: row 0 the configuration's own weights, the other rows
+    integers 1-10 per score plugin from default_rng(seed)."""
+    base = kp.weights_for(enc, {})
+    rng = np.random.default_rng(seed)
+    rest = rng.integers(1, 11, (n_variants - 1, len(base))).astype(np.int32)
+    return np.concatenate([base[None, :], rest])
+
+
+def sampled_variants(n_variants):
+    """Phase 4g's two sampled variants besides variant 0."""
+    rng = np.random.default_rng(SWEEP_SEED)
+    return sorted(rng.choice(np.arange(1, n_variants), 2, replace=False).tolist())
+
+
+def sweep_inputs(enc, w):
+    """The stacked initial states, the queue and the weights of a direct
+    `sweep_run` launch on the encoding's device."""
+    from kube_scheduler_simulator_tpu_torch.engine import cuda
+
+    states0 = cuda.stack_states([enc.state0] * len(w))
+    queue = torch.as_tensor(np.asarray(enc.queue, np.int32), device=enc.device)
+    return states0, queue, torch.as_tensor(w, device=enc.device).to(enc.policy.score)
+
+
+def phase3_sweep_encoding(kp, pol, device=None):
+    from kube_scheduler_simulator_tpu_torch.synth import dressed_default_cluster
+
+    nodes, pods, objects = dressed_default_cluster(256, DEFAULT_PHASE3_PENDING, seed=11)
+    return kp.encode_cluster(nodes, pods, kp.supported_config(), policy=pol, device=device,
+                             **objects)
+
+
+def compare_sweep(kp, cuda, diff):
+    """Phase 3 for K11: `supported_config()` on the dressed default cluster
+    (dry runs fire), three variants, TPU32 and EXACT: `WeightSweep.run`
+    with and without the trace through `sweep_run`, and one launch of two
+    blocks (fewer than the variants: the grid-stride walk) against the
+    first. The plain version runs in the second process; phase 4h holds
+    these against it (`check_plain_sweep`). Returns what it needs."""
+    runs = {}
+    for pol in (kp.TPU32, kp.EXACT):
+        enc = phase3_sweep_encoding(kp, pol)
+        w = sweep_weights(kp, enc, PHASE3_VARIANTS, seed=3)
+        cuda.reset_counts()
+        st_r, tr_r = kp.WeightSweep(enc, record=True).run(w)
+        st_n, sel_n = kp.WeightSweep(enc).run(w)
+        if cuda.LAUNCHES["sweep_run"] != 2 or any(cuda.PLAIN_CALLS.values()):
+            raise AssertionError(f"phase 3 sweeps: {cuda.LAUNCHES} {cuda.PLAIN_CALLS}")
+        prog = kp.BatchedScheduler(enc, record=False).program
+        st_g, tr_g = cuda.sweep_run(prog, enc.arrays, *sweep_inputs(enc, w), record=True, grid=2)
+        for name, g, h in zip(cuda.TRACE_SLOTS_PREEMPT, tr_g, tr_r):
+            diff.check("default", "sweep_run", f"{pol.name} two blocks {name}", g, h)
+        for f in STATE_FIELDS:
+            diff.check("default", "sweep_run", f"{pol.name} two blocks state {f}",
+                       getattr(st_g, f), getattr(st_r, f))
+            diff.check("default", "sweep_run", f"{pol.name} unrecorded state {f}",
+                       getattr(st_n, f), getattr(st_r, f))
+        did = tr_r[cuda.TRACE_SLOTS_PREEMPT.index("did")]
+        log(f"  default  {pol.name:5s} sweep_run: {PHASE3_VARIANTS} variants x "
+            f"{len(enc.queue)} steps, with and without the trace and on two blocks; dry runs by "
+            f"variant {did.sum(dim=1).tolist()}")
+        if not bool((did.sum(dim=1) > 0).all()):
+            raise AssertionError("phase 3 sweep: a variant ran no dry run")
+        runs[pol.name] = dict(digest=encoding_digest(enc), states=st_r, trace=tr_r,
+                              unrecorded=(st_n, sel_n))
+    return runs
+
+
+def check_plain_sweep(cuda, diff, runs, plain):
+    """Phase 4h for phase 3's sweeps: every variant's final state, trace
+    (victim records included) and selections against the plain sweep."""
+    for pol, run in runs.items():
+        want = plain[pol]
+        if want["digest"] != run["digest"]:
+            raise AssertionError(f"phase 3 sweep {pol}: the second process encoded other inputs")
+        dev = run["states"].assignment.device
+        for name, g, h in zip(cuda.TRACE_SLOTS_PREEMPT, run["trace"], want["trace"]):
+            diff.check("default", "sweep_run", f"{pol} {name}", g, h.to(dev))
+        for f in STATE_FIELDS:
+            diff.check("default", "sweep_run", f"{pol} state {f}", getattr(run["states"], f),
+                       want["states"][f].to(dev))
+        final_sel = want["trace"][cuda.TRACE_SLOTS_PREEMPT.index("final_sel")].to(dev)
+        diff.check("default", "sweep_run", f"{pol} unrecorded selections", run["unrecorded"][1],
+                   final_sel)
+        log(f"    phase 3 sweep {pol}: {PHASE3_VARIANTS} variants' traces, victims, states and "
+            f"selections equal the plain sweep's (host CPU, {want['seconds']:.3f} s)")
+
+
+def dry_runs_fired(enc, states, sels):
+    """Per variant of an unrecorded sweep: (steps whose dry run left the pod
+    unschedulable, pre-bound pods evicted). A step runs its dry run when
+    its pod is unschedulable and passed the prefilter; a dry run that
+    nominates evicts, and one that does not leaves the pod unschedulable,
+    so a variant ran a dry run exactly when one of the two is nonzero."""
+    a = enc.arrays
+    queue = torch.as_tensor(np.asarray(enc.queue, np.int64), device=enc.device)
+    pf_ok = a.pod_mask[queue] & ((a.vb_pf[queue] == 0) | (enc.config.enabled("preFilter").count(
+        "VolumeBinding") == 0))
+    unsched = ((sels < 0) & pf_ok[None, :]).sum(dim=1)
+    pre = enc.state0.assignment >= 0
+    evicted = ((states.assignment < 0) & pre[None, :]).sum(dim=1)
+    return unsched, evicted
+
+
+def config4_encoding(kp):
+    nodes, pods = kp.synthetic_cluster(SWEEP_NODES, SWEEP_PODS, seed=SWEEP_SEED)
+    return kp.encode_cluster(nodes, pods, kp.supported_config(), policy=kp.TPU32)
+
+
+def timed_sweep(cuda, sweep, w):
+    """`sweep.run(w)` with the counters set to 0 just before and read just
+    after: (states, selections, wall s, device ms, peak bytes, launches,
+    plain calls)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    e0.record()
+    states, sels = sweep.run(w)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    if counts["sweep_run"] != 1 or any(v for k, v in counts.items() if k != "sweep_run") or any(
+            plain.values()):
+        raise AssertionError(f"the sweep: launches {counts}, plain calls {plain}")
+    return (states, sels, wall, e0.elapsed_time(e1), torch.cuda.max_memory_allocated() - base,
+            counts, plain)
+
+
+def drive_sweep(kp, cuda, diff, dflt, smi):
+    """Phase 4g: BASELINE config #4 — 1,000 score-weight variants of
+    `synthetic_cluster(1024, 10000, seed=42)` under `supported_config()`,
+    TPU32, no trace — through `WeightSweep.run`: one `sweep_run` launch and
+    no plain call. Variant 0 against the engine's own pass, two sampled
+    variants against single-variant `seq_run` launches. Then a preempting
+    sweep, one variant per SM, on phase 4c's cluster: variant 0 against
+    phase 4c's final state, evictions in every variant."""
+    t0 = time.perf_counter()
+    enc = config4_encoding(kp)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    w = sweep_weights(kp, enc, SWEEP_VARIANTS, seed=SWEEP_SEED)
+    sweep = kp.WeightSweep(enc)
+    states, sels, wall, dev_ms, peak, counts, _ = timed_sweep(cuda, sweep, w)
+    V, Q = w.shape[0], len(enc.queue)
+    unsched, evicted = dry_runs_fired(enc, states, sels)
+    distinct = len({tuple(r) for r in sels.cpu().numpy().tolist()})
+    log(f"    WeightSweep.run: {V} variants x {Q} pods on {enc.N} nodes in {wall:.3f} s wall "
+        f"(encode {enc_s:.3f} s apart), {V * Q / wall:.1f} decisions/s, sweep_run "
+        f"{dev_ms:.1f} ms on the card, peak memory {peak / 2**30:.3f} GiB above what was held, "
+        f"launches {counts['sweep_run']} sweep_run, plain calls none; {distinct} distinct "
+        f"placement vectors; variants that ran a dry run: "
+        f"{int(((unsched > 0) | (evicted > 0)).sum())} of {V} (pods left unschedulable after "
+        f"their dry run: {int(unsched.sum())} in all, evictions {int(evicted.sum())}) [{smi}]")
+    eng = kp.BatchedScheduler(enc, record=False)
+    st0, out0 = eng.run()
+    for f in STATE_FIELDS:
+        diff.check("config4", "sweep_run", f"variant 0 state {f}", getattr(states, f)[0],
+                   getattr(st0, f))
+    diff.check("config4", "sweep_run", "variant 0 selections", sels[0], out0[:Q])
+    picked = sampled_variants(V)
+    q = torch.as_tensor(np.asarray(enc.queue, np.int32), device=enc.device)
+    one_ms = []
+    for v in picked:
+        wv = torch.as_tensor(w[v], device=enc.device).to(enc.policy.score)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        st_v, sel_v = cuda.seq_run(eng.program, enc.arrays, enc.state0, q, wv, record=False)
+        e1.record()
+        torch.cuda.synchronize()
+        one_ms.append(e0.elapsed_time(e1))
+        for f in STATE_FIELDS:
+            diff.check("config4", "sweep_run", f"variant {v} state {f}", getattr(states, f)[v],
+                       getattr(st_v, f))
+        diff.check("config4", "sweep_run", f"variant {v} selections", sels[v], sel_v)
+    log(f"    variant 0 equals BatchedScheduler(record=False).run(); variants {picked} equal "
+        f"single-variant seq_run launches with their weights")
+    most = int(getattr(cuda.library(), "sweep_run_grid_i32")(enc.N, int(eng.preempts)))
+    blocks, one = min(V, most), statistics.mean(one_ms)
+    log(f"    one variant alone (seq_run over the {Q} pods, variants {picked}): "
+        + " / ".join(f"{x:.1f}" for x in one_ms) + f" ms on the card; the sweep ran {blocks} "
+        f"blocks of {min(1024, -(-enc.N // 32) * 32)} threads, {V / blocks:.2f} variants a "
+        f"block: {V * one / dev_ms:.1f} variants' seq_run at once")
+    out = dict(enc=enc, eng=eng, w=w, wall=wall, dev_ms=dev_ms, counts=counts,
+               state0=states, sels=sels, picked=picked, one_ms=one)
+
+    # the preempting sweep: one variant per SM on phase 4c's cluster
+    enc_d = dflt["enc"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    w_d = sweep_weights(kp, enc_d, n_sm, seed=7)
+    states_d, sels_d, wall_d, dev_ms_d, peak_d, counts_d, _ = timed_sweep(
+        cuda, kp.WeightSweep(enc_d), w_d)
+    for f in STATE_FIELDS:
+        diff.check("default", "sweep_run", f"preempting sweep variant 0 state {f}",
+                   getattr(states_d, f)[0], getattr(dflt["eng"]._final_state, f))
+    unsched, evicted = dry_runs_fired(enc_d, states_d, sels_d)
+    if not bool(((unsched > 0) | (evicted > 0)).all()):
+        raise AssertionError("the preempting sweep: a variant ran no dry run")
+    placed = (sels_d >= 0).sum(dim=1).float()
+    Qd = len(enc_d.queue)
+    log(f"    preempting sweep: {n_sm} variants (one per SM) x {Qd} pods on phase 4c's cluster in "
+        f"{wall_d:.3f} s wall, {n_sm * Qd / wall_d:.1f} decisions/s, sweep_run {dev_ms_d:.1f} ms "
+        f"on the card, peak memory {peak_d / 2**30:.3f} GiB; variant 0 equals phase 4c's final "
+        f"state; dry runs in every variant: pre-bound pods evicted (min/median/max "
+        f"{int(evicted.min())}/{int(evicted.median())}/{int(evicted.max())}), pods left "
+        f"unschedulable after their dry run ({int(unsched.min())}/{int(unsched.median())}/"
+        f"{int(unsched.max())}); placed "
+        f"{int(placed.min())}..{int(placed.max())} of {Qd}; launches {counts_d['sweep_run']} "
+        f"sweep_run, plain calls none [{smi}]")
+    out.update(preempting=dict(V=n_sm, wall=wall_d, dev_ms=dev_ms_d))
+    return out
+
+
+def sweep_row(cuda, diff, run, plain, plain_v, smi):
+    """Phase 5e: the K11 row at config #4's shape. Variant 0 and the first
+    sampled variant against their plain passes (host CPU, second process);
+    the sampled one carries random weights and runs in a block whose
+    scratch an earlier variant used. ms: CUDA events around phase 4g's
+    launch; plain: variant 0's plain pass, one variant (V times it is only
+    printed, as an estimate); bound: each input read once (the cluster
+    planes, V initial states, the weights, the queue) and each output
+    written once (V final states, the selections), against the steps'
+    operations for every variant."""
+    enc, eng, w = run["enc"], run["eng"], run["w"]
+    V, Q = w.shape[0], len(enc.queue)
+    v = plain_v["v"]
+    if plain["digest"] != encoding_digest(enc) or plain_v["digest"] != plain["digest"]:
+        raise AssertionError("config #4: the second process encoded other inputs")
+    if v != run["picked"][0] or not np.array_equal(plain_v["weights"], w[v]):
+        raise AssertionError(f"config #4: the second process ran other weights for variant {v}")
+    for i, pl in ((0, plain), (v, plain_v)):
+        for f in STATE_FIELDS:
+            diff.check("config4", "sweep_run", f"variant {i} against the plain pass {f}",
+                       getattr(run["state0"], f)[i], pl["state"][f].to(enc.device))
+        diff.check("config4", "sweep_run", f"variant {i} selections against the plain pass",
+                   run["sels"][i], pl["sels"].to(enc.device))
+    prog = eng.program
+    state_bytes = nbytes(*(getattr(enc.state0, f) for f in STATE_FIELDS))
+    st_mid, q_mid = mid_state(cuda, eng)
+    step_ops = ops_per_node(enc, prog) * enc.N + rel_reads(enc, prog, st_mid, q_mid)[1]
+    b = bound(cluster_bytes(enc) + 2 * V * state_bytes + 4 * Q + w.size * w.itemsize
+              + 4 * V * Q, step_ops * Q * V)
+    per_step = bound(cluster_bytes(enc) * Q * V, 0)[0]
+    plain_ms = plain["seconds"] * 1e3
+    log(f"    sweep_run, config #4 ({V} variants x {Q} steps, {enc.N} nodes): {run['dev_ms']:.3f} "
+        f"ms on the card, {run['counts']['sweep_run']} launch; variants 0 and {v} equal their "
+        f"plain passes on the host CPU ({plain['seconds']:.3f} / {plain_v['seconds']:.3f} s); "
+        f"plain {plain_ms:.1f} ms for one variant (estimate for all {V}, not run: "
+        f"{plain_ms * V:.1f} ms); bound {b[0]:.3f} ms by {b[1]} (reading the cluster planes "
+        f"once a step and variant instead: {per_step:.3f} ms) [{smi}]")
+    return [{"name": "sweep_run", "path": "config4", "route": "cuda", "source": SOURCE,
+             "replaces": REPLACES["sweep_run"], "launches": run["counts"]["sweep_run"],
+             "max_abs_err": max(diff.err[p, "sweep_run"] for p in ("default", "config4")),
+             "ms": run["dev_ms"], "plain_ms": plain_ms,
+             "plain_basis": "1 variant (variant 0's plain pass on the host CPU)",
+             "bound_ms": b[0], "bound_by": b[1], "library_ms": None}]
+
+
+# ---------------------------------------------------------------------------
+# the second process: the plain versions of whole passes on the host CPU
+# ---------------------------------------------------------------------------
+
+
+def _state_dict(st):
+    return {f: getattr(st, f).cpu() for f in STATE_FIELDS}
+
+
+def plain_worker(out_dir):
+    """Run the plain versions the card's phases are held against, on the
+    host CPU, and save each result to `out_dir` as it is ready: phase 3's
+    sweeps, phase 4's and 4b's passes, config #4's variant 0 and first
+    sampled variant."""
+    torch.set_num_threads(PLAIN_THREADS)
+    import kube_scheduler_simulator_tpu_torch as kp
+    from kube_scheduler_simulator_tpu_torch.engine import cuda
+
+    cpu = torch.device("cpu")
+    out_dir = Path(out_dir)
+
+    def save(name, obj):
+        tmp = out_dir / f"{name}.tmp"
+        torch.save(obj, tmp)
+        os.replace(tmp, out_dir / f"{name}.pt")
+        log(f"plain worker: {name} saved at {time.perf_counter() - t_start:.1f} s")
+
+    t_start = time.perf_counter()
+    sweeps = {}
+    for pol in (kp.TPU32, kp.EXACT):
+        enc = phase3_sweep_encoding(kp, pol, cpu)
+        w = sweep_weights(kp, enc, PHASE3_VARIANTS, seed=3)
+        prog = kp.BatchedScheduler(enc, device=cpu).program
+        t0 = time.perf_counter()
+        st, tr = cuda.sweep_run_plain(prog, enc.arrays, *sweep_inputs(enc, w), record=True)
+        sweeps[pol.name] = dict(digest=encoding_digest(enc), states=_state_dict(st), trace=tr,
+                                seconds=time.perf_counter() - t0)
+    save("sweep3", sweeps)
+    for path in ("fit", "affinity"):
+        nodes, pods, cfg, sample = path_workload(kp, path)
+        enc = kp.encode_cluster(nodes, pods, cfg, policy=kp.TPU32, device=cpu)
+        eng = kp.BatchedScheduler(enc, device=cpu)
+        t0 = time.perf_counter()
+        st, tr = eng.run()
+        secs = time.perf_counter() - t0
+        ann = {(r.pod_namespace, r.pod_name): r.to_annotations()
+               for r in eng.results(pods=sample)}
+        save(path, dict(digest=encoding_digest(enc), state=_state_dict(st), trace=tr,
+                        placements=eng.placements(), annotations=ann, seconds=secs))
+    nodes, pods = kp.synthetic_cluster(SWEEP_NODES, SWEEP_PODS, seed=SWEEP_SEED)
+    enc = kp.encode_cluster(nodes, pods, kp.supported_config(), policy=kp.TPU32, device=cpu)
+    eng = kp.BatchedScheduler(enc, record=False, device=cpu)
+    q = torch.as_tensor(np.asarray(enc.queue, np.int32))
+    t0 = time.perf_counter()
+    st, sels = cuda.seq_run_plain(eng.program, enc.arrays, enc.state0, q, eng.weights,
+                                  record=False)
+    digest = encoding_digest(enc)
+    save("config4", dict(digest=digest, state=_state_dict(st), sels=sels,
+                         seconds=time.perf_counter() - t0))
+    v = sampled_variants(SWEEP_VARIANTS)[0]
+    wv = sweep_weights(kp, enc, SWEEP_VARIANTS, seed=SWEEP_SEED)[v]
+    t0 = time.perf_counter()
+    st, sels = cuda.seq_run_plain(eng.program, enc.arrays, enc.state0, q,
+                                  torch.as_tensor(wv).to(enc.policy.score), record=False)
+    save("config4_sampled", dict(digest=digest, v=v, weights=wv, state=_state_dict(st),
+                                 sels=sels, seconds=time.perf_counter() - t0))
+
+
+def _die_with_parent():
+    """In the child before it runs: the kernel kills it when this process
+    ends, however it ends (Linux's PR_SET_PDEATHSIG)."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGKILL)
+
+
+class PlainWorker:
+    """The second process (`chip_smoke.py --plain-worker DIR`), started at
+    once; `result(name)` waits for one of its results."""
+
+    def __init__(self):
+        PLAIN_DIR.mkdir(parents=True, exist_ok=True)
+        for f in PLAIN_DIR.glob("*"):
+            f.unlink()
+        self.log_path = PLAIN_DIR / "worker.log"
+        self.log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--plain-worker", str(PLAIN_DIR)],
+            stdout=self.log, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent,
+            preexec_fn=_die_with_parent)
+
+    def result(self, name, deadline):
+        path = PLAIN_DIR / f"{name}.pt"
+        while not path.exists():
+            if self.proc.poll() is not None and not path.exists():
+                raise RuntimeError(f"the plain worker exited ({self.proc.returncode}) without "
+                                   f"{name}:\n{self.log_path.read_text()[-4000:]}")
+            if time.perf_counter() > deadline:
+                raise RuntimeError(f"the plain worker did not produce {name} in time")
+            time.sleep(0.5)
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.log.close()
+
+
+class Phases:
+    """Each phase's seconds, printed as it ends."""
+
+    def __init__(self):
+        self.t_start = self.t_last = time.perf_counter()
+        self.seconds = {}
+
+    def done(self, name):
+        now = time.perf_counter()
+        self.seconds[name] = now - self.t_last
+        log(f"    phase {name} done at {now - self.t_start:.1f} s ({now - self.t_last:.1f} s)")
+        self.t_last = now
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--plain-worker":
+        plain_worker(sys.argv[2])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
-    t_start = time.perf_counter()
     import kube_scheduler_simulator_tpu_torch as kp
+
+    worker = PlainWorker()  # the plain versions of whole passes, beside the card's phases
+    try:
+        return run_phases(kp, worker)
+    finally:
+        worker.stop()
+
+
+def run_phases(kp, worker) -> int:
     from kube_scheduler_simulator_tpu_torch.engine import cuda, scatter
     from kube_scheduler_simulator_tpu_torch.synth import (
         DRESSED_NAMESPACES,
@@ -2209,11 +2692,16 @@ def main() -> int:
         dressed_default_cluster,
     )
 
+    ph = Phases()
+    t_start = ph.t_start
+    deadline = t_start + TIME_LIMIT_S - 60
+
     # -- 1. device --------------------------------------------------------
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     log(f"[1] device: {name} | nvidia-smi: {smi} | torch {torch.__version__} "
-        f"| CUDA {torch.version.cuda} | cards: {torch.cuda.device_count()}")
+        f"| CUDA {torch.version.cuda} | cards: {torch.cuda.device_count()} | SMs: "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count}")
 
     # -- 2. build ---------------------------------------------------------
     # one library: seq_kernels.cu twice (SEQ_ONLY=32, 64) and
@@ -2224,6 +2712,7 @@ def main() -> int:
     log(f"[2] built {path.name} in {build_s:.1f} s, {time.perf_counter() - t0:.1f} s in all")
     for ln in ptxas_report(path.with_suffix(".log").read_text()):
         log(f"    ptxas: {ln}")
+    ph.done("2")
 
     # -- 3. kernels vs plain ----------------------------------------------
     log("[3] kernels against their plain versions on the card (exact equality)")
@@ -2236,29 +2725,24 @@ def main() -> int:
     nodes, pods, objects = dressed_default_cluster(256, DEFAULT_PHASE3_PENDING, seed=11)
     compare_kernels(kp, cuda, diff, "default", nodes, pods, {"default": kp.supported_config()},
                     bind=True, objects=objects)
+    sweep3 = compare_sweep(kp, cuda, diff)
     compare_k10(kp, scatter, diff)
     compare_gang(kp, cuda, diff, smi)
-    log(f"    phase 3 done at {time.perf_counter() - t_start:.1f} s")
+    ph.done("3")
 
     # -- 4. the fit path at full width --------------------------------------
-    n_nodes, n_pods = 1024, 10000
-    nodes, pods = kp.synthetic_cluster(n_nodes, n_pods, seed=7)
-    rng = np.random.default_rng(7)
-    sample = {("default", f"pod-{i}") for i in rng.choice(n_pods, 100, replace=False)}
-    log(f"[4] fit path at full width: {n_nodes} nodes x {n_pods} pods, fit_config(), TPU32, "
+    nodes, pods, cfg, sample = path_workload(kp, "fit")
+    log(f"[4] fit path at full width: 1024 nodes x {len(pods)} pods, fit_config(), TPU32, "
         "trace recorded")
-    fit = drive_path(kp, cuda, diff, "fit", nodes, pods, kp.fit_config(), sample, smi)
+    fit = drive_path(kp, cuda, diff, "fit", nodes, pods, cfg, sample, smi)
+    ph.done("4")
 
     # -- 4b. the affinity path at full width (BASELINE config #3) -----------
-    n_nodes, n_pods = 500, 5000
-    nodes, pods = kp.synthetic_affinity_cluster(n_nodes, n_pods, seed=11)
-    rng = np.random.default_rng(11)
-    sample = {("default", f"pod-{i}") for i in rng.choice(n_pods, 100, replace=False)}
-    log(f"[4b] affinity path at full width: {n_nodes} nodes x {n_pods} pods "
+    nodes, pods, cfg, sample = path_workload(kp, "affinity")
+    log(f"[4b] affinity path at full width: 500 nodes x {len(pods)} pods "
         "(synthetic_affinity_cluster, seed 11), affinity_config(), TPU32, trace recorded")
-    aff = drive_path(kp, cuda, diff, "affinity", nodes, pods, kp.affinity_config(), sample,
-                     smi)
-    log(f"    phase 4b done at {time.perf_counter() - t_start:.1f} s")
+    aff = drive_path(kp, cuda, diff, "affinity", nodes, pods, cfg, sample, smi)
+    ph.done("4b")
 
     # -- 4c. the default path at full width (BASELINE config #2's width) ----
     n_nodes, n_pending = 1024, 10000
@@ -2271,14 +2755,14 @@ def main() -> int:
         "recorded")
     dflt = drive_default(kp, cuda, diff, nodes, pods, objects, sample, smi)
     default_cluster = (nodes, pods, objects, sample)
-    log(f"    phase 4c done at {time.perf_counter() - t_start:.1f} s")
+    ph.done("4c")
 
     # -- 4d. the serving path at BASELINE config #2's width -----------------
     log(f"[4d] serving session at full width: SimulatorService on the card, 1,024 nodes, "
         f"SchedulerConfiguration.default(), TPU32, {SERVING_PASSES} passes of "
         f"{SERVING_ARRIVALS} arrivals and a cordon")
     serving = drive_serving(kp, cuda, scatter, diff, smi)
-    log(f"    phase 4d done at {time.perf_counter() - t_start:.1f} s")
+    ph.done("4d")
 
     # -- 4e. the gang default path at full width, then the affinity gang ----
     log("[4e] gang default path at full width: GangScheduler(chunk=64) on the 4c cluster, "
@@ -2286,14 +2770,31 @@ def main() -> int:
     gang = drive_gang_default(kp, cuda, diff, *default_cluster, smi)
     nodes, pods = kp.synthetic_affinity_cluster(500, 5000, seed=11)
     drive_gang_affinity(kp, cuda, nodes, pods, aff["eng"].placements(), smi)
-    log(f"    phase 4e done at {time.perf_counter() - t_start:.1f} s")
+    ph.done("4e")
 
     # -- 4f. gang passes through the serving path ----------------------------
     log(f"[4f] gang serving session: SimulatorService on the card, {SERVING_NODES} nodes, "
         f"3 schedule_gang(record=True) passes of {SERVING_ARRIVALS} arrivals (the second "
         "with window=64)")
     drive_serving_gang(kp, cuda, diff, smi)
-    log(f"    phase 4f done at {time.perf_counter() - t_start:.1f} s")
+    ph.done("4f")
+
+    # -- 4g. BASELINE config #4: the Monte-Carlo weight sweep ----------------
+    log(f"[4g] weight sweep at full width (BASELINE config #4): {SWEEP_VARIANTS} variants of "
+        f"synthetic_cluster({SWEEP_NODES}, {SWEEP_PODS}, seed={SWEEP_SEED}), "
+        "supported_config(), TPU32, no trace, through WeightSweep.run")
+    sweep = drive_sweep(kp, cuda, diff, dflt, smi)
+    ph.done("4g")
+
+    # -- 4h. the kernels' whole passes against the second process's plain ones
+    log("[4h] the whole passes against the plain versions run on the host CPU in the second "
+        "process (exact equality)")
+    check_plain_sweep(cuda, diff, sweep3, worker.result("sweep3", deadline))
+    check_plain_path(cuda, diff, "fit", fit, worker.result("fit", deadline))
+    check_plain_path(cuda, diff, "affinity", aff, worker.result("affinity", deadline))
+    config4_plain = worker.result("config4", deadline)
+    config4_sampled = worker.result("config4_sampled", deadline)
+    ph.done("4h")
 
     # -- 5. kernel times --------------------------------------------------
     kernels = (kernel_rows(cuda, diff, "fit", fit) + kernel_rows(cuda, diff, "affinity", aff)
@@ -2314,7 +2815,14 @@ def main() -> int:
     kernels += k10_rows(kp, scatter, diff, serving, smi)
     log(f"[5d] K9 at round 1 of the full-width default gang, TPU32 [{smi}]")
     kernels += gang_rows(kp, cuda, diff, gang, smi)
-    log(f"    total {time.perf_counter() - t_start:.1f} s")
+    log(f"[5e] K11 at BASELINE config #4's shape, TPU32 [{smi}]")
+    kernels += sweep_row(cuda, diff, sweep, config4_plain, config4_sampled, smi)
+    ph.done("5")
+    log("    phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in ph.seconds.items())
+        + f"; total {time.perf_counter() - t_start:.1f} s")
+    log("    the second process's log:")
+    for ln in worker.log_path.read_text().splitlines():
+        log(f"      {ln}")
     faulthandler.cancel_dump_traceback_later()
 
     # -- 6. result --------------------------------------------------------

@@ -25,6 +25,13 @@ store's pass through the gang (fixpoint) engine, `GangScheduler`: rounds
 that evaluate every pending pod at once (the K9 kernels of
 csrc/gang_kernels.cu), with DefaultPreemption's phases between them.
 
+Monte-Carlo weight sweeps (`WeightSweep`, BASELINE config #4) run the
+sequential pass for every row of a [V, S] score-weight matrix over one
+cluster in a single launch of the `sweep_run` kernel, one block per variant
+at a time; the KEP-184 batch runner (`scenario/batch.py`, `python -m
+kube_scheduler_simulator_tpu_torch.scenario.batch`) runs sweep jobs from
+spec files.
+
 Entry points run on the CUDA card unless the caller passes `device="cpu"`;
 with no card and no explicit device they raise RuntimeError.
 
@@ -36,6 +43,8 @@ Layout:
   engine/   encoder, delta encoder, plugin bodies, the sequential engine,
             kernel bindings
   server/   the scheduling service over a store
+  parallel/ weight sweeps (`WeightSweep`, `weights_for`)
+  scenario/ the batch runner's sweep jobs
   csrc/     the CUDA sources
   utils/    quantities, shape buckets, pass metrics
 """
@@ -52,6 +61,7 @@ from .engine.engine import (
 from .engine.engine import supported_config as slice_config
 from .engine.gang import GangScheduler
 from .models.store import ResourceStore
+from .parallel import WeightSweep, weights_for
 from .server.service import SchedulerService, SimulatorService
 from .synth import preemption_cluster, synthetic_affinity_cluster, synthetic_cluster
 
@@ -66,6 +76,7 @@ __all__ = [
     "ResourceStore",
     "SchedulerService",
     "SimulatorService",
+    "WeightSweep",
     "affinity_config",
     "encode_cluster",
     "fit_config",
@@ -76,4 +87,5 @@ __all__ = [
     "supported_config",
     "synthetic_affinity_cluster",
     "synthetic_cluster",
+    "weights_for",
 ]

@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the sequential scheduling pass.
 //
-// Five kernels share the plugin bodies below (`filter_code`, `score_raw`),
+// Six kernels share the plugin bodies below (`filter_code`, `score_raw`),
 // the dry run (`dry_run`) and the eviction (`evict_pod`):
 //
 //   seq_attempt  replaces kube_scheduler_simulator_tpu/engine/engine.py
@@ -21,6 +21,16 @@
 //                unschedulable pod's step runs the dry run, evicts the
 //                nominated node's victims, retries and runs a second dry
 //                run (recorded, never evicting) before the bind.
+//   sweep_run    replaces parallel/sweep.py WeightSweep's programs
+//                (`sweep.vrun`, `vmap` of the pass over a [V, S] weight
+//                matrix, :111-114; and the phase mode's event loop,
+//                `sweep.until0` / `sweep.until` / `sweep.preempt1`,
+//                :118-129): V variants of seq_run's pass, one block a
+//                variant at a time, sharing its step body (`run_body`).
+//                A block branches per variant, so the preemption branch
+//                fires in each variant as seq_run's does; the reference
+//                needs its masked form or host event loop only because
+//                vmap cannot branch.
 //
 // Bound on the card. A step reads the node planes ([N,R] allocatable,
 // requested and scoring-requested, [N] pod counts and masks, [N,T] taints)
@@ -39,6 +49,16 @@
 // block uses one of the 132 SMs: spreading a step over many blocks
 // (cooperative grid sync, or a cluster) and keeping node state in shared
 // memory is later work.
+//
+// sweep_run does seq_run's work once a variant: its bound is every
+// variant's step operations (the planes, read by all variants, come from L2
+// once warm; each variant reads and writes only its own state). Each block
+// is as latency-bound as seq_run's, so the design fills the card with
+// variants where seq_run uses one SM: a grid of as many resident blocks as
+// fit (one an SM at 1,024 threads), striding over the variants; each block
+// keeps one scratch and workspace slice for all of its variants. More than
+// one variant a block, or blocks of fewer threads so that several fit an
+// SM, is later work.
 //
 // The relational plugins (PodTopologySpread, InterPodAffinity) need counts
 // over every bound pod before any node can be decided. A step is therefore
@@ -1767,21 +1787,22 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
+// The sequential pass over `queue` by one block, on state s with weights
+// w: `seq_run`'s whole launch and one variant of `sweep_run`'s, so the two
+// kernels run one step. feas, codes_scratch, raw_scratch and the workspace
+// ws are the block's own.
 // PRE: the configuration enables DefaultPreemption. Its own instantiation
 // keeps the preemption branch's code and registers out of the other
 // configurations' step.
 template <typename I, bool PRE>
-__global__ void __launch_bounds__(1024)
-    seq_run_kernel(Cfg c, Planes a, State s, const I* w, const int* queue, const int* qpos,
-                   int Q, int step0, Trace tr, unsigned char* feas, int* codes_scratch,
-                   I* raw_scratch, char* wsp) {
-  __shared__ Smem<I> sm;
-  __shared__ Smem<long long> sml;
-  Ws ws;
-  ws_layout(a, sizeof(I), c.vbound, wsp, &ws);
+__device__ __forceinline__ void run_body(const Cfg& c, const Need& nd, const Planes& a,
+                                         const State& s, const I* w, const int* queue,
+                                         const int* qpos, int Q, int step0, const Trace& tr,
+                                         unsigned char* feas, int* codes_scratch,
+                                         I* raw_scratch, const Ws& ws, Smem<I>& sm,
+                                         Smem<long long>& sml) {
   const int N = a.N;
   const size_t nf = (size_t)N * c.n_filters, ns = (size_t)N * c.n_scores;
-  const Need nd = need_of(c);
   const bool record = tr.codes != nullptr;
   if (threadIdx.x == 0) ws.vol[3] = 0;
   for (int qi = 0; qi < Q; ++qi) {
@@ -1851,6 +1872,59 @@ __global__ void __launch_bounds__(1024)
   if (threadIdx.x == 0) tr.status[1] |= ws.vol[3];
 }
 
+template <typename I, bool PRE>
+__global__ void __launch_bounds__(1024)
+    seq_run_kernel(Cfg c, Planes a, State s, const I* w, const int* queue, const int* qpos,
+                   int Q, int step0, Trace tr, unsigned char* feas, int* codes_scratch,
+                   I* raw_scratch, char* wsp) {
+  __shared__ Smem<I> sm;
+  __shared__ Smem<long long> sml;
+  Ws ws;
+  ws_layout(a, sizeof(I), c.vbound, wsp, &ws);
+  run_body<I, PRE>(c, need_of(c), a, s, w, queue, qpos, Q, step0, tr, feas, codes_scratch,
+                   raw_scratch, ws, sm, sml);
+}
+
+// Variant v's slice of a stacked pointer: `stride` bytes a variant.
+#define SHIFT_PTR(type, name) \
+  if (x.name) x.name = (type)((char*)x.name + (long long)v * st.name);
+
+__device__ __forceinline__ State variant_state(State x, const StateStride& st, int v) {
+  STATE_PTRS(SHIFT_PTR)
+  return x;
+}
+
+__device__ __forceinline__ Trace variant_trace(Trace x, const TraceStride& st, int v) {
+  TRACE_PTRS(SHIFT_PTR)
+  return x;
+}
+
+// K11 sweep: V weight variants of one pass, each exactly `seq_run` (step0 =
+// 0, no queue positions) on its own weights row w[v] and its own state and
+// trace slices, over the shared planes and queue. The grid strides over
+// the variants (the host build runs one block); each block keeps one
+// scratch and workspace slice, reused variant after variant.
+template <typename I, bool PRE>
+__global__ void __launch_bounds__(1024)
+    sweep_run_kernel(Cfg c, Planes a, State s0, StateStride ss, const I* w, int V,
+                     const int* queue, int Q, Trace tr0, TraceStride ts, unsigned char* feas_s,
+                     int* codes_s, I* raw_s, char* wsp, long long ws_bytes) {
+  __shared__ Smem<I> sm;
+  __shared__ Smem<long long> sml;
+  Ws ws;
+  ws_layout(a, sizeof(I), c.vbound, wsp + (size_t)blockIdx.x * ws_bytes, &ws);
+  const Need nd = need_of(c);
+  const size_t N = a.N;
+  unsigned char* feas = feas_s + blockIdx.x * N;
+  int* cs = codes_s + blockIdx.x * N * c.n_filters;
+  I* rs = raw_s + blockIdx.x * N * c.n_scores;
+  for (int v = blockIdx.x; v < V; v += gridDim.x) {
+    run_body<I, PRE>(c, nd, a, variant_state(s0, ss, v), w + (size_t)v * c.n_scores, queue,
+                     nullptr, Q, 0, variant_trace(tr0, ts, v), feas, cs, rs, ws, sm, sml);
+    __syncthreads();  // the next variant reuses the block's slices
+  }
+}
+
 int block_threads(int n) {
   int t = ((n + 31) / 32) * 32;
   return t < 32 ? 32 : (t > 1024 ? 1024 : t);
@@ -1900,6 +1974,43 @@ int launch_run(const Cfg* c, const Planes* a, const State* s, const void* w, con
   return (int)cudaGetLastError();
 }
 
+template <typename I>
+int launch_sweep(const Cfg* c, const Planes* a, const State* s, const StateStride* ss,
+                 const void* w, int V, const int* queue, int Q, const Trace* tr,
+                 const TraceStride* ts, int grid, unsigned char* feas, int* codes_scratch,
+                 void* raw_scratch, void* ws, long long ws_bytes, void* stream) {
+  if (c->preempt)
+    sweep_run_kernel<I, true><<<grid, block_threads(a->N), 0, (cudaStream_t)stream>>>(
+        *c, *a, *s, *ss, (const I*)w, V, queue, Q, *tr, *ts, feas, codes_scratch,
+        (I*)raw_scratch, (char*)ws, ws_bytes);
+  else
+    sweep_run_kernel<I, false><<<grid, block_threads(a->N), 0, (cudaStream_t)stream>>>(
+        *c, *a, *s, *ss, (const I*)w, V, queue, Q, *tr, *ts, feas, codes_scratch,
+        (I*)raw_scratch, (char*)ws, ws_bytes);
+  return (int)cudaGetLastError();
+}
+
+// The blocks of sweep_run resident at once on the card, for `n_nodes` nodes
+// and a configuration with (pre) or without DefaultPreemption: the most
+// blocks a launch needs (the caller allocates a scratch slice for each).
+template <typename I>
+int sweep_run_grid(int n_nodes, int pre) {
+#ifdef __CUDACC__
+  int dev = 0, sms = 0, per_sm = 0;
+  const int threads = block_threads(n_nodes);
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      (pre ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_run_kernel<I, true>,
+                                                          threads, 0)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_run_kernel<I, false>,
+                                                          threads, 0)) != cudaSuccess)
+    return -1;
+  return per_sm * sms;
+#else
+  return 1;  // the host build runs one block
+#endif
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -1945,6 +2056,15 @@ long long seq_workspace_bytes(const Planes* a, int int_bytes, int vbound) {
                   void* stream) {                                                             \
     return launch_run<I>(c, a, s, w, queue, qpos, Q, step0, tr, feas, codes_scratch,          \
                          raw_scratch, ws, stream);                                            \
+  }                                                                                           \
+  int sweep_run_grid_##T(int n_nodes, int pre) { return sweep_run_grid<I>(n_nodes, pre); }    \
+  int sweep_run_##T(const Cfg* c, const Planes* a, const State* s, const StateStride* ss,     \
+                    const void* w, int V, const int* queue, int Q, const Trace* tr,           \
+                    const TraceStride* ts, int grid, unsigned char* feas,                     \
+                    int* codes_scratch, void* raw_scratch, void* ws, long long ws_bytes,      \
+                    void* stream) {                                                           \
+    return launch_sweep<I>(c, a, s, ss, w, V, queue, Q, tr, ts, grid, feas, codes_scratch,    \
+                           raw_scratch, ws, ws_bytes, stream);                                \
   }
 
 #if !defined(SEQ_ONLY) || SEQ_ONLY == 32

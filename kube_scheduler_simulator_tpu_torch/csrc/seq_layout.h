@@ -121,6 +121,11 @@ constexpr int N_VOL3 = 3;  // the volume-count limit plugins (EBS, GCE PD, Azure
   X(void*, raw2) X(void*, fin2) X(int*, voff) X(int*, vidx) X(int*, status)
 #define TRACE_DIMS(X) X(victim_cap)
 
+// Per-variant strides of a `sweep_run` launch: for each State and Trace
+// pointer, the bytes from one variant's slice to the next (0: shared or
+// not written).
+#define DECL_STRIDE(type, name) long long name;
+
 #define DECL_NODE_TERMS(name) NodeTerms name;
 #define DECL_TERMS(name) Terms name;
 
@@ -135,6 +140,8 @@ struct Planes {
 };
 struct State { STATE_PTRS(DECL_PTR) };
 struct Trace { TRACE_PTRS(DECL_PTR) TRACE_DIMS(DECL_DIM) };
+struct StateStride { STATE_PTRS(DECL_STRIDE) };
+struct TraceStride { TRACE_PTRS(DECL_STRIDE) };
 
 // The layout report, in one translation unit of the library (the build's
 // SEQ_ONLY=32 one, or the only one).
@@ -159,6 +166,7 @@ int seq_cfg_counts(int* out) {
 int seq_planes_bytes() { return (int)sizeof(Planes); }
 int seq_state_bytes() { return (int)sizeof(State); }
 int seq_trace_bytes() { return (int)sizeof(Trace); }
+int seq_stride_bytes() { return (int)(sizeof(StateStride) + sizeof(TraceStride)); }
 
 }  // extern "C"
 #endif

@@ -1,7 +1,7 @@
 """The sequential pass's kernels: build, load and launch, beside their plain
 PyTorch versions.
 
-Five hand-written CUDA kernels (`csrc/seq_kernels.cu`) carry the pass on
+Six hand-written CUDA kernels (`csrc/seq_kernels.cu`) carry the pass on
 the card, each replacing one device program of the reference package:
 
   * `seq_attempt` — K1, `engine.py` `_build_run.attempt` (`seq.attempt`):
@@ -15,7 +15,11 @@ the card, each replacing one device program of the reference package:
     DefaultPreemption dry run for one pod (victims, reprieve, ranking);
   * `seq_run` — K3, `_build_run.step`/`run` (`seq.run`): the whole
     bucket-padded queue in one persistent launch, the preemption branch
-    (dry run, eviction, retry, second dry run) inside its step.
+    (dry run, eviction, retry, second dry run) inside its step;
+  * `sweep_run` — K11, `parallel/sweep.py` `WeightSweep` (`sweep.vrun`,
+    `sweep.until0`/`until`/`preempt1`): `seq_run`'s pass for each row of a
+    [V, S] weight matrix in one launch, a block per variant at a time, each
+    variant with its own stacked state and trace.
 
 Four more (`csrc/gang_kernels.cu`, compiled with seq_kernels.cu so they
 share its device functions) carry the gang engine's rounds, K9 of
@@ -83,7 +87,7 @@ NVCC_FLAGS = (
 )
 
 KERNELS = ("seq_attempt", "seq_bind", "seq_run", "seq_preempt", "seq_evict",
-           "gang_eval", "gang_topk", "gang_match", "gang_bind")
+           "gang_eval", "gang_topk", "gang_match", "gang_bind", "sweep_run")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _LIB = None
@@ -601,6 +605,9 @@ class _Layout:
         self.State = _struct("State", [(x, vp) for x in n["state_ptrs"]])
         self.Trace = _struct("Trace", [(x, vp) for x in n["trace_ptrs"]]
                              + [(x, ci) for x in n["trace_dims"]])
+        ll = ctypes.c_longlong
+        self.StateStride = _struct("StateStride", [(x, ll) for x in n["state_ptrs"]])
+        self.TraceStride = _struct("TraceStride", [(x, ll) for x in n["trace_ptrs"]])
 
 
 def library() -> ctypes.CDLL:
@@ -612,7 +619,8 @@ def library() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.seq_layout.argtypes, lib.seq_layout.restype = [], ctypes.c_char_p
         lib.seq_cfg_counts.argtypes, lib.seq_cfg_counts.restype = [vp], ci
-        for fn in (lib.seq_planes_bytes, lib.seq_state_bytes, lib.seq_trace_bytes):
+        for fn in (lib.seq_planes_bytes, lib.seq_state_bytes, lib.seq_trace_bytes,
+                   lib.seq_stride_bytes):
             fn.argtypes, fn.restype = [], ci
         lib.seq_workspace_bytes.argtypes = [vp, ci, ci]
         lib.seq_workspace_bytes.restype = ctypes.c_longlong
@@ -629,6 +637,9 @@ def library() -> ctypes.CDLL:
                 ("gang_match", [vp, vp, ci, ci, vp, vp, vp, vp, ci, vp, ci, ci, ci]
                  + [vp] * 8),
                 ("gang_bind", [vp, vp, vp, ci, vp, vp, vp, vp]),
+                ("sweep_run", [vp] * 5 + [ci, vp, ci, vp, vp, ci] + [vp] * 4
+                 + [ctypes.c_longlong, vp]),
+                ("sweep_run_grid", [ci, ci]),
             ):
                 f = getattr(lib, f"{name}_{t}")
                 f.argtypes, f.restype = args, ci
@@ -644,9 +655,11 @@ def library() -> ctypes.CDLL:
         if (lib.seq_cfg_counts(counts) != len(_CFG_FIELDS)
                 or list(counts) != [c for _, c in _CFG_FIELDS]):
             raise RuntimeError("kernel Cfg capacities differ from engine/cuda.py's")
-        if (lib.seq_planes_bytes(), lib.seq_state_bytes(), lib.seq_trace_bytes()) != (
+        if (lib.seq_planes_bytes(), lib.seq_state_bytes(), lib.seq_trace_bytes(),
+                lib.seq_stride_bytes()) != (
             ctypes.sizeof(layout.Planes), ctypes.sizeof(layout.State),
-            ctypes.sizeof(layout.Trace)
+            ctypes.sizeof(layout.Trace),
+            ctypes.sizeof(layout.StateStride) + ctypes.sizeof(layout.TraceStride),
         ):
             raise RuntimeError("kernel library's struct sizes differ from engine/cuda.py's")
         _LIB, _LAYOUT = lib, layout
@@ -953,12 +966,8 @@ def seq_run(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue, weigh
     s = state0.clone()
     planes, state, ws_bytes, t = _check(prog, a, s, weights)
     dev, N = a.node_mask.device, planes.N
-    if queue.device != dev or queue.dtype != torch.int32 or queue.dim() != 1:
-        raise ValueError("queue must be a 1-d int32 tensor on the planes' device")
-    queue = queue.contiguous()
+    queue = _checked_queue(queue, planes, dev)
     Q = queue.shape[0]
-    if Q and (int(queue.max()) >= planes.P or int(queue.min()) < -1):
-        raise ValueError(f"queue holds pod indices outside [-1, {planes.P})")
     if qpos is not None:
         if qpos.device != dev or qpos.dtype != torch.int32 or tuple(qpos.shape) != (Q,):
             raise ValueError(f"qpos must be an int32 ({Q},) tensor on the planes' device")
@@ -967,41 +976,15 @@ def seq_run(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue, weigh
     dt = prog.score_dtype
     pre = prog.preempt is not None
     i32 = dict(dtype=torch.int32, device=dev)
-    out = {"sel": torch.empty((Q,), **i32), "status": torch.zeros((2,), **i32)}
-    if pre:
-        out["final_sel"] = torch.empty((Q,), **i32)
-    victim_cap = 0
-    if record:
-        out.update(
-            pf_codes=torch.zeros((Q, len(prog.prefilters)), **i32),
-            codes=torch.empty((Q, N, F), **i32),
-            raw=torch.empty((Q, N, S), dtype=dt, device=dev),
-            fin=torch.empty((Q, N, S), dtype=dt, device=dev),
-        )
-        if pre:
-            victim_cap = min(2 * Q * planes.P, VICTIM_CAP)
-            out.update(
-                did=torch.empty((Q,), dtype=torch.bool, device=dev),
-                pcode=torch.empty((Q, N), **i32), nominated=torch.empty((Q,), **i32),
-                sel2=torch.empty((Q,), **i32), pcode2=torch.empty((Q, N), **i32),
-                nominated2=torch.empty((Q,), **i32),
-                # the kernel writes the retry rows of the steps that fired only
-                codes2=torch.zeros((Q, N, F), **i32),
-                raw2=torch.zeros((Q, N, S), dtype=dt, device=dev),
-                fin2=torch.zeros((Q, N, S), dtype=dt, device=dev),
-                voff=torch.empty((Q, 2, N + 1), **i32),
-                vidx=torch.empty((victim_cap,), **i32),
-            )
+    victim_cap = min(2 * Q * planes.P, VICTIM_CAP) if record and pre else 0
+    out = _run_outputs(prog, (), Q, N, record, victim_cap, dev)
     if Q:
         feas = torch.empty((N,), dtype=torch.uint8, device=dev)
         codes_s = torch.empty((N, F), **i32)
         raw_s = torch.empty((N, S), dtype=dt, device=dev)
         ws = _workspace(ws_bytes, dev)
         cfg = np.ascontiguousarray(prog.cfg)
-        names = _LAYOUT.names
-        tr = _LAYOUT.Trace(*(out[x].data_ptr() if x in out else None
-                             for x in names["trace_ptrs"]),
-                           *({"victim_cap": victim_cap}[x] for x in names["trace_dims"]))
+        tr = _trace_struct(out, victim_cap)
         rc = getattr(library(), f"seq_run_{t}")(
             cfg.ctypes.data, ctypes.addressof(planes), ctypes.addressof(state),
             weights.data_ptr(), queue.data_ptr(), None if qpos is None else qpos.data_ptr(), Q,
@@ -1010,18 +993,76 @@ def seq_run(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue, weigh
         )
         _raise_on(rc, "seq_run")
         LAUNCHES["seq_run"] += 1
-    if not pre:
-        if not record:
-            return s, out["sel"]
-        return s, (out["pf_codes"], out["codes"], out["raw"], out["fin"], out["sel"])
-    n_victims, bits = out["status"].tolist()
-    _raise_overflow(bits, "seq_run")
+    if pre:
+        n_victims, bits = out["status"].tolist()
+        _raise_overflow(bits, "seq_run")
+    return s, _run_result(out, pre, record, lambda: out["vidx"][:n_victims].clone())
+
+
+def _checked_queue(queue, planes, dev) -> torch.Tensor:
+    """The queue as the run kernels read it: 1-d int32 pod indices (-1:
+    padding) on the planes' device, contiguous."""
+    if queue.device != dev or queue.dtype != torch.int32 or queue.dim() != 1:
+        raise ValueError("queue must be a 1-d int32 tensor on the planes' device")
+    queue = queue.contiguous()
+    if queue.shape[0] and (int(queue.max()) >= planes.P or int(queue.min()) < -1):
+        raise ValueError(f"queue holds pod indices outside [-1, {planes.P})")
+    return queue
+
+
+def _run_outputs(prog: SeqProgram, lead: tuple, Q: int, N: int, record: bool,
+                 victim_cap: int, dev) -> dict:
+    """The tensors a run launch writes, by their Trace member names, each
+    with the leading dims `lead` (`sweep_run`'s variants): the selections
+    and status, and with `record` the trace (TRACE_SLOTS_PLAIN, or
+    TRACE_SLOTS_PREEMPT with a victim buffer of `victim_cap`)."""
+    F, S, dt = len(prog.filters), len(prog.scores), prog.score_dtype
+    pre = prog.preempt is not None
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def new(shape, zero=False, **kw):
+        return (torch.zeros if zero else torch.empty)((*lead, *shape), **(kw or i32))
+
+    out = {"sel": new((Q,)), "status": new((2,), zero=True)}
+    if pre:
+        out["final_sel"] = new((Q,))
+    if record:
+        out.update(pf_codes=new((Q, len(prog.prefilters)), zero=True), codes=new((Q, N, F)),
+                   raw=new((Q, N, S), dtype=dt, device=dev),
+                   fin=new((Q, N, S), dtype=dt, device=dev))
+        if pre:
+            out.update(
+                did=new((Q,), dtype=torch.bool, device=dev), pcode=new((Q, N)),
+                nominated=new((Q,)), sel2=new((Q,)), pcode2=new((Q, N)), nominated2=new((Q,)),
+                # the kernel writes the retry rows of the steps that fired only
+                codes2=new((Q, N, F), zero=True),
+                raw2=new((Q, N, S), zero=True, dtype=dt, device=dev),
+                fin2=new((Q, N, S), zero=True, dtype=dt, device=dev),
+                voff=new((Q, 2, N + 1)), vidx=new((victim_cap,)),
+            )
+    return out
+
+
+def _trace_struct(out: dict, victim_cap: int) -> ctypes.Structure:
+    """The kernels' Trace struct over a launch's outputs (`_run_outputs`)."""
+    names = _LAYOUT.names
+    return _LAYOUT.Trace(*(out[x].data_ptr() if x in out else None
+                           for x in names["trace_ptrs"]),
+                         *({"victim_cap": victim_cap}[x] for x in names["trace_dims"]))
+
+
+def _run_result(out: dict, pre: bool, record: bool, victims):
+    """A run launch's result from its outputs: the selections (the bound
+    ones, `final_sel`, with preemption), or with `record` the trace slots,
+    the victim list from `victims()`."""
     if not record:
-        return s, out["final_sel"]
-    return s, (out["pf_codes"], out["codes"], out["raw"], out["fin"], out["sel"],
-               out["did"], out["pcode"], out["nominated"], out["sel2"], out["pcode2"],
-               out["nominated2"], out["final_sel"], out["codes2"], out["raw2"], out["fin2"],
-               out["voff"], out["vidx"][:n_victims].clone())
+        return out["final_sel" if pre else "sel"]
+    trace = (out["pf_codes"], out["codes"], out["raw"], out["fin"], out["sel"])
+    if not pre:
+        return trace
+    return trace + (out["did"], out["pcode"], out["nominated"], out["sel2"], out["pcode2"],
+                    out["nominated2"], out["final_sel"], out["codes2"], out["raw2"],
+                    out["fin2"], out["voff"], victims())
 
 
 # ---------------------------------------------------------------------------
@@ -1346,3 +1387,129 @@ def gang_bind(prog: SeqProgram, a: ClusterArrays, s: SchedState, rows, live, sel
     _raise_on(rc, "gang_bind")
     LAUNCHES["gang_bind"] += 1
     return s
+
+
+# ---------------------------------------------------------------------------
+# K11: the weight sweep (parallel/sweep.py drives it). States stack V variants
+# on a leading axis of every SchedState field; the cluster planes and the
+# queue are shared.
+# ---------------------------------------------------------------------------
+
+
+def variant_state(states: SchedState, v: int) -> SchedState:
+    """Variant v of a stacked state (views)."""
+    return SchedState(**{f: getattr(states, f)[v] for f in _STATE_FIELDS})
+
+
+def stack_states(states: "list[SchedState]") -> SchedState:
+    """Single states stacked on a new leading variant axis."""
+    return SchedState(**{f: torch.stack([getattr(s, f) for s in states])
+                         for f in _STATE_FIELDS})
+
+
+def _stack_traces(traces: list, preempts: bool) -> tuple:
+    """Per-variant traces stacked slot by slot; each variant's victim list
+    (the last slot with preemption) padded with -1 to the longest."""
+    slots = list(zip(*traces))
+    if not preempts:
+        return tuple(torch.stack(x) for x in slots)
+    vidx = slots[-1]
+    m = max(len(x) for x in vidx)
+    padded = [torch.cat([x, x.new_full((m - len(x),), -1)]) for x in vidx]
+    return tuple(torch.stack(x) for x in slots[:-1]) + (torch.stack(padded),)
+
+
+def sweep_run_plain(prog: SeqProgram, a: ClusterArrays, states0: SchedState, queue, weights,
+                    *, record: bool):
+    """The pass of each weight variant: `seq_run_plain` (step0 = 0) on
+    variant v's state and weights row, for every v. Returns (final states
+    [V, ...], and the selections [V, Q] (`final_sel` with preemption) or,
+    with `record`, the trace with every slot stacked [V, ...]: each
+    variant's victim offsets index its own victim row, padded with -1)."""
+    outs = [seq_run_plain(prog, a, variant_state(states0, v), queue, weights[v], record=record)
+            for v in range(weights.shape[0])]
+    states = stack_states([s for s, _ in outs])
+    if not record:
+        return states, torch.stack([x for _, x in outs])
+    return states, _stack_traces([t for _, t in outs], prog.preempt is not None)
+
+
+def sweep_run(prog: SeqProgram, a: ClusterArrays, states0: SchedState, queue, weights,
+              *, record: bool, grid: "int | None" = None):
+    """K11: the pass of V weight variants in one launch, as
+    `sweep_run_plain`. `weights` [V, S] in the program's score type;
+    `states0` stacked [V, ...], each field contiguous (left as it was);
+    `queue` [Q] int32, shared. `grid`: at most this many blocks (default:
+    as many as are resident at once on the card). Each variant's victim
+    record holds at most min(2 Q P, VICTIM_CAP // V) entries; a variant
+    that needs more raises."""
+    if _on_cpu(a):
+        PLAIN_CALLS["sweep_run"] += 1
+        return sweep_run_plain(prog, a, states0, queue, weights, record=record)
+    dev, dt = a.node_mask.device, prog.score_dtype
+    if dev.type not in KERNEL_DEVICE_TYPES:
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
+    b = _planes(prog, a)
+    planes, t = b.planes, b.suffix
+    F, S, N = len(prog.filters), len(prog.scores), planes.N
+    if (weights.device != dev or weights.dtype != dt or weights.dim() != 2
+            or weights.shape[1] != S or weights.shape[0] < 1 or not weights.is_contiguous()):
+        raise ValueError(f"weights: want contiguous {dt} (V >= 1, {S}) on {dev}")
+    V = weights.shape[0]
+    dims = dict(b.dims)
+    for name in _STATE_FIELDS:
+        x = getattr(states0, name)
+        if x.dim() < 1 or x.shape[0] != V or not x.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous stack of {V} variants")
+        _check_tensor(name, x[0], dims, dev, dt)
+    queue = _checked_queue(queue, planes, dev)
+    Q = queue.shape[0]
+    s = states0.clone()
+    pre = prog.preempt is not None
+    i32 = dict(dtype=torch.int32, device=dev)
+    victim_cap = min(2 * Q * planes.P, VICTIM_CAP // V) if record and pre else 0
+    out = _run_outputs(prog, (V,), Q, N, record, victim_cap, dev)
+    if Q:
+        lib = library()
+        most = int(getattr(lib, f"sweep_run_grid_{t}")(N, int(pre)))
+        if most < 1:
+            raise RuntimeError("sweep_run: the occupancy query failed")
+        blocks = min(V, most if grid is None else max(1, min(int(grid), most)))
+        names = _LAYOUT.names
+
+        def stride(x):
+            return x.stride(0) * x.element_size() if x.numel() else 0
+
+        state = _LAYOUT.State(*(getattr(s, x).data_ptr() for x in names["state_ptrs"]))
+        ss = _LAYOUT.StateStride(*(stride(getattr(s, x)) for x in names["state_ptrs"]))
+        tr = _trace_struct(out, victim_cap)
+        ts = _LAYOUT.TraceStride(*(stride(out[x]) if x in out else 0
+                                   for x in names["trace_ptrs"]))
+        feas = torch.empty((blocks, N), dtype=torch.uint8, device=dev)
+        codes_s = torch.empty((blocks, N * F), **i32)
+        raw_s = torch.empty((blocks, N * S), dtype=dt, device=dev)
+        ws = _workspace(blocks * b.ws_bytes, dev)
+        cfg = np.ascontiguousarray(prog.cfg)
+        rc = getattr(lib, f"sweep_run_{t}")(
+            cfg.ctypes.data, ctypes.addressof(planes), ctypes.addressof(state),
+            ctypes.addressof(ss), weights.data_ptr(), V, queue.data_ptr(), Q,
+            ctypes.addressof(tr), ctypes.addressof(ts), blocks, feas.data_ptr(),
+            codes_s.data_ptr(), raw_s.data_ptr(), ws.data_ptr(), b.ws_bytes, _stream(),
+        )
+        _raise_on(rc, "sweep_run")
+        LAUNCHES["sweep_run"] += 1
+    if pre:
+        status = out["status"].cpu()
+        bits = 0
+        for x in status[:, 1].tolist():
+            bits |= x
+        _raise_overflow(bits, "sweep_run")
+
+    def victims():
+        """Each variant's victim row, cut to the longest and padded with -1."""
+        m = int(status[:, 0].max())
+        vidx = out["vidx"][:, :m].clone()
+        vidx[torch.arange(m, device=dev)[None, :] >= status[:, :1].to(dev)] = -1
+        return vidx
+
+    return s, _run_result(out, pre, record, victims)

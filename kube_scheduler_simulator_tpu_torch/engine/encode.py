@@ -334,6 +334,16 @@ class EncodedCluster:
             out[self.pod_keys[p]] = self.node_names[s] if s >= 0 else ""
         return out
 
+    def decode_selection(self, sels) -> dict:
+        """[Q] queue-position-indexed selections → {(ns, name): node | ""}
+        (a pass's per-step selections)."""
+        sels = np.asarray(torch.as_tensor(sels).cpu())
+        out = {}
+        for qi, p in enumerate(self.queue):
+            s = int(sels[qi])
+            out[self.pod_keys[p]] = self.node_names[s] if s >= 0 else ""
+        return out
+
 
 def _fill_tol_rows(pod_tols, kv, L):
     """Toleration rows for a list of pods' toleration lists, interning

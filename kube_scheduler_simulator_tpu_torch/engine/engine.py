@@ -17,8 +17,10 @@ On the card the whole pass is one launch of the `seq_run` kernel
 (engine/cuda.py); on the CPU its plain PyTorch version runs. `results()`
 converts the trace host-side into the reference's exact annotation wire
 format (sched/results.py). This is the reference package's
-`engine/engine.py` with `preempt_mode="cond"`, without PACKED, chunked runs
-or sweeps. Its victim masks are recorded as CSR lists (engine/cuda.py
+`engine/engine.py` without PACKED or chunked runs; its `preempt_mode`
+("cond" or "masked") selects no other code here (the reference pins the
+two byte-identical). Sweeps over weight variants are `parallel/sweep.py`.
+Its victim masks are recorded as CSR lists (engine/cuda.py
 TRACE_SLOTS_PREEMPT), not as dense [N, P] masks.
 """
 
@@ -155,8 +157,19 @@ class BatchedScheduler:
         *,
         record: bool = True,
         strict: bool = True,
+        preempt_mode: str = "cond",
         device: "str | torch.device | None" = None,
     ):
+        # preempt_mode: how the reference gates its PostFilter dry run per
+        # step — "cond" (a branch) or "masked" (always run, outputs
+        # select-gated; what it needs under vmap). The two give the same
+        # placements and trace, and here both run the same kernel, whose
+        # step branches.
+        if preempt_mode not in ("cond", "masked"):
+            raise ValueError(
+                f"preempt_mode must be cond|masked, got {preempt_mode!r}"
+            )
+        self.preempt_mode = preempt_mode
         self.device = resolve_device(device)
         self.enc = enc = enc.to(self.device)
         self.record = record

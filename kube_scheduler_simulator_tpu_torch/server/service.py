@@ -57,11 +57,13 @@ GANG_CHUNK = 64
 
 
 def gang_chunk() -> int:
-    """The serving-path gang chunk: ``KSS_GANG_CHUNK`` when it holds an
-    integer >= 1, else `GANG_CHUNK` (a malformed value falls back, as the
-    reference's lenient knob does). Read per pass."""
+    """The serving-path gang chunk: ``KSS_GANG_CHUNK`` when `int()` takes it
+    and it is >= 1, else `GANG_CHUNK` (unset, malformed — "2.5", "1e2",
+    "inf" — or below 1 falls back, as the reference's lenient knob does).
+    Read per pass."""
+    raw = os.environ.get("KSS_GANG_CHUNK", "")
     try:
-        v = int(float(os.environ.get("KSS_GANG_CHUNK", "").strip()))
+        v = int(raw) if raw else GANG_CHUNK
     except ValueError:
         return GANG_CHUNK
     return v if v >= 1 else GANG_CHUNK

@@ -386,3 +386,35 @@ def test_gang_pass_on_the_card_matches_the_cpu(card, policy):
         for f in STATE_FIELDS:
             assert torch.equal(getattr(g._final_state, f).cpu(), getattr(p._final_state, f)), f
         assert [r.to_annotations() for r in got] == [r.to_annotations() for r in want]
+
+
+@pytest.mark.parametrize("record", [True, False], ids=["record", "no-record"])
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_sweep_matches_plain(card, policy, record):
+    """K11 sweep_run: four weight variants through WeightSweep (one launch)
+    against the plain sweep on the CPU; then a launch with fewer blocks than
+    variants (the grid-stride walk) against the first."""
+    eng = default_engine(policy)
+    base = eng.weights.cpu()
+    w = torch.stack([base, torch.ones_like(base), base * 3 + 1, base.flip(0)]).numpy()
+    sweep = kp.WeightSweep(eng.enc, record=record)
+    cuda.reset_counts()
+    states, out = sweep.run(w)
+    assert cuda.LAUNCHES["sweep_run"] == 1 and not any(cuda.PLAIN_CALLS.values())
+    cpu = kp.WeightSweep(eng.enc.to(torch.device("cpu")), record=record, device="cpu")
+    want_states, want = cpu.run(w)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(states, f).cpu(), getattr(want_states, f)), f
+    outs = out if record else (out,)
+    for g, h in zip(outs, want if record else (want,)):
+        assert g.dtype == h.dtype and torch.equal(g.cpu(), h)
+    enc = sweep.enc
+    q = torch.as_tensor(np.asarray(enc.queue, np.int32), device=enc.device)
+    wt = torch.as_tensor(w, device=enc.device).to(enc.policy.score)
+    s2, out2 = cuda.sweep_run(sweep.sched.program, enc.arrays,
+                              cuda.stack_states([enc.state0] * len(w)), q, wt, record=record,
+                              grid=2)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(s2, f), getattr(states, f)), f
+    for g, h in zip(out2 if record else (out2,), outs):
+        assert torch.equal(g, h)

@@ -4,6 +4,7 @@ take their plain versions only for tensors on the CPU."""
 
 import ast
 import pathlib
+import pkgutil
 import subprocess
 import sys
 
@@ -39,11 +40,17 @@ def test_import_leaves_jax_and_reference_out():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == ""
+    # the walk reaches every module, the sweep's and the batch runner's too
+    names = {m.name for m in pkgutil.walk_packages(kp.__path__, kp.__name__ + ".")}
+    assert {"kube_scheduler_simulator_tpu_torch.parallel.sweep",
+            "kube_scheduler_simulator_tpu_torch.scenario.batch"} <= names
 
 
 def test_no_module_imports_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    for new in ("parallel/sweep.py", "scenario/batch.py"):  # the sixth slice's
+        assert PORT / new in files, new
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -95,6 +102,8 @@ def test_wrappers_take_plain_versions_on_cpu_tensors(monkeypatch):
     sel, _ = cuda.gang_match(vals, idx, rows, live, g._order, g._claims, g._carrier,
                              eng.enc.N, a.pod_claim.shape[1], 8)
     cuda.gang_bind(eng.program, a, state, rows, live, sel, g._order)
+    # the weight sweep's (K11), once
+    kp.WeightSweep(eng.enc, device="cpu").run([eng.weights.numpy()] * 2)
     assert cuda.PLAIN_CALLS == dict.fromkeys(cuda.KERNELS, 1)
     assert cuda.LAUNCHES == dict.fromkeys(cuda.KERNELS, 0)
 

@@ -279,6 +279,39 @@ def test_run_with_preemption_matches_plain(host, policy, kind, monkeypatch):
             cuda.seq_run(*args, record=True)
 
 
+@pytest.mark.parametrize("record", [True, False], ids=["record", "no-record"])
+@pytest.mark.parametrize("kind", ["preempt", "fit"])
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_sweep_matches_plain(host, policy, kind, record):
+    """K11 sweep_run: three weight variants in one launch (one block of the
+    host build strides over them) against the per-variant plain passes;
+    on the preemption cluster dry runs fire in every variant."""
+    eng = preempt_engine(policy, "preempt", seed=4) if kind == "preempt" else engine(
+        policy, "fit", "fit", seed=2)
+    enc = eng.enc
+    q = torch.as_tensor(np.asarray(enc.queue, np.int32))
+    w = torch.stack([eng.weights, torch.ones_like(eng.weights), eng.weights * 3 + 1])
+    states0 = cuda.stack_states([enc.state0] * 3)
+    before = states0.clone()
+    args = (eng.program, enc.arrays, states0, q, w)
+    s_k, out_k = cuda.sweep_run(*args, record=record, grid=2)
+    s_p, out_p = cuda.sweep_run_plain(*args, record=record)
+    assert cuda.LAUNCHES["sweep_run"] == 1 and cuda.PLAIN_CALLS["sweep_run"] == 0
+    for f in STATE_FIELDS:
+        same(getattr(s_k, f), getattr(s_p, f), f)
+        same(getattr(states0, f), getattr(before, f), ("left as it was", f))
+    if not record:
+        same(out_k, out_p, "selections")
+        return
+    slots = cuda.TRACE_SLOTS_PREEMPT if eng.preempts else cuda.TRACE_SLOTS_PLAIN
+    assert len(out_k) == len(slots)
+    for name, g, h in zip(slots, out_k, out_p):
+        same(g, h, name)
+    if eng.preempts:
+        did = out_k[slots.index("did")]
+        assert all(bool(did[v].any()) for v in range(3))
+
+
 def test_k10_kernels_match_plain(host):
     """K10 (csrc/delta_kernels.cu): set, add (repeated indices, int32
     wrap) and vector add over bool, int32 and int64 planes with rows of

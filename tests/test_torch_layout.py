@@ -60,6 +60,8 @@ def test_layout_report_matches_mirror(layout_lib, mirror):
     assert layout_lib.seq_planes_bytes() == ctypes.sizeof(mirror.Planes)
     assert layout_lib.seq_state_bytes() == ctypes.sizeof(mirror.State)
     assert layout_lib.seq_trace_bytes() == ctypes.sizeof(mirror.Trace)
+    assert layout_lib.seq_stride_bytes() == (ctypes.sizeof(mirror.StateStride)
+                                             + ctypes.sizeof(mirror.TraceStride))
     assert mirror.names["term_domains"] == encode_rel.DOMAINS
     assert mirror.names["state_ptrs"] == cuda._STATE_FIELDS
     assert set(mirror.names["plane_ptrs"]) <= set(cuda._SPEC)

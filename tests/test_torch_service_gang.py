@@ -15,6 +15,7 @@ import json
 import pytest
 
 from kube_scheduler_simulator_tpu.server.service import SimulatorService as JSim
+from kube_scheduler_simulator_tpu.server.service import gang_chunk as j_gang_chunk
 
 from kube_scheduler_simulator_tpu_torch.server.service import (
     GANG_CHUNK,
@@ -100,9 +101,17 @@ def test_passes_after_the_queue_settles(sims):
 def test_gang_chunk_knob(monkeypatch):
     monkeypatch.delenv("KSS_GANG_CHUNK", raising=False)
     assert gang_chunk() == GANG_CHUNK == 64
-    for raw, want in (("16", 16), ("0", 64), ("banana", 64), ("8.0", 8)):
+    for raw, want in (("16", 16), ("0", 64), ("banana", 64), ("8.0", 64)):
         monkeypatch.setenv("KSS_GANG_CHUNK", raw)
         assert gang_chunk() == want, raw
+
+
+@pytest.mark.parametrize("raw", ["", "8", " 8 ", "2.5", "1e2", "0", "-3", "abc", "nan", "inf"])
+def test_gang_chunk_parses_as_the_reference(monkeypatch, raw):
+    """`int(raw)`, falling back to the default on a ValueError or a value
+    below 1, as the reference's `_coerce_env_number` does."""
+    monkeypatch.setenv("KSS_GANG_CHUNK", raw)
+    assert gang_chunk() == j_gang_chunk()
 
 
 def test_extenders_are_refused():
