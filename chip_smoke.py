@@ -17,12 +17,14 @@ through the delta encoder and its K10 row scatters. A fifth, the gang
 path, runs `GangScheduler` (rounds of all pending pods through the K9
 kernels of csrc/gang_kernels.cu, preempt phases through `seq_run`) and
 `schedule_gang()`. A sixth, the weight sweep, runs `WeightSweep` (every
-variant's pass in one launch of `sweep_run`) at BASELINE config #4. The
-plain versions of the whole passes that phases 3, 4, 4b and 5e are held
-against run on the host CPU in a second process (`chip_smoke.py
---plain-worker DIR`, started at once and stopped at the end), beside the
-card's phases; phase 4h compares. Phases, in order; any failure raises and
-the process exits non-zero:
+variant's pass in one launch of `sweep_run`) at BASELINE config #4. A
+seventh, the gang weight sweep, runs `GangSweep` (every round of every
+variant one launch of each K9 kernel, every preempt phase one `sweep_run`
+over per-variant segments). The plain versions of the whole passes that
+phases 3, 4, 4b and 5e are held against run on the host CPU in three more
+processes (`chip_smoke.py --plain-worker DIR PART`, started at once and
+stopped at the end), beside the card's phases; phase 4h compares. Phases,
+in order; any failure raises and the process exits non-zero:
 
 1. the device: its name, `nvidia-smi`'s name and power limit, the torch
    and CUDA versions;
@@ -41,9 +43,10 @@ the process exits non-zero:
    plain pass runs each dry run in small PyTorch launches, which is what
    bounds the queue). Each: `seq_attempt` at 64 pods x random states,
    `seq_bind` on those pods, `seq_run` over the whole queue (trace, final
-   state, placements); on the default path also `seq_preempt` and
-   `seq_evict` at 64 random states and the decoded records of both passes,
-   victim lists included; (K10) the three delta scatters on random bool,
+   state, placements; the plain pass runs in the fourth process and 4h
+   compares); on the default path also `seq_preempt` and `seq_evict` at 64
+   random states and the decoded records of both passes, victim lists
+   included; (K10) the three delta scatters on random bool,
    int32 and int64 planes with rows of rank 0 to 3 (repeated add indices,
    int32 wraparound, a zero-width plane), then every scatter of three delta
    passes over a dressed 256-node store under TPU32 and EXACT (arrivals from
@@ -52,12 +55,20 @@ the process exits non-zero:
    `gang_topk`, `gang_match` and `gang_bind` at random states on
    `dressed_default_cluster(256, 64)` and `dressed_affinity_cluster(256,
    2000)` (required anti-affinity carriers), TPU32 and EXACT, then one
-   whole gang pass, `run_recorded()` + `results()`, kernels against plain
-   versions on `dressed_default_cluster(256, 300)`: state, rounds, records;
+   whole gang pass, `run_recorded()` + `results()`, through the kernels on
+   `dressed_default_cluster(256, 300)` (the plain versions' pass in the
+   third process; 4h compares state, rounds, records);
    (K11) `WeightSweep.run` with and without the trace, three weight
    variants (the configuration's own, then two random) on the default
    path's cluster under TPU32 and EXACT, and one `sweep_run` launch of two
-   blocks (fewer than the variants) against the first;
+   blocks (fewer than the variants) against the first; (gang sweep) the
+   four K9 kernels at V = 3 (random per-variant states, weights and row
+   lists, one variant frozen at live 0) on the two gang clusters, TPU32 and
+   EXACT; one whole `GangSweep.run` of three variants on
+   `dressed_default_cluster(256, 300)` (its plain version in the third
+   process, compared in 4h), and `sweep_run` over its first preempt phase's
+   per-variant segments with queue positions and one more all-padding
+   variant;
 4. the fit path at full width: `schedule()` on 1,024 nodes x 10,000 pods
    (TPU32, trace recorded) with the launch counters set to 0 just before
    and read just after — the pass must launch `seq_run` and no plain
@@ -118,7 +129,20 @@ the process exits non-zero:
    5e). Then a
    preempting sweep, one variant per SM, on the 4c cluster: variant 0
    against phase 4c's final state, a dry run in every variant;
-4h. the second process's plain versions: phase 3's sweeps (every
+4i. the gang weight sweep: `GangSweep.run` of 128 variants (the
+   configuration's own weights, then integers 1-10 per plugin from seed
+   42) of config #4's cluster, TPU32, with the counters set to 0 just
+   before and read just after: each round one launch of each K9 kernel for
+   all variants, each phase one `sweep_run`, no plain call; variant 0 and
+   two sampled variants against single-variant GangScheduler(compact=False)
+   runs on the card. Then four variants of the 4c cluster (chunk 64):
+   rounds, phases, the pods each phase took, evictions in every variant;
+   variant 0 against phase 4e's GangScheduler where its own loop stops
+   where the sweep's did, else against a one-variant sweep held to the
+   sweep's phases and passes;
+4h. the plain processes' versions: phase 3's whole gang pass and gang
+   sweep (state, rounds, records; assignments, rounds, states, phases);
+   phase 3's sweeps (every
    variant's trace, victims, state and selections), phases 4's and 4b's
    passes (trace, state, placements, sampled annotations), config #4's
    variant 0 and first sampled variant (state and selections), each after
@@ -141,7 +165,12 @@ the process exits non-zero:
    of the full-width default gang (`torch.topk` and `index_add_` as the
    library calls of top-k and bind); 5e: K11 at config #4's shape (the
    plain time is variant 0's plain pass on the host CPU: one variant, not
-   V; V times it is printed as an estimate);
+   V; V times it is printed as an estimate); 5f: the K9 kernels at round
+   1 of 4i's 128 variants (`torch.topk` on [V Q, N], `index_add_` on the
+   stacked planes) and the segmented `sweep_run` of 4i's first preempt
+   phase (its time from that launch), each held against its plain version
+   first (gang_eval on 8 rows of two variants, the matching on 8 variants,
+   the phase on its first 8 steps of each segment);
 6. the card's name and power limit, then the result line.
 
 Each phase prints its seconds. It runs in 12 to 17 minutes on an H100, the
@@ -178,6 +207,14 @@ SEGMENT = 1024
 SWEEP_VARIANTS = 1000
 SWEEP_NODES, SWEEP_PODS, SWEEP_SEED = 1024, 10000, 42
 PHASE3_VARIANTS = 3
+# the gang weight sweep (phase 4i): config #4's cluster with 128 variants, and
+# the default path's preempting cluster with four
+GANGSWEEP_VARIANTS = 128
+GANGSWEEP_PREEMPT_VARIANTS = 4
+# phase 5f's plain checks: the matching of this many variants, the first steps
+# of each variant's preempt segment
+MATCH_PLAIN_VARIANTS = 8
+PHASE_PLAIN_STEPS = 8
 # the plain versions of whole passes run on the host CPU in a second process
 # (`plain_worker`), beside the card's phases; their results come back here
 PLAIN_DIR = Path(__file__).resolve().parent / "build" / "smoke"
@@ -199,6 +236,8 @@ REPLACES = {
     "gang_match": "kube_scheduler_simulator_tpu/engine/gang.py:740",
     "gang_bind": "kube_scheduler_simulator_tpu/engine/gang.py:641",
     "sweep_run": "kube_scheduler_simulator_tpu/parallel/sweep.py:113",
+    "gangsweep.vrun": "kube_scheduler_simulator_tpu/parallel/sweep.py:325",
+    "gangsweep.vphase": "kube_scheduler_simulator_tpu/parallel/sweep.py:334",
 }
 GANG_SOURCE = "kube_scheduler_simulator_tpu_torch/csrc/gang_kernels.cu"
 GANG_KERNELS = ("gang_eval", "gang_topk", "gang_match", "gang_bind")
@@ -226,7 +265,7 @@ def ptxas_report(text):
     out, name, props = [], None, ""
     for ln in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?_Z\w*?"
-                      r"(seq_(?:attempt|bind|run|preempt|evict)_kernel|sweep_run_kernel|"
+                      r"(seq_(?:attempt|bind|run|preempt|evict)_kernel|sweep_(?:run|seg)_kernel|"
                       r"gang_(?:eval|topk|match|bind)_kernel|scatter_set_kernel|"
                       r"scatter_add_kernel|vec_add_kernel)I([ixlhjm])", ln)
         if m:
@@ -371,12 +410,37 @@ def slots(prog):
     return cuda.TRACE_SLOTS_PREEMPT if prog.preempt is not None else cuda.TRACE_SLOTS_PLAIN
 
 
+def phase3_workloads(kp):
+    """Phase 3's clusters by path: (nodes, pods, {name: configuration},
+    bind random states, the encoder's extra objects)."""
+    from kube_scheduler_simulator_tpu_torch.synth import (
+        DRESSED_NAMESPACES,
+        dressed_affinity_cluster,
+        dressed_default_cluster,
+    )
+
+    nodes, pods = dressed_cluster(kp, 256, 2000, seed=11)
+    an, ap = dressed_affinity_cluster(256, 2000, seed=11)
+    dn, dp, objects = dressed_default_cluster(256, DEFAULT_PHASE3_PENDING, seed=11)
+    return {
+        "fit": (nodes, pods, configs(kp), False, {}),
+        "affinity": (an, ap, {"affinity": kp.affinity_config()}, True,
+                     {"namespaces": DRESSED_NAMESPACES}),
+        "default": (dn, dp, {"default": kp.supported_config()}, True, objects),
+    }
+
+
 def compare_kernels(kp, cuda, diff, path, nodes, pods, cfgs, bind, objects=None):
     """Phase 3: every kernel against its plain version, exact, for each
     configuration in `cfgs` under TPU32 and EXACT. With DefaultPreemption
-    enabled, `seq_preempt` and `seq_evict` at 64 random states too, and the
-    pass's decoded records (victim lists included)."""
+    enabled, `seq_preempt` and `seq_evict` at 64 random states too. The
+    whole pass's plain version runs in the fourth process: returns, by
+    (path, policy, configuration), what phase 4h holds against it
+    (`check_plain_passes`): the encoding's digest, the kernel pass's trace
+    and final state, its unrecorded selections and state, and with
+    DefaultPreemption its decoded records (victim lists included)."""
     objects = objects or {}
+    runs = {}
     for pol in (kp.TPU32, kp.EXACT):
         for cname, cfg in cfgs.items():
             enc = kp.encode_cluster(nodes, pods, cfg, policy=pol, **objects)
@@ -418,37 +482,80 @@ def compare_kernels(kp, cuda, diff, path, nodes, pods, cfgs, bind, objects=None)
                                        getattr(s1, f), getattr(s2, f))
             queue = padded_queue(eng)
             s_k, t_k = cuda.seq_run(prog, a, enc.state0, queue, w, record=True)
-            s_p, t_p = cuda.seq_run_plain(prog, a, enc.state0, queue, w, record=True)
-            for name, g, h in zip(slots(prog), t_k, t_p):
-                diff.check(path, "seq_run", f"{pol.name}/{cname} {name}", g, h)
-            for f in STATE_FIELDS:
-                diff.check(path, "seq_run", f"{pol.name}/{cname} state {f}",
-                           getattr(s_k, f), getattr(s_p, f))
             s_n, sel_n = cuda.seq_run(prog, a, enc.state0, queue, w, record=False)
-            final_sel = t_p[slots(prog).index("final_sel" if prog.preempt else "sel")]
-            diff.check(path, "seq_run", f"{pol.name}/{cname} unrecorded sel", sel_n, final_sel)
-            diff.check(path, "seq_run", f"{pol.name}/{cname} unrecorded assignment",
-                       s_n.assignment, s_p.assignment)
+            run = dict(digest=encoding_digest(enc), state=s_k, trace=t_k, unrecorded=(s_n, sel_n),
+                       slots=slots(prog))
             extra = ""
             if prog.preempt is not None:
-                # the decoded records of both passes, victim lists included
-                eng_p = kp.BatchedScheduler(enc)
                 eng._final_state, eng._trace = s_k, t_k
-                eng_p._final_state, eng_p._trace = s_p, t_p
-                if [r.to_annotations() for r in eng.results()] != [
-                        r.to_annotations() for r in eng_p.results()]:
-                    raise AssertionError(f"{path} {pol.name}: decoded records differ")
+                run["records"] = [r.to_annotations() for r in eng.results()]
                 did = t_k[slots(prog).index("did")]
                 noms = t_k[slots(prog).index("nominated")]
                 extra = (f"; 64 dry runs ({nominated} nominating) and 64 evictions at random "
                          f"states; the pass fired {int(did.sum())} dry runs, "
-                         f"{int((noms >= 0).sum())} nominating, and decodes equal")
+                         f"{int((noms >= 0).sum())} nominating")
+            runs[path, pol.name, cname] = run
             placed = int((s_k.assignment >= 0).sum()) - int((enc.state0.assignment >= 0).sum())
             codes = t_k[1][: len(enc.queue)]
             seen = [sorted(set(codes[:, :, f].unique().tolist())) for f in range(codes.shape[2])]
-            log(f"  {path:8s} {pol.name:5s} {cname:7s}: 64 attempts, 192 binds and a "
-                f"{len(queue)}-step pass equal to plain ({placed} of "
-                f"{len(enc.queue)} pending pods placed; filter codes seen {seen}){extra}")
+            log(f"  {path:8s} {pol.name:5s} {cname:7s}: 64 attempts and 192 binds equal to "
+                f"plain, a {len(queue)}-step pass ({placed} of {len(enc.queue)} pending pods "
+                f"placed; filter codes seen {seen}){extra}; its plain version in the fourth "
+                "process (4h)")
+    return runs
+
+
+def plain_passes(kp, cuda):
+    """The fourth process's part: phase 3's whole passes through the plain
+    versions on the host CPU, each path, policy and configuration (trace,
+    final state, and with DefaultPreemption the decoded records)."""
+    cpu = torch.device("cpu")
+    out = {}
+    for path, (nodes, pods, cfgs, _, objects) in phase3_workloads(kp).items():
+        for pol in (kp.TPU32, kp.EXACT):
+            for cname, cfg in cfgs.items():
+                enc = kp.encode_cluster(nodes, pods, cfg, policy=pol, device=cpu, **objects)
+                eng = kp.BatchedScheduler(enc, device=cpu)
+                t0 = time.perf_counter()
+                s_p, t_p = cuda.seq_run_plain(eng.program, enc.arrays, enc.state0,
+                                              padded_queue(eng), eng.weights, record=True)
+                run = dict(digest=encoding_digest(enc), state=_state_dict(s_p), trace=t_p,
+                           seconds=time.perf_counter() - t0)
+                if eng.program.preempt is not None:
+                    eng._final_state, eng._trace = s_p, t_p
+                    run["records"] = [r.to_annotations() for r in eng.results()]
+                out[path, pol.name, cname] = run
+    return out
+
+
+def check_plain_passes(cuda, diff, runs, plain):
+    """Phase 4h for phase 3's whole passes: each kernel pass's trace, final
+    state, unrecorded selections and state, and records against the plain
+    versions' run of the same encoding in the fourth process."""
+    secs = 0.0
+    for key, run in runs.items():
+        path, pol, cname = key
+        want = plain[key]
+        if want["digest"] != run["digest"]:
+            raise AssertionError(f"phase 3 {key}: the fourth process encoded other inputs")
+        dev = run["state"].assignment.device
+        t_p = [x.to(dev) for x in want["trace"]]
+        for name, g, h in zip(run["slots"], run["trace"], t_p):
+            diff.check(path, "seq_run", f"{pol}/{cname} {name}", g, h)
+        for f in STATE_FIELDS:
+            diff.check(path, "seq_run", f"{pol}/{cname} state {f}", getattr(run["state"], f),
+                       want["state"][f].to(dev))
+        s_n, sel_n = run["unrecorded"]
+        final_sel = t_p[run["slots"].index("final_sel" if "records" in run else "sel")]
+        diff.check(path, "seq_run", f"{pol}/{cname} unrecorded sel", sel_n, final_sel)
+        diff.check(path, "seq_run", f"{pol}/{cname} unrecorded assignment", s_n.assignment,
+                   want["state"]["assignment"].to(dev))
+        if run.get("records") != want.get("records"):
+            raise AssertionError(f"phase 3 {key}: decoded records differ")
+        secs += want["seconds"]
+    log(f"    phase 3's {len(runs)} whole passes (fit, affinity, default; TPU32 and EXACT): "
+        f"traces, final states, unrecorded selections and the default path's records equal "
+        f"the plain versions' (host CPU, {secs:.3f} s in all)")
 
 
 def padded_queue(eng):
@@ -1931,9 +2038,11 @@ def compare_gang(kp, cuda, diff, smi):
     """Phase 3 for K9: the four gang kernels against their plain versions on
     the 256-node dressed default cluster (64 pending pods) and the dressed
     affinity cluster (required anti-affinity carriers) under TPU32 and
-    EXACT; then one whole gang pass, run_recorded() + results(), through
-    the kernels and through the plain versions on dressed_default_cluster(256,
-    300), TPU32: final state, rounds and every record equal."""
+    EXACT, one variant and V = 3; then one whole gang pass, run_recorded()
+    + results(), through the kernels on dressed_default_cluster(256, 300),
+    TPU32. The plain versions' pass runs in the third process; phase 4h
+    compares final state, rounds and every record (`check_plain_gang`).
+    Returns what it needs."""
     from kube_scheduler_simulator_tpu_torch.synth import (
         DRESSED_NAMESPACES,
         dressed_affinity_cluster,
@@ -1944,35 +2053,51 @@ def compare_gang(kp, cuda, diff, smi):
     nodes, pods, objects = dressed_default_cluster(256, 64, seed=11)
     an, ap = dressed_affinity_cluster(256, 2000, seed=11)
     for pol in (kp.TPU32, kp.EXACT):
-        compare_gang_kernels(kp, cuda, diff, "gang default", kp.encode_cluster(
-            nodes, pods, kp.supported_config(), policy=pol, **objects), rng)
-        compare_gang_kernels(kp, cuda, diff, "gang affinity", kp.encode_cluster(
-            an, ap, kp.affinity_config(), policy=pol, namespaces=DRESSED_NAMESPACES), rng)
-    nodes, pods, objects = dressed_default_cluster(256, DEFAULT_PHASE3_PENDING, seed=11)
-    enc = kp.encode_cluster(nodes, pods, kp.supported_config(), policy=kp.TPU32, **objects)
+        enc_d = kp.encode_cluster(nodes, pods, kp.supported_config(), policy=pol, **objects)
+        enc_a = kp.encode_cluster(an, ap, kp.affinity_config(), policy=pol,
+                                  namespaces=DRESSED_NAMESPACES)
+        compare_gang_kernels(kp, cuda, diff, "gang default", enc_d, rng)
+        compare_gang_kernels(kp, cuda, diff, "gang affinity", enc_a, rng)
+        compare_stacked_gang(kp, cuda, diff, "gang default", enc_d, rng)
+        compare_stacked_gang(kp, cuda, diff, "gang affinity", enc_a, rng)
+    enc = gang_sweep3_encoding(kp)
     g = kp.GangScheduler(enc)
     cuda.reset_counts()
     t0 = time.perf_counter()
     got = g.results()
     torch.cuda.synchronize()
     k_s = time.perf_counter() - t0
-    counts = dict(cuda.LAUNCHES)
-    p = kp.GangScheduler(enc)
-    t0 = time.perf_counter()
-    with plain_gang(cuda):
-        want = p.results()
-    torch.cuda.synchronize()
-    p_s = time.perf_counter() - t0
-    for f in STATE_FIELDS:
-        diff.check("gang default", "gang_bind", f"whole pass state {f}",
-                   getattr(g._final_state, f), getattr(p._final_state, f))
-    if g._rounds != p._rounds or g.last_stats != p.last_stats:
-        raise AssertionError(f"whole gang pass: {g.last_stats} against plain {p.last_stats}")
-    gang_records_equal(got, want, "whole gang pass")
+    counts, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    if any(plain.values()) or counts["gang_eval"] < 1:
+        raise AssertionError(f"whole gang pass: launches {counts}, plain calls {plain}")
     log(f"  gang default  TPU32: a whole gang pass, run_recorded() + results(), on "
         f"dressed_default_cluster(256, {DEFAULT_PHASE3_PENDING}): {g.last_stats}, "
-        f"{len(got)} records; kernels {k_s:.3f} s (launches { {k: counts[k] for k in GANG_KERNELS + ('seq_run',)} }), "
-        f"plain versions {p_s:.3f} s; state, rounds and records equal [{smi}]")
+        f"{len(got)} records; kernels {k_s:.3f} s (launches "
+        f"{ {k: counts[k] for k in GANG_KERNELS + ('seq_run',)} }); the plain versions run in "
+        f"the third process (4h) [{smi}]")
+    return dict(digest=encoding_digest(enc), state=g._final_state, rounds=g._rounds,
+                stats=dict(g.last_stats), records=record_rows(got))
+
+
+def record_rows(records):
+    return [(r.pod_name, r.status, r.to_annotations()) for r in records]
+
+
+def check_plain_gang(cuda, diff, run, plain):
+    """Phase 4h for phase 3's whole gang pass: final state, rounds, the
+    engine's counts and every record against the plain versions' run."""
+    if plain["digest"] != run["digest"]:
+        raise AssertionError("phase 3 gang pass: the third process encoded other inputs")
+    dev = run["state"].assignment.device
+    for f in STATE_FIELDS:
+        diff.check("gang default", "gang_bind", f"whole pass state {f}",
+                   getattr(run["state"], f), plain["state"][f].to(dev))
+    if run["rounds"] != plain["rounds"] or run["stats"] != plain["stats"]:
+        raise AssertionError(f"whole gang pass: {run['stats']} against plain {plain['stats']}")
+    if run["records"] != plain["records"]:
+        raise AssertionError("whole gang pass: the records differ")
+    log(f"    phase 3 gang pass: state, rounds and {len(run['records'])} records equal the "
+        f"plain versions' (host CPU, {plain['seconds']:.3f} s)")
 
 
 def masked_totals(cuda, prog, a, st, w, p):
@@ -2117,7 +2242,8 @@ def gang_rows(kp, cuda, diff, run, smi):
     prog, a, w, N = g._base.program, enc.arrays, g.weights, enc.N
     C = a.pod_claim.shape[1]
     st0 = enc.state0
-    rows, count = g._pending(st0, sort=True)
+    rows, count = g._pending(cuda.as_variants(st0), sort=True)
+    rows, count = rows[0], count[:1]
     K, mw, isz = rows.shape[0], g.match_width, a.node_alloc.element_size()
     live64 = torch.tensor([64], dtype=torch.int32, device=enc.device)
     scores = cuda.gang_eval(prog, a, st0, w, rows, count, g._order)
@@ -2544,6 +2670,522 @@ def sweep_row(cuda, diff, run, plain, plain_v, smi):
 
 
 # ---------------------------------------------------------------------------
+# K9 x K11: the gang weight sweep (phases 3, 4i and its kernel rows, 5f)
+# ---------------------------------------------------------------------------
+
+
+def stacked_weights(w):
+    """Three variants' weights [3, S] from one row: w, all ones, 3 w + 1."""
+    return torch.stack([w, torch.ones_like(w), w * 3 + 1]).contiguous()
+
+
+def compare_stacked_gang(kp, cuda, diff, path, enc, rng):
+    """Phase 3 for the variant axis: gang_eval, gang_topk, gang_match (with
+    and without carriers, full width and top-k) and gang_bind at V = 3, one
+    launch each, against their plain versions (each variant alone): random
+    per-variant states, weights and row lists of 64 pods, the live counts
+    60, 0 (a frozen variant) and 64."""
+    g = kp.GangScheduler(enc)
+    g._prep()
+    prog, a, N = g._base.program, enc.arrays, enc.N
+    C = a.pod_claim.shape[1]
+    states = cuda.stack_states([random_state(enc, rng, bind=True) for _ in range(3)])
+    w = stacked_weights(g.weights)
+    K = min(64, len(enc.queue))
+    rows = torch.as_tensor(np.stack([rng.permutation(np.asarray(enc.queue))[:K]
+                                     for _ in range(3)]).astype(np.int32), device=enc.device)
+    live = torch.tensor([K - 4, 0, K], dtype=torch.int32, device=enc.device)
+    n_live = live.tolist()
+    tag = f"{path} {enc.policy.name} V=3"
+    got = cuda.gang_eval(prog, a, states, w, rows, live, g._order)
+    want = cuda.gang_eval_plain(prog, a, states, w, rows, live, g._order)
+    for v, n in enumerate(n_live):
+        diff.check("gangsweep", "gang_eval", f"{tag} variant {v} scores", got[v, :n], want[v, :n])
+    vals, idx = cuda.gang_topk(got, live, 8)
+    pv, pi = cuda.gang_topk_plain(want, live, 8)
+    for v, n in enumerate(n_live):
+        diff.check("gangsweep", "gang_topk", f"{tag} variant {v} vals", vals[v, :n], pv[v, :n])
+        diff.check("gangsweep", "gang_topk", f"{tag} variant {v} idx", idx[v, :n], pi[v, :n])
+    for kv, ki, wv, wi, mw in ((vals, idx, pv, pi, 8), (got, None, want, None, N)):
+        for carrier in (None, g._carrier):
+            args = (rows, live, g._order, g._claims, carrier, N, C, 64)
+            sel, stat = cuda.gang_match(kv, ki, *args)
+            psel, pstat = cuda.gang_match_plain(wv, wi, *args)
+            diff.check("gangsweep", "gang_match", f"{tag} width {mw} sel", sel, psel)
+            diff.check("gangsweep", "gang_match", f"{tag} width {mw} stat", stat, pstat)
+        s1 = cuda.gang_bind(prog, a, states.clone(), rows, live, sel, g._order)
+        s2 = cuda.gang_bind_plain(prog, a, states.clone(), rows, live, sel, g._order)
+        for f in STATE_FIELDS:
+            diff.check("gangsweep", "gang_bind", f"{tag} width {mw} {f}", getattr(s1, f),
+                       getattr(s2, f))
+    log(f"  {path:13s} {enc.policy.name:5s}: gang_eval, gang_topk (width 8), gang_match "
+        f"(width 8 and {N}, with and without carriers) and gang_bind at V = 3 (live "
+        f"{n_live}), one launch each, equal to plain")
+
+
+def compare_segments(cuda, diff, phase):
+    """Phase 3 for `gangsweep.vphase`: the first preempt phase of phase 3's
+    gang sweep (`phase`: its launch's inputs, each variant's pending pods
+    at the end of its gang pass with their queue positions, from the
+    variants' own states) with one more variant whose segment is all
+    padding, in one sweep_run launch, against the plain version; variant 0
+    also against seq_run_plain on its own unpadded segment."""
+    prog, a, st_in, segs, w, qpos = phase
+    V, K = segs.shape
+    segs = torch.cat([segs, segs.new_full((1, K), -1)])
+    qpos = torch.cat([qpos, qpos.new_zeros((1, K))])
+    w = torch.cat([w, w[:1]])
+    st0 = cuda.stack_states([cuda.variant_state(st_in, v) for v in range(V)]
+                            + [cuda.variant_state(st_in, 0)])
+    cuda.reset_counts()
+    s_k, sel_k = cuda.sweep_run(prog, a, st0, segs, w, record=False, qpos=qpos)
+    if cuda.LAUNCHES["sweep_run"] != 1 or any(cuda.PLAIN_CALLS.values()):
+        raise AssertionError(f"segmented sweep_run: {cuda.LAUNCHES} {cuda.PLAIN_CALLS}")
+    t0 = time.perf_counter()
+    s_p, sel_p = cuda.sweep_run_plain(prog, a, st0, segs, w, record=False, qpos=qpos)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    diff.check("gangsweep", "sweep_run", "segments selections", sel_k, sel_p)
+    for f in STATE_FIELDS:
+        diff.check("gangsweep", "sweep_run", f"segments state {f}", getattr(s_k, f),
+                   getattr(s_p, f))
+        diff.check("gangsweep", "sweep_run", f"all-padding segment state {f}",
+                   getattr(s_k, f)[V], getattr(st0, f)[V])
+    n = int((segs[0] >= 0).sum())
+    st, sel = cuda.seq_run_plain(prog, a, cuda.variant_state(st0, 0), segs[0, :n].contiguous(),
+                                 w[0], record=False, qpos=qpos[0, :n].contiguous())
+    diff.check("gangsweep", "sweep_run", "segment 0 selections", sel_k[0, :n], sel)
+    for f in STATE_FIELDS:
+        diff.check("gangsweep", "sweep_run", f"segment 0 state {f}", getattr(s_k, f)[0],
+                   getattr(st, f))
+    lengths = (segs >= 0).sum(dim=1).tolist()
+    if min(lengths[:V]) < 1 or bool((sel_k[V] >= 0).any()):
+        raise AssertionError(f"segmented sweep_run: segments of {lengths}")
+    evicted = ((s_k.assignment < 0) & (st0.assignment >= 0)).sum(dim=1).tolist()
+    bound = (sel_k >= 0).sum(dim=1).tolist()
+    log(f"  default  TPU32 sweep_run over per-variant segments (phase 3's gang sweep's first "
+        f"phase, {lengths} pods, the last all padding; queue positions): selections and states "
+        f"equal the plain version's ({plain_s:.3f} s on the card) and variant 0's own seq_run "
+        f"segment; pods bound {bound}, evictions {evicted}")
+
+
+def gang_sweep3_encoding(kp, device=None):
+    return phase3_sweep_encoding(kp, kp.TPU32, device)
+
+
+def compare_gang_sweep3(kp, cuda, diff):
+    """Phase 3: one whole GangSweep.run of three variants (the
+    configuration's own weights, then two random) on
+    dressed_default_cluster(256, 300) under supported_config(), TPU32,
+    through the kernels. The plain sweep runs in the second process; phase
+    4h compares (`check_plain_gang_sweep`)."""
+    enc = gang_sweep3_encoding(kp)
+    w = sweep_weights(kp, enc, PHASE3_VARIANTS, seed=3)
+    sweep = kp.GangSweep(enc)
+    cap = PhaseCapture(cuda)
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    with cap:
+        asg, rounds = sweep.run(w)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    stats = dict(sweep.last_stats)
+    check_gang_sweep_launches(sweep, stats, counts, plain, "phase 3 gang sweep")
+    if cap.first is None:
+        raise AssertionError(f"phase 3 gang sweep ran no preempt phase: {stats}")
+    log(f"  default  TPU32 GangSweep.run: {PHASE3_VARIANTS} variants on "
+        f"dressed_default_cluster(256, {DEFAULT_PHASE3_PENDING}) in {secs:.3f} s: rounds "
+        f"{rounds.tolist()}, {stats['phases']} phases binding {stats['phase_bound']}; "
+        f"launches { {k: counts[k] for k in GANG_KERNELS + ('sweep_run',)} }")
+    compare_segments(cuda, diff, cap.first[0])
+    return dict(digest=encoding_digest(enc), w=w, asg=asg, rounds=rounds, stats=stats,
+                states=sweep._states)
+
+
+def check_plain_gang_sweep(cuda, diff, run, plain):
+    """Phase 4h for phase 3's gang sweep: assignments, rounds, every state
+    field and the sweep's counts against the plain sweep's."""
+    if plain["digest"] != run["digest"] or not np.array_equal(plain["w"], run["w"]):
+        raise AssertionError("phase 3 gang sweep: the second process ran other inputs")
+    dev = run["asg"].device
+    diff.check("gangsweep", "gang_bind", "phase 3 sweep assignments", run["asg"],
+               plain["asg"].to(dev))
+    diff.check("gangsweep", "gang_match", "phase 3 sweep rounds", run["rounds"],
+               plain["rounds"].to(dev))
+    for f in STATE_FIELDS:
+        diff.check("gangsweep", "sweep_run", f"phase 3 sweep state {f}",
+                   getattr(run["states"], f), plain["states"][f].to(dev))
+    drop = ("host_syncs",)  # the plain versions' sweep_run reads back no status
+    if {k: v for k, v in run["stats"].items() if k not in drop} != {
+            k: v for k, v in plain["stats"].items() if k not in drop}:
+        raise AssertionError(f"phase 3 gang sweep: {run['stats']} against plain {plain['stats']}")
+    log(f"    phase 3 gang sweep: {PHASE3_VARIANTS} variants' assignments, rounds, states and "
+        f"phases equal the plain sweep's (host CPU, {plain['seconds']:.3f} s)")
+
+
+def check_gang_sweep_launches(sweep, stats, counts, plain, what):
+    """Each round one launch of each K9 kernel for every variant of a group
+    (gang_topk below full width only), each phase one sweep_run launch, no
+    plain call."""
+    n_rounds = stats["host_syncs"] - stats["phases"]
+    topk = n_rounds if sweep.gang.match_width < sweep.enc.N else 0
+    want = {**dict.fromkeys(counts, 0), "gang_eval": n_rounds, "gang_match": n_rounds,
+            "gang_bind": n_rounds, "gang_topk": topk, "sweep_run": stats["phases"]}
+    if counts != want or any(plain.values()):
+        raise AssertionError(f"{what}: launches {counts} (want {want}), plain calls {plain}")
+
+
+class PhaseCapture(Swap):
+    """The first per-variant (preempt phase) sweep_run call: its inputs
+    (the stacked states copied) and its device ms from CUDA events."""
+
+    def __init__(self, cuda):
+        self.first = None
+
+        def make(f):
+            def call(prog, a, states, queue, weights, **kw):
+                if self.first is not None or queue.dim() != 2:
+                    return f(prog, a, states, queue, weights, **kw)
+                inputs = (prog, a, states.clone(), queue, weights, kw.get("qpos"))
+                e0, e1 = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                e0.record()
+                out = f(prog, a, states, queue, weights, **kw)
+                e1.record()
+                self.first = (inputs, e0, e1)
+                return out
+            return call
+
+        super().__init__(cuda, {"sweep_run": make})
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return self.first[1].elapsed_time(self.first[2])
+
+
+def timed_gang_sweep(cuda, sweep, w, what, capture=None):
+    """`sweep.run(w)` with the counters set to 0 just before and read just
+    after, each round one launch of each K9 kernel and each phase one
+    sweep_run (`check_gang_sweep_launches`). Returns a dict: assignments,
+    rounds, wall s, peak bytes, launches, the sweep's counts."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    if capture is not None:
+        with capture:
+            asg, rounds = sweep.run(w)
+    else:
+        asg, rounds = sweep.run(w)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    stats = dict(sweep.last_stats)
+    check_gang_sweep_launches(sweep, stats, counts, plain, what)
+    if any(x != 1 for x in stats["groups"]):
+        raise AssertionError(f"{what}: the variants ran in groups {stats['groups']}")
+    return dict(asg=asg, rounds=rounds, wall=wall, peak=torch.cuda.max_memory_allocated() - base,
+                counts=counts, stats=stats)
+
+
+def own_loop(stats, v):
+    """(phases, passes) variant v's own GangScheduler loop would have run:
+    it stops before a phase with nothing pending and after a phase that
+    binds nothing."""
+    phases, passes = 0, 1
+    for pend, got in zip(stats["phase_pending"], stats["phase_bound"]):
+        if pend[v] == 0:
+            break
+        phases += 1
+        if got[v] == 0:
+            break
+        passes += 1
+    return phases, passes
+
+
+def drive_gang_sweep(kp, cuda, diff, sweep4g, gang4e, smi):
+    """Phase 4i: the gang weight sweep at full width, TPU32. (a) config #4's
+    cluster (phase 4g's encoding) with GANGSWEEP_VARIANTS variants through
+    GangSweep.run: one launch of each K9 kernel a round for every variant,
+    one sweep_run a phase, no plain call; variant 0 and two sampled
+    variants against single-variant GangScheduler(enc, compact=False) runs
+    on the card. (b) the 4c cluster, GangSweep(enc, chunk=64), four
+    variants: rounds, phases, the pods each phase took; variant 0 against
+    phase 4e's GangScheduler where its own loop stops where the sweep did,
+    else against a one-variant sweep held to the sweep's phases; evictions
+    in every variant."""
+    enc = sweep4g["enc"]
+    w = sweep_weights(kp, enc, GANGSWEEP_VARIANTS, seed=SWEEP_SEED)
+    sweep = kp.GangSweep(enc)
+    run = timed_gang_sweep(cuda, sweep, w, "4i(a)")
+    V, Q = w.shape[0], len(enc.queue)
+    r = run["rounds"].cpu().numpy()
+    st = run["stats"]
+    placed = (run["asg"][:, torch.as_tensor(np.asarray(enc.queue), device=enc.device)] >= 0).sum(
+        dim=1).cpu().numpy()
+    log(f"    GangSweep.run: {V} variants x {Q} pods on {enc.N} nodes in {run['wall']:.3f} s wall, "
+        f"{V * Q / run['wall']:.1f} decisions/s; rounds per variant min/median/max "
+        f"{r.min()}/{int(np.median(r))}/{r.max()} (round launches {st['host_syncs'] - st['phases']}, "
+        f"each over all {V} variants); {st['phases']} phases (segments of "
+        f"{max(st['phase_pending'][0]) if st['phases'] else 0} pods at most, binding "
+        f"{sum(map(sum, st['phase_bound']))}); placed {placed.min()}..{placed.max()} of {Q}; peak "
+        f"memory {run['peak'] / 2**30:.3f} GiB above what was held; variant groups "
+        f"{st['groups']}; launches { {k: run['counts'][k] for k in GANG_KERNELS + ('sweep_run',)} }, "
+        f"plain calls none [{smi}]")
+    picked = sampled_variants(V)
+    for v in [0] + picked:
+        g = kp.GangScheduler(enc, compact=False)
+        state_v, rounds_v = g.run(torch.as_tensor(w[v]))
+        diff.check("gangsweep", "gang_bind", f"4i(a) variant {v} assignment", run["asg"][v],
+                   state_v.assignment)
+        for f in STATE_FIELDS:
+            diff.check("gangsweep", "gang_bind", f"4i(a) variant {v} state {f}",
+                       getattr(sweep._states, f)[v], getattr(state_v, f))
+        if rounds_v != int(r[v]):
+            raise AssertionError(f"4i(a) variant {v}: {int(r[v])} rounds, alone {rounds_v}")
+    log(f"    variants {[0] + picked} equal single-variant GangScheduler(compact=False) runs on "
+        f"the card: state and rounds")
+    out = dict(a=dict(enc=enc, w=w, sweep=sweep, **run))
+
+    # (b) the preempting gang sweep on the 4c cluster
+    enc_d = gang4e["enc"]
+    w_d = sweep_weights(kp, enc_d, GANGSWEEP_PREEMPT_VARIANTS, seed=7)
+    sweep_d = kp.GangSweep(enc_d, chunk=64)
+    cap = PhaseCapture(cuda)
+    run_d = timed_gang_sweep(cuda, sweep_d, w_d, "4i(b)", capture=cap)
+    st_d = run_d["stats"]
+    Qd = len(enc_d.queue)
+    if st_d["phases"] < 1 or cap.first is None:
+        raise AssertionError(f"4i(b): no preempt phase ran: {st_d}")
+    pre = enc_d.state0.assignment >= 0
+    evicted = ((run_d["asg"] < 0) & pre[None, :]).sum(dim=1).tolist()
+    if min(evicted) < 1:
+        raise AssertionError(f"4i(b): a variant evicted nothing: {evicted}")
+    phase_ms = cap.ms()
+    log(f"    preempting GangSweep.run: {GANGSWEEP_PREEMPT_VARIANTS} variants x {Qd} pods on the "
+        f"4c cluster (chunk 64) in {run_d['wall']:.3f} s wall, "
+        f"{GANGSWEEP_PREEMPT_VARIANTS * Qd / run_d['wall']:.1f} decisions/s; rounds "
+        f"{run_d['rounds'].tolist()}; {st_d['phases']} phases over {st_d['passes']} passes: "
+        f"segments {st_d['phase_pending']}, pods bound {st_d['phase_bound']}; the first "
+        f"phase's sweep_run {phase_ms:.1f} ms on the card; pre-bound pods evicted {evicted}; "
+        f"peak memory {run_d['peak'] / 2**30:.3f} GiB; launches "
+        f"{ {k: run_d['counts'][k] for k in GANG_KERNELS + ('sweep_run',)} }, plain calls none "
+        f"[{smi}]")
+    own = own_loop(st_d, 0)
+    g4 = gang4e["g"]
+    if own == (st_d["phases"], st_d["passes"]):
+        for f in STATE_FIELDS:
+            diff.check("gangsweep", "sweep_run", f"4i(b) variant 0 against 4e {f}",
+                       getattr(sweep_d._states, f)[0], getattr(g4._final_state, f))
+        if int(run_d["rounds"][0]) != gang4e["rounds"]:
+            raise AssertionError(f"4i(b) variant 0: {int(run_d['rounds'][0])} rounds, phase 4e "
+                                 f"{gang4e['rounds']}")
+        log(f"    variant 0's own loop stops where the sweep did ({own[0]} phases): its state and "
+            f"rounds equal phase 4e's GangScheduler")
+    else:
+        held = kp.GangSweep(enc_d, chunk=64)
+        held._hold = (st_d["phases"], st_d["passes"])
+        asg_h, rounds_h = held.run(w_d[:1])
+        for f in STATE_FIELDS:
+            diff.check("gangsweep", "sweep_run", f"4i(b) variant 0 held {f}",
+                       getattr(sweep_d._states, f)[0], getattr(held._states, f)[0])
+        if int(rounds_h[0]) != int(run_d["rounds"][0]):
+            raise AssertionError("4i(b) variant 0 differs from its held one-variant sweep")
+        log(f"    variant 0's own loop would stop after {own[0]} phases and {own[1]} passes, the "
+            f"sweep ran {st_d['phases']} and {st_d['passes']}: its state and rounds equal a "
+            f"one-variant sweep held to those (phase 4e's GangScheduler: {gang4e['rounds']} "
+            f"rounds)")
+    out["b"] = dict(enc=enc_d, w=w_d, sweep=sweep_d, capture=cap.first[0], phase_ms=phase_ms,
+                    **run_d)
+    return out
+
+
+def stacked_bind_lib(enc, rows, sel, order):
+    """bind_all of every variant as PyTorch calls on the stacked planes: the
+    committed rows gathered beforehand, index_add_ at variant v's node n as
+    row v N + n of each plane viewed [V N, ...]; the claim counts summed
+    per variant; assignment and bound_seq set. Returns the call."""
+    a = enc.arrays
+    V, N, P = rows.shape[0], enc.N, enc.P
+    keep = sel >= 0
+    var = torch.arange(V, device=enc.device)[:, None].expand_as(rows)[keep]
+    pods, tgt = rows[keep].long(), sel[keep].long()
+    flat = var * N + tgt
+    srcs = {f: getattr(a, src)[pods] for f, src in (
+        ("requested", "pod_req"), ("s_requested", "pod_sreq"), ("used_pair", "want_pair"),
+        ("used_wild", "want_wild"), ("used_trip", "want_trip"),
+        ("node_disk_any", "pod_disk_any"), ("node_disk_rw", "pod_disk_rw"),
+        ("node_vol3", "pod_vol3"))}
+    ones = torch.ones_like(flat, dtype=torch.int32)
+    claims = a.pod_claim[pods].to(torch.int32)
+    at = var * P + pods
+    seqs = order[pods] + P
+    tgt32 = tgt.to(torch.int32)
+
+    def call(st):
+        for f, src in srcs.items():
+            x = getattr(st, f)
+            x.view(V * N, *x.shape[2:]).index_add_(0, flat, src)
+        st.n_pods.view(V * N).index_add_(0, flat, ones)
+        st.used_claims.index_add_(0, var, claims)
+        st.assignment.view(V * P).index_put_((at,), tgt32)
+        st.bound_seq.view(V * P).index_put_((at,), seqs)
+
+    return call
+
+
+def gangsweep_rows(kp, cuda, diff, run, smi):
+    """Phase 5f: the four K9 kernels at round 1 of phase 4i(a) (V variants,
+    every queue pod pending) and sweep_run over the per-variant segments of
+    phase 4i(b)'s first phase. Each is held against its plain version
+    first: top-k and bind at the whole round, match on its first
+    MATCH_PLAIN_VARIANTS variants; gang_eval on the first 8 rows of
+    variants 0 and 1 (its plain version takes tens of ms a pod); the phase
+    on the first PHASE_PLAIN_STEPS steps of each variant's segment from the
+    phase's own start state (its plain version runs every dry run in small
+    launches). ms: CUDA events; the phase's from phase 4i(b)'s own
+    launch. Bounds: bytes over 3.35 TB/s or operations over 67 TFLOP/s,
+    the larger. Library calls: torch.topk on [V Q, N]; index_add_ for
+    bind."""
+    ra = run["a"]
+    enc, w, sweep = ra["enc"], ra["w"], ra["sweep"]
+    g = sweep.gang
+    prog, a, N = g._base.program, enc.arrays, enc.N
+    C, V, mw = a.pod_claim.shape[1], w.shape[0], g.match_width
+    isz = a.node_alloc.element_size()
+    W = torch.as_tensor(w, device=enc.device).to(enc.policy.score)
+    states0 = cuda.stack_states([enc.state0] * V)
+    rows, count = g._pending(states0, sort=True)
+    rows = rows.contiguous()
+    K = rows.shape[1]
+    scores = cuda.gang_eval(prog, a, states0, W, rows, count, g._order)
+    eight = torch.tensor([8], dtype=torch.int32, device=enc.device)
+    for v in (0, 1):
+        one = cuda.stack_states([enc.state0])
+        want = cuda.gang_eval_plain(prog, a, one, W[v:v + 1], rows[v:v + 1, :8], eight, g._order)
+        diff.check("gangsweep", "gang_eval", f"round 1 variant {v}, 8 rows", scores[v, :8],
+                   want[0])
+    eval_ms = events_ms(lambda: cuda.gang_eval(prog, a, states0, W, rows, count, g._order), 1, 1)
+    eval_plain_ms = events_ms(lambda: cuda.gang_eval_plain(
+        prog, a, cuda.stack_states([enc.state0]), W[:1], rows[:1, :8], eight, g._order), 1, 1)
+    st_mid = enc.state0
+    sample = np.random.default_rng(5).choice(np.asarray(enc.queue), 64, replace=False)
+    per_row = statistics.mean(attempt_cost(enc, prog, st_mid, int(p), g.weights)[1]
+                              for p in sample.tolist())
+    state_bytes = nbytes(*(getattr(enc.state0, f) for f in STATE_FIELDS))
+    b_eval = bound(cluster_bytes(enc) + V * state_bytes + V * K * N * isz, per_row * V * K)
+    vals, idx = cuda.gang_topk(scores, count, mw)
+    pv, pi = cuda.gang_topk_plain(scores, count, mw)
+    diff.check("gangsweep", "gang_topk", "round 1 vals", vals, pv)
+    diff.check("gangsweep", "gang_topk", "round 1 idx", idx, pi)
+    del pv, pi
+    topk_ms = events_ms(lambda: cuda.gang_topk(scores, count, mw), 1, 3)
+    topk_plain_ms = events_ms(lambda: cuda.gang_topk_plain(scores, count, mw), 1, 1)
+    flat = scores.view(V * K, N)
+    topk_lib_ms = events_ms(lambda: torch.topk(flat, mw, dim=1), 1, 3)
+    b_topk = bound(V * K * N * isz + V * K * mw * (isz + 4), V * K * N)
+    args = (rows, count, g._order, g._claims, g._carrier, N, C, g.inner_iters)
+    sel, stat = cuda.gang_match(vals, idx, *args)
+    sub = slice(0, MATCH_PLAIN_VARIANTS)  # the plain matching walks its variants one by one
+    sub_args = (rows[sub], count[sub]) + args[2:]
+    psel, pstat = cuda.gang_match_plain(vals[sub], idx[sub], *sub_args)
+    diff.check("gangsweep", "gang_match", "round 1 sel", sel[sub], psel)
+    diff.check("gangsweep", "gang_match", "round 1 stat", stat[sub], pstat)
+    match_ms = events_ms(lambda: cuda.gang_match(vals, idx, *args), 1, 3)
+    match_plain_ms = events_ms(lambda: cuda.gang_match_plain(vals[sub], idx[sub], *sub_args),
+                               1, 1)
+    b_match = bound(V * (K * mw * (isz + 4) + K * 4 * 3) + 4 * K, V * K * mw)
+    del scores, flat
+    s1 = cuda.gang_bind(prog, a, states0.clone(), rows, count, sel, g._order)
+    s2 = cuda.gang_bind_plain(prog, a, states0.clone(), rows, count, sel, g._order)
+    for f in STATE_FIELDS:
+        diff.check("gangsweep", "gang_bind", f"round 1 {f}", getattr(s1, f), getattr(s2, f))
+    lib = stacked_bind_lib(enc, rows, sel, g._order)
+    s3 = states0.clone()
+    lib(s3)
+    if not all(torch.equal(getattr(s3, f), getattr(s1, f)) for f in STATE_FIELDS):
+        raise AssertionError("the index_add_ form of the stacked gang_bind disagrees")
+    committed = int(stat[:, 0].sum())
+    st_b, st_p, st_l = states0.clone(), states0.clone(), states0.clone()
+    bind_ms = events_ms(lambda: cuda.gang_bind(prog, a, st_b, rows, count, sel, g._order), 5)
+    bind_plain_ms = events_ms(lambda: cuda.gang_bind_plain(prog, a, st_p, rows, count, sel,
+                                                           g._order), 1, 3)
+    bind_lib_ms = events_ms(lambda: lib(st_l), 5)
+    pod_row = nbytes(a.pod_req[0], a.pod_sreq[0], a.want_pair[0], a.want_wild[0],
+                     a.want_trip[0], a.pod_claim[0], a.pod_disk_any[0], a.pod_disk_rw[0],
+                     a.pod_vol3[0])
+    node_row = nbytes(enc.state0.requested[0], enc.state0.s_requested[0],
+                      enc.state0.used_pair[0], enc.state0.used_wild[0], enc.state0.used_trip[0],
+                      enc.state0.node_disk_any[0], enc.state0.node_disk_rw[0],
+                      enc.state0.node_vol3[0], enc.state0.n_pods[0])
+    b_bind = bound(4 * 3 * V * K + committed * (pod_row + 2 * node_row + 8),
+                   committed * (pod_row // 4 + 2))
+    log(f"    K9 at round 1 of phase 4i(a): {V} variants x {K} pending rows, {committed} "
+        f"commits in all; one launch of each kernel [{smi}]")
+
+    # the first preempt phase of 4i(b), from its own start state
+    rb = run["b"]
+    (prog_b, a_b, st_in, segs, w_b, qpos), phase_ms = rb["capture"], rb["phase_ms"]
+    enc_b = rb["enc"]
+    cut = min(PHASE_PLAIN_STEPS, segs.shape[1])
+    s_k, sel_k = cuda.sweep_run(prog_b, a_b, st_in, segs[:, :cut].contiguous(), w_b,
+                                record=False, qpos=qpos[:, :cut].contiguous())
+    t0 = time.perf_counter()
+    s_p, sel_p = cuda.sweep_run_plain(prog_b, a_b, st_in, segs[:, :cut].contiguous(), w_b,
+                                      record=False, qpos=qpos[:, :cut].contiguous())
+    torch.cuda.synchronize()
+    phase_plain_ms = (time.perf_counter() - t0) * 1e3
+    diff.check("gangsweep", "sweep_run", f"first phase, {cut} steps, selections", sel_k, sel_p)
+    for f in STATE_FIELDS:
+        diff.check("gangsweep", "sweep_run", f"first phase, {cut} steps, state {f}",
+                   getattr(s_k, f), getattr(s_p, f))
+    Vb = segs.shape[0]
+    steps = int((segs >= 0).sum())
+    st_b0 = cuda.variant_state(st_in, 0)
+    step_ops = ops_per_node(enc_b, prog_b) * enc_b.N + rel_reads(
+        enc_b, prog_b, st_b0, int(segs[0, 0]))[1]
+    state_b = nbytes(*(getattr(enc_b.state0, f) for f in STATE_FIELDS))
+    b_phase = bound(cluster_bytes(enc_b) + 2 * Vb * state_b + 2 * segs.numel() * 4
+                    + w_b.numel() * w_b.element_size() + 4 * 2 * segs.numel(), step_ops * steps)
+    log(f"    sweep_run at 4i(b)'s first phase: {Vb} variants' segments of "
+        f"{(segs >= 0).sum(dim=1).tolist()} pods ({steps} steps) in {phase_ms:.3f} ms; the "
+        f"first {cut} steps of each equal the plain version ({phase_plain_ms:.1f} ms on the "
+        f"card for those) [{smi}]")
+    rows_out = []
+    launches = ra["counts"]
+    for name, ms, plain_ms, b, lib_ms, shape, basis, n_launch, path in (
+            ("gang_eval", eval_ms, eval_plain_ms, b_eval, None, f"{V} x {K} rows",
+             "8 rows of one variant", launches["gang_eval"], "gangsweep config4"),
+            ("gang_topk", topk_ms, topk_plain_ms, b_topk, topk_lib_ms, f"{V} x {K} x {N} -> {mw}",
+             None, launches["gang_topk"], "gangsweep config4"),
+            ("gang_match", match_ms, match_plain_ms, b_match, None, f"{V} x {K} x {mw}",
+             f"{MATCH_PLAIN_VARIANTS} of the {V} variants", launches["gang_match"],
+             "gangsweep config4"),
+            ("gang_bind", bind_ms, bind_plain_ms, b_bind, bind_lib_ms, f"{committed} commits",
+             None, launches["gang_bind"], "gangsweep config4"),
+            ("sweep_run", phase_ms, phase_plain_ms, b_phase, None, f"{Vb} x {segs.shape[1]} steps",
+             f"the first {cut} steps of each segment", rb["counts"]["sweep_run"],
+             "gangsweep phase")):
+        row = {"name": name, "path": path, "route": "cuda",
+               "source": SOURCE if name == "sweep_run" else GANG_SOURCE,
+               "replaces": REPLACES["gangsweep.vphase" if name == "sweep_run"
+                                    else "gangsweep.vrun"],
+               "launches": n_launch, "max_abs_err": diff.err[("gangsweep", name)], "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms,
+               "shape": shape}
+        if basis:
+            row["plain_basis"] = basis
+        rows_out.append(row)
+        log(f"    {path:17s} {name:10s} {ms:.6f} ms at {shape} (plain {plain_ms:.3f} ms"
+            + (f" for {basis}" if basis else "") + f", bound {b[0]:.7f} ms by {b[1]}, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.6f} ms'}), {n_launch} launches on the "
+            f"main path [{smi}]")
+    return rows_out
+
+
+# ---------------------------------------------------------------------------
 # the second process: the plain versions of whole passes on the host CPU
 # ---------------------------------------------------------------------------
 
@@ -2552,11 +3194,13 @@ def _state_dict(st):
     return {f: getattr(st, f).cpu() for f in STATE_FIELDS}
 
 
-def plain_worker(out_dir):
+def plain_worker(out_dir, part):
     """Run the plain versions the card's phases are held against, on the
-    host CPU, and save each result to `out_dir` as it is ready: phase 3's
-    sweeps, phase 4's and 4b's passes, config #4's variant 0 and first
-    sampled variant."""
+    host CPU, and save each result to `out_dir` as it is ready. Part "a":
+    phase 3's sweeps, phase 4's and 4b's passes, config #4's variant 0 and
+    first sampled variant; part "b" (a process of its own beside it): phase
+    3's whole gang pass and gang sweep; part "c": phase 3's whole sequential
+    passes."""
     torch.set_num_threads(PLAIN_THREADS)
     import kube_scheduler_simulator_tpu_torch as kp
     from kube_scheduler_simulator_tpu_torch.engine import cuda
@@ -2568,9 +3212,28 @@ def plain_worker(out_dir):
         tmp = out_dir / f"{name}.tmp"
         torch.save(obj, tmp)
         os.replace(tmp, out_dir / f"{name}.pt")
-        log(f"plain worker: {name} saved at {time.perf_counter() - t_start:.1f} s")
+        log(f"plain worker {part}: {name} saved at {time.perf_counter() - t_start:.1f} s")
 
     t_start = time.perf_counter()
+    if part == "c":
+        save("passes3", plain_passes(kp, cuda))
+        return
+    if part == "b":
+        enc = gang_sweep3_encoding(kp, cpu)
+        g = kp.GangScheduler(enc, device=cpu)
+        t0 = time.perf_counter()
+        records = record_rows(g.results())
+        save("gang3", dict(digest=encoding_digest(enc), state=_state_dict(g._final_state),
+                           rounds=g._rounds, stats=dict(g.last_stats), records=records,
+                           seconds=time.perf_counter() - t0))
+        w = sweep_weights(kp, enc, PHASE3_VARIANTS, seed=3)
+        sweep = kp.GangSweep(enc, device=cpu)
+        t0 = time.perf_counter()
+        asg, rounds = sweep.run(w)
+        save("gangsweep3", dict(digest=encoding_digest(enc), w=w, asg=asg, rounds=rounds,
+                                stats=dict(sweep.last_stats), states=_state_dict(sweep._states),
+                                seconds=time.perf_counter() - t0))
+        return
     sweeps = {}
     for pol in (kp.TPU32, kp.EXACT):
         enc = phase3_sweep_encoding(kp, pol, cpu)
@@ -2620,37 +3283,51 @@ def _die_with_parent():
     ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGKILL)
 
 
+PLAIN_PARTS = {"a": ("sweep3", "fit", "affinity", "config4", "config4_sampled"),
+               "b": ("gang3", "gangsweep3"), "c": ("passes3",)}
+
+
 class PlainWorker:
-    """The second process (`chip_smoke.py --plain-worker DIR`), started at
-    once; `result(name)` waits for one of its results."""
+    """The plain versions' processes (`chip_smoke.py --plain-worker DIR
+    PART`, one a part of `PLAIN_PARTS`), started at once; `result(name)`
+    waits for one of their results."""
 
     def __init__(self):
         PLAIN_DIR.mkdir(parents=True, exist_ok=True)
         for f in PLAIN_DIR.glob("*"):
             f.unlink()
-        self.log_path = PLAIN_DIR / "worker.log"
-        self.log = open(self.log_path, "w")
-        self.proc = subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--plain-worker", str(PLAIN_DIR)],
-            stdout=self.log, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent,
-            preexec_fn=_die_with_parent)
+        self.logs, self.procs = {}, {}
+        for part in PLAIN_PARTS:
+            path = PLAIN_DIR / f"worker_{part}.log"
+            self.logs[part] = (path, open(path, "w"))
+            self.procs[part] = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--plain-worker",
+                 str(PLAIN_DIR), part],
+                stdout=self.logs[part][1], stderr=subprocess.STDOUT,
+                cwd=Path(__file__).resolve().parent, preexec_fn=_die_with_parent)
 
     def result(self, name, deadline):
+        part = next(p for p, names in PLAIN_PARTS.items() if name in names)
+        proc, log_path = self.procs[part], self.logs[part][0]
         path = PLAIN_DIR / f"{name}.pt"
         while not path.exists():
-            if self.proc.poll() is not None and not path.exists():
-                raise RuntimeError(f"the plain worker exited ({self.proc.returncode}) without "
-                                   f"{name}:\n{self.log_path.read_text()[-4000:]}")
+            if proc.poll() is not None and not path.exists():
+                raise RuntimeError(f"plain worker {part} exited ({proc.returncode}) without "
+                                   f"{name}:\n{log_path.read_text()[-4000:]}")
             if time.perf_counter() > deadline:
-                raise RuntimeError(f"the plain worker did not produce {name} in time")
+                raise RuntimeError(f"plain worker {part} did not produce {name} in time")
             time.sleep(0.5)
         return torch.load(path, map_location="cpu", weights_only=False)
 
+    def log_lines(self):
+        return [ln for path, _ in self.logs.values() for ln in path.read_text().splitlines()]
+
     def stop(self):
-        if self.proc.poll() is None:
-            self.proc.kill()
-        self.proc.wait()
-        self.log.close()
+        for part, proc in self.procs.items():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            self.logs[part][1].close()
 
 
 class Phases:
@@ -2668,8 +3345,8 @@ class Phases:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--plain-worker":
-        plain_worker(sys.argv[2])
+    if len(sys.argv) == 4 and sys.argv[1] == "--plain-worker":
+        plain_worker(sys.argv[2], sys.argv[3])
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2686,11 +3363,6 @@ def main() -> int:
 
 def run_phases(kp, worker) -> int:
     from kube_scheduler_simulator_tpu_torch.engine import cuda, scatter
-    from kube_scheduler_simulator_tpu_torch.synth import (
-        DRESSED_NAMESPACES,
-        dressed_affinity_cluster,
-        dressed_default_cluster,
-    )
 
     ph = Phases()
     t_start = ph.t_start
@@ -2717,17 +3389,13 @@ def run_phases(kp, worker) -> int:
     # -- 3. kernels vs plain ----------------------------------------------
     log("[3] kernels against their plain versions on the card (exact equality)")
     diff = Diff()
-    nodes, pods = dressed_cluster(kp, 256, 2000, seed=11)
-    compare_kernels(kp, cuda, diff, "fit", nodes, pods, configs(kp), bind=False)
-    nodes, pods = dressed_affinity_cluster(256, 2000, seed=11)
-    compare_kernels(kp, cuda, diff, "affinity", nodes, pods, {"affinity": kp.affinity_config()},
-                    bind=True, objects={"namespaces": DRESSED_NAMESPACES})
-    nodes, pods, objects = dressed_default_cluster(256, DEFAULT_PHASE3_PENDING, seed=11)
-    compare_kernels(kp, cuda, diff, "default", nodes, pods, {"default": kp.supported_config()},
-                    bind=True, objects=objects)
+    passes3 = {}
+    for path, (nodes, pods, cfgs, bind, objects) in phase3_workloads(kp).items():
+        passes3.update(compare_kernels(kp, cuda, diff, path, nodes, pods, cfgs, bind, objects))
     sweep3 = compare_sweep(kp, cuda, diff)
     compare_k10(kp, scatter, diff)
-    compare_gang(kp, cuda, diff, smi)
+    gang3 = compare_gang(kp, cuda, diff, smi)
+    gsweep3 = compare_gang_sweep3(kp, cuda, diff)
     ph.done("3")
 
     # -- 4. the fit path at full width --------------------------------------
@@ -2786,10 +3454,20 @@ def run_phases(kp, worker) -> int:
     sweep = drive_sweep(kp, cuda, diff, dflt, smi)
     ph.done("4g")
 
+    # -- 4i. the gang weight sweep ---------------------------------------------
+    log(f"[4i] gang weight sweep at full width: GangSweep.run of {GANGSWEEP_VARIANTS} variants "
+        f"of config #4's cluster, then {GANGSWEEP_PREEMPT_VARIANTS} variants of the 4c cluster "
+        "(chunk 64), supported_config(), TPU32")
+    gsweep = drive_gang_sweep(kp, cuda, diff, sweep, gang, smi)
+    ph.done("4i")
+
     # -- 4h. the kernels' whole passes against the second process's plain ones
     log("[4h] the whole passes against the plain versions run on the host CPU in the second "
         "process (exact equality)")
     check_plain_sweep(cuda, diff, sweep3, worker.result("sweep3", deadline))
+    check_plain_passes(cuda, diff, passes3, worker.result("passes3", deadline))
+    check_plain_gang(cuda, diff, gang3, worker.result("gang3", deadline))
+    check_plain_gang_sweep(cuda, diff, gsweep3, worker.result("gangsweep3", deadline))
     check_plain_path(cuda, diff, "fit", fit, worker.result("fit", deadline))
     check_plain_path(cuda, diff, "affinity", aff, worker.result("affinity", deadline))
     config4_plain = worker.result("config4", deadline)
@@ -2817,11 +3495,13 @@ def run_phases(kp, worker) -> int:
     kernels += gang_rows(kp, cuda, diff, gang, smi)
     log(f"[5e] K11 at BASELINE config #4's shape, TPU32 [{smi}]")
     kernels += sweep_row(cuda, diff, sweep, config4_plain, config4_sampled, smi)
+    log(f"[5f] K9 and the phase's sweep_run of the gang weight sweep (phase 4i), TPU32 [{smi}]")
+    kernels += gangsweep_rows(kp, cuda, diff, gsweep, smi)
     ph.done("5")
     log("    phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in ph.seconds.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")
-    log("    the second process's log:")
-    for ln in worker.log_path.read_text().splitlines():
+    log("    the plain workers' logs:")
+    for ln in worker.log_lines():
         log(f"      {ln}")
     faulthandler.cancel_dump_traceback_later()
 

@@ -30,7 +30,10 @@ sequential pass for every row of a [V, S] score-weight matrix over one
 cluster in a single launch of the `sweep_run` kernel, one block per variant
 at a time; the KEP-184 batch runner (`scenario/batch.py`, `python -m
 kube_scheduler_simulator_tpu_torch.scenario.batch`) runs sweep jobs from
-spec files.
+spec files. `GangSweep` sweeps the gang engine the same way: every round of
+every variant is one launch of each K9 kernel, and the preempt phases of
+all variants one `sweep_run` launch over per-variant segments (a batch
+job's `engine: gang`).
 
 Entry points run on the CUDA card unless the caller passes `device="cpu"`;
 with no card and no explicit device they raise RuntimeError.
@@ -43,7 +46,7 @@ Layout:
   engine/   encoder, delta encoder, plugin bodies, the sequential engine,
             kernel bindings
   server/   the scheduling service over a store
-  parallel/ weight sweeps (`WeightSweep`, `weights_for`)
+  parallel/ weight sweeps (`WeightSweep`, `GangSweep`, `weights_for`)
   scenario/ the batch runner's sweep jobs
   csrc/     the CUDA sources
   utils/    quantities, shape buckets, pass metrics
@@ -61,7 +64,7 @@ from .engine.engine import (
 from .engine.engine import supported_config as slice_config
 from .engine.gang import GangScheduler
 from .models.store import ResourceStore
-from .parallel import WeightSweep, weights_for
+from .parallel import GangSweep, WeightSweep, weights_for
 from .server.service import SchedulerService, SimulatorService
 from .synth import preemption_cluster, synthetic_affinity_cluster, synthetic_cluster
 
@@ -73,6 +76,7 @@ __all__ = [
     "BatchedScheduler",
     "DeltaEncoder",
     "GangScheduler",
+    "GangSweep",
     "ResourceStore",
     "SchedulerService",
     "SimulatorService",

@@ -1793,8 +1793,10 @@ __global__ void __launch_bounds__(1024)
 // ws are the block's own.
 // PRE: the configuration enables DefaultPreemption. Its own instantiation
 // keeps the preemption branch's code and registers out of the other
-// configurations' step.
-template <typename I, bool PRE>
+// configurations' step. SKIP (`sweep_seg`'s per-variant segments, no trace):
+// a padding step (p == -1) only writes sel = final_sel = -1, which is what
+// its evaluation of pod 0 would have come to.
+template <typename I, bool PRE, bool SKIP = false>
 __device__ __forceinline__ void run_body(const Cfg& c, const Need& nd, const Planes& a,
                                          const State& s, const I* w, const int* queue,
                                          const int* qpos, int Q, int step0, const Trace& tr,
@@ -1807,6 +1809,10 @@ __device__ __forceinline__ void run_body(const Cfg& c, const Need& nd, const Pla
   if (threadIdx.x == 0) ws.vol[3] = 0;
   for (int qi = 0; qi < Q; ++qi) {
     const int p = queue[qi];
+    if (SKIP && p < 0) {
+      if (threadIdx.x == 0) tr.sel[qi] = tr.final_sel[qi] = -1;
+      continue;
+    }
     // a padding step (p == -1) evaluates pod 0 and discards the result
     const int ps = p > 0 ? p : 0;
     const bool pf_ok = prefilter_code(c, a, ps) == 0;
@@ -1925,6 +1931,36 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
+// K11 `gangsweep.vphase`: the gang sweep's preempt phase, each variant's
+// own pending segment segs[v] (K steps, -1 padded) with its pods' queue
+// positions qpos[v] (null: step i binds at P + i), run as `seq_run` with the
+// preemption branch on its weights row, state and selections, the padding
+// steps skipped (they bind nothing). No trace. The grid strides over the
+// variants as `sweep_run_kernel`'s does.
+template <typename I>
+__global__ void __launch_bounds__(1024)
+    sweep_seg_kernel(Cfg c, Planes a, State s0, StateStride ss, const I* w, int V,
+                     const int* segs, const int* qpos, int K, Trace tr0, TraceStride ts,
+                     unsigned char* feas_s, int* codes_s, I* raw_s, char* wsp,
+                     long long ws_bytes) {
+  __shared__ Smem<I> sm;
+  __shared__ Smem<long long> sml;
+  Ws ws;
+  ws_layout(a, sizeof(I), c.vbound, wsp + (size_t)blockIdx.x * ws_bytes, &ws);
+  const Need nd = need_of(c);
+  const size_t N = a.N;
+  unsigned char* feas = feas_s + blockIdx.x * N;
+  int* cs = codes_s + blockIdx.x * N * c.n_filters;
+  I* rs = raw_s + blockIdx.x * N * c.n_scores;
+  for (int v = blockIdx.x; v < V; v += gridDim.x) {
+    const size_t vk = (size_t)v * K;
+    run_body<I, true, true>(c, nd, a, variant_state(s0, ss, v), w + (size_t)v * c.n_scores,
+                            segs + vk, qpos ? qpos + vk : nullptr, K, 0,
+                            variant_trace(tr0, ts, v), feas, cs, rs, ws, sm, sml);
+    __syncthreads();  // the next variant reuses the block's slices
+  }
+}
+
 int block_threads(int n) {
   int t = ((n + 31) / 32) * 32;
   return t < 32 ? 32 : (t > 1024 ? 1024 : t);
@@ -1988,6 +2024,35 @@ int launch_sweep(const Cfg* c, const Planes* a, const State* s, const StateStrid
         *c, *a, *s, *ss, (const I*)w, V, queue, Q, *tr, *ts, feas, codes_scratch,
         (I*)raw_scratch, (char*)ws, ws_bytes);
   return (int)cudaGetLastError();
+}
+
+template <typename I>
+int launch_sweep_seg(const Cfg* c, const Planes* a, const State* s, const StateStride* ss,
+                     const void* w, int V, const int* segs, const int* qpos, int K,
+                     const Trace* tr, const TraceStride* ts, int grid, unsigned char* feas,
+                     int* codes_scratch, void* raw_scratch, void* ws, long long ws_bytes,
+                     void* stream) {
+  if (!c->preempt) return -1;  // a phase belongs to DefaultPreemption
+  sweep_seg_kernel<I><<<grid, block_threads(a->N), 0, (cudaStream_t)stream>>>(
+      *c, *a, *s, *ss, (const I*)w, V, segs, qpos, K, *tr, *ts, feas, codes_scratch,
+      (I*)raw_scratch, (char*)ws, ws_bytes);
+  return (int)cudaGetLastError();
+}
+
+// The blocks of sweep_seg resident at once on the card (as sweep_run_grid).
+template <typename I>
+int sweep_seg_grid(int n_nodes) {
+#ifdef __CUDACC__
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_seg_kernel<I>,
+                                                    block_threads(n_nodes), 0) != cudaSuccess)
+    return -1;
+  return per_sm * sms;
+#else
+  return 1;  // the host build runs one block
+#endif
 }
 
 // The blocks of sweep_run resident at once on the card, for `n_nodes` nodes
@@ -2065,6 +2130,15 @@ long long seq_workspace_bytes(const Planes* a, int int_bytes, int vbound) {
                     void* stream) {                                                           \
     return launch_sweep<I>(c, a, s, ss, w, V, queue, Q, tr, ts, grid, feas, codes_scratch,    \
                            raw_scratch, ws, ws_bytes, stream);                                \
+  }                                                                                           \
+  int sweep_seg_grid_##T(int n_nodes) { return sweep_seg_grid<I>(n_nodes); }                  \
+  int sweep_seg_##T(const Cfg* c, const Planes* a, const State* s, const StateStride* ss,     \
+                    const void* w, int V, const int* segs, const int* qpos, int K,            \
+                    const Trace* tr, const TraceStride* ts, int grid, unsigned char* feas,    \
+                    int* codes_scratch, void* raw_scratch, void* ws, long long ws_bytes,      \
+                    void* stream) {                                                           \
+    return launch_sweep_seg<I>(c, a, s, ss, w, V, segs, qpos, K, tr, ts, grid, feas,          \
+                               codes_scratch, raw_scratch, ws, ws_bytes, stream);             \
   }
 
 #if !defined(SEQ_ONLY) || SEQ_ONLY == 32

@@ -631,20 +631,23 @@ def library() -> ctypes.CDLL:
                 ("seq_evict", [vp, vp, vp, vp]),
                 ("seq_preempt", [vp, vp, vp, ci] + [vp] * 7),
                 ("seq_run", [vp, vp, vp, vp, vp, vp, ci, ci] + [vp] * 6),
-                ("gang_eval", [vp, vp, vp, vp, vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp, ci,
-                               vp, vp, vp, vp, ctypes.c_longlong, vp]),
-                ("gang_topk", [vp, ci, ci, vp, ci, vp, vp, vp]),
-                ("gang_match", [vp, vp, ci, ci, vp, vp, vp, vp, ci, vp, ci, ci, ci]
+                ("gang_eval", [vp] * 5 + [ci, vp, ci, vp, vp, ci] + [vp] * 6 + [ci]
+                 + [vp] * 4 + [ctypes.c_longlong, vp]),
+                ("gang_topk", [vp, ci, ci, ci, vp, ci, vp, vp, vp]),
+                ("gang_match", [vp, vp, ci, ci, ci, vp, vp, vp, vp, ci, vp, ci, ci, ci]
                  + [vp] * 8),
-                ("gang_bind", [vp, vp, vp, ci, vp, vp, vp, vp]),
+                ("gang_bind", [vp, vp, vp, ci, vp, ci, vp, vp, vp, vp]),
                 ("sweep_run", [vp] * 5 + [ci, vp, ci, vp, vp, ci] + [vp] * 4
                  + [ctypes.c_longlong, vp]),
+                ("sweep_seg", [vp] * 5 + [ci, vp, vp, ci, vp, vp, ci] + [vp] * 4
+                 + [ctypes.c_longlong, vp]),
                 ("sweep_run_grid", [ci, ci]),
+                ("sweep_seg_grid", [ci]),
             ):
                 f = getattr(lib, f"{name}_{t}")
                 f.argtypes, f.restype = args, ci
             f = getattr(lib, f"gang_eval_grid_{t}")
-            f.argtypes, f.restype = [ci], ci
+            f.argtypes, f.restype = [ci, ci], ci
         cl = ctypes.c_longlong
         for name in ("delta_scatter_set", "delta_scatter_add"):
             f = getattr(lib, name)
@@ -717,6 +720,8 @@ class _Bound:
     suffix: str
     state_refs: list
     state: "ctypes.Structure | None" = None
+    stack_refs: list = dataclasses.field(default_factory=list)
+    stack: "tuple | None" = None  # (State, StateStride) of the last stacked state
 
 
 _BOUND_MAX = 4
@@ -784,6 +789,30 @@ def _state(b: _Bound, s: SchedState, dev, res_dt) -> ctypes.Structure:
         b.state = _LAYOUT.State(*(by_name[n].data_ptr() for n in _LAYOUT.names["state_ptrs"]))
         b.state_refs = [weakref.ref(x) for x in leaves]
     return b.state
+
+
+def _vstride(x: torch.Tensor) -> int:
+    """Bytes from one variant's slice of a stacked tensor to the next."""
+    return x.stride(0) * x.element_size() if x.numel() else 0
+
+
+def _stacked(b: _Bound, states: SchedState, V: int, dev, res_dt) -> tuple:
+    """The kernels' (State, StateStride) for a stack of V variants' states,
+    each field contiguous with a leading [V], checked against the planes of
+    b (again only when its tensors are not the ones checked last)."""
+    leaves = _get_state(states)
+    if b.stack is None or not _same(b.stack_refs, leaves):
+        dims = dict(b.dims)
+        for name, x in zip(_STATE_FIELDS, leaves):
+            if x.dim() < 1 or x.shape[0] != V or not x.is_contiguous():
+                raise ValueError(f"{name}: want a contiguous stack of {V} variants")
+            _check_tensor(name, x[0], dims, dev, res_dt)
+        by_name = dict(zip(_STATE_FIELDS, leaves))
+        names = _LAYOUT.names["state_ptrs"]
+        b.stack = (_LAYOUT.State(*(by_name[n].data_ptr() for n in names)),
+                   _LAYOUT.StateStride(*(_vstride(by_name[n]) for n in names)))
+        b.stack_refs = [weakref.ref(x) for x in leaves]
+    return b.stack
 
 
 def _check(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights=None) -> tuple:
@@ -1067,9 +1096,13 @@ def _run_result(out: dict, pre: bool, record: bool, victims):
 
 # ---------------------------------------------------------------------------
 # K9: the gang engine's round kernels (csrc/gang_kernels.cu), each beside its
-# plain version. Rows [0, live) of a row list are processed; `live` is a
-# one-element int32 tensor on the rows' device (read there, so a round's
-# pending count never crosses to the host), or None for every row.
+# plain version. Rows [0, live) of a row list are processed; `live` is an
+# int32 tensor on the rows' device (read there, so a round's pending count
+# never crosses to the host), or None for every row. Each kernel takes one
+# variant (a state, weights [S], rows [K], live [1]) or a stack of V (states
+# stacked [V, ...], weights [V, S], rows [V, K], live [V]: the gang sweep's
+# round, one launch for every variant); the single form is the stacked one
+# at V = 1.
 # ---------------------------------------------------------------------------
 
 NO_ORDER = int(np.iinfo(np.int32).max)  # the queue position of a pod not queued
@@ -1083,31 +1116,63 @@ def _neg(dtype: torch.dtype) -> int:
     return torch.iinfo(dtype).min // 2
 
 
-def _check_rows(rows, live, dev) -> None:
-    """`rows` (None: not taken) and `live` as the K9 kernels read them."""
+def as_variants(s: SchedState) -> SchedState:
+    """A single state as a stack of one variant (views of its tensors)."""
+    return SchedState(**{f: getattr(s, f).unsqueeze(0) for f in _STATE_FIELDS})
+
+
+def _one(live):
+    """A single variant's live count as the stacked form's [1]."""
+    return None if live is None else live.reshape(1)
+
+
+def _live_of(live, v: int):
+    """Variant v's live count (a one-element view), or None."""
+    return None if live is None else live[v:v + 1]
+
+
+def _check_rows(rows, live, dev, V: int = 1) -> None:
+    """`rows` (None: not taken; [V, K]) and `live` ([V]) as the stacked
+    K9 kernels read them."""
     if rows is not None and (rows.device != dev or rows.dtype != torch.int32
-                             or rows.dim() != 1):
-        raise ValueError("rows must be a 1-d int32 tensor on the planes' device")
+                             or rows.dim() != 2 or rows.shape[0] != V):
+        raise ValueError(f"rows must be an int32 [{V}, K] tensor on the planes' device")
     if live is not None and (live.device != dev or live.dtype != torch.int32
-                             or live.numel() != 1):
-        raise ValueError("live must be one int32 on the planes' device")
+                             or tuple(live.shape) != (V,)):
+        raise ValueError(f"live must be an int32 ({V},) tensor on the planes' device")
 
 
 def _ptr(t) -> "int | None":
     return None if t is None else t.data_ptr()
 
 
-def gang_eval_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights, rows, live,
-                    order, *, check_pending: bool = True, slot=None, trace=None):
-    """The gang round's evaluation (gang.py pod_score_row over a row list):
-    for rows i < live, the masked totals of pod rows[i] against s — the
-    weighted score sum where the node is feasible, NEG (the score type's
-    minimum // 2) where not, and NEG everywhere for a pod that is -1 or,
-    with `check_pending`, not pending (bound, not queued — order NO_ORDER —
-    or padding). Returns scores [K, N] (rows from live on: NEG). With
-    `slot` ([K] trace rows) and `trace` ((pf [Q, n_pf], codes [Q, N, F],
-    raw [Q, N, S], final [Q, N, S]), written in place) it records each
-    evaluated pod's rows instead and returns None."""
+def _check_order(order, planes, dev) -> None:
+    if order.device != dev or order.dtype != torch.int32 or tuple(order.shape) != (planes.P,):
+        raise ValueError(f"order must be an int32 ({planes.P},) tensor on the planes' device")
+
+
+def _launch_state(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights, V: int,
+                  single: bool = False):
+    """What a K9 launch reads: (Planes, State, StateStride, type suffix),
+    the weights (None, or [V, S] in the score type) checked. `single`: `s`
+    is one state (V = 1), checked and packed as the sequential kernels'
+    (`_state`, cached by its tensors), with zero strides."""
+    dev, dt = a.node_mask.device, prog.score_dtype
+    if dev.type not in KERNEL_DEVICE_TYPES:
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
+    b = _planes(prog, a)
+    if single:
+        state, ss = _state(b, s, dev, dt), _LAYOUT.StateStride()
+    else:
+        state, ss = _stacked(b, s, V, dev, dt)
+    S = len(prog.scores)
+    if weights is not None and (weights.device != dev or weights.dtype != dt
+                                or tuple(weights.shape) != (V, S) or not weights.is_contiguous()):
+        raise ValueError(f"weights: want contiguous {dt} ({V}, {S}) on {dev}")
+    return b.planes, state, ss, b.suffix
+
+
+def _gang_eval_one(prog, a, s, weights, rows, live, order, check_pending, slot, trace):
     K, N = rows.shape[0], a.node_mask.shape[0]
     dt = prog.score_dtype
     neg = _neg(dt)
@@ -1129,25 +1194,54 @@ def gang_eval_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights, 
     return scores
 
 
+def gang_eval_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights, rows, live,
+                    order, *, check_pending: bool = True, slot=None, trace=None):
+    """The gang round's evaluation (gang.py pod_score_row over a row list):
+    for rows i < live, the masked totals of pod rows[i] against s — the
+    weighted score sum where the node is feasible, NEG (the score type's
+    minimum // 2) where not, and NEG everywhere for a pod that is -1 or,
+    with `check_pending`, not pending (bound, not queued — order NO_ORDER —
+    or padding). Returns scores [K, N] (rows from live on: NEG). With
+    `slot` ([K] trace rows) and `trace` ((pf [Q, n_pf], codes [Q, N, F],
+    raw [Q, N, S], final [Q, N, S]), written in place) it records each
+    evaluated pod's rows instead and returns None. The stacked form (rows
+    [V, K]) evaluates each variant at its own state and weights row and
+    returns [V, K, N]; its trace form takes V = 1."""
+    if rows.dim() == 1:
+        return _gang_eval_one(prog, a, s, weights, rows, live, order, check_pending, slot, trace)
+    if slot is not None and rows.shape[0] != 1:
+        raise ValueError("trace rows are written for one variant")
+    outs = [_gang_eval_one(prog, a, variant_state(s, v), weights[v], rows[v], _live_of(live, v),
+                           order, check_pending, None if slot is None else slot[v], trace)
+            for v in range(rows.shape[0])]
+    return None if slot is not None else torch.stack(outs)
+
+
 def gang_eval(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights, rows, live, order,
               *, check_pending: bool = True, slot=None, trace=None):
     """K9 eval, as `gang_eval_plain` (rows from live on are left unwritten).
-    A grid of blocks strides over the rows, each block with its own
-    workspace slice."""
+    A grid of blocks strides over the (row, variant) pairs, each block with
+    its own workspace slice."""
     if _on_cpu(a):
         PLAIN_CALLS["gang_eval"] += 1
         return gang_eval_plain(prog, a, s, weights, rows, live, order,
                                check_pending=check_pending, slot=slot, trace=trace)
-    planes, state, _, t = _check(prog, a, s, weights)
-    dev, N, K = a.node_mask.device, planes.N, rows.shape[0]
-    _check_rows(rows, live, dev)
-    if order.device != dev or order.dtype != torch.int32 or tuple(order.shape) != (planes.P,):
-        raise ValueError(f"order must be an int32 ({planes.P},) tensor on the planes' device")
+    single = rows.dim() == 1
+    if single:
+        weights, rows, live = weights[None], rows[None], _one(live)
+        slot = None if slot is None else slot[None]
+    V = rows.shape[0]
+    planes, state, ss, t = _launch_state(prog, a, s, weights, V, single)
+    dev, N, K = a.node_mask.device, planes.N, rows.shape[1]
+    _check_rows(rows, live, dev, V)
+    _check_order(order, planes, dev)
     F, S, dt = len(prog.filters), len(prog.scores), prog.score_dtype
     scores = tr = None
     if slot is None:
-        scores = torch.empty((K, N), dtype=dt, device=dev)
+        scores = torch.empty((V, K, N), dtype=dt, device=dev)
     else:
+        if V != 1:
+            raise ValueError("trace rows are written for one variant")
         tr = tuple(trace)
         want = ((torch.int32, (len(prog.prefilters),)), (torch.int32, (N, F)), (dt, (N, S)),
                 (dt, (N, S)))
@@ -1156,10 +1250,11 @@ def gang_eval(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights, rows, 
             if (x.device != dev or x.dtype != xdt or tuple(x.shape) != (Q, *shape)
                     or not x.is_contiguous()):
                 raise ValueError(f"trace rows: want contiguous {xdt} ({Q}, {shape}) on {dev}")
-        if slot.device != dev or slot.dtype != torch.int32 or tuple(slot.shape) != (K,):
+        if slot.device != dev or slot.dtype != torch.int32 or tuple(slot.shape) != (1, K):
             raise ValueError(f"slot must be an int32 ({K},) tensor on the planes' device")
+        slot = slot.contiguous()
     lib = library()
-    grid = int(getattr(lib, f"gang_eval_grid_{t}")(N))
+    grid = int(getattr(lib, f"gang_eval_grid_{t}")(N, int(V > 1)))
     if grid < 1:
         raise RuntimeError("gang_eval: the occupancy query failed")
     ws_bytes = int(lib.seq_workspace_bytes(ctypes.addressof(planes), 4 if t == "i32" else 8, 0))
@@ -1170,35 +1265,34 @@ def gang_eval(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights, rows, 
     ws = _workspace(grid * ws_bytes, dev)
     cfg = np.ascontiguousarray(prog.cfg)
     rc = getattr(lib, f"gang_eval_{t}")(
-        cfg.ctypes.data, ctypes.addressof(planes), ctypes.addressof(state), weights.data_ptr(),
-        rows.contiguous().data_ptr(), K, _ptr(live), order.contiguous().data_ptr(),
-        int(check_pending), _ptr(scores), _ptr(slot),
-        *(_ptr(x) for x in (tr if tr is not None else (None,) * 4)),
+        cfg.ctypes.data, ctypes.addressof(planes), ctypes.addressof(state),
+        ctypes.addressof(ss), weights.data_ptr(), V, rows.contiguous().data_ptr(), K,
+        _ptr(live), order.contiguous().data_ptr(), int(check_pending), _ptr(scores),
+        _ptr(slot), *(_ptr(x) for x in (tr if tr is not None else (None,) * 4)),
         grid, feas.data_ptr(), codes_s.data_ptr(), raw_s.data_ptr(), ws.data_ptr(), ws_bytes,
         _stream(),
     )
     _raise_on(rc, "gang_eval")
     LAUNCHES["gang_eval"] += 1
-    return scores
+    if scores is None:
+        return None
+    return scores[0] if single else scores
 
 
 def gang_eval_scratch_bytes(prog: SeqProgram, a: ClusterArrays) -> tuple[int, int, int]:
-    """(blocks, workspace bytes a block, scratch bytes a launch allocates):
-    per block one workspace slice and the feasibility, codes and raw-score
-    rows."""
+    """(blocks, workspace bytes a block, scratch bytes a launch allocates)
+    of a one-variant launch: per block one workspace slice and the
+    feasibility, codes and raw-score rows."""
     b = _planes(prog, a)
     lib = library()
-    grid = int(getattr(lib, f"gang_eval_grid_{b.suffix}")(b.planes.N))
+    grid = int(getattr(lib, f"gang_eval_grid_{b.suffix}")(b.planes.N, 0))
     isz = 4 if b.suffix == "i32" else 8
     ws = max(8, int(lib.seq_workspace_bytes(ctypes.addressof(b.planes), isz, 0)))
     N, F, S = b.planes.N, len(prog.filters), len(prog.scores)
     return grid, ws, grid * (ws + N + 4 * N * F + isz * N * S)
 
 
-def gang_topk_plain(scores, live, mw: int):
-    """`lax.top_k(scores, mw)` over rows [0, live): (vals [K, mw], idx [K,
-    mw] int32), each row's values descending, ties to the lower index.
-    Rows from live on are NEG and 0."""
+def _gang_topk_one(scores, live, mw):
     K = scores.shape[0]
     n = _n_live(live, K)
     vals = torch.full((K, mw), _neg(scores.dtype), dtype=scores.dtype, device=scores.device)
@@ -1207,6 +1301,17 @@ def gang_topk_plain(scores, live, mw: int):
         v, i = torch.sort(scores[:n], dim=1, descending=True, stable=True)
         vals[:n], idx[:n] = v[:, :mw], i[:, :mw].to(torch.int32)
     return vals, idx
+
+
+def gang_topk_plain(scores, live, mw: int):
+    """`lax.top_k(scores, mw)` over rows [0, live): (vals [K, mw], idx [K,
+    mw] int32), each row's values descending, ties to the lower index.
+    Rows from live on are NEG and 0. Stacked scores [V, K, N] give [V, K,
+    mw], variant v's rows cut at live[v]."""
+    if scores.dim() == 2:
+        return _gang_topk_one(scores, live, mw)
+    outs = [_gang_topk_one(scores[v], _live_of(live, v), mw) for v in range(scores.shape[0])]
+    return torch.stack([x for x, _ in outs]), torch.stack([x for _, x in outs])
 
 
 def gang_topk(scores, live, mw: int):
@@ -1218,31 +1323,25 @@ def gang_topk(scores, live, mw: int):
     dev = scores.device
     if dev.type not in KERNEL_DEVICE_TYPES:
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
-    if scores.dtype not in (torch.int32, torch.int64) or scores.dim() != 2:
-        raise ValueError("scores must be a 2-d int32 or int64 tensor")
-    K, N = scores.shape
+    if scores.dtype not in (torch.int32, torch.int64) or scores.dim() not in (2, 3):
+        raise ValueError("scores must be an int32 or int64 [K, N] or [V, K, N] tensor")
+    single = scores.dim() == 2
+    sc, live = (scores[None], _one(live)) if single else (scores, live)
+    V, K, N = sc.shape
     if not 1 <= mw <= N:
         raise ValueError(f"match width {mw} outside [1, {N}]")
-    _check_rows(None, live, dev)
-    vals = torch.empty((K, mw), dtype=scores.dtype, device=dev)
-    idx = torch.empty((K, mw), dtype=torch.int32, device=dev)
+    _check_rows(None, live, dev, V)
+    vals = torch.empty((V, K, mw), dtype=scores.dtype, device=dev)
+    idx = torch.empty((V, K, mw), dtype=torch.int32, device=dev)
     t = "i32" if scores.dtype == torch.int32 else "i64"
-    rc = getattr(library(), f"gang_topk_{t}")(scores.contiguous().data_ptr(), N, K, _ptr(live),
+    rc = getattr(library(), f"gang_topk_{t}")(sc.contiguous().data_ptr(), N, V, K, _ptr(live),
                                               mw, vals.data_ptr(), idx.data_ptr(), _stream())
     _raise_on(rc, "gang_topk")
     LAUNCHES["gang_topk"] += 1
-    return vals, idx
+    return (vals[0], idx[0]) if single else (vals, idx)
 
 
-def gang_match_plain(vals, idx, rows, live, order, claims, carrier, n_nodes: int,
-                     n_claims: int, iters: int):
-    """One round's matching (gang.py make_match_step/match) over rows
-    [0, live): `vals` [K, W] candidate scores, `idx` [K, W] their nodes
-    (None: column j is node j), `rows` the rows' pods, `order` [P] queue
-    positions, `claims` [P, MC] each pod's ReadWriteOncePod claims (-1
-    padded), `carrier` [P] bool (None without rel_serialize). Returns (sel
-    [K] int32, the committed node or -1; stat [2] int32: rows committed,
-    live)."""
+def _gang_match_one(vals, idx, rows, live, order, claims, carrier, n_nodes, n_claims, iters):
     K = rows.shape[0]
     n = _n_live(live, K)
     dev = vals.device
@@ -1303,10 +1402,29 @@ def gang_match_plain(vals, idx, rows, live, order, claims, carrier, n_nodes: int
     return sel, torch.tensor([int((sel_acc >= 0).sum()), n], dtype=torch.int32, device=dev)
 
 
+def gang_match_plain(vals, idx, rows, live, order, claims, carrier, n_nodes: int,
+                     n_claims: int, iters: int):
+    """One round's matching (gang.py make_match_step/match) over rows
+    [0, live): `vals` [K, W] candidate scores, `idx` [K, W] their nodes
+    (None: column j is node j), `rows` the rows' pods, `order` [P] queue
+    positions, `claims` [P, MC] each pod's ReadWriteOncePod claims (-1
+    padded), `carrier` [P] bool (None without rel_serialize). Returns (sel
+    [K] int32, the committed node or -1; stat [2] int32: rows committed,
+    live). The stacked form (vals [V, K, W], rows [V, K], live [V]) matches
+    each variant alone: sel [V, K], stat [V, 2]."""
+    if rows.dim() == 1:
+        return _gang_match_one(vals, idx, rows, live, order, claims, carrier, n_nodes,
+                               n_claims, iters)
+    outs = [_gang_match_one(vals[v], None if idx is None else idx[v], rows[v],
+                            _live_of(live, v), order, claims, carrier, n_nodes, n_claims, iters)
+            for v in range(rows.shape[0])]
+    return torch.stack([x for x, _ in outs]), torch.stack([x for _, x in outs])
+
+
 def gang_match(vals, idx, rows, live, order, claims, carrier, n_nodes: int, n_claims: int,
                iters: int):
-    """K9 match, as `gang_match_plain`: one block runs the round's whole
-    matching loop."""
+    """K9 match, as `gang_match_plain`: one block a variant runs the round's
+    whole matching loop."""
     if _on_cpu(vals):
         PLAIN_CALLS["gang_match"] += 1
         return gang_match_plain(vals, idx, rows, live, order, claims, carrier, n_nodes,
@@ -1314,11 +1432,18 @@ def gang_match(vals, idx, rows, live, order, claims, carrier, n_nodes: int, n_cl
     dev = vals.device
     if dev.type not in KERNEL_DEVICE_TYPES:
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
-    _check_rows(rows, live, dev)
-    K, W = vals.shape
-    if rows.shape[0] != K or vals.dtype not in (torch.int32, torch.int64):
-        raise ValueError("vals must be int32 or int64 [len(rows), W]")
-    if idx is not None and (idx.dtype != torch.int32 or tuple(idx.shape) != (K, W)):
+    single = rows.dim() == 1
+    if single:
+        vals, rows, live = vals[None], rows[None], _one(live)
+        idx = None if idx is None else idx[None]
+    V = rows.shape[0]
+    _check_rows(rows, live, dev, V)
+    K = rows.shape[1]
+    if (vals.dim() != 3 or tuple(vals.shape[:2]) != (V, K)
+            or vals.dtype not in (torch.int32, torch.int64)):
+        raise ValueError("vals must be int32 or int64 [V, K, W] with rows [V, K]")
+    W = vals.shape[2]
+    if idx is not None and (idx.dtype != torch.int32 or tuple(idx.shape) != (V, K, W)):
         raise ValueError("idx must be int32 like vals")
     if idx is None and W != n_nodes:
         raise ValueError("full-width vals need one column a node")
@@ -1327,14 +1452,14 @@ def gang_match(vals, idx, rows, live, order, claims, carrier, n_nodes: int, n_cl
         if x is not None and (x.device != dev or x.dtype != xdt):
             raise ValueError(f"{name} must be {xdt} on {dev}")
     i32 = dict(dtype=torch.int32, device=dev)
-    sel, cand = torch.empty((K,), **i32), torch.empty((K,), **i32)
-    taken, winner = torch.empty((n_nodes,), **i32), torch.empty((n_nodes + 1,), **i32)
-    cmin, ctaken = torch.empty((n_claims,), **i32), torch.empty((n_claims,), **i32)
-    stat = torch.empty((2,), **i32)
+    sel, cand = torch.empty((V, K), **i32), torch.empty((V, K), **i32)
+    taken, winner = torch.empty((V, n_nodes), **i32), torch.empty((V, n_nodes + 1), **i32)
+    cmin, ctaken = torch.empty((V, n_claims), **i32), torch.empty((V, n_claims), **i32)
+    stat = torch.empty((V, 2), **i32)
     claims = claims.contiguous()
     t = "i32" if vals.dtype == torch.int32 else "i64"
     rc = getattr(library(), f"gang_match_{t}")(
-        vals.contiguous().data_ptr(), _ptr(None if idx is None else idx.contiguous()), W, K,
+        vals.contiguous().data_ptr(), _ptr(None if idx is None else idx.contiguous()), W, V, K,
         _ptr(live), rows.contiguous().data_ptr(), order.contiguous().data_ptr(),
         claims.data_ptr(), claims.shape[1], _ptr(None if carrier is None else carrier.contiguous()),
         n_nodes, n_claims, iters, sel.data_ptr(), cand.data_ptr(), taken.data_ptr(),
@@ -1342,13 +1467,10 @@ def gang_match(vals, idx, rows, live, order, claims, carrier, n_nodes: int, n_cl
     )
     _raise_on(rc, "gang_match")
     LAUNCHES["gang_match"] += 1
-    return sel, stat
+    return (sel[0], stat[0]) if single else (sel, stat)
 
 
-def gang_bind_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, rows, live, sel, order):
-    """bind_all over rows [0, live): each row with sel >= 0 binds pod
-    rows[i] to node sel[i] at bind order P + order[pod], in place; other
-    rows are no-ops. Returns `s`."""
+def _gang_bind_one(a, s, rows, live, sel, order):
     n = _n_live(live, rows.shape[0])
     keep = sel[:n] >= 0
     p = rows[:n][keep].long()
@@ -1368,21 +1490,38 @@ def gang_bind_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, rows, liv
     return s
 
 
+def gang_bind_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, rows, live, sel, order):
+    """bind_all over rows [0, live): each row with sel >= 0 binds pod
+    rows[i] to node sel[i] at bind order P + order[pod], in place; other
+    rows are no-ops. The stacked form (states [V, ...], rows and sel [V,
+    K], live [V]) binds each variant's rows into its own state. Returns
+    `s`."""
+    if rows.dim() == 1:
+        return _gang_bind_one(a, s, rows, live, sel, order)
+    for v in range(rows.shape[0]):
+        _gang_bind_one(a, variant_state(s, v), rows[v], _live_of(live, v), sel[v], order)
+    return s
+
+
 def gang_bind(prog: SeqProgram, a: ClusterArrays, s: SchedState, rows, live, sel, order):
     """K9 bind, as `gang_bind_plain`, in place. Returns `s`."""
     if _on_cpu(a):
         PLAIN_CALLS["gang_bind"] += 1
         return gang_bind_plain(prog, a, s, rows, live, sel, order)
-    planes, state, _, t = _check(prog, a, s)
-    dev, K = a.node_mask.device, rows.shape[0]
-    _check_rows(rows, live, dev)
-    if sel.device != dev or sel.dtype != torch.int32 or tuple(sel.shape) != (K,):
-        raise ValueError(f"sel must be an int32 ({K},) tensor on the planes' device")
-    if order.device != dev or order.dtype != torch.int32 or tuple(order.shape) != (planes.P,):
-        raise ValueError(f"order must be an int32 ({planes.P},) tensor on the planes' device")
+    single = rows.dim() == 1
+    if single:
+        rows, sel, live = rows[None], sel[None], _one(live)
+    V = rows.shape[0]
+    planes, state, ss, t = _launch_state(prog, a, s, None, V, single)
+    dev, K = a.node_mask.device, rows.shape[1]
+    _check_rows(rows, live, dev, V)
+    if sel.device != dev or sel.dtype != torch.int32 or tuple(sel.shape) != (V, K):
+        raise ValueError(f"sel must be an int32 ({V}, {K}) tensor on the planes' device")
+    _check_order(order, planes, dev)
     rc = getattr(library(), f"gang_bind_{t}")(
-        ctypes.addressof(planes), ctypes.addressof(state), rows.contiguous().data_ptr(), K,
-        _ptr(live), sel.contiguous().data_ptr(), order.contiguous().data_ptr(), _stream(),
+        ctypes.addressof(planes), ctypes.addressof(state), ctypes.addressof(ss), V,
+        rows.contiguous().data_ptr(), K, _ptr(live), sel.contiguous().data_ptr(),
+        order.contiguous().data_ptr(), _stream(),
     )
     _raise_on(rc, "gang_bind")
     LAUNCHES["gang_bind"] += 1
@@ -1399,6 +1538,11 @@ def gang_bind(prog: SeqProgram, a: ClusterArrays, s: SchedState, rows, live, sel
 def variant_state(states: SchedState, v: int) -> SchedState:
     """Variant v of a stacked state (views)."""
     return SchedState(**{f: getattr(states, f)[v] for f in _STATE_FIELDS})
+
+
+def variant_slice(states: SchedState, lo: int, hi: int) -> SchedState:
+    """Variants [lo, hi) of a stacked state (views, each field contiguous)."""
+    return SchedState(**{f: getattr(states, f)[lo:hi] for f in _STATE_FIELDS})
 
 
 def stack_states(states: "list[SchedState]") -> SchedState:
@@ -1420,13 +1564,23 @@ def _stack_traces(traces: list, preempts: bool) -> tuple:
 
 
 def sweep_run_plain(prog: SeqProgram, a: ClusterArrays, states0: SchedState, queue, weights,
-                    *, record: bool):
+                    *, record: bool, qpos=None):
     """The pass of each weight variant: `seq_run_plain` (step0 = 0) on
     variant v's state and weights row, for every v. Returns (final states
     [V, ...], and the selections [V, Q] (`final_sel` with preemption) or,
     with `record`, the trace with every slot stacked [V, ...]: each
-    variant's victim offsets index its own victim row, padded with -1)."""
-    outs = [seq_run_plain(prog, a, variant_state(states0, v), queue, weights[v], record=record)
+    variant's victim offsets index its own victim row, padded with -1).
+    A [V, K] `queue` gives each variant its own segment (-1 padded; the
+    gang sweep's preempt phase), with `qpos` [V, K] its pods' queue
+    positions (None: step i's); that form records no trace."""
+    per_variant = queue.dim() == 2
+    if per_variant:
+        _check_segment_form(prog, record)
+    if qpos is not None and not per_variant:
+        raise ValueError("queue positions go with per-variant segments")
+    outs = [seq_run_plain(prog, a, variant_state(states0, v), queue[v] if per_variant else queue,
+                          weights[v], record=record,
+                          qpos=None if qpos is None else qpos[v])
             for v in range(weights.shape[0])]
     states = stack_states([s for s, _ in outs])
     if not record:
@@ -1434,18 +1588,43 @@ def sweep_run_plain(prog: SeqProgram, a: ClusterArrays, states0: SchedState, que
     return states, _stack_traces([t for _, t in outs], prog.preempt is not None)
 
 
+def _check_segment_form(prog: SeqProgram, record: bool) -> None:
+    if record or prog.preempt is None:
+        raise ValueError("per-variant segments are a preempt phase's: DefaultPreemption, "
+                         "no trace")
+
+
+def _checked_segments(segs, qpos, V: int, planes, dev) -> tuple:
+    """Per-variant segments [V, K] (int32 pod indices, -1 = padding) and
+    their queue positions ([V, K] int32, or None) as `sweep_seg` reads them."""
+    if (segs.device != dev or segs.dtype != torch.int32 or segs.dim() != 2
+            or segs.shape[0] != V):
+        raise ValueError(f"segments must be an int32 [{V}, K] tensor on the planes' device")
+    segs = segs.contiguous()
+    if segs.numel() and (int(segs.max()) >= planes.P or int(segs.min()) < -1):
+        raise ValueError(f"segments hold pod indices outside [-1, {planes.P})")
+    if qpos is not None:
+        if qpos.device != dev or qpos.dtype != torch.int32 or qpos.shape != segs.shape:
+            raise ValueError(f"qpos must be an int32 {tuple(segs.shape)} tensor on the "
+                             "planes' device")
+        qpos = qpos.contiguous()
+    return segs, qpos
+
+
 def sweep_run(prog: SeqProgram, a: ClusterArrays, states0: SchedState, queue, weights,
-              *, record: bool, grid: "int | None" = None):
+              *, record: bool, grid: "int | None" = None, qpos=None):
     """K11: the pass of V weight variants in one launch, as
     `sweep_run_plain`. `weights` [V, S] in the program's score type;
     `states0` stacked [V, ...], each field contiguous (left as it was);
-    `queue` [Q] int32, shared. `grid`: at most this many blocks (default:
-    as many as are resident at once on the card). Each variant's victim
-    record holds at most min(2 Q P, VICTIM_CAP // V) entries; a variant
-    that needs more raises."""
+    `queue` [Q] int32, shared, or [V, K] per variant with `qpos` (the gang
+    sweep's preempt phase, `gangsweep.vphase`: the `sweep_seg` kernel, whose
+    padding steps are skipped; no trace). `grid`: at most this many blocks
+    (default: as many as are resident at once on the card). Each variant's
+    victim record holds at most min(2 Q P, VICTIM_CAP // V) entries; a
+    variant that needs more raises."""
     if _on_cpu(a):
         PLAIN_CALLS["sweep_run"] += 1
-        return sweep_run_plain(prog, a, states0, queue, weights, record=record)
+        return sweep_run_plain(prog, a, states0, queue, weights, record=record, qpos=qpos)
     dev, dt = a.node_mask.device, prog.score_dtype
     if dev.type not in KERNEL_DEVICE_TYPES:
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
@@ -1462,8 +1641,15 @@ def sweep_run(prog: SeqProgram, a: ClusterArrays, states0: SchedState, queue, we
         if x.dim() < 1 or x.shape[0] != V or not x.is_contiguous():
             raise ValueError(f"{name}: want a contiguous stack of {V} variants")
         _check_tensor(name, x[0], dims, dev, dt)
-    queue = _checked_queue(queue, planes, dev)
-    Q = queue.shape[0]
+    per_variant = queue.dim() == 2
+    if per_variant:
+        _check_segment_form(prog, record)
+        queue, qpos = _checked_segments(queue, qpos, V, planes, dev)
+    elif qpos is not None:
+        raise ValueError("queue positions go with per-variant segments")
+    else:
+        queue = _checked_queue(queue, planes, dev)
+    Q = queue.shape[-1]
     s = states0.clone()
     pre = prog.preempt is not None
     i32 = dict(dtype=torch.int32, device=dev)
@@ -1471,31 +1657,31 @@ def sweep_run(prog: SeqProgram, a: ClusterArrays, states0: SchedState, queue, we
     out = _run_outputs(prog, (V,), Q, N, record, victim_cap, dev)
     if Q:
         lib = library()
-        most = int(getattr(lib, f"sweep_run_grid_{t}")(N, int(pre)))
+        most = int(getattr(lib, f"sweep_seg_grid_{t}")(N) if per_variant
+                   else getattr(lib, f"sweep_run_grid_{t}")(N, int(pre)))
         if most < 1:
             raise RuntimeError("sweep_run: the occupancy query failed")
         blocks = min(V, most if grid is None else max(1, min(int(grid), most)))
         names = _LAYOUT.names
-
-        def stride(x):
-            return x.stride(0) * x.element_size() if x.numel() else 0
-
         state = _LAYOUT.State(*(getattr(s, x).data_ptr() for x in names["state_ptrs"]))
-        ss = _LAYOUT.StateStride(*(stride(getattr(s, x)) for x in names["state_ptrs"]))
+        ss = _LAYOUT.StateStride(*(_vstride(getattr(s, x)) for x in names["state_ptrs"]))
         tr = _trace_struct(out, victim_cap)
-        ts = _LAYOUT.TraceStride(*(stride(out[x]) if x in out else 0
+        ts = _LAYOUT.TraceStride(*(_vstride(out[x]) if x in out else 0
                                    for x in names["trace_ptrs"]))
         feas = torch.empty((blocks, N), dtype=torch.uint8, device=dev)
         codes_s = torch.empty((blocks, N * F), **i32)
         raw_s = torch.empty((blocks, N * S), dtype=dt, device=dev)
         ws = _workspace(blocks * b.ws_bytes, dev)
         cfg = np.ascontiguousarray(prog.cfg)
-        rc = getattr(lib, f"sweep_run_{t}")(
-            cfg.ctypes.data, ctypes.addressof(planes), ctypes.addressof(state),
-            ctypes.addressof(ss), weights.data_ptr(), V, queue.data_ptr(), Q,
-            ctypes.addressof(tr), ctypes.addressof(ts), blocks, feas.data_ptr(),
-            codes_s.data_ptr(), raw_s.data_ptr(), ws.data_ptr(), b.ws_bytes, _stream(),
-        )
+        scratch = (ctypes.addressof(tr), ctypes.addressof(ts), blocks, feas.data_ptr(),
+                   codes_s.data_ptr(), raw_s.data_ptr(), ws.data_ptr(), b.ws_bytes, _stream())
+        head = (cfg.ctypes.data, ctypes.addressof(planes), ctypes.addressof(state),
+                ctypes.addressof(ss), weights.data_ptr(), V)
+        if per_variant:
+            rc = getattr(lib, f"sweep_seg_{t}")(*head, queue.data_ptr(), _ptr(qpos), Q,
+                                                *scratch)
+        else:
+            rc = getattr(lib, f"sweep_run_{t}")(*head, queue.data_ptr(), Q, *scratch)
         _raise_on(rc, "sweep_run")
         LAUNCHES["sweep_run"] += 1
     if pre:

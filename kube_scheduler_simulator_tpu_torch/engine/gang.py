@@ -25,11 +25,16 @@ nothing. The divergence policy is the reference's (its module docstring):
 exact sequential parity where no pod loses a round.
 
 The round loop is driven from the host with one readback a round (the
-count `gang_match` committed and the pending count, two integers): the
-pending list, its count and the phase segment are built on the card (a
-stable order of the queue's pending pods), and every kernel reads the live
-row count there. A phase costs one more readback (the pods it bound), and
-`seq_run`'s own checks three.
+count `gang_match` committed and the pending count, two integers a
+variant): the pending list, its count and the phase segment are built on
+the card (a stable order of the queue's pending pods), and every kernel
+reads the live row count there. A phase costs one more readback (the pods
+it bound), and `seq_run`'s own checks three.
+
+The round body runs on a stack of V variants' states with a [V, S] weight
+matrix (`_gang_pass`): one launch of each kernel a round for all of them,
+each variant to its own fixpoint. `GangScheduler` is its V = 1 case; the
+gang weight sweep (parallel/sweep.py `GangSweep`) drives it with V > 1.
 
 The record path (`run_recorded`, `results`) tracks each pod's bind round,
 records each preempt phase's trace as it runs, and replays the rounds:
@@ -42,7 +47,7 @@ the sequential engine's `results()`.
 Not ported: `loop="static"` and `inner_loop="static"` (the counted-loop
 programs the reference keeps for a TPU backend that could not compile
 `while_loop`; the same placements), which raise NotImplementedError
-(ROADMAP.md), the weight sweeps over a variant axis and the batch plane.
+(ROADMAP.md), and the batch plane.
 """
 
 from __future__ import annotations
@@ -178,24 +183,26 @@ class GangScheduler:
         )
         self._prepped = enc
 
-    def _pending(self, state, sort: bool):
-        """(rows, count): the queue's pods — pending first, in queue order,
-        when `sort`, else as queued — and the pending count (int32 [1]),
-        both on the device."""
+    def _pending(self, states, sort: bool):
+        """(rows [V, Q], counts [V] int32) for stacked states [V, ...]: each
+        variant's queue pods — pending first, in queue order, when `sort`,
+        else as queued — and its pending count, both on the device."""
         q = self._queue.long()
-        pend = (state.assignment[q] < 0) & self.enc.arrays.pod_mask[q]
-        count = pend.sum(dtype=torch.int32).reshape(1)
+        pend = (states.assignment[:, q] < 0) & self.enc.arrays.pod_mask[q]
+        count = pend.sum(dim=1, dtype=torch.int32)
         if not sort:
-            return self._queue, count
-        return self._queue[torch.argsort((~pend).to(torch.int8), stable=True)], count
+            return self._queue.expand(pend.shape[0], -1), count
+        return self._queue[torch.argsort((~pend).to(torch.int8), dim=1, stable=True)], count
 
     # -- one round -----------------------------------------------------------
 
-    def _round(self, state, w, rows, live):
-        """eval → top-k → match → bind over rows [0, live) (all rows when
-        live is None), in place. Returns the round's sel [K] and stat."""
+    def _round(self, states, w, rows, live):
+        """eval → top-k → match → bind of every variant of stacked `states`
+        (weights [V, S], rows [V, K]) over rows [0, live[v]) (all rows when
+        live is None), in place: one launch of each kernel. Returns the
+        round's sel [V, K] and stat [V, 2]."""
         enc, prog, a = self.enc, self._base.program, self.enc.arrays
-        scores = cuda.gang_eval(prog, a, state, w, rows, live, self._order)
+        scores = cuda.gang_eval(prog, a, states, w, rows, live, self._order)
         if self.match_width < enc.N:
             vals, idx = cuda.gang_topk(scores, live, self.match_width)
         else:
@@ -204,56 +211,82 @@ class GangScheduler:
             vals, idx, rows, live, self._order, self._claims, self._carrier, enc.N,
             a.pod_claim.shape[1], self.inner_iters,
         )
-        cuda.gang_bind(prog, a, state, rows, live, sel, self._order)
+        cuda.gang_bind(prog, a, states, rows, live, sel, self._order)
         return sel, stat
 
-    def _gang_pass(self, state, w, chronology):
-        """Rounds to fixpoint from `state` (in place). Returns (state, rounds,
-        pods still pending)."""
-        P = self.enc.P
+    def _window_rows(self, rows, count, w_idx):
+        """Each variant's eval window of its pending-first rows [V, Q]: WP
+        rows from lo = min(k * WP, P - WP), k = min(w_idx, windows - 1)
+        (-1 past the queue), and its live count. Returns (rows [V, WP], live
+        [V], k per variant)."""
+        P, WP, dev = self.enc.P, self._wp, self.device
+        n_win = -(-P // WP)
+        k = [min(x, n_win - 1) for x in w_idx]
+        lo = torch.tensor([min(kk * WP, P - WP) for kk in k], dtype=torch.int32, device=dev)
+        Q = rows.shape[1]
+        padded = torch.cat([rows, rows.new_full((rows.shape[0], 1), -1)], dim=1)
+        at = (lo[:, None] + torch.arange(WP, dtype=torch.int32, device=dev)).clamp(max=Q)
+        return padded.gather(1, at.long()), (count - lo).clamp(0, WP), k
+
+    def _gang_pass(self, states, w, chronology=None):
+        """Rounds to fixpoint from stacked `states` [V, ...] (in place),
+        variant v at weights row w[v], one launch of each kernel a round for
+        every variant. Each variant runs until its own fixpoint and then
+        rides along frozen (live 0, its counters unchanged), as under the
+        reference's vmapped while_loop. Returns (rounds, pods still pending),
+        lists of V. `chronology` (the record path) takes V = 1."""
+        V, P = w.shape[0], self.enc.P
         WP = self._wp
         cap = self.max_rounds if self.max_rounds is not None else P + 1
         tracked = chronology is not None
         if tracked:
-            start = state.clone()
+            start = cuda.variant_state(states, 0).clone()
             br = torch.full((P,), -1, dtype=torch.int32, device=self.device)
-        rounds = commits = w_idx = 0  # commits: rounds that commit (all, unwindowed)
-        n_pend = None
-        while commits < cap:
-            rows, count = self._pending(state, sort=self.compact or WP is not None)
+        rounds, commits, w_idx = [0] * V, [0] * V, [0] * V  # commits: rounds that commit
+        n_pend = [None] * V
+        active = [cap > 0] * V
+        sort = self.compact or WP is not None or V > 1
+        K = len(self._queue)  # the rows a round takes: the queue, then the most pending
+        while any(active):
+            rows, count = self._pending(states, sort)
+            gate = None if all(active) else torch.tensor(active, device=self.device)
             if WP is None:
-                live = count if self.compact else None
-                sel, stat = self._round(state, w, rows, live)
+                live = count if sort else None
+                if sort:
+                    rows = rows[:, :max(1, K)].contiguous()
             else:
-                n_win = -(-P // WP)
-                k = min(w_idx, n_win - 1)
-                lo = min(k * WP, P - WP)
-                rows = rows[lo:lo + WP]
-                sel, stat = self._round(state, w, rows, (count - lo).clamp(0, WP))
+                rows, live, k = self._window_rows(rows, count, w_idx)
+            if gate is not None:
+                live = torch.where(gate, live, 0)
+            sel, stat = self._round(states, w, rows, live)
             if tracked:
-                r = rows.long()
-                br[r] = torch.where(sel >= 0, rounds, br[r])
-            committed, count = torch.stack([stat[0], count[0]]).tolist()
+                hit = sel[0] >= 0
+                br[rows[0][hit].long()] = rounds[0]
+            got = torch.stack([stat[:, 0], count], dim=1).tolist()
             self.last_stats["host_syncs"] += 1
-            rounds += 1
-            n_pend = count - committed
-            if WP is None:
-                commits += 1
-                done = not committed
-            else:
-                # a whole sweep of this round's pending windows without a
-                # commit is the fixpoint; a commit restarts at the front
-                done = not committed and k + 1 >= max(1, -(-count // WP))
-                w_idx = 0 if committed else w_idx + 1
-                commits += committed > 0
-            if done:
-                break
-        if n_pend is None:  # no round ran (max_rounds=0)
-            n_pend = int(self._pending(state, sort=False)[1])
+            for v in range(V):
+                if not active[v]:
+                    continue
+                committed, cnt = got[v]
+                rounds[v] += 1
+                n_pend[v] = cnt - committed
+                if WP is None:
+                    commits[v] += 1
+                    done = not committed
+                else:
+                    # a whole sweep of this round's pending windows without a
+                    # commit is the fixpoint; a commit restarts at the front
+                    done = not committed and k[v] + 1 >= max(1, -(-cnt // WP))
+                    w_idx[v] = 0 if committed else w_idx[v] + 1
+                    commits[v] += committed > 0
+                active[v] = not done and commits[v] < cap
+            K = max((n_pend[v] for v in range(V) if active[v]), default=0)
+        if None in n_pend:  # no round ran (max_rounds=0)
+            n_pend = self._pending(states, sort=False)[1].tolist()
             self.last_stats["host_syncs"] += 1
         if tracked:
-            chronology.append(("rounds", start, br, rounds, state.assignment.clone()))
-        return state, rounds, n_pend
+            chronology.append(("rounds", start, br, rounds[0], states.assignment[0].clone()))
+        return rounds, n_pend
 
     # -- execution ------------------------------------------------------------
 
@@ -281,16 +314,20 @@ class GangScheduler:
     def _drive(self, weights, chronology: "list | None"):
         """The one driver behind `run()` and `run_recorded()`: gang passes
         alternating with preempt phases."""
-        w = self.weights if weights is None else weights
+        w = self.weights if weights is None else torch.as_tensor(
+            weights, dtype=self.enc.policy.score, device=self.device)
         self._prep()
         tracked = chronology is not None
         self.last_stats = {"rounds": 0, "phases": 0, "host_syncs": 0, "phase_pods": 0}
-        state, rounds, n_pend = self._gang_pass(self.enc.state0.clone(), w, chronology)
+        state = self.enc.state0.clone()
+        # the one-variant stack of the round kernels (views of `state`)
+        r, n = self._gang_pass(cuda.as_variants(state), w[None], chronology)
+        rounds, n_pend = r[0], n[0]
         prog, a = self._base.program, self.enc.arrays
         if self.preempts:
             while n_pend > 0:
-                rows, _ = self._pending(state, sort=True)
-                seg = rows[:n_pend].contiguous()
+                rows, _ = self._pending(cuda.as_variants(state), sort=True)
+                seg = rows[0, :n_pend].contiguous()
                 qpos = self._order[seg.long()].contiguous()
                 state, out = cuda.seq_run(prog, a, state, seg, w, record=tracked, qpos=qpos)
                 self.last_stats["phases"] += 1
@@ -302,11 +339,11 @@ class GangScheduler:
                 self.last_stats["host_syncs"] += 1
                 if n_bound == 0:
                     break
-                state, r2, n_pend = self._gang_pass(state, w, chronology)
-                rounds += r2
+                r, n = self._gang_pass(cuda.as_variants(state), w[None], chronology)
+                rounds, n_pend = rounds + r[0], n[0]
         elif tracked and n_pend > 0:
-            rows, _ = self._pending(state, sort=True)
-            chronology.append(("leftover", rows[:n_pend].contiguous()))
+            rows, _ = self._pending(cuda.as_variants(state), sort=True)
+            chronology.append(("leftover", rows[0, :n_pend].contiguous()))
         self.last_stats["rounds"] = rounds
         self._final_state = state
         self._rounds = rounds

@@ -7,12 +7,13 @@ and each job writes ``<name>.result.json`` into an output directory):
   * ``sweep`` — the Monte-Carlo fast path (BASELINE config #4): a cluster
     snapshot and a list of score-weight variants, every variant's pass in
     one launch of the `sweep_run` kernel (parallel/sweep.py) where KEP-159
-    would run one simulator replica per variant;
+    would run one simulator replica per variant
+    (``engine: gang`` sweeps the gang engine instead, `GangSweep`: each
+    round of every variant one launch of each K9 kernel);
   * ``scenario`` — a KEP-140 scenario run. The scenario engine is not
-    ported yet (its ``operations`` are not read): such a job, and a sweep
-    with ``engine: gang``, becomes a ``phase: Failed`` result naming
-    NotImplementedError, and the rest of the batch still runs (the
-    runner's per-job isolation).
+    ported yet (its ``operations`` are not read): such a job becomes a
+    ``phase: Failed`` result naming NotImplementedError, and the rest of
+    the batch still runs (the runner's per-job isolation).
 
 YAML specs parse only where PyYAML is installed; elsewhere such a spec is a
 failed job.
@@ -45,7 +46,7 @@ class BatchJob:
     scheduler_config: "SchedulerConfiguration | None" = None
     # sweep: list of {plugin name -> weight} override dicts, one per variant
     weight_variants: list[dict] = field(default_factory=list)
-    # sweep engine: "sequential" (the one ported) | "gang"
+    # sweep engine: "sequential" | "gang"
     engine: str = "sequential"
     # set when the spec file could not be parsed; the job then fails at
     # run time like any other job, preserving batch isolation
@@ -73,10 +74,8 @@ class BatchJob:
 
 def _run_sweep_job(job: BatchJob, device=None) -> dict:
     from ..engine.encode import TPU32, encode_cluster
-    from ..parallel.sweep import WeightSweep, weights_for
+    from ..parallel.sweep import GangSweep, WeightSweep, weights_for
 
-    if job.engine == "gang":
-        raise NotImplementedError("gang sweeps (GangSweep) are not ported yet")
     store = ResourceStore()
     import_snapshot(store, job.snapshot)
     cfg = job.scheduler_config or SchedulerConfiguration.default()
@@ -94,9 +93,14 @@ def _run_sweep_job(job: BatchJob, device=None) -> dict:
     )
     variants = job.weight_variants or [{}]
     w = np.stack([weights_for(enc, ov) for ov in variants])
-    sweep = WeightSweep(enc, device=device)
-    _, sels = sweep.run(w)
-    placements = sweep.placements(sels)
+    if job.engine == "gang":
+        sweep = GangSweep(enc, device=device)
+        assignments, _ = sweep.run(w)
+        placements = sweep.placements(assignments)
+    else:
+        sweep = WeightSweep(enc, device=device)
+        _, sels = sweep.run(w)
+        placements = sweep.placements(sels)
     return {
         "phase": "Succeeded",
         "variants": [

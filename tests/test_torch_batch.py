@@ -8,10 +8,10 @@ placement), in memory and in the result files; `load_jobs` must read the
 same jobs and parse errors from a directory; `main()` must exit as the
 reference's does. Sweep specs: test_batch.py's fit-only three-node sweep,
 and the contended four nodes under the default profile (no
-schedulerConfig: every variant preempts). The port's own outcomes: a
-scenario job and a gang sweep are `Failed` results naming
-NotImplementedError while the rest of the batch runs. Tolerance: exact
-equality.
+schedulerConfig: every variant preempts), each also with `engine: gang`
+(the gang weight sweep, `GangSweep`). The port's own outcome: a scenario
+job is a `Failed` result naming NotImplementedError while the rest of the
+batch runs. Tolerance: exact equality.
 """
 
 import json
@@ -40,14 +40,25 @@ def default_sweep_spec():
     }
 
 
+def gang_spec(spec):
+    """`spec` through the gang engine (`engine: gang`)."""
+    def make():
+        out = spec()
+        out["engine"] = "gang"
+        return out
+    return make
+
+
 SPECS = {"fit": _sweep_spec, "default": default_sweep_spec}
+GANG_SPECS = {"gang-fit": gang_spec(_sweep_spec)}
 _REFERENCE: dict = {}
 
 
 def reference_result(name):
     """The reference's run_batch result of one sweep spec, run once."""
     if name not in _REFERENCE:
-        _REFERENCE[name] = jbatch.run_batch([jbatch.BatchJob.from_spec(name, SPECS[name]())])
+        spec = {**SPECS, **GANG_SPECS}[name]()
+        _REFERENCE[name] = jbatch.run_batch([jbatch.BatchJob.from_spec(name, spec)])
     return _REFERENCE[name][name]
 
 
@@ -143,18 +154,30 @@ def test_bad_engine_and_duplicate_names_rejected():
 
 
 def test_unported_jobs_fail_and_the_batch_runs_on():
-    """A scenario job and a gang sweep are Failed results naming
-    NotImplementedError; the sweep beside them succeeds."""
-    gang = _sweep_spec()
-    gang["engine"] = "gang"
+    """A scenario job is a Failed result naming NotImplementedError; the
+    sweep and the gang sweep beside it succeed, each equal to the
+    reference's result."""
     jobs = [pbatch.BatchJob.from_spec("scn", _scenario_spec()),
-            pbatch.BatchJob.from_spec("gang", gang),
+            pbatch.BatchJob.from_spec("gang-fit", GANG_SPECS["gang-fit"]()),
             pbatch.BatchJob.from_spec("fit", _sweep_spec())]
     results = port_batch(jobs)
-    for name in ("scn", "gang"):
-        assert results[name]["phase"] == "Failed"
-        assert results[name]["message"].startswith("NotImplementedError: "), results[name]
+    assert results["scn"]["phase"] == "Failed"
+    assert results["scn"]["message"].startswith("NotImplementedError: "), results["scn"]
+    assert results["gang-fit"] == reference_result("gang-fit")
+    assert results["gang-fit"]["phase"] == "Succeeded"
     assert results["fit"] == reference_result("fit")
+
+
+def test_gang_sweep_job_matches_reference():
+    """An `engine: gang` sweep job on the default profile (every variant
+    preempts): the result dict and its JSON equal the reference's."""
+    spec = gang_spec(default_sweep_spec)
+    want = jbatch.run_batch([jbatch.BatchJob.from_spec("gang", spec())])["gang"]
+    got = port_batch([pbatch.BatchJob.from_spec("gang", spec())])["gang"]
+    assert want["phase"] == "Succeeded"
+    assert json.dumps(got, sort_keys=True) == json.dumps(want, sort_keys=True)
+    for v in got["variants"]:
+        assert v["scheduled"] == 3 and v["unschedulable"] == 0
 
 
 def test_sweep_job_runs_on_the_card_by_default(monkeypatch):

@@ -11,7 +11,8 @@ first slice's plugin set (`fit_config()`) and the default profile without
 volumes and preemption (`affinity_config()`); `rel_cluster` (test_torch_clusters)
 reaches the relational plugins. The default profile's kernels (the volume
 family, `seq_preempt`, `seq_evict`, `seq_run`'s preemption branch) run on
-`synth.dressed_default_cluster`.
+`synth.dressed_default_cluster`. The gang kernels and `sweep_run` also run
+with a leading variant axis (the gang weight sweep, `GangSweep`).
 """
 
 import numpy as np
@@ -418,3 +419,143 @@ def test_sweep_matches_plain(card, policy, record):
         assert torch.equal(getattr(s2, f), getattr(states, f)), f
     for g, h in zip(out2 if record else (out2,), outs):
         assert torch.equal(g, h)
+
+
+# -- the variant axis: K9 stacked, sweep_run over per-variant segments ---------
+
+
+def stacked_inputs(g, rng, device, K=24):
+    """Three variants' random states (stacked), weights [3, S] and row lists
+    [3, K], with live counts K - 4, 0 (a frozen variant) and K."""
+    enc = g.enc
+    enc_cpu = enc.to(torch.device("cpu"))
+    states = cuda.stack_states([random_state(enc_cpu, rng) for _ in range(3)]).to(device)
+    w = g.weights
+    weights = torch.stack([w, torch.ones_like(w), w * 3 + 1]).contiguous()
+    K = min(K, len(enc.queue))
+    rows = torch.as_tensor(np.stack([rng.permutation(np.asarray(enc.queue))[:K]
+                                     for _ in range(3)]).astype(np.int32), device=device)
+    live = torch.tensor([max(0, K - 4), 0, K], dtype=torch.int32, device=device)
+    return states, weights, rows, live
+
+
+def check_stacked_gang(g, rng, device, widths=(3,)):
+    """gang_eval, gang_topk, gang_match and gang_bind at V = 3 (one launch
+    each) against their plain versions, which run each variant alone.
+    Returns the number of comparisons."""
+    g._prep()
+    enc, prog, a = g.enc, g._base.program, g.enc.arrays
+    N, C = enc.N, a.pod_claim.shape[1]
+    states, w, rows, live = stacked_inputs(g, rng, device)
+    n_live = live.tolist()
+    got = cuda.gang_eval(prog, a, states, w, rows, live, g._order)
+    want = cuda.gang_eval_plain(prog, a, states, w, rows, live, g._order)
+    n = 0
+    for v, lv in enumerate(n_live):
+        assert torch.equal(got[v, :lv], want[v, :lv]), ("eval", v)
+        n += 1
+    assert bool((want[0, :n_live[0]] > cuda._neg(want.dtype)).any()), "no feasible row"
+    for mw in tuple(x for x in widths if x < N) + (N,):
+        if mw < N:
+            vals, idx = cuda.gang_topk(got, live, mw)
+            pv, pi = cuda.gang_topk_plain(want, live, mw)
+            for v, lv in enumerate(n_live):
+                assert torch.equal(vals[v, :lv], pv[v, :lv]), ("topk vals", mw, v)
+                assert torch.equal(idx[v, :lv], pi[v, :lv]), ("topk idx", mw, v)
+                n += 2
+        else:
+            vals, idx, pv, pi = got, None, want, None
+        for carrier in (None, g._carrier):
+            args = (rows, live, g._order, g._claims, carrier, N, C, 64)
+            sel, stat = cuda.gang_match(vals, idx, *args)
+            psel, pstat = cuda.gang_match_plain(pv, pi, *args)
+            assert torch.equal(sel, psel) and torch.equal(stat, pstat), ("match", mw)
+            assert stat[1].tolist() == [0, 0], "the frozen variant matched"
+            n += 1
+        s1 = cuda.gang_bind(prog, a, states.clone(), rows, live, sel, g._order)
+        s2 = cuda.gang_bind_plain(prog, a, states.clone(), rows, live, sel, g._order)
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(s1, f), getattr(s2, f)), ("bind", mw, f)
+            assert torch.equal(getattr(s1, f)[1], getattr(states, f)[1]), ("frozen", f)
+        n += 1
+    return n
+
+
+def segment_inputs(enc, order, device):
+    """Three variants' preempt segments [3, K] (each pending pod list in
+    queue order, -1 padded): the whole queue, none at all (every step
+    padding) and every other queued pod; their queue positions [3, K]."""
+    q = np.asarray(enc.queue, np.int32)
+    K = len(q)
+    segs = np.full((3, K), -1, np.int32)
+    segs[0] = q
+    segs[2, :len(q[::2])] = q[::2]
+    segs = torch.as_tensor(segs, device=device)
+    qpos = torch.where(segs >= 0, order[segs.clamp(min=0).long()], 0).contiguous()
+    return segs, qpos
+
+
+def check_segments(eng, device):
+    """sweep_run over per-variant segments with queue positions (the gang
+    sweep's preempt phase) against its plain version and against each
+    variant's own unpadded seq_run_plain segment. Returns the final
+    selections [3, K]."""
+    enc, prog, a = eng.enc, eng.program, eng.enc.arrays
+    order, _ = kp.GangScheduler(enc, device=enc.device).order_arrays()
+    segs, qpos = segment_inputs(enc, order, device)
+    w = torch.stack([eng.weights, torch.ones_like(eng.weights), eng.weights * 3 + 1])
+    states0 = cuda.stack_states([enc.state0] * 3)
+    before = states0.clone()
+    s_k, sel_k = cuda.sweep_run(prog, a, states0, segs, w, record=False, qpos=qpos)
+    s_p, sel_p = cuda.sweep_run_plain(prog, a, states0, segs, w, record=False, qpos=qpos)
+    assert torch.equal(sel_k, sel_p), "segment selections"
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(s_k, f), getattr(s_p, f)), f
+        assert torch.equal(getattr(states0, f), getattr(before, f)), ("left as it was", f)
+    for v in range(3):
+        n = int((segs[v] >= 0).sum())
+        st, sel = cuda.seq_run_plain(prog, a, enc.state0, segs[v, :n].contiguous(), w[v],
+                                     record=False, qpos=qpos[v, :n].contiguous())
+        assert torch.equal(sel_k[v, :n], sel) and bool((sel_k[v, n:] == -1).all()), v
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(s_k, f)[v], getattr(st, f)), (v, f)
+    return sel_k
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_stacked_gang_kernels_match_plain(card, policy):
+    for g in gang_engines(policy):
+        cuda.reset_counts()
+        assert check_stacked_gang(g, np.random.default_rng(17), card, widths=(4,)) > 0
+        assert not any(cuda.PLAIN_CALLS[k] for k in ("gang_eval", "gang_topk", "gang_match",
+                                                      "gang_bind"))
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_segmented_sweep_matches_plain(card, policy):
+    eng = default_engine(policy)
+    cuda.reset_counts()
+    sel = check_segments(eng, card)
+    assert cuda.LAUNCHES["sweep_run"] == 1
+    assert bool((sel[0] >= 0).any()) and bool((sel[1] == -1).all())
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_gang_sweep_on_the_card_matches_the_cpu(card, policy):
+    """GangSweep of three variants on the dressed default cluster: each
+    round one launch of each K9 kernel, each phase one sweep_run launch;
+    assignments, rounds and the sweep's counts equal the CPU's."""
+    eng = default_engine(policy)
+    base = eng.weights.cpu()
+    w = torch.stack([base, torch.ones_like(base), base * 3 + 1]).numpy()
+    sweep = kp.GangSweep(eng.enc, chunk=16)
+    cuda.reset_counts()
+    asg, rounds = sweep.run(w)
+    st = sweep.last_stats
+    assert cuda.LAUNCHES["gang_eval"] == cuda.LAUNCHES["gang_match"] == st["host_syncs"] - st[
+        "phases"]
+    assert cuda.LAUNCHES["sweep_run"] == st["phases"] and not any(cuda.PLAIN_CALLS.values())
+    cpu = kp.GangSweep(eng.enc.to(torch.device("cpu")), chunk=16, device="cpu")
+    want, want_rounds = cpu.run(w)
+    assert torch.equal(asg.cpu(), want) and torch.equal(rounds.cpu(), want_rounds)
+    assert cpu.last_stats == st

@@ -74,6 +74,9 @@ def test_default_device_is_the_card(monkeypatch):
     enc = kp.encode_cluster(nodes, pods, kp.affinity_config(), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         kp.BatchedScheduler(enc)
+    for engine in (kp.GangScheduler, kp.GangSweep, kp.WeightSweep):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            engine(enc)
 
 
 def test_wrappers_take_plain_versions_on_cpu_tensors(monkeypatch):
@@ -140,3 +143,24 @@ def test_supported_config_is_the_references():
     aff = kp.affinity_config()
     assert aff.enabled("postFilter") == [] and "VolumeBinding" not in aff.enabled("filter")
     assert len(aff.enabled("filter")) == 8 and len(aff.score_plugins()) == 7
+
+
+def test_gang_sweep_takes_plain_versions_on_cpu(monkeypatch):
+    """GangSweep on CPU tensors: the stacked K9 wrappers and the segmented
+    sweep_run take their plain versions, one call a round or phase for
+    every variant, and the library is never asked for."""
+    def no_library():
+        raise AssertionError("the kernel library was asked for on CPU tensors")
+
+    monkeypatch.setattr(cuda, "library", no_library)
+    nodes, pods, objects = kp.preemption_cluster(4, 12, seed=2)
+    enc = kp.encode_cluster(nodes, pods, kp.supported_config(), device="cpu", **objects)
+    base = kp.weights_for(enc, {})
+    cuda.reset_counts()
+    sweep = kp.GangSweep(enc, device="cpu")
+    sweep.run([base, base + 1, base * 2])
+    st = sweep.last_stats
+    assert cuda.PLAIN_CALLS["gang_eval"] == cuda.PLAIN_CALLS["gang_bind"] == (
+        st["host_syncs"] - st["phases"])
+    assert cuda.PLAIN_CALLS["sweep_run"] == st["phases"] > 0
+    assert cuda.LAUNCHES == dict.fromkeys(cuda.KERNELS, 0)

@@ -29,7 +29,14 @@ from kube_scheduler_simulator_tpu_torch.models.store import ResourceStore
 from kube_scheduler_simulator_tpu_torch.sched.config import SchedulerConfiguration
 
 from test_torch_clusters import NAMESPACES, rel_cluster
-from test_torch_cuda import STATE_FIELDS, check_k10, cluster, random_state
+from test_torch_cuda import (
+    STATE_FIELDS,
+    check_k10,
+    check_segments,
+    check_stacked_gang,
+    cluster,
+    random_state,
+)
 from test_torch_delta import TEMPLATES, assert_port_equal, from_template, full_encode
 
 HOST_CUDA = r"""
@@ -447,3 +454,56 @@ def test_gang_pass_matches_plain(host, monkeypatch, policy, kind, config, preemp
         same(getattr(g._final_state, f), getattr(p._final_state, f), f)
     assert [(r.status, r.to_annotations()) for r in got] == [
         (r.status, r.to_annotations()) for r in want]
+
+
+# -- the variant axis (the gang weight sweep) ----------------------------------
+
+
+@pytest.mark.parametrize("kind,config,preempt_kind", GANG_CASES, ids=GANG_IDS)
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_stacked_gang_kernels_match_plain(host, policy, kind, config, preempt_kind):
+    """The four K9 kernels at V = 3 (random per-variant states, weights and
+    row lists; one variant frozen with live 0), one launch each, against
+    their plain versions."""
+    g = gang_engine(policy, kind, config, preempt_kind)
+    assert check_stacked_gang(g, np.random.default_rng(19), torch.device("cpu"),
+                              widths=(1, 3)) > 0
+    assert cuda.LAUNCHES == {**dict.fromkeys(cuda.KERNELS, 0), "gang_eval": 1, "gang_topk": 2,
+                             "gang_match": 6, "gang_bind": 3}
+    assert not any(cuda.PLAIN_CALLS.values())
+
+
+@pytest.mark.parametrize("kind", PREEMPT_KINDS)
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_segmented_sweep_matches_plain(host, policy, kind):
+    """sweep_run over per-variant segments with queue positions (one a
+    whole queue, one all padding, one every other pod) in one launch,
+    against the plain version and each variant's own seq_run segment."""
+    sel = check_segments(preempt_engine(policy, kind, seed=4), torch.device("cpu"))
+    assert cuda.LAUNCHES["sweep_run"] == 1 and not any(cuda.PLAIN_CALLS.values())
+    assert bool((sel[0] >= 0).any()) and bool((sel[1] == -1).all())
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_gang_sweep_matches_plain(host, monkeypatch, policy):
+    """A whole GangSweep of three variants through the kernels (each round
+    one launch of each K9 kernel, each preempt phase one sweep_run launch)
+    against the plain versions: assignments, rounds and the sweep's
+    counts."""
+    enc = preempt_engine(policy, "preempt", seed=4).enc
+    base = kp.weights_for(enc, {})
+    w = np.stack([base, np.ones_like(base), base * 3 + 1])
+    sweep = kp.GangSweep(enc, chunk=8, device="cpu")
+    asg, rounds = sweep.run(w)
+    st = sweep.last_stats
+    assert st["phases"] > 0
+    n_rounds = st["host_syncs"] - st["phases"]
+    assert cuda.LAUNCHES["gang_eval"] == cuda.LAUNCHES["gang_bind"] == n_rounds
+    assert cuda.LAUNCHES["sweep_run"] == st["phases"] and not any(cuda.PLAIN_CALLS.values())
+    with monkeypatch.context() as m:
+        m.setattr(cuda, "_on_cpu", lambda x: True)  # the plain versions again
+        plain = kp.GangSweep(enc, chunk=8, device="cpu")
+        want, want_rounds = plain.run(w)
+    same(asg, want, "assignments")
+    same(rounds, want_rounds, "rounds")
+    assert plain.last_stats == st
