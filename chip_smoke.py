@@ -20,18 +20,25 @@ kernels of csrc/gang_kernels.cu, preempt phases through `seq_run`) and
 variant's pass in one launch of `sweep_run`) at BASELINE config #4. A
 seventh, the gang weight sweep, runs `GangSweep` (every round of every
 variant one launch of each K9 kernel, every preempt phase one `sweep_run`
-over per-variant segments). The plain versions of the whole passes that
-phases 3, 4, 4b and 5e are held against run on the host CPU in three more
-processes (`chip_smoke.py --plain-worker DIR PART`, started at once and
-stopped at the end), beside the card's phases; phase 4h compares. Phases,
+over per-variant segments). An eighth, the batch plane, serves several
+sessions' passes of a `SessionManager` as one launch (`batch.seq.run`: the
+tenant form of `sweep_run`; `batch.gang.run`: the tenant forms of the K9
+kernels and of `sweep_run`'s segments). The plain versions of the whole
+passes that phases 3, 4, 4b, 4j and 5e are held against run on the host
+CPU in three more processes (`chip_smoke.py --plain-worker DIR PART`,
+started at once when the build is done and stopped at the end; the card's
+phases hand them their inputs through DIR), beside the card's phases; the
+fourth also runs phase 4c's plain segment on the card; phase 4h compares.
+Phases,
 in order; any failure raises and the process exits non-zero:
 
 1. the device: its name, `nvidia-smi`'s name and power limit, the torch
    and CUDA versions;
 2. build: the CUDA kernels compiled for sm_90a into one library in
-   build/kernels/, all at once (csrc/seq_kernels.cu by two `nvcc`
-   processes, csrc/delta_kernels.cu by a third), with the compiler's
-   register and spill report;
+   build/kernels/, all at once (csrc/seq_kernels.cu by four `nvcc`
+   processes, one an integer type and half of its entry points, the
+   tenant forms apart, csrc/delta_kernels.cu by a fifth), with the
+   compiler's register and spill report;
 3. each kernel against its plain PyTorch version on the card, under TPU32
    and EXACT, exact equality: (fit) three fit-path configurations on a
    256-node x 2,000-pod cluster dressed with taints, tolerations, cordoned
@@ -80,15 +87,18 @@ in order; any failure raises and the process exits non-zero:
 4b. the affinity path at full width, the same way: BASELINE config #3,
    `synthetic_affinity_cluster(500, 5000, seed=11)`;
 4c. the default path at full width: `preemption_cluster(1024, 10000,
-   seed=7)` (10,000 pending pods on some 28,000 pre-bound) through
-   `schedule()` with the counters reset — `seq_run` only, no plain call;
+   seed=7)` (10,000 pending pods on some 28,000 pre-bound) through the
+   entry points `schedule()` composes (`encode_cluster`,
+   `BatchedScheduler.run`, `placements`, `results` of 100 sampled pods),
+   once, with the counters reset — `seq_run` only, no plain call;
    its dry runs, nominations, evictions, per-filter rejections (every
    filter but NodeVolumeLimits must reject some pod on some node; at
    least 1,000 dry runs and 300 nominations), trace bytes and peak memory;
-   the plain version on the 1,024-step segment with the fewest dry runs
-   among those holding 100 nominations, from the kernel pass's own state
-   at the segment's first step (the whole queue's plain pass would not
-   fit the time limit); and the single-pod step path (`attempt_fn`,
+   the 1,024-step segment with the fewest dry runs among those holding 100
+   nominations run again from the kernel pass's own state at its first
+   step, its plain version from that state on the card in the fourth
+   process (4h compares; the whole queue's plain pass would not fit the
+   time limit); and the single-pod step path (`attempt_fn`,
    `preempt_fn`, `evict_fn`, `bind_fn`), each step reproducing its trace
    row and victim records;
 4d. the serving path at BASELINE config #2's width: `synthetic_cluster(1024,
@@ -140,13 +150,35 @@ in order; any failure raises and the process exits non-zero:
    variant 0 against phase 4e's GangScheduler where its own loop stops
    where the sweep's did, else against a one-variant sweep held to the
    sweep's phases and passes;
+4j. the batch plane through `SessionManager` on the card with its plane
+   armed from `KSS_BATCH` (a long window, `KSS_BATCH_MAX_SESSIONS` = the
+   tenants: each window flushes full, the passes barrier-aligned), TPU32:
+   (a) 8 tenants of phase 4d's serving cluster (1,024 nodes, 10,000 pods
+   bound, 256 pending; tenant i's pending CPU requests scaled by 1 + i / 8)
+   in one sequential window: one `batch_run` launch, no `seq_run` and no
+   plain call, all compile signatures equal, every pass counted batched and
+   no solo fallback (a failed batched launch fails the phase); (b) 4
+   tenants of phase 4c's cluster with 256 pending each, a dry run in every
+   tenant; (c) `schedule_gang(record=False)` passes after 256 more
+   arrivals each, the 8 serving tenants in one window, 2 of the preempting
+   ones in another: every round one launch of each K9 tenant form, every
+   phase one `batch_seg`, the preempting window's phases run. In each
+   window every tenant's final state, trace and victims (sequential) or
+   state, rounds and placements (gang) equal a solo dispatch of its own
+   encoding on the card (the engine a solo pass runs), timed one after
+   another, and the last tenant's records its solo engine's; the windows'
+   walls, device ms, peak memory and decisions/s;
 4h. the plain processes' versions: phase 3's whole gang pass and gang
    sweep (state, rounds, records; assignments, rounds, states, phases);
    phase 3's sweeps (every
    variant's trace, victims, state and selections), phases 4's and 4b's
-   passes (trace, state, placements, sampled annotations), config #4's
-   variant 0 and first sampled variant (state and selections), each after
-   checking that both processes encoded the same inputs;
+   passes (trace, state, placements, sampled annotations), phase 4c's
+   segment (trace, victims, state; its plain version on the card), config
+   #4's variant 0 and first sampled variant (state and selections), and
+   tenant 0 of each phase-4j
+   cluster run through its session with the plain versions (records,
+   state, trace, rounds, placements, pods), each after checking that both
+   processes encoded the same inputs;
 5. kernel times on all paths (CUDA events; the per-pod kernels replayed
    from a CUDA graph so host enqueue time is not counted, at the state
    half-way through the queue; the default path's `seq_run` on its plain
@@ -170,10 +202,15 @@ in order; any failure raises and the process exits non-zero:
    stacked planes) and the segmented `sweep_run` of 4i's first preempt
    phase (its time from that launch), each held against its plain version
    first (gang_eval on 8 rows of two variants, the matching on 8 variants,
-   the phase on its first 8 steps of each segment);
+   the phase on its first 8 steps of each segment); 5g: the batch plane's
+   tenant forms at their launches in phase 4j (`batch_run` at the
+   preempting sequential window, `batch_eval`, `batch_match` and
+   `batch_bind` at round 1 of the serving gang window, `batch_seg` at the
+   preempting gang window's first phase), each first held against its
+   plain version;
 6. the card's name and power limit, then the result line.
 
-Each phase prints its seconds. It runs in 12 to 17 minutes on an H100, the
+Each phase prints its seconds. It runs in 15 to 17 minutes on an H100, the
 build included (the host's speed varies most).
 It imports nothing of JAX or of the reference package.
 """
@@ -215,6 +252,15 @@ GANGSWEEP_PREEMPT_VARIANTS = 4
 # of each variant's preempt segment
 MATCH_PLAIN_VARIANTS = 8
 PHASE_PLAIN_STEPS = 8
+# the batch plane (phase 4j): tenants of the serving cluster in one window (the
+# reference's default KSS_BATCH_MAX_SESSIONS), tenants of the preemption
+# cluster with this many pending pods each
+BATCH_TENANTS = 8
+BATCH_PREEMPT_TENANTS = 4
+BATCH_PREEMPT_NODES, BATCH_PREEMPT_PENDING = 1024, 256
+# the preempting gang window's tenants (each pass after (b) is a full encode,
+# the costliest host step of the phase)
+BATCH_PREEMPT_GANG = 2
 # the plain versions of whole passes run on the host CPU in a second process
 # (`plain_worker`), beside the card's phases; their results come back here
 PLAIN_DIR = Path(__file__).resolve().parent / "build" / "smoke"
@@ -238,6 +284,8 @@ REPLACES = {
     "sweep_run": "kube_scheduler_simulator_tpu/parallel/sweep.py:113",
     "gangsweep.vrun": "kube_scheduler_simulator_tpu/parallel/sweep.py:325",
     "gangsweep.vphase": "kube_scheduler_simulator_tpu/parallel/sweep.py:334",
+    "batch.seq.run": "kube_scheduler_simulator_tpu/server/batchplane.py:94",
+    "batch.gang.run": "kube_scheduler_simulator_tpu/server/batchplane.py:95",
 }
 GANG_SOURCE = "kube_scheduler_simulator_tpu_torch/csrc/gang_kernels.cu"
 GANG_KERNELS = ("gang_eval", "gang_topk", "gang_match", "gang_bind")
@@ -267,9 +315,11 @@ def ptxas_report(text):
         m = re.search(r"(?:Compiling entry function|Function properties for) '?_Z\w*?"
                       r"(seq_(?:attempt|bind|run|preempt|evict)_kernel|sweep_(?:run|seg)_kernel|"
                       r"gang_(?:eval|topk|match|bind)_kernel|scatter_set_kernel|"
-                      r"scatter_add_kernel|vec_add_kernel)I([ixlhjm])", ln)
+                      r"scatter_add_kernel|vec_add_kernel)I([ixlhjm])((?:Lb[01]E)*)", ln)
         if m:
-            name = f"{m.group(1)}<{types[m.group(2)]}>"
+            # the template's bool arguments (PRE, SKIP, STACK, TEN) as 0/1
+            flags = "".join(f", {b}" for b in re.findall(r"Lb([01])E", m.group(3)))
+            name = f"{m.group(1)}<{types[m.group(2)]}{flags}>"
         elif "spill" in ln:
             props = ln.strip()
         elif "registers" in ln and name:
@@ -1011,8 +1061,9 @@ def segment_of(did, nominated, length, want_nominations=100):
 
 def drive_default(kp, cuda, diff, nodes, pods, objects, sample, smi):
     """Phase 4c: the default path at full width — the reference's whole
-    default profile, preemption included. `schedule()` with the counters
-    set to 0 just before and read just after; the layer split and the
+    default profile, preemption included. The pass through the entry points
+    `schedule()` composes, with the counters set to 0 just before and read
+    just after, each part timed (the layer split); the
     pass's counts; a segment of the pass against the plain version from the
     kernel pass's own state; the single-pod step path (`attempt_fn`,
     `preempt_fn`, `evict_fn`, `bind_fn`) with the counters reset again."""
@@ -1023,21 +1074,8 @@ def drive_default(kp, cuda, diff, nodes, pods, objects, sample, smi):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     cuda.reset_counts()
-    t0 = time.perf_counter()
-    placements, results = kp.schedule(nodes, pods, config=cfg, policy=kp.TPU32, decode=sample,
-                                      **objects)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    pass_counts, pass_plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
-    peak = torch.cuda.max_memory_allocated() - base
-    if pass_counts["seq_run"] < 1 or any(pass_plain.values()):
-        raise AssertionError(f"the pass did not go through seq_run: {pass_counts} {pass_plain}")
-    n_placed = sum(1 for v in placements.values() if v)
-    log(f"    schedule(): {wall_s:.3f} s wall (encode + pass + decode of {len(sample)} pods), "
-        f"{len(placements) / wall_s:.1f} decisions/s, {n_placed} of {len(placements)} pending "
-        f"placed ({n_pods} pods in all), peak memory {peak / 2**30:.3f} GiB, launches "
-        f"{pass_counts}, plain calls {pass_plain} [{smi}]")
-
+    # the pass through the entry points `schedule()` composes (encode, run,
+    # placements, the sampled records), each part timed
     t0 = time.perf_counter()
     enc = kp.encode_cluster(nodes, pods, cfg, policy=kp.TPU32, **objects)
     torch.cuda.synchronize()
@@ -1050,9 +1088,20 @@ def drive_default(kp, cuda, diff, nodes, pods, objects, sample, smi):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     pass_ms = e0.elapsed_time(e1)
-    eng.placements()
+    placements = eng.placements()
     eng.results(pods=sample)
     t3 = time.perf_counter()
+    wall_s = t3 - t0
+    pass_counts, pass_plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() - base
+    if pass_counts["seq_run"] < 1 or any(pass_plain.values()):
+        raise AssertionError(f"the pass did not go through seq_run: {pass_counts} {pass_plain}")
+    n_placed = sum(1 for v in placements.values() if v)
+    log(f"    encode_cluster + BatchedScheduler.run + placements + results (what schedule() "
+        f"composes): {wall_s:.3f} s wall (encode + pass + decode of {len(sample)} pods), "
+        f"{len(placements) / wall_s:.1f} decisions/s, {n_placed} of {len(placements)} pending "
+        f"placed ({n_pods} pods in all), peak memory {peak / 2**30:.3f} GiB, launches "
+        f"{pass_counts}, plain calls {pass_plain} [{smi}]")
     log(f"    split: encode {t1 - t0:.3f} s (the volume verdict tables included), engine + "
         f"pass {t2 - t1:.3f} s (seq_run {pass_ms:.1f} ms on the card), decode (placements + "
         f"{len(sample)} records) {t3 - t2:.3f} s")
@@ -1090,20 +1139,18 @@ def drive_default(kp, cuda, diff, nodes, pods, objects, sample, smi):
     e1.record()
     torch.cuda.synchronize()
     seg_ms = e0.elapsed_time(e1)
-    t0 = time.perf_counter()
-    s_p, t_p = cuda.seq_run_plain(prog, a, st0, seg, w, record=True, step0=s0)
-    torch.cuda.synchronize()
-    seg_plain_ms = (time.perf_counter() - t0) * 1e3
-    for name, g, h in zip(TRACE_SLOTS_PREEMPT, t_k, t_p):
-        diff.check(path, "seq_run", f"segment {name}", g, h)
-    for f in STATE_FIELDS:
-        diff.check(path, "seq_run", f"segment state {f}", getattr(s_k, f), getattr(s_p, f))
+    # the plain version of the segment runs on the card in the fourth process
+    # (its Python issues small launches: the main process goes on meanwhile),
+    # from this state; phase 4h compares
+    digest = encoding_digest(enc)
+    save_input("seg4c_in", dict(digest=digest, s0=s0, seg=seg.cpu(), state=_state_dict(st0)))
     for name in ("codes", "raw", "final", "sel", "did", "pcode", "nominated", "final_sel"):
         diff.check(path, "seq_run", f"segment against the pass {name}",
                    t_k[TRACE_SLOTS_PREEMPT.index(name)], t[name][s0:s0 + SEGMENT])
-    log(f"    plain version of the pass on steps {s0}..{s0 + SEGMENT - 1} ({n_did} dry runs, "
-        f"{n_nom} nominations), from the kernel pass's state at step {s0}: {seg_plain_ms:.1f} "
-        f"ms against the kernel's {seg_ms:.1f} ms; trace, victims and state equal")
+    log(f"    the pass's steps {s0}..{s0 + SEGMENT - 1} ({n_did} dry runs, {n_nom} "
+        f"nominations) again from the kernel pass's state at step {s0}: {seg_ms:.1f} ms, "
+        "equal to the pass's rows; the plain version of the segment runs on the card in the "
+        "fourth process (phase 4h)")
 
     # the single-pod step path over the same queue
     st = enc.state0.clone()
@@ -1162,8 +1209,30 @@ def drive_default(kp, cuda, diff, nodes, pods, objects, sample, smi):
     qf = next(qi for qi in range(Q // 2, Q) if did[qi] and nominated[qi] >= 0)
     st_f, _ = cuda.seq_run(prog, a, enc.state0, queue[:qf].contiguous(), w, record=False)
     return dict(enc=enc, eng=eng, trace=trace_k, pass_counts=pass_counts,
-                step_counts=step_counts, pass_ms=pass_ms, seg=(s0, seg_ms, seg_plain_ms, seg),
-                mid=mid, dry=(st_f, int(enc.queue[qf]), qf), wall_s=wall_s)
+                step_counts=step_counts, pass_ms=pass_ms, seg=[s0, seg_ms, None, seg],
+                seg_out=(s_k, t_k, n_did, n_nom), mid=mid, dry=(st_f, int(enc.queue[qf]), qf),
+                wall_s=wall_s, digest=digest)
+
+
+def check_plain_segment(cuda, diff, run, plain):
+    """Phase 4h for phase 4c: the kernel's segment of the default pass
+    (trace, victims, final state) against the plain version's run of it on
+    the card in the fourth process, from the same state."""
+    if plain["digest"] != run["digest"]:
+        raise AssertionError("default: the fourth process encoded other inputs")
+    s_k, t_k, n_did, n_nom = run.pop("seg_out")
+    dev = run["enc"].device
+    for name, g, h in zip(cuda.TRACE_SLOTS_PREEMPT, t_k, plain["trace"]):
+        diff.check("default", "seq_run", f"segment {name}", g, h.to(dev))
+    for f in STATE_FIELDS:
+        diff.check("default", "seq_run", f"segment state {f}", getattr(s_k, f),
+                   plain["state"][f].to(dev))
+    s0, seg_ms, _, seg = run["seg"]
+    run["seg"][2] = plain["seconds"] * 1e3
+    log(f"    default: the plain version of the pass on steps {s0}..{s0 + len(seg) - 1} "
+        f"({n_did} dry runs, {n_nom} nominations) on the card in the fourth process, "
+        f"{plain['seconds'] * 1e3:.1f} ms against the kernel's {seg_ms:.1f} ms; trace, victims "
+        "and state equal")
 
 
 def kernel_rows(cuda, diff, path, run):
@@ -1223,6 +1292,7 @@ def kernel_rows(cuda, diff, path, run):
                "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
         if k == "seq_run" and "seg" in run:
             row["steps"] = [run["seg"][0], run["seg"][0] + len(run["seg"][3])]
+            row["plain_basis"] = "on the card, in the fourth process"
         elif k == "seq_run":
             row["plain_basis"] = "host CPU (the second process)"
         out.append(row)
@@ -1688,6 +1758,11 @@ def drive_serving(kp, cuda, scatter, diff, smi):
     n_nodes, n_pods, n_bound = SERVING_NODES, SERVING_PODS, SERVING_BOUND
     t_setup = time.perf_counter()
     snap, later, n_kept = serving_snapshot(kp, n_nodes, n_pods, n_bound, seed=7)
+    # phase 4j's tenants hold this snapshot, their gang window's arrivals
+    # are the next SERVING_ARRIVALS pods; tenant 0's go to the host-CPU worker
+    batch_in = (json.loads(json.dumps(snap)), json.loads(json.dumps(later[:SERVING_ARRIVALS])))
+    save_input("serving4j_in", dict(snap=tenant_copy(batch_in[0], 0),
+                                    arrivals=tenant_copy({"pods": batch_in[1]}, 0)["pods"]))
     sim = SimulatorService()
     sim.import_(snap)
     store, sched = sim.store, sim.scheduler
@@ -1808,7 +1883,7 @@ def drive_serving(kp, cuda, scatter, diff, smi):
         f"{preemptor[0]} with {preemptor[1]} victims deleted; K10 launches {totals}; peak "
         f"memory of a pass {peak / 2**30:.3f} GiB above what was held before it [{smi}]")
     calls = [c for k, cs in recorded.items() for c in cs if K10_TIMED_PASSES[c[0]] == k]
-    return dict(calls=calls, totals=totals, n_delta=n_delta)
+    return dict(calls=calls, totals=totals, n_delta=n_delta, batch_in=batch_in)
 
 
 def k10_rows(kp, scatter, diff, serving, smi):
@@ -3186,6 +3261,599 @@ def gangsweep_rows(kp, cuda, diff, run, smi):
 
 
 # ---------------------------------------------------------------------------
+# the batch plane (phases 4j and 5g): sessions' passes served by one launch
+# ---------------------------------------------------------------------------
+
+
+def tenant_copy(snap, i):
+    """Tenant i's copy of a snapshot: every pending pod's CPU request scaled
+    by 1 + i / 8, as the reference's batch-plane fixtures vary their tenants
+    (equal shapes, so one compile signature; each tenant's own values)."""
+    from kube_scheduler_simulator_tpu_torch.utils.quantity import parse_quantity
+
+    out = json.loads(json.dumps(snap))
+    f = 1 + i / 8
+    for pd in out.get("pods", []):
+        if pd["spec"].get("nodeName"):
+            continue
+        for c in pd["spec"].get("containers", []):
+            req = (c.get("resources") or {}).get("requests") or {}
+            if "cpu" in req:
+                req["cpu"] = f"{max(1, round(parse_quantity(req['cpu']).milli * f))}m"
+    return out
+
+
+def preempt_base(kp):
+    """Phase 4c's cluster (preemption_cluster at 1,024 nodes, seed 7) as a
+    snapshot with BATCH_PREEMPT_PENDING pending pods, and as many more
+    pending pods: the gang window's arrivals."""
+    nodes, pods, objects = kp.preemption_cluster(BATCH_PREEMPT_NODES, 2 * BATCH_PREEMPT_PENDING,
+                                                 seed=7)
+    bound = [pd for pd in pods if pd["spec"].get("nodeName")]
+    pending = [pd for pd in pods if not pd["spec"].get("nodeName")]
+    snap = {"nodes": nodes, "pods": bound + pending[:BATCH_PREEMPT_PENDING],
+            "pvcs": objects["pvcs"], "pvs": objects["pvs"],
+            "storageClasses": objects["storageclasses"]}
+    return snap, pending[BATCH_PREEMPT_PENDING:]
+
+
+def snapshot_digest(snap):
+    return hashlib.sha256(json.dumps(snap, sort_keys=True).encode()).hexdigest()
+
+
+def records_doc(results):
+    """A pass's records as one byte string: status, node, all 13 annotations."""
+    return json.dumps([{"ns": r.pod_namespace, "name": r.pod_name, "status": r.status,
+                        "node": r.selected_node, "ann": r.to_annotations()}
+                       for r in results], sort_keys=True)
+
+
+def pods_doc(sess):
+    return json.dumps(sess.service.store.list("pods"), sort_keys=True)
+
+
+def tenant_sequence(snap, arrivals):
+    """One tenant's session on the host CPU (the plain versions): import,
+    `schedule()` (the sequential window's pass), the arrivals,
+    `schedule_gang(record=False)` (the gang window's pass). Returns what
+    each pass gave: the records, the engine's final state and trace, the
+    rounds and placements, the store's pods after each, the encodings'
+    digests and the seconds (the passes', and the sequential engine's
+    build and plain pass alone)."""
+    from kube_scheduler_simulator_tpu_torch.server.sessions import SessionManager
+
+    sess, _ = SessionManager(device="cpu").create(snapshot=snap)
+    sched = sess.service.scheduler
+    ph0 = sched.metrics.phases()
+    t0 = time.perf_counter()
+    results = sched.schedule()
+    seq_s = time.perf_counter() - t0
+    ph1 = sched.metrics.phases()
+    run_s = sum(ph1[k] - ph0[k] for k in ("compileSeconds", "executeSeconds"))
+    eng = next(reversed(sched._engines.values()))
+    out = dict(snap_digest=snapshot_digest(snap), seq_digest=encoding_digest(eng.enc),
+               seq_records=records_doc(results), seq_state=_state_dict(eng._final_state),
+               seq_trace=[x.cpu() for x in eng._trace], seq_store=pods_doc(sess),
+               seq_seconds=seq_s, seq_run_seconds=run_s)
+    for pd in arrivals:
+        sess.service.store.apply("pods", pd)
+    t0 = time.perf_counter()
+    placements, rounds, _ = sched.schedule_gang(record=False)
+    gang_s = time.perf_counter() - t0
+    g = next(reversed(sched._engines.values()))
+    out.update(gang_digest=encoding_digest(g.enc), gang_state=_state_dict(g._final_state),
+               rounds=rounds, placements=placements, gang_store=pods_doc(sess),
+               gang_seconds=gang_s, gang_phases=g.last_stats["phases"])
+    return out
+
+
+TENANT_FORMS = ("batch_run", "batch_seg", "batch_eval", "batch_match", "batch_bind", "gang_topk")
+
+
+class TimedLibrary:
+    """The kernel library with each launch of the tenant forms (and of
+    gang_topk) between two CUDA events recorded around the library call
+    alone: the launch on the caller's stream, none of its wrapper's host
+    work (checks, scratch, the tenants' Planes table, readbacks). Other
+    entry points pass through."""
+
+    def __init__(self, lib, events):
+        self._lib, self._events = lib, events
+
+    def __getattr__(self, attr):
+        f = getattr(self._lib, attr)
+        form, _, t = attr.rpartition("_")
+        if t not in ("i32", "i64") or form not in self._events:
+            return f
+
+        def call(*args):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            rc = f(*args)
+            e1.record()
+            self._events[form].append((e0, e1))
+            return rc
+        return call
+
+
+class TenantLaunches(Swap):
+    """While active, every launch of the tenant forms (and of gang_topk) is
+    timed at its library call (`TimedLibrary`), and the first call of each
+    wrapper keeps its inputs (a stacked state argument cloned: the launches
+    after it update states in place). The calls go through unchanged."""
+
+    def __init__(self, cuda):
+        from kube_scheduler_simulator_tpu_torch.engine.encode import SchedState
+
+        self.events = {n: [] for n in TENANT_FORMS}
+        self.first = {}
+
+        def keep(name):
+            def make(f):
+                def call(*args, **kw):
+                    if name not in self.first:
+                        self.first[name] = ([x.clone() if isinstance(x, SchedState) else x
+                                             for x in args], dict(kw))
+                    return f(*args, **kw)
+                return call
+            return make
+
+        table = {n: keep(n) for n in TENANT_FORMS}
+        table["library"] = lambda f: (lambda: TimedLibrary(f(), self.events))
+        super().__init__(cuda, table)
+
+    def ms(self, name):
+        torch.cuda.synchronize()
+        return [e0.elapsed_time(e1) for e0, e1 in self.events[name]]
+
+
+RELAUNCHES = 3  # the warm launches a phase-5g time is the median of
+
+
+def relaunch_ms(cuda, name, fn, reps=RELAUNCHES):
+    """fn() (a warm launch of tenant form `name` from captured inputs) `reps`
+    times, each timed at its library call: (the median ms, fn's last
+    output)."""
+    rec = TenantLaunches(cuda)
+    with rec:
+        for _ in range(reps):
+            out = fn()
+    ms = rec.ms(name)
+    if len(ms) != reps:
+        raise AssertionError(f"{name}: {len(ms)} launches timed, want {reps}")
+    return statistics.median(ms), out
+
+
+def batch_counters(sess):
+    ph = sess.service.scheduler.metrics.phases()
+    return {k: ph[k] for k in ("batchedPasses", "batchWindows", "batchOccupancySum",
+                                "soloFallbacks", "batchedGangPasses")}
+
+
+def run_window(cuda, mgr, sessions, fn, what):
+    """fn(session) for every tenant at once, barrier-aligned: the window (as
+    long as the plane's) fills with all of them and flushes full, as the
+    reference's batch-plane tests align theirs. The counters are set to 0
+    just before and read just after. Returns (outputs, wall, launches, plain
+    calls, tenant launches, peak memory above what was held)."""
+    import threading
+
+    out, errors = {}, {}
+    barrier = threading.Barrier(len(sessions) + 1)
+
+    def run(i):
+        try:
+            barrier.wait(timeout=120)
+            with mgr.pass_slot():
+                out[i] = fn(sessions[i])
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors[i] = repr(e)
+
+    before = [batch_counters(x) for x in sessions + [mgr.get("default")]]
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(sessions))]
+    for t in threads:
+        t.start()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_counts()
+    with TenantLaunches(cuda) as rec:
+        barrier.wait(timeout=120)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() - held
+    if errors or len(out) != len(sessions):
+        raise AssertionError(f"{what}: passes failed: {errors}")
+    after = [batch_counters(x) for x in sessions + [mgr.get("default")]]
+    moved = [{k: a[k] - b[k] for k in a} for a, b in zip(after, before)]
+    return out, wall, counts, plain, rec, peak, moved
+
+
+def check_window(moved, counts, plain, want, what, gang=False):
+    """The window was ONE batched launch of the tenant forms that served
+    every tenant: in the window (`moved`: each tenant's counters, then the
+    plane's) each tenant's pass counted batched (a gang pass as a batched
+    gang pass) and no solo fallback (a batched launch that failed and fell
+    back to solo fails the phase); one window of B on the plane's registry;
+    the kernels in `want` launched and no plain version called."""
+    *tenants, plane = moved
+    B = len(tenants)
+    for i, c in enumerate(tenants):
+        if (c["batchedPasses"], c["soloFallbacks"], c["batchedGangPasses"]) != (1, 0, int(gang)):
+            raise AssertionError(f"{what}: tenant {i} was not served by the batched launch: {c}")
+    if (plane["batchWindows"], plane["batchOccupancySum"]) != (1, B):
+        raise AssertionError(f"{what}: windows {plane}")
+    bad = {k: counts[k] for k, n in want.items() if (counts[k] < 1 if n is None else counts[k] != n)}
+    if bad or any(plain.values()):
+        raise AssertionError(f"{what}: launches {counts}, plain calls {plain}")
+
+
+def armed_manager(B):
+    """A SessionManager on the card with its batch plane armed the way a
+    user arms it (KSS_BATCH, a long window, KSS_BATCH_MAX_SESSIONS = B: the
+    window flushes full)."""
+    from kube_scheduler_simulator_tpu_torch.server.sessions import SessionManager
+
+    env = {"KSS_BATCH": "1", "KSS_BATCH_WINDOW_MS": "600000", "KSS_BATCH_MAX_SESSIONS": str(B)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        mgr = SessionManager(max_sessions=2 * B + 2, max_concurrent_passes=B)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    if mgr.batch_plane is None or mgr.batch_plane.max_sessions != B:
+        raise AssertionError("KSS_BATCH did not arm the plane")
+    return mgr
+
+
+def seq_window(kp, cuda, diff, label, mgr, sessions, smi, preempting):
+    """One sequential window (`batch.seq.run`) and its checks: one batched
+    launch; every tenant's compile signature equal; each tenant's slice
+    (final state, trace, victims) byte-equal to a solo dispatch of its own
+    encoding on the card (the engine a solo pass runs), timed one tenant
+    after another; the last tenant's records against its solo engine's
+    (tenant 0's records and pods against its session on the host CPU's
+    plain versions, 4h). `preempting`: every tenant ran a dry run."""
+    B = len(sessions)
+    outs, wall, counts, plain, rec, peak, moved = run_window(
+        cuda, mgr, sessions, lambda s: s.service.scheduler.schedule(), label)
+    check_window(moved, counts, plain, {"batch_run": 1, "seq_run": 0}, label)
+    engines = [s.service.scheduler._batch_decode_cache[1] for s in sessions]
+    sigs = {kp.BatchedScheduler.compile_signature(e.enc) for e in engines}
+    if len(sigs) != 1:
+        raise AssertionError(f"{label}: {len(sigs)} compile signatures among {B} tenants")
+    launch_ms = rec.ms("batch_run")[0]
+    solo_ms, solo_wall, dids = [], 0.0, []
+    pre = engines[0].preempts
+    for i, e in enumerate(engines):
+        s = kp.BatchedScheduler(e.enc)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        s.run()
+        e1.record()
+        torch.cuda.synchronize()
+        solo_wall += time.perf_counter() - t0
+        solo_ms.append(e0.elapsed_time(e1))
+        slots = cuda.TRACE_SLOTS_PREEMPT if pre else cuda.TRACE_SLOTS_PLAIN
+        for slot, g, h in zip(slots, e._trace, s._trace):
+            diff.check("batch", "batch_run", f"{label} tenant {i} {slot}", g, h)
+        for f in STATE_FIELDS:
+            diff.check("batch", "batch_run", f"{label} tenant {i} state {f}",
+                       getattr(e._final_state, f), getattr(s._final_state, f))
+        if pre:
+            dids.append(int(e._trace[cuda.TRACE_SLOTS_PREEMPT.index("did")][:len(e.enc.queue)]
+                            .sum()))
+        if i == B - 1 and records_doc(s.results()) != records_doc(outs[i]):
+            raise AssertionError(f"{label}: tenant {i}'s records differ from its solo engine's")
+    # phase 5g's time: warm launches from the window's inputs, while the
+    # tenants' planes are still the window's (a later pass updates them)
+    args, kw = rec.first["batch_run"]
+    relaunch, (s_r, _) = relaunch_ms(cuda, "batch_run", lambda: cuda.batch_run(*args, **kw))
+    by_prog = {id(e.program): e for e in engines}
+    enrolled = [by_prog[id(p)] for p in args[0]]  # the window's order: as the tenants enrolled
+    for f in STATE_FIELDS:
+        diff.check("batch", "batch_run", f"{label} re-launch, state {f}", getattr(s_r, f),
+                   torch.stack([getattr(e._final_state, f) for e in enrolled]))
+    pods = sum(len(e.enc.queue) for e in engines)
+    log(f"    {label}: {B} tenants' passes in one window, {wall:.3f} s wall (encode, one "
+        f"batch_run launch of {launch_ms:.3f} ms (warm, launched again from its inputs: "
+        f"{relaunch:.3f} ms), decode and write-back of every tenant), "
+        f"{pods / wall:.1f} decisions/s ({B} x {pods // B} pods), peak memory "
+        f"{peak / 2**30:.3f} GiB above what was held; launches {dict((k, counts[k]) for k in ('batch_run', 'seq_run'))}, "
+        f"plain calls none; compile signatures equal; soloFallbacks 0" + (
+            f"; dry runs by tenant {dids}" if pre else "") + f" [{smi}]")
+    log(f"    {label}: the same {B} passes dispatched solo one after another on the card: "
+        f"seq_run {sum(solo_ms):.3f} ms in all ({' / '.join(f'{x:.3f}' for x in solo_ms)}; "
+        f"{solo_wall:.3f} s wall); each tenant's final state, trace and victims equal its slice "
+        f"of the window, tenant {B - 1}'s records its solo engine's [{smi}]")
+    if preempting and not all(dids):
+        raise AssertionError(f"{label}: a tenant ran no dry run: {dids}")
+    return dict(engines=engines, launch_ms=launch_ms, relaunch_ms=relaunch, solo_ms=solo_ms,
+                wall=wall,
+                counts=counts, peak=peak, pods=pods, dids=dids,
+                tenant0=dict(digest=encoding_digest(engines[0].enc), records=records_doc(outs[0]),
+                             state=_state_dict(engines[0]._final_state),
+                             trace=[x.cpu() for x in engines[0]._trace],
+                             store=pods_doc(sessions[0])))
+
+
+def gang_window(kp, cuda, diff, label, mgr, sessions, smi, phases):
+    """One gang window (`batch.gang.run`, unrecorded `schedule_gang`) and
+    its checks: one batched fixpoint (every round one launch of each tenant
+    form, each preempt phase one `batch_seg`); every tenant's (state,
+    rounds) and placements equal to a solo GangScheduler.run() of its own
+    encoding on the card, timed one after another (tenant 0's pods also
+    against its session on the host CPU's plain versions, 4h). `phases`:
+    every tenant ran a preempt phase."""
+    from kube_scheduler_simulator_tpu_torch.server.service import gang_chunk
+
+    B = len(sessions)
+    outs, wall, counts, plain, rec, peak, moved = run_window(
+        cuda, mgr, sessions, lambda s: s.service.scheduler.schedule_gang(record=False), label)
+    want = {"batch_eval": None, "batch_match": None, "batch_bind": None, "gang_eval": 0,
+            "gang_match": 0, "seq_run": 0, "sweep_run": 0}
+    if phases:
+        want["batch_seg"] = None
+    check_window(moved, counts, plain, want, label, gang=True)
+    gangs = [s.service.scheduler._batch_gang_decode_cache[1] for s in sessions]
+    sigs = {kp.GangScheduler.compile_signature(g.enc) for g in gangs}
+    if len(sigs) != 1:
+        raise AssertionError(f"{label}: {len(sigs)} gang signatures among {B} tenants")
+    stats = [g.last_stats for g in gangs]
+    if phases and not all(st["phases"] for st in stats):
+        raise AssertionError(f"{label}: a tenant ran no preempt phase: {stats}")
+    dev_ms = {n: sum(rec.ms(n)) for n in TENANT_FORMS if rec.events[n]}
+    solo_ms, solo_wall = [], 0.0
+    for i, g in enumerate(gangs):
+        s = kp.GangScheduler(g.enc, chunk=gang_chunk())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, rounds = s.run()
+        torch.cuda.synchronize()
+        solo_wall += time.perf_counter() - t0
+        if rounds != g._rounds or (rounds, s.placements()) != outs[i][1::-1]:
+            raise AssertionError(f"{label}: tenant {i} differs from its solo engine's pass")
+        for f in STATE_FIELDS:
+            diff.check("batch", "batch_bind", f"{label} tenant {i} state {f}",
+                       getattr(g._final_state, f), getattr(st, f))
+    pods = sum(len(g.enc.queue) for g in gangs)
+    log(f"    {label}: {B} tenants' gang passes in one window, {wall:.3f} s wall, "
+        f"{pods / wall:.1f} decisions/s ({pods} pods), rounds {[g._rounds for g in gangs]}, "
+        f"phases {[st['phases'] for st in stats]}, {stats[0]['host_syncs']} host readbacks; "
+        f"the tenant forms on the card {', '.join(f'{n} {x:.3f} ms' for n, x in dev_ms.items())}; "
+        f"launches {dict((k, counts[k]) for k in TENANT_FORMS)}, plain calls none; peak memory "
+        f"{peak / 2**30:.3f} GiB above what was held [{smi}]")
+    log(f"    {label}: the same {B} gang passes solo one after another on the card: "
+        f"{solo_wall:.3f} s wall; each tenant's state, rounds and placements equal its slice "
+        f"[{smi}]")
+    return dict(gangs=gangs, rec=rec, counts=counts, wall=wall, dev_ms=dev_ms, pods=pods,
+                tenant0=dict(digest=encoding_digest(gangs[0].enc),
+                             state=_state_dict(gangs[0]._final_state), rounds=gangs[0]._rounds,
+                             placements=outs[0][0], store=pods_doc(sessions[0])))
+
+
+def drive_batch(kp, cuda, diff, serving_in, smi):
+    """Phase 4j: the batch plane through SessionManager on the card, TPU32.
+    (a) BATCH_TENANTS tenants of phase 4d's serving cluster (1,024 nodes,
+    10,000 pods bound, 256 pending; tenant i's pending CPU requests scaled by
+    1 + i / 8) in one sequential window; (b) BATCH_PREEMPT_TENANTS tenants
+    of phase 4c's preemption cluster with BATCH_PREEMPT_PENDING pending pods
+    each, dry runs in every tenant; (c) gang passes
+    (`schedule_gang(record=False)`) after as many more arrivals: every
+    serving tenant in one window, the first BATCH_PREEMPT_GANG of the
+    preempting ones in another (each of whose encodes is a full one, the
+    victims of (b) deleted), whose phases must run. Tenant 0 of each
+    cluster also runs, with the plain versions, in the host-CPU worker
+    (4h)."""
+    out = {}
+    for label, base, arrivals, B, B_gang, phases in (
+            ("serving", *serving_in, BATCH_TENANTS, BATCH_TENANTS, False),
+            ("preempt", *preempt_base(kp), BATCH_PREEMPT_TENANTS, BATCH_PREEMPT_GANG, True)):
+        t0 = time.perf_counter()
+        mgr = armed_manager(B)
+        snaps = [tenant_copy(base, i) for i in range(B)]
+        sessions = [mgr.create(name=f"{label}-{i}", snapshot=sn)[0] for i, sn in enumerate(snaps)]
+        log(f"    {label}: {B} tenants of {len(base['nodes'])} nodes and {len(base['pods'])} pods "
+            f"imported in {time.perf_counter() - t0:.1f} s; the plane armed from KSS_BATCH "
+            f"({mgr.batch_plane.stats()})")
+        seq = seq_window(kp, cuda, diff, f"{label} seq", mgr, sessions, smi, phases)
+        for i, sess in enumerate(sessions[:B_gang]):
+            for pd in tenant_copy({"pods": arrivals}, i)["pods"]:
+                sess.service.store.apply("pods", pd)
+        mgr.batch_plane.max_sessions = B_gang  # the gang window fills with B_gang tenants
+        gang = gang_window(kp, cuda, diff, f"{label} gang", mgr, sessions[:B_gang], smi, phases)
+        out[label] = dict(seq=seq, gang=gang, B=B, snap_digest=snapshot_digest(snaps[0]))
+        mgr.shutdown()
+    return out
+
+
+def check_plain_batch(diff, label, run, plain):
+    """Phase 4h for phase 4j: tenant 0's slices of the sequential and the
+    gang window (records, final state, trace, rounds, placements, pods)
+    against the same tenant's session run with the plain versions on the
+    host CPU, after checking that both processes encoded the same inputs."""
+    seq, gang = run["seq"]["tenant0"], run["gang"]["tenant0"]
+    if (plain["snap_digest"], plain["seq_digest"], plain["gang_digest"]) != (
+            run["snap_digest"], seq["digest"], gang["digest"]):
+        raise AssertionError(f"batch {label}: the worker encoded other inputs")
+    for i, (g, h) in enumerate(zip(seq["trace"], plain["seq_trace"])):
+        diff.check("batch", "batch_run", f"{label} plain trace slot {i}", g, h)
+    for f in STATE_FIELDS:
+        diff.check("batch", "batch_run", f"{label} plain state {f}", seq["state"][f],
+                   plain["seq_state"][f])
+        diff.check("batch", "batch_bind", f"{label} gang plain state {f}", gang["state"][f],
+                   plain["gang_state"][f])
+    if seq["records"] != plain["seq_records"] or seq["store"] != plain["seq_store"]:
+        raise AssertionError(f"batch {label}: tenant 0's records or pods differ from the plain run")
+    if (gang["rounds"], gang["placements"], gang["store"]) != (
+            plain["rounds"], plain["placements"], plain["gang_store"]):
+        raise AssertionError(f"batch {label}: tenant 0's gang pass differs from the plain run")
+    run["plain_s"] = (plain["seq_run_seconds"], plain["gang_seconds"])
+    log(f"    batch {label}: tenant 0's sequential slice (records, state, trace, pods) and gang "
+        f"slice (state, {gang['rounds']} rounds, placements, pods) equal its session on the "
+        f"host CPU's plain versions ({plain['seq_seconds']:.3f} s and "
+        f"{plain['gang_seconds']:.3f} s there)")
+
+
+def batch_rows(cuda, diff, run, smi):
+    """Phase 5g: the tenant forms at their launches in phase 4j, each
+    launched again from the inputs captured there (warm: the median of
+    RELAUNCHES launches, each timed at its library call alone,
+    `relaunch_ms`) and held against its plain version. batch_run: the
+    preempting window's launch (launched again in 4j, while the tenants'
+    planes are the window's, and held against the window's slices; its
+    plain version: tenant 0's pass on the host CPU, 4h); batch_eval,
+    batch_match, batch_bind: round 1 of the serving gang window (the plain
+    eval on 8 rows of tenants 0 and 1, the matching and bind on every
+    tenant); batch_seg: the preempting gang window's first phase, the plain
+    version on its first PHASE_PLAIN_STEPS steps of each segment. Bounds:
+    bytes over 3.35 TB/s or operations over 67 TFLOP/s, the larger. No
+    library call computes these."""
+    rows_out = []
+    # batch_run at the preempting window
+    rp = run["preempt"]["seq"]
+    engines = rp["engines"]
+    B = len(engines)
+    enc0, prog0 = engines[0].enc, engines[0].program
+    st_bytes = nbytes(*(getattr(enc0.state0, f) for f in STATE_FIELDS))
+    steps = sum(len(e.enc.queue) for e in engines)
+    sample = np.random.default_rng(5).choice(np.asarray(enc0.queue), 16, replace=False)
+    per_step = statistics.mean(attempt_cost(enc0, prog0, enc0.state0, int(p), engines[0].weights)[1]
+                               for p in sample.tolist())
+    b_run = bound(sum(cluster_bytes(e.enc) for e in engines) + 2 * B * st_bytes
+                  + sum(nbytes(*e._trace) for e in engines), per_step * steps)
+    rows_out.append(("batch_run", "batch.seq.run", rp["relaunch_ms"],
+                     run["preempt"]["plain_s"][0] * 1e3, b_run, rp["counts"]["batch_run"],
+                     f"{B} tenants x {len(engines[0].padded_queue())} steps",
+                     "1 of the tenants: its engine's build and plain pass on the host CPU (4h)",
+                     "batch preempt"))
+    # the gang forms at round 1 of the serving gang window
+    rg = run["serving"]["gang"]
+    rec = rg["rec"]
+    (progs, arrays, states, w, rows, live, orders), _ = rec.first["batch_eval"]
+    eval_ms, scores = relaunch_ms(
+        cuda, "batch_eval", lambda: cuda.batch_eval(progs, arrays, states, w, rows, live, orders))
+    Bs, K = rows.shape
+    eight = torch.full((2,), 8, dtype=torch.int32, device=rows.device)
+    sub = cuda.stack_states([cuda.variant_state(states, 0), cuda.variant_state(states, 1)])
+    t0 = time.perf_counter()
+    want = cuda.batch_eval_plain(progs[:2], arrays[:2], sub, w[:2], rows[:2, :8].contiguous(),
+                                 eight, orders[:2])
+    torch.cuda.synchronize()
+    eval_plain_ms = (time.perf_counter() - t0) * 1e3
+    n_eval = min(8, int(live[:2].min()))
+    diff.check("batch", "batch_eval", "round 1, tenants 0 and 1, 8 rows", scores[:2, :n_eval],
+               want[:, :n_eval])
+    # tenant 0 of the launch: the first to enroll in the window
+    encg = next(gg.enc for gg in rg["gangs"] if gg.enc.arrays is arrays[0])
+    isz = encg.arrays.node_alloc.element_size()
+    N = encg.N
+    rows_live = int(live.sum())
+    per_row = statistics.mean(attempt_cost(encg, progs[0], encg.state0, int(p), w[0])[1]
+                              for p in rows[0, :8].tolist() if p >= 0)
+    st_g = nbytes(*(getattr(encg.state0, f) for f in STATE_FIELDS))
+    b_eval = bound(sum(cluster_bytes(gg.enc) for gg in rg["gangs"]) + Bs * st_g
+                   + rows_live * N * isz, per_row * rows_live)
+    (vals, idx, rows_m, live_m, orders_m, claims, carriers, n_nodes, n_claims, iters), _ = \
+        rec.first["batch_match"]
+    match_ms, (sel, stat) = relaunch_ms(
+        cuda, "batch_match", lambda: cuda.batch_match(vals, idx, rows_m, live_m, orders_m, claims,
+                                                      carriers, n_nodes, n_claims, iters))
+    t0 = time.perf_counter()
+    psel, pstat = cuda.batch_match_plain(vals, idx, rows_m, live_m, orders_m, claims, carriers,
+                                         n_nodes, n_claims, iters)
+    torch.cuda.synchronize()
+    match_plain_ms = (time.perf_counter() - t0) * 1e3
+    diff.check("batch", "batch_match", "round 1 sel", sel, psel)
+    diff.check("batch", "batch_match", "round 1 stat", stat, pstat)
+    W = vals.shape[2]
+    b_match = bound(rows_live * (W * (isz + 4)) + Bs * K * 4 * 3, rows_live * W)
+    (progs_b, arrays_b, states_b, rows_b, live_b, sel_b, orders_b), _ = rec.first["batch_bind"]
+    bind_ms, s1 = relaunch_ms(
+        cuda, "batch_bind", lambda: cuda.batch_bind(progs_b, arrays_b, states_b.clone(), rows_b,
+                                                    live_b, sel_b, orders_b))
+    t0 = time.perf_counter()
+    s2 = cuda.batch_bind_plain(progs_b, arrays_b, states_b.clone(), rows_b, live_b, sel_b,
+                               orders_b)
+    torch.cuda.synchronize()
+    bind_plain_ms = (time.perf_counter() - t0) * 1e3
+    for f in STATE_FIELDS:
+        diff.check("batch", "batch_bind", f"round 1 {f}", getattr(s1, f), getattr(s2, f))
+    committed = int((sel_b >= 0).sum())
+    a0 = arrays_b[0]
+    pod_row = nbytes(a0.pod_req[0], a0.pod_sreq[0], a0.want_pair[0], a0.want_wild[0],
+                     a0.want_trip[0], a0.pod_claim[0], a0.pod_disk_any[0], a0.pod_disk_rw[0],
+                     a0.pod_vol3[0])
+    node_row = nbytes(*(getattr(encg.state0, f)[0] for f in (
+        "requested", "s_requested", "used_pair", "used_wild", "used_trip", "node_disk_any",
+        "node_disk_rw", "node_vol3", "n_pods")))
+    b_bind = bound(4 * 3 * Bs * K + committed * (pod_row + 2 * node_row + 8),
+                   committed * (pod_row // 4 + 2))
+    counts = rg["counts"]
+    rows_out += [
+        ("batch_eval", "batch.gang.run", eval_ms, eval_plain_ms, b_eval, counts["batch_eval"],
+         f"{Bs} tenants x {K} rows ({rows_live} live)", "8 rows of 2 tenants", "batch serving"),
+        ("batch_match", "batch.gang.run", match_ms, match_plain_ms, b_match,
+         counts["batch_match"], f"{Bs} tenants x {K} x {W}", None, "batch serving"),
+        ("batch_bind", "batch.gang.run", bind_ms, bind_plain_ms, b_bind, counts["batch_bind"],
+         f"{committed} commits", None, "batch serving"),
+    ]
+    # batch_seg at the preempting gang window's first phase
+    rq = run["preempt"]["gang"]
+    (progs_q, arrays_q, st_in, segs, w_q, qpos), _ = rq["rec"].first["batch_seg"]
+    phase_ms, _ = relaunch_ms(cuda, "batch_seg",
+                              lambda: cuda.batch_seg(progs_q, arrays_q, st_in, segs, w_q, qpos))
+    cut = min(PHASE_PLAIN_STEPS, segs.shape[1])
+    s_k, sel_k = cuda.batch_seg(progs_q, arrays_q, st_in, segs[:, :cut].contiguous(), w_q,
+                                qpos[:, :cut].contiguous())
+    t0 = time.perf_counter()
+    s_p, sel_p = cuda.batch_seg_plain(progs_q, arrays_q, st_in, segs[:, :cut].contiguous(), w_q,
+                                      qpos[:, :cut].contiguous())
+    torch.cuda.synchronize()
+    seg_plain_ms = (time.perf_counter() - t0) * 1e3
+    diff.check("batch", "batch_seg", f"first phase, {cut} steps, selections", sel_k, sel_p)
+    for f in STATE_FIELDS:
+        diff.check("batch", "batch_seg", f"first phase, {cut} steps, state {f}",
+                   getattr(s_k, f), getattr(s_p, f))
+    encq = next(gg.enc for gg in rq["gangs"] if gg.enc.arrays is arrays_q[0])
+    n_steps = int((segs >= 0).sum())
+    step_ops = ops_per_node(encq, progs_q[0]) * encq.N + rel_reads(
+        encq, progs_q[0], cuda.variant_state(st_in, 0), int(segs[0, 0]))[1]
+    st_q = nbytes(*(getattr(encq.state0, f) for f in STATE_FIELDS))
+    Bq = segs.shape[0]
+    b_seg = bound(sum(cluster_bytes(gg.enc) for gg in rq["gangs"]) + 2 * Bq * st_q
+                  + 4 * 3 * segs.numel() + w_q.numel() * w_q.element_size(), step_ops * n_steps)
+    rows_out.append(("batch_seg", "batch.gang.run", phase_ms, seg_plain_ms, b_seg,
+                     rq["counts"]["batch_seg"],
+                     f"{Bq} tenants' segments of {(segs >= 0).sum(dim=1).tolist()} pods",
+                     f"the first {cut} steps of each segment", "batch preempt"))
+    out = []
+    for name, kind, ms, plain_ms, b, n_launch, shape, basis, path in rows_out:
+        row = {"name": name, "path": path, "route": "cuda",
+               "source": GANG_SOURCE if name in ("batch_eval", "batch_match", "batch_bind")
+               else SOURCE, "replaces": REPLACES[kind], "launches": n_launch,
+               "max_abs_err": diff.err[("batch", name)], "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b[0], "bound_by": b[1], "library_ms": None, "shape": shape}
+        if basis:
+            row["plain_basis"] = basis
+        out.append(row)
+        log(f"    {path:14s} {name:11s} {ms:.6f} ms at {shape} (plain {plain_ms:.3f} ms"
+            + (f" for {basis}" if basis else "") + f", bound {b[0]:.7f} ms by {b[1]}, library "
+            f"none), {n_launch} launches on the main path [{smi}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the second process: the plain versions of whole passes on the host CPU
 # ---------------------------------------------------------------------------
 
@@ -3217,6 +3885,9 @@ def plain_worker(out_dir, part):
     t_start = time.perf_counter()
     if part == "c":
         save("passes3", plain_passes(kp, cuda))
+        save("seg4c", plain_segment(kp, cuda, out_dir))
+        inp = wait_input(out_dir, "serving4j_in")
+        save("batch_serving", tenant_sequence(inp["snap"], inp["arrivals"]))
         return
     if part == "b":
         enc = gang_sweep3_encoding(kp, cpu)
@@ -3233,6 +3904,9 @@ def plain_worker(out_dir, part):
         save("gangsweep3", dict(digest=encoding_digest(enc), w=w, asg=asg, rounds=rounds,
                                 stats=dict(sweep.last_stats), states=_state_dict(sweep._states),
                                 seconds=time.perf_counter() - t0))
+        snap, arrivals = preempt_base(kp)
+        save("batch_preempt", tenant_sequence(tenant_copy(snap, 0),
+                                              tenant_copy({"pods": arrivals}, 0)["pods"]))
         return
     sweeps = {}
     for pol in (kp.TPU32, kp.EXACT):
@@ -3274,6 +3948,44 @@ def plain_worker(out_dir, part):
                                  sels=sels, seconds=time.perf_counter() - t0))
 
 
+def save_input(name, obj):
+    """An input of the plain workers, from the card's phases."""
+    PLAIN_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = PLAIN_DIR / f"{name}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, PLAIN_DIR / f"{name}.pt")
+
+
+def wait_input(out_dir, name):
+    """In a plain worker: an input the main process saves when its phase
+    reaches it (the worker dies with the main process)."""
+    path = Path(out_dir) / f"{name}.pt"
+    while not path.exists():
+        time.sleep(0.5)
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def plain_segment(kp, cuda, out_dir):
+    """Phase 4c's segment with the plain version, on the card (its own
+    encode of the cluster, the kernel pass's state the main process saves)."""
+    from kube_scheduler_simulator_tpu_torch.engine.encode import SchedState
+
+    nodes, pods, objects = kp.preemption_cluster(1024, 10000, seed=7)
+    enc = kp.encode_cluster(nodes, pods, kp.supported_config(), policy=kp.TPU32, **objects)
+    eng = kp.BatchedScheduler(enc)
+    inp = wait_input(out_dir, "seg4c_in")
+    dev = enc.device
+    st0 = SchedState(**{f: t.to(dev) for f, t in inp["state"].items()})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, tr = cuda.seq_run_plain(eng.program, enc.arrays, st0, inp["seg"].to(dev), eng.weights,
+                                record=True, step0=inp["s0"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return dict(digest=encoding_digest(enc), state=_state_dict(st), trace=[x.cpu() for x in tr],
+                seconds=secs)
+
+
 def _die_with_parent():
     """In the child before it runs: the kernel kills it when this process
     ends, however it ends (Linux's PR_SET_PDEATHSIG)."""
@@ -3284,7 +3996,8 @@ def _die_with_parent():
 
 
 PLAIN_PARTS = {"a": ("sweep3", "fit", "affinity", "config4", "config4_sampled"),
-               "b": ("gang3", "gangsweep3"), "c": ("passes3",)}
+               "b": ("gang3", "gangsweep3", "batch_preempt"),
+               "c": ("passes3", "seg4c", "batch_serving")}
 
 
 class PlainWorker:
@@ -3295,7 +4008,7 @@ class PlainWorker:
     def __init__(self):
         PLAIN_DIR.mkdir(parents=True, exist_ok=True)
         for f in PLAIN_DIR.glob("*"):
-            f.unlink()
+            f.unlink()  # earlier runs' results and inputs
         self.logs, self.procs = {}, {}
         for part in PLAIN_PARTS:
             path = PLAIN_DIR / f"worker_{part}.log"
@@ -3354,14 +4067,15 @@ def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     import kube_scheduler_simulator_tpu_torch as kp
 
-    worker = PlainWorker()  # the plain versions of whole passes, beside the card's phases
+    workers = []  # the plain versions of whole passes, beside the card's phases
     try:
-        return run_phases(kp, worker)
+        return run_phases(kp, workers)
     finally:
-        worker.stop()
+        for w in workers:
+            w.stop()
 
 
-def run_phases(kp, worker) -> int:
+def run_phases(kp, workers) -> int:
     from kube_scheduler_simulator_tpu_torch.engine import cuda, scatter
 
     ph = Phases()
@@ -3376,8 +4090,8 @@ def run_phases(kp, worker) -> int:
         f"{torch.cuda.get_device_properties(0).multi_processor_count}")
 
     # -- 2. build ---------------------------------------------------------
-    # one library: seq_kernels.cu twice (SEQ_ONLY=32, 64) and
-    # delta_kernels.cu, three nvcc processes at once, then one link
+    # one library: seq_kernels.cu four times (SEQ_ONLY=32, 64 by SEQ_TENANT=0,
+    # 1) and delta_kernels.cu, five nvcc processes at once, then one link
     t0 = time.perf_counter()
     path, build_s = cuda.build()
     cuda.library()
@@ -3385,6 +4099,9 @@ def run_phases(kp, worker) -> int:
     for ln in ptxas_report(path.with_suffix(".log").read_text()):
         log(f"    ptxas: {ln}")
     ph.done("2")
+    # the plain processes start once the build no longer needs the host's cores
+    worker = PlainWorker()
+    workers.append(worker)
 
     # -- 3. kernels vs plain ----------------------------------------------
     log("[3] kernels against their plain versions on the card (exact equality)")
@@ -3461,6 +4178,13 @@ def run_phases(kp, worker) -> int:
     gsweep = drive_gang_sweep(kp, cuda, diff, sweep, gang, smi)
     ph.done("4i")
 
+    # -- 4j. the batch plane: tenants' passes in one launch -------------------
+    log(f"[4j] the batch plane through SessionManager on the card, TPU32: {BATCH_TENANTS} "
+        f"tenants of the serving cluster, {BATCH_PREEMPT_TENANTS} of the preemption cluster "
+        f"({BATCH_PREEMPT_PENDING} pending each), a sequential and a gang window each")
+    batch = drive_batch(kp, cuda, diff, serving["batch_in"], smi)
+    ph.done("4j")
+
     # -- 4h. the kernels' whole passes against the second process's plain ones
     log("[4h] the whole passes against the plain versions run on the host CPU in the second "
         "process (exact equality)")
@@ -3470,6 +4194,11 @@ def run_phases(kp, worker) -> int:
     check_plain_gang_sweep(cuda, diff, gsweep3, worker.result("gangsweep3", deadline))
     check_plain_path(cuda, diff, "fit", fit, worker.result("fit", deadline))
     check_plain_path(cuda, diff, "affinity", aff, worker.result("affinity", deadline))
+    check_plain_segment(cuda, diff, dflt, worker.result("seg4c", deadline))
+    check_plain_batch(diff, "serving", batch["serving"],
+                      worker.result("batch_serving", deadline))
+    check_plain_batch(diff, "preempt", batch["preempt"],
+                      worker.result("batch_preempt", deadline))
     config4_plain = worker.result("config4", deadline)
     config4_sampled = worker.result("config4_sampled", deadline)
     ph.done("4h")
@@ -3497,6 +4226,8 @@ def run_phases(kp, worker) -> int:
     kernels += sweep_row(cuda, diff, sweep, config4_plain, config4_sampled, smi)
     log(f"[5f] K9 and the phase's sweep_run of the gang weight sweep (phase 4i), TPU32 [{smi}]")
     kernels += gangsweep_rows(kp, cuda, diff, gsweep, smi)
+    log(f"[5g] the batch plane's tenant forms at their launches in phase 4j, TPU32 [{smi}]")
+    kernels += batch_rows(cuda, diff, batch, smi)
     ph.done("5")
     log("    phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in ph.seconds.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")

@@ -35,6 +35,13 @@ every variant is one launch of each K9 kernel, and the preempt phases of
 all variants one `sweep_run` launch over per-variant segments (a batch
 job's `engine: gang`).
 
+The session plane (`SessionManager`, server/sessions.py) keeps many tenants'
+services in one process; with ``KSS_BATCH`` set its batch plane
+(`BatchPlane`, server/batchplane.py) serves concurrent compatible passes of
+different sessions as one launch on the card: B sequential passes through
+the tenant form of `sweep_run`, or B gang fixpoints through the tenant forms
+of the K9 kernels, each tenant over its own cluster.
+
 Entry points run on the CUDA card unless the caller passes `device="cpu"`;
 with no card and no explicit device they raise RuntimeError.
 
@@ -45,7 +52,7 @@ Layout:
             plugins' snapshot
   engine/   encoder, delta encoder, plugin bodies, the sequential engine,
             kernel bindings
-  server/   the scheduling service over a store
+  server/   the scheduling service over a store, the session and batch planes
   parallel/ weight sweeps (`WeightSweep`, `GangSweep`, `weights_for`)
   scenario/ the batch runner's sweep jobs
   csrc/     the CUDA sources
@@ -65,7 +72,9 @@ from .engine.engine import supported_config as slice_config
 from .engine.gang import GangScheduler
 from .models.store import ResourceStore
 from .parallel import GangSweep, WeightSweep, weights_for
+from .server.batchplane import BatchPlane
 from .server.service import SchedulerService, SimulatorService
+from .server.sessions import SessionManager
 from .synth import preemption_cluster, synthetic_affinity_cluster, synthetic_cluster
 
 __version__ = "0.1.0"
@@ -73,12 +82,14 @@ __version__ = "0.1.0"
 __all__ = [
     "EXACT",
     "TPU32",
+    "BatchPlane",
     "BatchedScheduler",
     "DeltaEncoder",
     "GangScheduler",
     "GangSweep",
     "ResourceStore",
     "SchedulerService",
+    "SessionManager",
     "SimulatorService",
     "WeightSweep",
     "affinity_config",

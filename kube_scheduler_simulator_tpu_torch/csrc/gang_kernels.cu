@@ -32,6 +32,11 @@
 // `order`, `claims` and `carrier` are shared. GangScheduler calls them with
 // V = 1.
 //
+// The tenant form (TEN = true; K11 `batch.gang.run`, server/batchplane.py):
+// variant v is tenant v of a batch window, with its own cluster (the Planes
+// table of seq_kernels.cu's tenant forms), and its own order [V, P], claims
+// [V, P, MC] and carrier [V, P] rows.
+//
 // Every kernel reads its live row counts from device memory (`live`), so a
 // round's pending lists are built on the card and the host reads back one
 // [V, 2] array a round (what gang_match committed, and the pending count,
@@ -143,17 +148,20 @@ __device__ __forceinline__ void eval_row(const Cfg& c, const Need& nd, const Pla
 // scores go to trace row slot[i]. Block b uses scratch slice b of feas_s
 // [G, N], codes_s [G, N*F], raw_s [G, N*S] and wsp [G, ws_bytes]. STACK =
 // false reads the one state straight from the kernel's parameters, as
-// before the variant axis; STACK = true each variant's slice.
-template <typename I, bool STACK>
+// before the variant axis; STACK = true each variant's slice. TEN (with
+// STACK): tenant v's planes (the table `ap`) and order row order + v*P.
+template <typename I, bool STACK, bool TEN = false>
 __global__ void __launch_bounds__(1024)
-    gang_eval_kernel(Cfg c, Planes a, State s0, StateStride ss, const I* w, int V,
-                     const int* rows, int K, const int* live, const int* order,
-                     int check_pending, I* scores, const int* slot, int* tr_pf, int* tr_codes,
-                     I* tr_raw, I* tr_fin, unsigned char* feas_s, int* codes_s, I* raw_s,
-                     char* wsp, long long ws_bytes) {
+    gang_eval_kernel(Cfg c, typename PlanesArg<TEN>::T ap, State s0, StateStride ss,
+                     const I* w, int V, const int* rows, int K, const int* live,
+                     const int* order, int check_pending, I* scores, const int* slot,
+                     int* tr_pf, int* tr_codes, I* tr_raw, I* tr_fin, unsigned char* feas_s,
+                     int* codes_s, I* raw_s, char* wsp, long long ws_bytes) {
   __shared__ Smem<I> sm;
   __shared__ Smem<int> smi;
+  __shared__ typename PlanesCopy<TEN>::T sp;
   Ws ws;
+  const Planes& a = planes_of(ap, 0, sp);
   ws_layout(a, sizeof(I), 0, wsp + (size_t)blockIdx.x * ws_bytes, &ws);
   const Need nd = need_of(c);
   const size_t N = a.N;
@@ -165,7 +173,12 @@ __global__ void __launch_bounds__(1024)
     int i, v;
     if (!pair_row<STACK>(j, V, K, live, i, v)) continue;
     const size_t row = (size_t)v * K + i;
-    if constexpr (STACK)
+    if constexpr (TEN) {
+      const Planes& at = planes_of(ap, v, sp);
+      eval_row<I>(c, nd, at, variant_state(s0, ss, v), w + (size_t)v * c.n_scores, row, rows,
+                  order + (size_t)v * at.P, check_pending, scores, slot, tr_pf, tr_codes,
+                  tr_raw, tr_fin, feas, codes, raw, ws, sm);
+    } else if constexpr (STACK)
       eval_row<I>(c, nd, a, variant_state(s0, ss, v), w + (size_t)v * c.n_scores, row, rows,
                   order, check_pending, scores, slot, tr_pf, tr_codes, tr_raw, tr_fin, feas,
                   codes, raw, ws, sm);
@@ -357,16 +370,22 @@ __device__ void match_one(const I* vals, const int* idx, int W, int K, int n_liv
 // rel_serialize): the pod carries a required anti-affinity term. Writes sel
 // [K] (the committed node or -1) and stat = {rows committed, live}; each of
 // these, and the scratch cand [K], taken [N], winner [N+1], cmin [C] and
-// ctaken [C], is the variant's own slice of a [V, ...] buffer.
-template <typename I>
+// ctaken [C], is the variant's own slice of a [V, ...] buffer. TEN: order
+// [V, P], claims [V, P, MC] and carrier [V, P] are the tenants' own rows
+// (P pods a tenant); without it they are shared and P is not read.
+template <typename I, bool TEN = false>
 __global__ void __launch_bounds__(1024)
     gang_match_kernel(const I* vals0, const int* idx0, int W, int V, int K, const int* live,
-                      const int* rows0, const int* order, const int* claims, int MC,
-                      const unsigned char* carrier, int N, int C, int iters, int* sel0,
+                      const int* rows0, const int* order0, const int* claims0, int MC,
+                      const unsigned char* carrier0, int N, int C, int iters, int* sel0,
                       int* cand0, int* taken0, int* winner0, int* cmin0, int* ctaken0,
-                      int* stat0) {
+                      int* stat0, int P) {
   __shared__ Smem<int> smi;
   for (int v = blockIdx.x; v < V; v += gridDim.x) {
+    const size_t vp = TEN ? (size_t)v * P : 0;
+    const int* order = order0 + vp;
+    const int* claims = claims0 + vp * MC;
+    const unsigned char* carrier = carrier0 ? carrier0 + vp : nullptr;
     const size_t vk = (size_t)v * K;
     const I* vals = vals0 + vk * W;
     const int* idx = idx0 ? idx0 + vk * W : nullptr;
@@ -426,17 +445,25 @@ __device__ __forceinline__ void bind_row(const Planes& a, const State& s, size_t
 // K9 bind: for each variant v, its rows [0, live[v]) with sel >= 0 bind pod
 // rows[v, i] to node sel[v, i] in the variant's state at bind order P +
 // order[pod]. Integer atomics throughout, so rows that share a node or a
-// claim add in any order with the same (wrapping) sum. STACK as gang_eval's.
-template <typename I, bool STACK>
+// claim add in any order with the same (wrapping) sum. STACK and TEN as
+// gang_eval's.
+template <typename I, bool STACK, bool TEN = false>
 __global__ void __launch_bounds__(1024)
-    gang_bind_kernel(Planes a, State s0, StateStride ss, int V, const int* rows, int K,
-                     const int* live, const int* sel, const int* order) {
+    gang_bind_kernel(typename PlanesArg<TEN>::T ap, State s0, StateStride ss, int V,
+                     const int* rows, int K, const int* live, const int* sel,
+                     const int* order) {
   __shared__ Smem<int> smi;
+  __shared__ typename PlanesCopy<TEN>::T sp;
+  const Planes& a = planes_of(ap, 0, sp);
   const long long pairs = row_pairs<STACK>(live, V, K, smi);
   for (long long j = blockIdx.x; j < pairs; j += gridDim.x) {
     int i, v;
     if (!pair_row<STACK>(j, V, K, live, i, v)) continue;
-    if constexpr (STACK)
+    if constexpr (TEN) {
+      const Planes& at = planes_of(ap, v, sp);
+      bind_row<I>(at, variant_state(s0, ss, v), (size_t)v * K + i, rows, sel,
+                  order + (size_t)v * at.P);
+    } else if constexpr (STACK)
       bind_row<I>(a, variant_state(s0, ss, v), (size_t)v * K + i, rows, sel, order);
     else
       bind_row<I>(a, s0, i, rows, sel, order);
@@ -448,20 +475,9 @@ __global__ void __launch_bounds__(1024)
 // the one-variant (stacked = 0) or the stacked form
 template <typename I>
 int gang_eval_grid(int n_nodes, int stacked) {
-#ifdef __CUDACC__
-  int dev = 0, sms = 0, per_sm = 0;
-  const int threads = gang_eval_threads(n_nodes);
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      (stacked ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &per_sm, gang_eval_kernel<I, true>, threads, 0)
-               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &per_sm, gang_eval_kernel<I, false>, threads, 0)) != cudaSuccess)
-    return -1;
-  return per_sm * sms;
-#else
-  return 1;  // the host build runs one block
-#endif
+  const int t = gang_eval_threads(n_nodes);
+  return stacked ? resident_blocks(gang_eval_kernel<I, true>, t)
+                 : resident_blocks(gang_eval_kernel<I, false>, t);
 }
 
 // blocks of gang_topk and gang_bind: one a (row, variant) pair, at most 8,192
@@ -515,7 +531,7 @@ extern "C" {
                      void* stream) {                                                          \
     gang_match_kernel<I><<<V, block_threads(K), 0, (cudaStream_t)stream>>>(                   \
         (const I*)vals, idx, W, V, K, live, rows, order, claims, MC, carrier, N, C, iters,    \
-        sel, cand, taken, winner, cmin, ctaken, stat);                                        \
+        sel, cand, taken, winner, cmin, ctaken, stat, 0);                                     \
     return (int)cudaGetLastError();                                                           \
   }                                                                                           \
   int gang_bind_##T(const Planes* a, const State* s, const StateStride* ss, int V,            \
@@ -526,11 +542,56 @@ extern "C" {
     return (int)cudaGetLastError();                                                           \
   }
 
+// the tenant forms (any V >= 1): `tab` is the device table of the tenants'
+// Planes, order [V, P] (and claims [V, P, MC], carrier [V, P]) their own rows
+#define GANG_TENANT_ENTRY_POINTS(T, I)                                                        \
+  int batch_eval_grid_##T(int n_nodes) {                                                      \
+    return resident_blocks(gang_eval_kernel<I, true, true>, gang_eval_threads(n_nodes));      \
+  }                                                                                           \
+  int batch_eval_##T(const Cfg* c, const Planes* tab, int n_nodes, const State* s,           \
+                     const StateStride* ss, const void* w, int V, const int* rows, int K,     \
+                     const int* live, const int* order, void* scores, int grid,              \
+                     unsigned char* feas_s, int* codes_s, void* raw_s, void* ws,              \
+                     long long ws_bytes, void* stream) {                                      \
+    gang_eval_kernel<I, true, true><<<grid, gang_eval_threads(n_nodes), 0,                    \
+                                      (cudaStream_t)stream>>>(                                \
+        *c, tab, *s, *ss, (const I*)w, V, rows, K, live, order, 1, (I*)scores, nullptr,       \
+        nullptr, nullptr, nullptr, nullptr, feas_s, codes_s, (I*)raw_s, (char*)ws, ws_bytes); \
+    return (int)cudaGetLastError();                                                           \
+  }                                                                                           \
+  int batch_match_##T(const void* vals, const int* idx, int W, int V, int K, const int* live, \
+                      const int* rows, const int* order, const int* claims, int MC,           \
+                      const unsigned char* carrier, int N, int C, int iters, int* sel,        \
+                      int* cand, int* taken, int* winner, int* cmin, int* ctaken, int* stat,  \
+                      int P, void* stream) {                                                  \
+    gang_match_kernel<I, true><<<V, block_threads(K), 0, (cudaStream_t)stream>>>(             \
+        (const I*)vals, idx, W, V, K, live, rows, order, claims, MC, carrier, N, C, iters,    \
+        sel, cand, taken, winner, cmin, ctaken, stat, P);                                     \
+    return (int)cudaGetLastError();                                                           \
+  }                                                                                           \
+  int batch_bind_##T(const Planes* tab, const State* s, const StateStride* ss, int V,         \
+                     const int* rows, int K, const int* live, const int* sel,                 \
+                     const int* order, void* stream) {                                        \
+    gang_bind_kernel<I, true, true><<<gang_rows_grid(V, K), 64, 0, (cudaStream_t)stream>>>(   \
+        tab, *s, *ss, V, rows, K, live, sel, order);                                          \
+    return (int)cudaGetLastError();                                                           \
+  }
+
+#if !defined(SEQ_TENANT) || SEQ_TENANT == 0
 #if !defined(SEQ_ONLY) || SEQ_ONLY == 32
 GANG_ENTRY_POINTS(i32, int)
 #endif
 #if !defined(SEQ_ONLY) || SEQ_ONLY == 64
 GANG_ENTRY_POINTS(i64, long long)
+#endif
+#endif
+#if !defined(SEQ_TENANT) || SEQ_TENANT == 1
+#if !defined(SEQ_ONLY) || SEQ_ONLY == 32
+GANG_TENANT_ENTRY_POINTS(i32, int)
+#endif
+#if !defined(SEQ_ONLY) || SEQ_ONLY == 64
+GANG_TENANT_ENTRY_POINTS(i64, long long)
+#endif
 #endif
 
 }  // extern "C"

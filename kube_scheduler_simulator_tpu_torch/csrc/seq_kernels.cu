@@ -1905,29 +1905,97 @@ __device__ __forceinline__ Trace variant_trace(Trace x, const TraceStride& st, i
   return x;
 }
 
+// The tenant form (K11 `batch.seq.run`/`batch.gang.run`, TEN = true): each
+// variant is a tenant of the batch plane with its own cluster, so the kernel
+// takes a device table of Planes, one entry a tenant (engine/cuda.py builds
+// it from each tenant's own encoding, with no copy of its tensors), where the
+// other forms take one Planes for every variant. A block copies its tenant's
+// entry into shared memory before it works on that tenant. The tenants'
+// dims are equal (one compile signature a window), so a block lays out its
+// workspace once.
+template <bool TEN> struct PlanesArg { using T = Planes; };
+template <> struct PlanesArg<true> { using T = const Planes*; };
+template <bool TEN> struct PlanesCopy { using T = char; };
+template <> struct PlanesCopy<true> { using T = Planes; };
+static_assert(sizeof(Planes) % 8 == 0, "Planes is copied in 8-byte words");
+
+// The planes of variant v: the kernel's own (one cluster)...
+__device__ __forceinline__ const Planes& planes_of(const Planes& a, int, char&) { return a; }
+
+// ...or tenant v's entry of the table, copied into the block's shared `sp`.
+__device__ __forceinline__ const Planes& planes_of(const Planes* tab, int v, Planes& sp) {
+  __syncthreads();  // every thread is done with the previous tenant's planes
+  const unsigned long long* src = (const unsigned long long*)(tab + v);
+  unsigned long long* dst = (unsigned long long*)&sp;
+  for (int i = threadIdx.x; i < (int)(sizeof(Planes) / 8); i += blockDim.x) dst[i] = src[i];
+  __syncthreads();
+  return sp;
+}
+
+// The tenant forms' loop (K11 `batch.seq.run`, and with SKIP the phases of
+// `batch.gang.run`): variant v is tenant v, with its own planes (entry v of
+// the table `tab`, copied into shared memory by `planes_of`), its own queue
+// row queue + v*Q and queue positions qpos + v*Q (null: step i binds at P +
+// i), weights row, state and trace slices. The grid strides over the
+// tenants as `sweep_run_kernel`'s over its variants.
+template <typename I, bool PRE, bool SKIP>
+__device__ __forceinline__ void tenant_loop(const Cfg& c, const Planes* tab, const State& s0,
+                                            const StateStride& ss, const I* w, int V,
+                                            const int* queue, const int* qpos, int Q,
+                                            const Trace& tr0, const TraceStride& ts,
+                                            unsigned char* feas_s, int* codes_s, I* raw_s,
+                                            char* wsp, long long ws_bytes, Smem<I>& sm,
+                                            Smem<long long>& sml) {
+  __shared__ Planes sp;
+  Ws ws;
+  const Planes& a0 = planes_of(tab, 0, sp);
+  ws_layout(a0, sizeof(I), c.vbound, wsp + (size_t)blockIdx.x * ws_bytes, &ws);
+  const Need nd = need_of(c);
+  const size_t N = a0.N;
+  unsigned char* feas = feas_s + blockIdx.x * N;
+  int* cs = codes_s + blockIdx.x * N * c.n_filters;
+  I* rs = raw_s + blockIdx.x * N * c.n_scores;
+  for (int v = blockIdx.x; v < V; v += gridDim.x) {
+    const Planes& a = planes_of(tab, v, sp);
+    const size_t vq = (size_t)v * Q;
+    run_body<I, PRE, SKIP>(c, nd, a, variant_state(s0, ss, v), w + (size_t)v * c.n_scores,
+                           queue + vq, qpos ? qpos + vq : nullptr, Q, 0,
+                           variant_trace(tr0, ts, v), feas, cs, rs, ws, sm, sml);
+    __syncthreads();  // the next tenant reuses the block's slices
+  }
+}
+
 // K11 sweep: V weight variants of one pass, each exactly `seq_run` (step0 =
 // 0, no queue positions) on its own weights row w[v] and its own state and
 // trace slices, over the shared planes and queue. The grid strides over
 // the variants (the host build runs one block); each block keeps one
 // scratch and workspace slice, reused variant after variant.
-template <typename I, bool PRE>
+// TEN (K11 `batch.seq.run`): variant v is tenant v, with its own planes
+// (`a` is the table) and queue row (`tenant_loop`).
+template <typename I, bool PRE, bool TEN = false>
 __global__ void __launch_bounds__(1024)
-    sweep_run_kernel(Cfg c, Planes a, State s0, StateStride ss, const I* w, int V,
-                     const int* queue, int Q, Trace tr0, TraceStride ts, unsigned char* feas_s,
-                     int* codes_s, I* raw_s, char* wsp, long long ws_bytes) {
+    sweep_run_kernel(Cfg c, typename PlanesArg<TEN>::T a, State s0, StateStride ss,
+                     const I* w, int V, const int* queue, int Q, Trace tr0, TraceStride ts,
+                     unsigned char* feas_s, int* codes_s, I* raw_s, char* wsp,
+                     long long ws_bytes) {
   __shared__ Smem<I> sm;
   __shared__ Smem<long long> sml;
-  Ws ws;
-  ws_layout(a, sizeof(I), c.vbound, wsp + (size_t)blockIdx.x * ws_bytes, &ws);
-  const Need nd = need_of(c);
-  const size_t N = a.N;
-  unsigned char* feas = feas_s + blockIdx.x * N;
-  int* cs = codes_s + blockIdx.x * N * c.n_filters;
-  I* rs = raw_s + blockIdx.x * N * c.n_scores;
-  for (int v = blockIdx.x; v < V; v += gridDim.x) {
-    run_body<I, PRE>(c, nd, a, variant_state(s0, ss, v), w + (size_t)v * c.n_scores, queue,
-                     nullptr, Q, 0, variant_trace(tr0, ts, v), feas, cs, rs, ws, sm, sml);
-    __syncthreads();  // the next variant reuses the block's slices
+  if constexpr (TEN) {
+    tenant_loop<I, PRE, false>(c, a, s0, ss, w, V, queue, nullptr, Q, tr0, ts, feas_s, codes_s,
+                               raw_s, wsp, ws_bytes, sm, sml);
+  } else {
+    Ws ws;
+    ws_layout(a, sizeof(I), c.vbound, wsp + (size_t)blockIdx.x * ws_bytes, &ws);
+    const Need nd = need_of(c);
+    const size_t N = a.N;
+    unsigned char* feas = feas_s + blockIdx.x * N;
+    int* cs = codes_s + blockIdx.x * N * c.n_filters;
+    I* rs = raw_s + blockIdx.x * N * c.n_scores;
+    for (int v = blockIdx.x; v < V; v += gridDim.x) {
+      run_body<I, PRE>(c, nd, a, variant_state(s0, ss, v), w + (size_t)v * c.n_scores, queue,
+                       nullptr, Q, 0, variant_trace(tr0, ts, v), feas, cs, rs, ws, sm, sml);
+      __syncthreads();  // the next variant reuses the block's slices
+    }
   }
 }
 
@@ -1936,28 +2004,34 @@ __global__ void __launch_bounds__(1024)
 // positions qpos[v] (null: step i binds at P + i), run as `seq_run` with the
 // preemption branch on its weights row, state and selections, the padding
 // steps skipped (they bind nothing). No trace. The grid strides over the
-// variants as `sweep_run_kernel`'s does.
-template <typename I>
+// variants as `sweep_run_kernel`'s does. TEN (the phases of K11
+// `batch.gang.run`): variant v is tenant v, with its own planes.
+template <typename I, bool TEN = false>
 __global__ void __launch_bounds__(1024)
-    sweep_seg_kernel(Cfg c, Planes a, State s0, StateStride ss, const I* w, int V,
-                     const int* segs, const int* qpos, int K, Trace tr0, TraceStride ts,
-                     unsigned char* feas_s, int* codes_s, I* raw_s, char* wsp,
+    sweep_seg_kernel(Cfg c, typename PlanesArg<TEN>::T a, State s0, StateStride ss,
+                     const I* w, int V, const int* segs, const int* qpos, int K, Trace tr0,
+                     TraceStride ts, unsigned char* feas_s, int* codes_s, I* raw_s, char* wsp,
                      long long ws_bytes) {
   __shared__ Smem<I> sm;
   __shared__ Smem<long long> sml;
-  Ws ws;
-  ws_layout(a, sizeof(I), c.vbound, wsp + (size_t)blockIdx.x * ws_bytes, &ws);
-  const Need nd = need_of(c);
-  const size_t N = a.N;
-  unsigned char* feas = feas_s + blockIdx.x * N;
-  int* cs = codes_s + blockIdx.x * N * c.n_filters;
-  I* rs = raw_s + blockIdx.x * N * c.n_scores;
-  for (int v = blockIdx.x; v < V; v += gridDim.x) {
-    const size_t vk = (size_t)v * K;
-    run_body<I, true, true>(c, nd, a, variant_state(s0, ss, v), w + (size_t)v * c.n_scores,
-                            segs + vk, qpos ? qpos + vk : nullptr, K, 0,
-                            variant_trace(tr0, ts, v), feas, cs, rs, ws, sm, sml);
-    __syncthreads();  // the next variant reuses the block's slices
+  if constexpr (TEN) {
+    tenant_loop<I, true, true>(c, a, s0, ss, w, V, segs, qpos, K, tr0, ts, feas_s, codes_s,
+                               raw_s, wsp, ws_bytes, sm, sml);
+  } else {
+    Ws ws;
+    ws_layout(a, sizeof(I), c.vbound, wsp + (size_t)blockIdx.x * ws_bytes, &ws);
+    const Need nd = need_of(c);
+    const size_t N = a.N;
+    unsigned char* feas = feas_s + blockIdx.x * N;
+    int* cs = codes_s + blockIdx.x * N * c.n_filters;
+    I* rs = raw_s + blockIdx.x * N * c.n_scores;
+    for (int v = blockIdx.x; v < V; v += gridDim.x) {
+      const size_t vk = (size_t)v * K;
+      run_body<I, true, true>(c, nd, a, variant_state(s0, ss, v), w + (size_t)v * c.n_scores,
+                              segs + vk, qpos ? qpos + vk : nullptr, K, 0,
+                              variant_trace(tr0, ts, v), feas, cs, rs, ws, sm, sml);
+      __syncthreads();  // the next variant reuses the block's slices
+    }
   }
 }
 
@@ -2010,70 +2084,68 @@ int launch_run(const Cfg* c, const Planes* a, const State* s, const void* w, con
   return (int)cudaGetLastError();
 }
 
-template <typename I>
-int launch_sweep(const Cfg* c, const Planes* a, const State* s, const StateStride* ss,
-                 const void* w, int V, const int* queue, int Q, const Trace* tr,
-                 const TraceStride* ts, int grid, unsigned char* feas, int* codes_scratch,
-                 void* raw_scratch, void* ws, long long ws_bytes, void* stream) {
+// `ap` is the one Planes (TEN = false) or the device table of the tenants'
+// (TEN = true); `n_nodes` their node count.
+template <typename I, bool TEN>
+int launch_sweep(const Cfg* c, typename PlanesArg<TEN>::T ap, int n_nodes, const State* s,
+                 const StateStride* ss, const void* w, int V, const int* queue, int Q,
+                 const Trace* tr, const TraceStride* ts, int grid, unsigned char* feas,
+                 int* codes_scratch, void* raw_scratch, void* ws, long long ws_bytes,
+                 void* stream) {
   if (c->preempt)
-    sweep_run_kernel<I, true><<<grid, block_threads(a->N), 0, (cudaStream_t)stream>>>(
-        *c, *a, *s, *ss, (const I*)w, V, queue, Q, *tr, *ts, feas, codes_scratch,
+    sweep_run_kernel<I, true, TEN><<<grid, block_threads(n_nodes), 0, (cudaStream_t)stream>>>(
+        *c, ap, *s, *ss, (const I*)w, V, queue, Q, *tr, *ts, feas, codes_scratch,
         (I*)raw_scratch, (char*)ws, ws_bytes);
   else
-    sweep_run_kernel<I, false><<<grid, block_threads(a->N), 0, (cudaStream_t)stream>>>(
-        *c, *a, *s, *ss, (const I*)w, V, queue, Q, *tr, *ts, feas, codes_scratch,
+    sweep_run_kernel<I, false, TEN><<<grid, block_threads(n_nodes), 0, (cudaStream_t)stream>>>(
+        *c, ap, *s, *ss, (const I*)w, V, queue, Q, *tr, *ts, feas, codes_scratch,
         (I*)raw_scratch, (char*)ws, ws_bytes);
   return (int)cudaGetLastError();
 }
 
-template <typename I>
-int launch_sweep_seg(const Cfg* c, const Planes* a, const State* s, const StateStride* ss,
-                     const void* w, int V, const int* segs, const int* qpos, int K,
-                     const Trace* tr, const TraceStride* ts, int grid, unsigned char* feas,
-                     int* codes_scratch, void* raw_scratch, void* ws, long long ws_bytes,
-                     void* stream) {
+template <typename I, bool TEN>
+int launch_sweep_seg(const Cfg* c, typename PlanesArg<TEN>::T ap, int n_nodes, const State* s,
+                     const StateStride* ss, const void* w, int V, const int* segs,
+                     const int* qpos, int K, const Trace* tr, const TraceStride* ts, int grid,
+                     unsigned char* feas, int* codes_scratch, void* raw_scratch, void* ws,
+                     long long ws_bytes, void* stream) {
   if (!c->preempt) return -1;  // a phase belongs to DefaultPreemption
-  sweep_seg_kernel<I><<<grid, block_threads(a->N), 0, (cudaStream_t)stream>>>(
-      *c, *a, *s, *ss, (const I*)w, V, segs, qpos, K, *tr, *ts, feas, codes_scratch,
+  sweep_seg_kernel<I, TEN><<<grid, block_threads(n_nodes), 0, (cudaStream_t)stream>>>(
+      *c, ap, *s, *ss, (const I*)w, V, segs, qpos, K, *tr, *ts, feas, codes_scratch,
       (I*)raw_scratch, (char*)ws, ws_bytes);
   return (int)cudaGetLastError();
 }
 
-// The blocks of sweep_seg resident at once on the card (as sweep_run_grid).
-template <typename I>
-int sweep_seg_grid(int n_nodes) {
+// The blocks of a kernel resident at once on the card for `n_nodes` nodes:
+// the most blocks a launch needs (the caller allocates a scratch slice for
+// each). The host build runs one block.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int threads) {
 #ifdef __CUDACC__
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_seg_kernel<I>,
-                                                    block_threads(n_nodes), 0) != cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0) != cudaSuccess)
     return -1;
   return per_sm * sms;
 #else
-  return 1;  // the host build runs one block
+  return 1;
 #endif
 }
 
-// The blocks of sweep_run resident at once on the card, for `n_nodes` nodes
-// and a configuration with (pre) or without DefaultPreemption: the most
-// blocks a launch needs (the caller allocates a scratch slice for each).
-template <typename I>
+// The blocks of sweep_seg (TEN: its tenant form) resident at once.
+template <typename I, bool TEN>
+int sweep_seg_grid(int n_nodes) {
+  return resident_blocks(sweep_seg_kernel<I, TEN>, block_threads(n_nodes));
+}
+
+// The blocks of sweep_run (TEN: its tenant form) resident at once, for a
+// configuration with (pre) or without DefaultPreemption.
+template <typename I, bool TEN>
 int sweep_run_grid(int n_nodes, int pre) {
-#ifdef __CUDACC__
-  int dev = 0, sms = 0, per_sm = 0;
-  const int threads = block_threads(n_nodes);
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      (pre ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_run_kernel<I, true>,
-                                                          threads, 0)
-           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_run_kernel<I, false>,
-                                                          threads, 0)) != cudaSuccess)
-    return -1;
-  return per_sm * sms;
-#else
-  return 1;  // the host build runs one block
-#endif
+  const int t = block_threads(n_nodes);
+  return pre ? resident_blocks(sweep_run_kernel<I, true, TEN>, t)
+             : resident_blocks(sweep_run_kernel<I, false, TEN>, t);
 }
 
 }  // namespace
@@ -2085,12 +2157,14 @@ int sweep_run_grid(int n_nodes, int pre) {
 // `seq_workspace_bytes` large.
 // ---------------------------------------------------------------------------
 
-// The build (engine/cuda.py `build`) compiles this file twice at once, with
-// SEQ_ONLY=32 and SEQ_ONLY=64, each translation unit holding one integer
-// type's kernels, and links the two; without SEQ_ONLY one unit holds both.
+// The build (engine/cuda.py `build`) compiles this file four times at once,
+// with SEQ_ONLY=32 and SEQ_ONLY=64 (each translation unit one integer type's
+// kernels) and SEQ_TENANT=0 and 1 (the entry points without, or only, the
+// tenant forms), and links the four; without SEQ_ONLY and SEQ_TENANT one
+// unit holds everything.
 extern "C" {
 
-#if !defined(SEQ_ONLY) || SEQ_ONLY == 32
+#if (!defined(SEQ_ONLY) || SEQ_ONLY == 32) && (!defined(SEQ_TENANT) || SEQ_TENANT == 0)
 long long seq_workspace_bytes(const Planes* a, int int_bytes, int vbound) {
   return (long long)ws_layout(*a, (size_t)int_bytes, vbound, nullptr, nullptr);
 }
@@ -2122,30 +2196,65 @@ long long seq_workspace_bytes(const Planes* a, int int_bytes, int vbound) {
     return launch_run<I>(c, a, s, w, queue, qpos, Q, step0, tr, feas, codes_scratch,          \
                          raw_scratch, ws, stream);                                            \
   }                                                                                           \
-  int sweep_run_grid_##T(int n_nodes, int pre) { return sweep_run_grid<I>(n_nodes, pre); }    \
+  int sweep_run_grid_##T(int n_nodes, int pre) {                                              \
+    return sweep_run_grid<I, false>(n_nodes, pre);                                            \
+  }                                                                                           \
   int sweep_run_##T(const Cfg* c, const Planes* a, const State* s, const StateStride* ss,     \
                     const void* w, int V, const int* queue, int Q, const Trace* tr,           \
                     const TraceStride* ts, int grid, unsigned char* feas,                     \
                     int* codes_scratch, void* raw_scratch, void* ws, long long ws_bytes,      \
                     void* stream) {                                                           \
-    return launch_sweep<I>(c, a, s, ss, w, V, queue, Q, tr, ts, grid, feas, codes_scratch,    \
-                           raw_scratch, ws, ws_bytes, stream);                                \
+    return launch_sweep<I, false>(c, *a, a->N, s, ss, w, V, queue, Q, tr, ts, grid, feas,     \
+                                  codes_scratch, raw_scratch, ws, ws_bytes, stream);          \
   }                                                                                           \
-  int sweep_seg_grid_##T(int n_nodes) { return sweep_seg_grid<I>(n_nodes); }                  \
+  int sweep_seg_grid_##T(int n_nodes) { return sweep_seg_grid<I, false>(n_nodes); }           \
   int sweep_seg_##T(const Cfg* c, const Planes* a, const State* s, const StateStride* ss,     \
                     const void* w, int V, const int* segs, const int* qpos, int K,            \
                     const Trace* tr, const TraceStride* ts, int grid, unsigned char* feas,    \
                     int* codes_scratch, void* raw_scratch, void* ws, long long ws_bytes,      \
                     void* stream) {                                                           \
-    return launch_sweep_seg<I>(c, a, s, ss, w, V, segs, qpos, K, tr, ts, grid, feas,          \
-                               codes_scratch, raw_scratch, ws, ws_bytes, stream);             \
+    return launch_sweep_seg<I, false>(c, *a, a->N, s, ss, w, V, segs, qpos, K, tr, ts, grid,  \
+                                      feas, codes_scratch, raw_scratch, ws, ws_bytes,         \
+                                      stream);                                                \
   }
 
+// the tenant forms: `tab` is the device table of the V tenants' Planes
+#define TENANT_ENTRY_POINTS(T, I)                                                             \
+  int batch_run_grid_##T(int n_nodes, int pre) { return sweep_run_grid<I, true>(n_nodes, pre); } \
+  int batch_run_##T(const Cfg* c, const Planes* tab, int n_nodes, const State* s,            \
+                    const StateStride* ss, const void* w, int V, const int* queues, int Q,    \
+                    const Trace* tr, const TraceStride* ts, int grid, unsigned char* feas,    \
+                    int* codes_scratch, void* raw_scratch, void* ws, long long ws_bytes,      \
+                    void* stream) {                                                           \
+    return launch_sweep<I, true>(c, tab, n_nodes, s, ss, w, V, queues, Q, tr, ts, grid, feas, \
+                                 codes_scratch, raw_scratch, ws, ws_bytes, stream);           \
+  }                                                                                           \
+  int batch_seg_grid_##T(int n_nodes) { return sweep_seg_grid<I, true>(n_nodes); }            \
+  int batch_seg_##T(const Cfg* c, const Planes* tab, int n_nodes, const State* s,            \
+                    const StateStride* ss, const void* w, int V, const int* segs,             \
+                    const int* qpos, int K, const Trace* tr, const TraceStride* ts, int grid,  \
+                    unsigned char* feas, int* codes_scratch, void* raw_scratch, void* ws,     \
+                    long long ws_bytes, void* stream) {                                       \
+    return launch_sweep_seg<I, true>(c, tab, n_nodes, s, ss, w, V, segs, qpos, K, tr, ts,     \
+                                     grid, feas, codes_scratch, raw_scratch, ws, ws_bytes,    \
+                                     stream);                                                 \
+  }
+
+#if !defined(SEQ_TENANT) || SEQ_TENANT == 0
 #if !defined(SEQ_ONLY) || SEQ_ONLY == 32
 SEQ_ENTRY_POINTS(i32, int)
 #endif
 #if !defined(SEQ_ONLY) || SEQ_ONLY == 64
 SEQ_ENTRY_POINTS(i64, long long)
+#endif
+#endif
+#if !defined(SEQ_TENANT) || SEQ_TENANT == 1
+#if !defined(SEQ_ONLY) || SEQ_ONLY == 32
+TENANT_ENTRY_POINTS(i32, int)
+#endif
+#if !defined(SEQ_ONLY) || SEQ_ONLY == 64
+TENANT_ENTRY_POINTS(i64, long long)
+#endif
 #endif
 
 }  // extern "C"

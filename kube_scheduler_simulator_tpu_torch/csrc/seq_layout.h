@@ -144,8 +144,8 @@ struct StateStride { STATE_PTRS(DECL_STRIDE) };
 struct TraceStride { TRACE_PTRS(DECL_STRIDE) };
 
 // The layout report, in one translation unit of the library (the build's
-// SEQ_ONLY=32 one, or the only one).
-#if !defined(SEQ_ONLY) || SEQ_ONLY == 32
+// SEQ_ONLY=32 one without the tenant forms, or the only one).
+#if (!defined(SEQ_ONLY) || SEQ_ONLY == 32) && (!defined(SEQ_TENANT) || SEQ_TENANT == 0)
 extern "C" {
 
 // Every struct's members in order, as "list=name,name,...;".

@@ -19,7 +19,11 @@ the card, each replacing one device program of the reference package:
   * `sweep_run` — K11, `parallel/sweep.py` `WeightSweep` (`sweep.vrun`,
     `sweep.until0`/`until`/`preempt1`): `seq_run`'s pass for each row of a
     [V, S] weight matrix in one launch, a block per variant at a time, each
-    variant with its own stacked state and trace.
+    variant with its own stacked state and trace;
+  * `batch_run` — K11, `server/batchplane.py` (`batch.seq.run`): the tenant
+    form of `sweep_run`, B tenants' passes of a batch window in one launch,
+    each over its own cluster planes (a device table of the tenants' Planes
+    structs), queue row, weights row, state and trace.
 
 Four more (`csrc/gang_kernels.cu`, compiled with seq_kernels.cu so they
 share its device functions) carry the gang engine's rounds, K9 of
@@ -31,6 +35,11 @@ share its device functions) carry the gang engine's rounds, K9 of
   * `gang_topk` — `lax.top_k` of each row (ties to the lower node);
   * `gang_match` — one round's one-commit-per-node matching;
   * `gang_bind` — `bind_all`, the round's commits scattered into state.
+
+Their tenant forms carry the batch plane's gang passes (`batch.gang.run`):
+`batch_eval`, `batch_match` and `batch_bind`, with `batch_seg` (the tenant
+form of `sweep_run`'s per-variant segments) for the preempt phases; each
+tenant has its own planes, order, claims and carriers.
 
 Each wrapper takes its plain version (`*_plain`, a line-by-line PyTorch
 rendering of the reference's closure) only for tensors that lie on the CPU;
@@ -87,7 +96,8 @@ NVCC_FLAGS = (
 )
 
 KERNELS = ("seq_attempt", "seq_bind", "seq_run", "seq_preempt", "seq_evict",
-           "gang_eval", "gang_topk", "gang_match", "gang_bind", "sweep_run")
+           "gang_eval", "gang_topk", "gang_match", "gang_bind", "sweep_run",
+           "batch_run", "batch_seg", "batch_eval", "batch_match", "batch_bind")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _LIB = None
@@ -472,10 +482,11 @@ def seq_run_plain(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue,
 
 def build() -> tuple[Path, float]:
     """Compile the kernel sources for sm_90a into one library in
-    build/kernels/ unless these sources' library is there already: three
+    build/kernels/ unless these sources' library is there already: five
     `nvcc` processes started together, csrc/seq_kernels.cu (with the gang
-    kernels it includes) once per integer type (SEQ_ONLY=32, 64) and
-    csrc/delta_kernels.cu, then one link. Returns (library path, build seconds; 0 when it was there). The
+    kernels it includes) once per integer type (SEQ_ONLY=32, 64) and per
+    half of its entry points (SEQ_TENANT=0: all but the tenant forms; 1:
+    the tenant forms), and csrc/delta_kernels.cu, then one link. Returns (library path, build seconds; 0 when it was there). The
     compiler's report (registers, shared memory, spills) is kept beside the
     library as a .log file."""
     src = (CSRC.read_bytes() + LAYOUT_H.read_bytes() + GANG_CSRC.read_bytes()
@@ -489,8 +500,8 @@ def build() -> tuple[Path, float]:
         raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    units = [(CSRC, ["-DSEQ_ONLY=32"], "seq32"), (CSRC, ["-DSEQ_ONLY=64"], "seq64"),
-             (DELTA_CSRC, [], "delta")]
+    units = [(CSRC, [f"-DSEQ_ONLY={b}", f"-DSEQ_TENANT={t}"], f"seq{b}{'t' if t else ''}")
+             for t in (0, 1) for b in (32, 64)] + [(DELTA_CSRC, [], "delta")]
     objs = [out.with_name(f"{out.stem}_{u}.{os.getpid()}.o") for _, _, u in units]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *defs, "-c", "-o", str(o), str(path)],
@@ -643,6 +654,18 @@ def library() -> ctypes.CDLL:
                  + [ctypes.c_longlong, vp]),
                 ("sweep_run_grid", [ci, ci]),
                 ("sweep_seg_grid", [ci]),
+                ("batch_run", [vp, vp, ci, vp, vp, vp, ci, vp, ci, vp, vp, ci] + [vp] * 4
+                 + [ctypes.c_longlong, vp]),
+                ("batch_seg", [vp, vp, ci, vp, vp, vp, ci, vp, vp, ci, vp, vp, ci] + [vp] * 4
+                 + [ctypes.c_longlong, vp]),
+                ("batch_run_grid", [ci, ci]),
+                ("batch_seg_grid", [ci]),
+                ("batch_eval_grid", [ci]),
+                ("batch_eval", [vp, vp, ci, vp, vp, vp, ci, vp, ci, vp, vp, vp, ci] + [vp] * 4
+                 + [ctypes.c_longlong, vp]),
+                ("batch_match", [vp, vp, ci, ci, ci, vp, vp, vp, vp, ci, vp, ci, ci, ci]
+                 + [vp] * 7 + [ci, vp]),
+                ("batch_bind", [vp, vp, vp, ci, vp, ci, vp, vp, vp, vp]),
             ):
                 f = getattr(lib, f"{name}_{t}")
                 f.argtypes, f.restype = args, ci
@@ -1625,10 +1648,32 @@ def sweep_run(prog: SeqProgram, a: ClusterArrays, states0: SchedState, queue, we
     if _on_cpu(a):
         PLAIN_CALLS["sweep_run"] += 1
         return sweep_run_plain(prog, a, states0, queue, weights, record=record, qpos=qpos)
-    dev, dt = a.node_mask.device, prog.score_dtype
+    dev = a.node_mask.device
     if dev.type not in KERNEL_DEVICE_TYPES:
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
     b = _planes(prog, a)
+    per_variant = queue.dim() == 2
+    if per_variant:
+        _check_segment_form(prog, record)
+    elif qpos is not None:
+        raise ValueError("queue positions go with per-variant segments")
+    s, res, launched = _variants_launch(prog, b, None, dev, states0, queue, weights,
+                                        record=record, grid=grid, qpos=qpos,
+                                        segments=per_variant)
+    LAUNCHES["sweep_run"] += int(launched)
+    return s, res
+
+
+def _variants_launch(prog: SeqProgram, b: _Bound, table, dev, states0: SchedState, queue,
+                     weights, *, record: bool, grid, qpos, segments: bool) -> tuple:
+    """One launch of `sweep_run`'s kernels over V variants: the weight
+    sweep's (`table` None: the planes of b for every variant, a shared [Q]
+    queue or, with `segments`, [V, K] segments) or the tenant forms' (`table`:
+    the tenants' Planes on the card, b tenant 0's; a [V, Q] queue row a
+    tenant, or [V, K] segments) on `dev`. Returns (final states, result,
+    launched)."""
+    dt = prog.score_dtype
+    label = "sweep_run" if table is None else ("batch_seg" if segments else "batch_run")
     planes, t = b.planes, b.suffix
     F, S, N = len(prog.filters), len(prog.scores), planes.N
     if (weights.device != dev or weights.dtype != dt or weights.dim() != 2
@@ -1641,12 +1686,8 @@ def sweep_run(prog: SeqProgram, a: ClusterArrays, states0: SchedState, queue, we
         if x.dim() < 1 or x.shape[0] != V or not x.is_contiguous():
             raise ValueError(f"{name}: want a contiguous stack of {V} variants")
         _check_tensor(name, x[0], dims, dev, dt)
-    per_variant = queue.dim() == 2
-    if per_variant:
-        _check_segment_form(prog, record)
+    if segments or table is not None:
         queue, qpos = _checked_segments(queue, qpos, V, planes, dev)
-    elif qpos is not None:
-        raise ValueError("queue positions go with per-variant segments")
     else:
         queue = _checked_queue(queue, planes, dev)
     Q = queue.shape[-1]
@@ -1657,10 +1698,12 @@ def sweep_run(prog: SeqProgram, a: ClusterArrays, states0: SchedState, queue, we
     out = _run_outputs(prog, (V,), Q, N, record, victim_cap, dev)
     if Q:
         lib = library()
-        most = int(getattr(lib, f"sweep_seg_grid_{t}")(N) if per_variant
-                   else getattr(lib, f"sweep_run_grid_{t}")(N, int(pre)))
+        ten = table is not None
+        name = ("batch" if ten else "sweep") + ("_seg" if segments else "_run")
+        grid_fn = getattr(lib, f"{name}_grid_{t}")
+        most = int(grid_fn(N) if segments else grid_fn(N, int(pre)))
         if most < 1:
-            raise RuntimeError("sweep_run: the occupancy query failed")
+            raise RuntimeError(f"{label}: the occupancy query failed")
         blocks = min(V, most if grid is None else max(1, min(int(grid), most)))
         names = _LAYOUT.names
         state = _LAYOUT.State(*(getattr(s, x).data_ptr() for x in names["state_ptrs"]))
@@ -1675,21 +1718,20 @@ def sweep_run(prog: SeqProgram, a: ClusterArrays, states0: SchedState, queue, we
         cfg = np.ascontiguousarray(prog.cfg)
         scratch = (ctypes.addressof(tr), ctypes.addressof(ts), blocks, feas.data_ptr(),
                    codes_s.data_ptr(), raw_s.data_ptr(), ws.data_ptr(), b.ws_bytes, _stream())
-        head = (cfg.ctypes.data, ctypes.addressof(planes), ctypes.addressof(state),
-                ctypes.addressof(ss), weights.data_ptr(), V)
-        if per_variant:
-            rc = getattr(lib, f"sweep_seg_{t}")(*head, queue.data_ptr(), _ptr(qpos), Q,
-                                                *scratch)
+        head = ((cfg.ctypes.data, table.data_ptr(), N) if ten
+                else (cfg.ctypes.data, ctypes.addressof(planes)))
+        head += (ctypes.addressof(state), ctypes.addressof(ss), weights.data_ptr(), V)
+        if segments:
+            rc = getattr(lib, f"{name}_{t}")(*head, queue.data_ptr(), _ptr(qpos), Q, *scratch)
         else:
-            rc = getattr(lib, f"sweep_run_{t}")(*head, queue.data_ptr(), Q, *scratch)
-        _raise_on(rc, "sweep_run")
-        LAUNCHES["sweep_run"] += 1
+            rc = getattr(lib, f"{name}_{t}")(*head, queue.data_ptr(), Q, *scratch)
+        _raise_on(rc, label)
     if pre:
         status = out["status"].cpu()
         bits = 0
         for x in status[:, 1].tolist():
             bits |= x
-        _raise_overflow(bits, "sweep_run")
+        _raise_overflow(bits, label)
 
     def victims():
         """Each variant's victim row, cut to the longest and padded with -1."""
@@ -1698,4 +1740,267 @@ def sweep_run(prog: SeqProgram, a: ClusterArrays, states0: SchedState, queue, we
         vidx[torch.arange(m, device=dev)[None, :] >= status[:, :1].to(dev)] = -1
         return vidx
 
-    return s, _run_result(out, pre, record, victims)
+    return s, _run_result(out, pre, record, victims), bool(Q)
+
+
+# ---------------------------------------------------------------------------
+# K11 `batch.seq.run` / `batch.gang.run` (server/batchplane.py): the tenant
+# forms. B tenants of one batch window, each with its own program (a closure
+# over its own encoding) and cluster planes, run in one launch: block b works
+# on tenant b with that tenant's Planes from a device table. The window's
+# tenants share one compile signature, so their kernel configs and dims are
+# equal (checked); states stack on a leading [B] as the sweep's variants do,
+# and the queue, order, claims and carriers are the tenants' own rows. The
+# plain versions run each tenant's own plain version in turn.
+# ---------------------------------------------------------------------------
+
+def _tenants(progs, arrays) -> tuple:
+    """What a tenant-form launch reads of the B tenants: (the device table
+    of their Planes structs, tenant 0's `_Bound`). Each tenant's planes are
+    checked as a single launch checks them (`_planes`); tenants whose kernel
+    config, score type or dims differ from tenant 0's raise ValueError. The
+    table holds each tenant's own tensors' addresses (no plane is copied);
+    it is built anew at every launch (B x ~1.1 KB, copied without a host
+    wait), so no table outlives its launch and concurrent windows share
+    nothing."""
+    B = len(progs)
+    if B < 1 or len(arrays) != B:
+        raise ValueError("want one program and one ClusterArrays a tenant")
+    dev = arrays[0].node_mask.device
+    if dev.type not in KERNEL_DEVICE_TYPES:
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
+    p0 = progs[0]
+    bounds = []
+    for i, (prog, a) in enumerate(zip(progs, arrays)):
+        if a.node_mask.device != dev:
+            raise ValueError(f"tenant {i}'s planes are on {a.node_mask.device}, tenant 0's "
+                             f"on {dev}")
+        if prog.score_dtype != p0.score_dtype or not np.array_equal(prog.cfg, p0.cfg):
+            raise ValueError(f"tenant {i}'s kernel config differs from tenant 0's")
+        b = _planes(prog, a)
+        if bounds and b.dims != bounds[0].dims:
+            raise ValueError(f"tenant {i}'s dims differ from tenant 0's")
+        bounds.append(b)
+    table = torch.frombuffer(bytearray(b"".join(bytes(b.planes) for b in bounds)),
+                             dtype=torch.uint8)
+    if dev.type == "cuda":
+        table = table.pin_memory()
+    return table.to(dev, non_blocking=True), bounds[0]
+
+
+def batch_run_plain(progs, arrays, states0: SchedState, queues, weights, *, record: bool):
+    """Each tenant's pass in turn: `seq_run_plain` (step0 = 0) with tenant
+    b's program, planes, state, queue row and weights row. Returns (final
+    states [B, ...], and the selections [B, Q] (`final_sel` with
+    preemption) or, with `record`, the trace with every slot stacked [B,
+    ...], each tenant's victim row padded with -1), as `sweep_run_plain`."""
+    outs = [seq_run_plain(progs[b], arrays[b], variant_state(states0, b), queues[b], weights[b],
+                          record=record)
+            for b in range(len(progs))]
+    states = stack_states([s for s, _ in outs])
+    if not record:
+        return states, torch.stack([x for _, x in outs])
+    return states, _stack_traces([t for _, t in outs], progs[0].preempt is not None)
+
+
+def batch_run(progs, arrays, states0: SchedState, queues, weights, *, record: bool):
+    """K11 `batch.seq.run`: B tenants' sequential passes in one launch, as
+    `batch_run_plain`. `queues` [B, Q] int32 (-1: a padding step, evaluated
+    and discarded as `seq_run`'s are), `weights` [B, S], `states0` stacked
+    [B, ...] (left as it was). The preemption branch and the victim record
+    are each tenant's own (at most min(2 Q P, VICTIM_CAP // B) entries a
+    tenant). Launches exactly B tenants (at most as many blocks as are
+    resident at once): no slot is padded."""
+    if _on_cpu(arrays[0]):
+        PLAIN_CALLS["batch_run"] += 1
+        return batch_run_plain(progs, arrays, states0, queues, weights, record=record)
+    table, b = _tenants(progs, arrays)
+    s, res, launched = _variants_launch(progs[0], b, table, arrays[0].node_mask.device, states0,
+                                        queues, weights,
+                                        record=record, grid=None, qpos=None, segments=False)
+    LAUNCHES["batch_run"] += int(launched)
+    return s, res
+
+
+def batch_seg_plain(progs, arrays, states0: SchedState, segs, weights, qpos):
+    """The tenants' preempt phases: `seq_run_plain` of tenant b's segment
+    segs[b] (-1 padded) at its queue positions qpos[b], with its own
+    program, planes, state and weights, no trace. Returns (final states [B,
+    ...], the bound selections [B, K])."""
+    for prog in progs:
+        _check_segment_form(prog, False)
+    outs = [seq_run_plain(progs[b], arrays[b], variant_state(states0, b), segs[b], weights[b],
+                          record=False, qpos=qpos[b])
+            for b in range(len(progs))]
+    return stack_states([s for s, _ in outs]), torch.stack([x for _, x in outs])
+
+
+def batch_seg(progs, arrays, states0: SchedState, segs, weights, qpos):
+    """K11 `batch.gang.run`'s preempt phase: the tenant form of `sweep_run`'s
+    per-variant segments (`sweep_seg`), as `batch_seg_plain`; padding steps
+    are skipped (they bind nothing), so an all-padding row leaves its
+    tenant's state as it was."""
+    if _on_cpu(arrays[0]):
+        PLAIN_CALLS["batch_seg"] += 1
+        return batch_seg_plain(progs, arrays, states0, segs, weights, qpos)
+    _check_segment_form(progs[0], False)
+    table, b = _tenants(progs, arrays)
+    s, sel, launched = _variants_launch(progs[0], b, table, arrays[0].node_mask.device, states0,
+                                        segs, weights,
+                                        record=False, grid=None, qpos=qpos, segments=True)
+    LAUNCHES["batch_seg"] += int(launched)
+    return s, sel
+
+
+def _check_tenant_rows(name, x, B, P, dev, dtype=torch.int32, tail=()):
+    """A per-tenant row tensor [B, P, *tail] of `dtype` on dev."""
+    if (x.device != dev or x.dtype != dtype
+            or tuple(x.shape[:2]) != (B, P) or x.dim() != 2 + len(tail)):
+        raise ValueError(f"{name} must be {dtype} [{B}, {P}{''.join(', ' + t for t in tail)}] "
+                         f"on {dev}")
+
+
+def batch_eval_plain(progs, arrays, states: SchedState, weights, rows, live, orders):
+    """The tenants' gang-round evaluation: `gang_eval_plain` of tenant b's
+    rows [0, live[b]) with its own program, planes, state, weights and order
+    (pending checked). Returns scores [B, K, N]."""
+    return torch.stack([
+        _gang_eval_one(progs[b], arrays[b], variant_state(states, b), weights[b], rows[b],
+                       _live_of(live, b), orders[b], True, None, None)
+        for b in range(len(progs))])
+
+
+def batch_eval(progs, arrays, states: SchedState, weights, rows, live, orders):
+    """K9 eval's tenant form, as `batch_eval_plain` (rows from live on are
+    left unwritten): a grid of blocks strides over the (row, tenant) pairs,
+    each block loading its pair's tenant planes."""
+    if _on_cpu(arrays[0]):
+        PLAIN_CALLS["batch_eval"] += 1
+        return batch_eval_plain(progs, arrays, states, weights, rows, live, orders)
+    table, b = _tenants(progs, arrays)
+    prog, B = progs[0], len(progs)
+    dev, dt = arrays[0].node_mask.device, prog.score_dtype
+    state, ss = _stacked(b, states, B, dev, dt)
+    planes, t = b.planes, b.suffix
+    N, K = planes.N, rows.shape[1]
+    S, F = len(prog.scores), len(prog.filters)
+    if (weights.device != dev or weights.dtype != dt or tuple(weights.shape) != (B, S)
+            or not weights.is_contiguous()):
+        raise ValueError(f"weights: want contiguous {dt} ({B}, {S}) on {dev}")
+    _check_rows(rows, live, dev, B)
+    _check_tenant_rows("orders", orders, B, planes.P, dev)
+    lib = library()
+    grid = int(getattr(lib, f"batch_eval_grid_{t}")(N))
+    if grid < 1:
+        raise RuntimeError("batch_eval: the occupancy query failed")
+    ws_bytes = max(8, int(lib.seq_workspace_bytes(ctypes.addressof(planes),
+                                                  4 if t == "i32" else 8, 0)))
+    scores = torch.empty((B, K, N), dtype=dt, device=dev)
+    feas = torch.empty((grid, N), dtype=torch.uint8, device=dev)
+    codes_s = torch.empty((grid, N * F), dtype=torch.int32, device=dev)
+    raw_s = torch.empty((grid, N * S), dtype=dt, device=dev)
+    ws = _workspace(grid * ws_bytes, dev)
+    cfg = np.ascontiguousarray(prog.cfg)
+    rc = getattr(lib, f"batch_eval_{t}")(
+        cfg.ctypes.data, table.data_ptr(), N, ctypes.addressof(state), ctypes.addressof(ss),
+        weights.data_ptr(), B, rows.contiguous().data_ptr(), K, _ptr(live),
+        orders.contiguous().data_ptr(), scores.data_ptr(), grid, feas.data_ptr(),
+        codes_s.data_ptr(), raw_s.data_ptr(), ws.data_ptr(), ws_bytes, _stream(),
+    )
+    _raise_on(rc, "batch_eval")
+    LAUNCHES["batch_eval"] += 1
+    return scores
+
+
+def batch_match_plain(vals, idx, rows, live, orders, claims, carriers, n_nodes: int,
+                      n_claims: int, iters: int):
+    """The tenants' matchings: `gang_match_plain` of tenant b's candidates
+    with its own order [P], claims [P, MC] and carriers [P] (carriers None:
+    no rel_serialize). Returns (sel [B, K], stat [B, 2])."""
+    outs = [_gang_match_one(vals[b], None if idx is None else idx[b], rows[b], _live_of(live, b),
+                            orders[b], claims[b], None if carriers is None else carriers[b],
+                            n_nodes, n_claims, iters)
+            for b in range(rows.shape[0])]
+    return torch.stack([x for x, _ in outs]), torch.stack([x for _, x in outs])
+
+
+def batch_match(vals, idx, rows, live, orders, claims, carriers, n_nodes: int, n_claims: int,
+                iters: int):
+    """K9 match's tenant form, as `batch_match_plain`: one block a tenant,
+    each reading its own order, claims and carriers."""
+    if _on_cpu(vals):
+        PLAIN_CALLS["batch_match"] += 1
+        return batch_match_plain(vals, idx, rows, live, orders, claims, carriers, n_nodes,
+                                 n_claims, iters)
+    dev = vals.device
+    if dev.type not in KERNEL_DEVICE_TYPES:
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
+    B = rows.shape[0]
+    _check_rows(rows, live, dev, B)
+    K = rows.shape[1]
+    if (vals.dim() != 3 or tuple(vals.shape[:2]) != (B, K)
+            or vals.dtype not in (torch.int32, torch.int64)):
+        raise ValueError("vals must be int32 or int64 [B, K, W] with rows [B, K]")
+    W = vals.shape[2]
+    if idx is not None and (idx.dtype != torch.int32 or tuple(idx.shape) != (B, K, W)):
+        raise ValueError("idx must be int32 like vals")
+    if idx is None and W != n_nodes:
+        raise ValueError("full-width vals need one column a node")
+    P = orders.shape[1] if orders.dim() == 2 else -1
+    _check_tenant_rows("orders", orders, B, P, dev)
+    _check_tenant_rows("claims", claims, B, P, dev, tail=("MC",))
+    if carriers is not None:
+        _check_tenant_rows("carriers", carriers, B, P, dev, torch.bool)
+    i32 = dict(dtype=torch.int32, device=dev)
+    sel, cand = torch.empty((B, K), **i32), torch.empty((B, K), **i32)
+    taken, winner = torch.empty((B, n_nodes), **i32), torch.empty((B, n_nodes + 1), **i32)
+    cmin, ctaken = torch.empty((B, n_claims), **i32), torch.empty((B, n_claims), **i32)
+    stat = torch.empty((B, 2), **i32)
+    claims = claims.contiguous()
+    t = "i32" if vals.dtype == torch.int32 else "i64"
+    rc = getattr(library(), f"batch_match_{t}")(
+        vals.contiguous().data_ptr(), _ptr(None if idx is None else idx.contiguous()), W, B, K,
+        _ptr(live), rows.contiguous().data_ptr(), orders.contiguous().data_ptr(),
+        claims.data_ptr(), claims.shape[2],
+        _ptr(None if carriers is None else carriers.contiguous()), n_nodes, n_claims, iters,
+        sel.data_ptr(), cand.data_ptr(), taken.data_ptr(), winner.data_ptr(), cmin.data_ptr(),
+        ctaken.data_ptr(), stat.data_ptr(), P, _stream(),
+    )
+    _raise_on(rc, "batch_match")
+    LAUNCHES["batch_match"] += 1
+    return sel, stat
+
+
+def batch_bind_plain(progs, arrays, states: SchedState, rows, live, sel, orders):
+    """The tenants' bind_all: tenant b's rows [0, live[b]) with sel >= 0 bind
+    into its own state with its own planes, at bind order P + orders[b, pod],
+    in place. Returns `states`."""
+    for b in range(len(progs)):
+        _gang_bind_one(arrays[b], variant_state(states, b), rows[b], _live_of(live, b), sel[b],
+                       orders[b])
+    return states
+
+
+def batch_bind(progs, arrays, states: SchedState, rows, live, sel, orders):
+    """K9 bind's tenant form, as `batch_bind_plain`, in place. Returns
+    `states`."""
+    if _on_cpu(arrays[0]):
+        PLAIN_CALLS["batch_bind"] += 1
+        return batch_bind_plain(progs, arrays, states, rows, live, sel, orders)
+    table, b = _tenants(progs, arrays)
+    B = len(progs)
+    dev = arrays[0].node_mask.device
+    state, ss = _stacked(b, states, B, dev, progs[0].score_dtype)
+    K = rows.shape[1]
+    _check_rows(rows, live, dev, B)
+    if sel.device != dev or sel.dtype != torch.int32 or tuple(sel.shape) != (B, K):
+        raise ValueError(f"sel must be an int32 ({B}, {K}) tensor on the planes' device")
+    _check_tenant_rows("orders", orders, B, b.planes.P, dev)
+    rc = getattr(library(), f"batch_bind_{b.suffix}")(
+        table.data_ptr(), ctypes.addressof(state), ctypes.addressof(ss), B,
+        rows.contiguous().data_ptr(), K, _ptr(live), sel.contiguous().data_ptr(),
+        orders.contiguous().data_ptr(), _stream(),
+    )
+    _raise_on(rc, "batch_bind")
+    LAUNCHES["batch_bind"] += 1
+    return states

@@ -19,7 +19,9 @@ converts the trace host-side into the reference's exact annotation wire
 format (sched/results.py). This is the reference package's
 `engine/engine.py` without PACKED or chunked runs; its `preempt_mode`
 ("cond" or "masked") selects no other code here (the reference pins the
-two byte-identical). Sweeps over weight variants are `parallel/sweep.py`.
+two byte-identical). Sweeps over weight variants are `parallel/sweep.py`;
+`run_batch` runs several tenants' engines in one launch (the batch plane,
+server/batchplane.py).
 Its victim masks are recorded as CSR lists (engine/cuda.py
 TRACE_SLOTS_PREEMPT), not as dense [N, P] masks.
 """
@@ -327,18 +329,24 @@ class BatchedScheduler:
         index -1), as the reference does — trace rows beyond the live
         queue are padding (`results()` decodes the live queue only)."""
         w = self.weights if weights is None else weights
+        state, out = self.run_fn(
+            self.enc.arrays, self.enc.state0,
+            torch.as_tensor(self.padded_queue(), device=self.device), w
+        )
+        self._final_state = state
+        self._trace = out
+        return state, out
+
+    def padded_queue(self) -> np.ndarray:
+        """The pass's queue (int32) padded to its geometric bucket with no-op
+        steps (pod index -1)."""
         queue = np.asarray(self.enc.queue, np.int32)
         bucket = self.queue_bucket(len(queue))
         if bucket > len(queue):
             queue = np.concatenate(
                 [queue, np.full(bucket - len(queue), -1, np.int32)]
             )
-        state, out = self.run_fn(
-            self.enc.arrays, self.enc.state0, torch.as_tensor(queue, device=self.device), w
-        )
-        self._final_state = state
-        self._trace = out
-        return state, out
+        return queue
 
     def placements(self) -> dict[tuple[str, str], str]:
         """pod (ns, name) → node name ("" = unschedulable)."""
@@ -511,6 +519,39 @@ class BatchedScheduler:
                 seq[p] = enc.P + qi
             seq[evicted(qi)] = -1
         return results
+
+
+def run_batch(engines: "list[BatchedScheduler]") -> list[tuple]:
+    """K11 `batch.seq.run` (server/batchplane.py): the passes of B engines,
+    one a tenant with its own encoding, in one launch of `cuda.batch_run` —
+    each at its own weights over its own bucket-padded queue
+    (`padded_queue()`), with its own victim record. The engines share one
+    compile signature (equal record flag, kernel config, dims and queue
+    bucket). Each engine's `_final_state` and `_trace` become its slice, as
+    its own `run()` would leave them (its victim list cut to its own
+    victims), so `results()` decodes it unchanged. Returns [(final state, trace)] by engine."""
+    if not engines:
+        return []
+    e0 = engines[0]
+    if any(e.record != e0.record or e.device != e0.device for e in engines):
+        raise ValueError("a batch's engines share one record flag and device")
+    q = torch.as_tensor(np.stack([e.padded_queue() for e in engines]), device=e0.device)
+    states, out = cuda.batch_run(
+        [e.program for e in engines], [e.enc.arrays for e in engines],
+        cuda.stack_states([e.enc.state0 for e in engines]), q,
+        torch.stack([e.weights for e in engines]).contiguous(), record=e0.record,
+    )
+    counts = None
+    if e0.record and e0.preempts:
+        counts = (out[-1] >= 0).sum(dim=1).tolist()  # each tenant's victims
+    res = []
+    for b, e in enumerate(engines):
+        trace = out[b] if not e0.record else tuple(x[b] for x in out)
+        if counts is not None:
+            trace = trace[:-1] + (trace[-1][:counts[b]],)
+        e._final_state, e._trace = cuda.variant_state(states, b), trace
+        res.append((e._final_state, trace))
+    return res
 
 
 def schedule(

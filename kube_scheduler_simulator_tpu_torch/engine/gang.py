@@ -35,6 +35,12 @@ The round body runs on a stack of V variants' states with a [V, S] weight
 matrix (`_gang_pass`): one launch of each kernel a round for all of them,
 each variant to its own fixpoint. `GangScheduler` is its V = 1 case; the
 gang weight sweep (parallel/sweep.py `GangSweep`) drives it with V > 1.
+`batch_fixpoint` drives it over B tenants of the batch plane
+(server/batchplane.py, `batch.gang.run`), each with its own encoding: the
+K9 kernels' tenant forms and, for the preempt phases, `sweep_run`'s
+(`batch_seg`); each tenant runs to its own fixpoint as its solo
+`GangScheduler.run()` would (the reference's vmapped fused fixpoint, not
+the gang sweep's lockstep).
 
 The record path (`run_recorded`, `results`) tracks each pod's bind round,
 records each preempt phase's trace as it runs, and replays the rounds:
@@ -47,7 +53,7 @@ the sequential engine's `results()`.
 Not ported: `loop="static"` and `inner_loop="static"` (the counted-loop
 programs the reference keeps for a TPU backend that could not compile
 `while_loop`; the same placements), which raise NotImplementedError
-(ROADMAP.md), and the batch plane.
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -62,7 +68,94 @@ from .encode import EncodedCluster
 from .engine import BatchedScheduler
 
 
-class GangScheduler:
+class _Rounds:
+    """The round driver over a stack of V states, shared by `GangScheduler`
+    (one cluster: its variants) and `_TenantRounds` (the batch plane's
+    tenants, each with its own cluster). A subclass gives `enc` (for P),
+    `_wp`, `max_rounds`, `compact`, `device`, `last_stats`, the queue rows
+    `_queue` ([Q], or [V, Q] -1 padded), `_pending` and `_round`."""
+
+    def _window_rows(self, rows, count, w_idx):
+        """Each variant's eval window of its pending-first rows [V, Q]: WP
+        rows from lo = min(k * WP, P - WP), k = min(w_idx, windows - 1)
+        (-1 past the queue), and its live count. Returns (rows [V, WP], live
+        [V], k per variant)."""
+        P, WP, dev = self.enc.P, self._wp, self.device
+        n_win = -(-P // WP)
+        k = [min(x, n_win - 1) for x in w_idx]
+        lo = torch.tensor([min(kk * WP, P - WP) for kk in k], dtype=torch.int32, device=dev)
+        Q = rows.shape[1]
+        padded = torch.cat([rows, rows.new_full((rows.shape[0], 1), -1)], dim=1)
+        at = (lo[:, None] + torch.arange(WP, dtype=torch.int32, device=dev)).clamp(max=Q)
+        return padded.gather(1, at.long()), (count - lo).clamp(0, WP), k
+
+    def _gang_pass(self, states, w, chronology=None, start=None):
+        """Rounds to fixpoint from stacked `states` [V, ...] (in place),
+        variant v at weights row w[v], one launch of each kernel a round for
+        every variant. Each variant runs until its own fixpoint and then
+        rides along frozen (live 0, its counters unchanged), as under the
+        reference's vmapped while_loop; `start` ([V] bools, None: all) names
+        the variants that run at all, the others ride along from the first
+        round. Returns (rounds, pods still pending), lists of V.
+        `chronology` (the record path) takes V = 1."""
+        V, P = w.shape[0], self.enc.P
+        WP = self._wp
+        cap = self.max_rounds if self.max_rounds is not None else P + 1
+        tracked = chronology is not None
+        if tracked:
+            start_state = cuda.variant_state(states, 0).clone()
+            br = torch.full((P,), -1, dtype=torch.int32, device=self.device)
+        rounds, commits, w_idx = [0] * V, [0] * V, [0] * V  # commits: rounds that commit
+        n_pend = [None] * V
+        active = [cap > 0 and (start is None or bool(start[v])) for v in range(V)]
+        sort = self.compact or WP is not None or V > 1
+        # the rows a round takes: the queue, then the most pending
+        K = self._queue.shape[-1]
+        while any(active):
+            rows, count = self._pending(states, sort)
+            gate = None if all(active) else torch.tensor(active, device=self.device)
+            if WP is None:
+                live = count if sort else None
+                if sort:
+                    rows = rows[:, :max(1, K)].contiguous()
+            else:
+                rows, live, k = self._window_rows(rows, count, w_idx)
+            if gate is not None:
+                live = torch.where(gate, live, 0)
+            sel, stat = self._round(states, w, rows, live)
+            if tracked:
+                hit = sel[0] >= 0
+                br[rows[0][hit].long()] = rounds[0]
+            got = torch.stack([stat[:, 0], count], dim=1).tolist()
+            self.last_stats["host_syncs"] += 1
+            for v in range(V):
+                if not active[v]:
+                    continue
+                committed, cnt = got[v]
+                rounds[v] += 1
+                n_pend[v] = cnt - committed
+                if WP is None:
+                    commits[v] += 1
+                    done = not committed
+                else:
+                    # a whole sweep of this round's pending windows without a
+                    # commit is the fixpoint; a commit restarts at the front
+                    done = not committed and k[v] + 1 >= max(1, -(-cnt // WP))
+                    w_idx[v] = 0 if committed else w_idx[v] + 1
+                    commits[v] += committed > 0
+                active[v] = not done and commits[v] < cap
+            K = max((n_pend[v] for v in range(V) if active[v]), default=0)
+        if None in n_pend:  # a variant that ran no round (max_rounds=0, or not started)
+            counts = self._pending(states, sort=False)[1].tolist()
+            n_pend = [c if x is None else x for x, c in zip(n_pend, counts)]
+            self.last_stats["host_syncs"] += 1
+        if tracked:
+            chronology.append(("rounds", start_state, br, rounds[0],
+                               states.assignment[0].clone()))
+        return rounds, n_pend
+
+
+class GangScheduler(_Rounds):
     """Fixpoint batch scheduler over one `EncodedCluster`, on `device` (the
     CUDA card unless the caller names another). The options are the
     reference's: `chunk` (the evaluation chunk; it sets the window
@@ -213,80 +306,6 @@ class GangScheduler:
         )
         cuda.gang_bind(prog, a, states, rows, live, sel, self._order)
         return sel, stat
-
-    def _window_rows(self, rows, count, w_idx):
-        """Each variant's eval window of its pending-first rows [V, Q]: WP
-        rows from lo = min(k * WP, P - WP), k = min(w_idx, windows - 1)
-        (-1 past the queue), and its live count. Returns (rows [V, WP], live
-        [V], k per variant)."""
-        P, WP, dev = self.enc.P, self._wp, self.device
-        n_win = -(-P // WP)
-        k = [min(x, n_win - 1) for x in w_idx]
-        lo = torch.tensor([min(kk * WP, P - WP) for kk in k], dtype=torch.int32, device=dev)
-        Q = rows.shape[1]
-        padded = torch.cat([rows, rows.new_full((rows.shape[0], 1), -1)], dim=1)
-        at = (lo[:, None] + torch.arange(WP, dtype=torch.int32, device=dev)).clamp(max=Q)
-        return padded.gather(1, at.long()), (count - lo).clamp(0, WP), k
-
-    def _gang_pass(self, states, w, chronology=None):
-        """Rounds to fixpoint from stacked `states` [V, ...] (in place),
-        variant v at weights row w[v], one launch of each kernel a round for
-        every variant. Each variant runs until its own fixpoint and then
-        rides along frozen (live 0, its counters unchanged), as under the
-        reference's vmapped while_loop. Returns (rounds, pods still pending),
-        lists of V. `chronology` (the record path) takes V = 1."""
-        V, P = w.shape[0], self.enc.P
-        WP = self._wp
-        cap = self.max_rounds if self.max_rounds is not None else P + 1
-        tracked = chronology is not None
-        if tracked:
-            start = cuda.variant_state(states, 0).clone()
-            br = torch.full((P,), -1, dtype=torch.int32, device=self.device)
-        rounds, commits, w_idx = [0] * V, [0] * V, [0] * V  # commits: rounds that commit
-        n_pend = [None] * V
-        active = [cap > 0] * V
-        sort = self.compact or WP is not None or V > 1
-        K = len(self._queue)  # the rows a round takes: the queue, then the most pending
-        while any(active):
-            rows, count = self._pending(states, sort)
-            gate = None if all(active) else torch.tensor(active, device=self.device)
-            if WP is None:
-                live = count if sort else None
-                if sort:
-                    rows = rows[:, :max(1, K)].contiguous()
-            else:
-                rows, live, k = self._window_rows(rows, count, w_idx)
-            if gate is not None:
-                live = torch.where(gate, live, 0)
-            sel, stat = self._round(states, w, rows, live)
-            if tracked:
-                hit = sel[0] >= 0
-                br[rows[0][hit].long()] = rounds[0]
-            got = torch.stack([stat[:, 0], count], dim=1).tolist()
-            self.last_stats["host_syncs"] += 1
-            for v in range(V):
-                if not active[v]:
-                    continue
-                committed, cnt = got[v]
-                rounds[v] += 1
-                n_pend[v] = cnt - committed
-                if WP is None:
-                    commits[v] += 1
-                    done = not committed
-                else:
-                    # a whole sweep of this round's pending windows without a
-                    # commit is the fixpoint; a commit restarts at the front
-                    done = not committed and k[v] + 1 >= max(1, -(-cnt // WP))
-                    w_idx[v] = 0 if committed else w_idx[v] + 1
-                    commits[v] += committed > 0
-                active[v] = not done and commits[v] < cap
-            K = max((n_pend[v] for v in range(V) if active[v]), default=0)
-        if None in n_pend:  # no round ran (max_rounds=0)
-            n_pend = self._pending(states, sort=False)[1].tolist()
-            self.last_stats["host_syncs"] += 1
-        if tracked:
-            chronology.append(("rounds", start, br, rounds[0], states.assignment[0].clone()))
-        return rounds, n_pend
 
     # -- execution ------------------------------------------------------------
 
@@ -486,3 +505,143 @@ class GangScheduler:
         self._chronology = self._trace = self._recorded_weights = None
         self._rec = None
         return self
+
+
+# ---------------------------------------------------------------------------
+# the batch plane's gang passes (server/batchplane.py `batch.gang.run`)
+# ---------------------------------------------------------------------------
+
+
+class _TenantRounds(_Rounds):
+    """The round body over B tenants' `GangScheduler`s of one batch window:
+    the tenant forms of the K9 kernels (`cuda.batch_eval`, `batch_match`,
+    `batch_bind`; `gang_topk` reads only scores), each tenant with its own
+    program, planes, order, claims and carriers. The window's tenants share
+    one gang signature and effective window, so their options, P and N are
+    equal (checked)."""
+
+    _SAME = ("P", "N")
+    _OPTIONS = ("_wp", "max_rounds", "compact", "match_width", "inner_iters", "rel_serialize",
+                "preempts", "device")
+
+    def __init__(self, gangs: "list[GangScheduler]"):
+        if not gangs:
+            raise ValueError("a batch needs at least one tenant")
+        g0 = gangs[0]
+        for i, g in enumerate(gangs):
+            bad = [x for x in self._SAME if getattr(g.enc, x) != getattr(g0.enc, x)]
+            bad += [x for x in self._OPTIONS if getattr(g, x) != getattr(g0, x)]
+            if bad:
+                raise ValueError(f"tenant {i} differs from tenant 0 in {bad}")
+            g._prep()
+        self.gangs = gangs
+        self.enc = g0.enc
+        for x in self._OPTIONS:
+            setattr(self, x, getattr(g0, x))
+        self.last_stats = {"host_syncs": 0}
+        self._progs = [g._base.program for g in gangs]
+        self._arrays = [g.enc.arrays for g in gangs]
+        dev, P = self.device, g0.enc.P
+        # each tenant's queue as a -1 padded row, its order, claims (-1 padded
+        # to the widest tenant's) and carriers
+        Qm = max(len(g._queue) for g in gangs)
+        self._queue = torch.full((len(gangs), Qm), -1, dtype=torch.int32, device=dev)
+        for b, g in enumerate(gangs):
+            self._queue[b, :len(g._queue)] = g._queue
+        self._orders = torch.stack([g._order for g in gangs]).contiguous()
+        self._pod_mask = torch.stack([g.enc.arrays.pod_mask for g in gangs])
+        mc = max(g._claims.shape[1] for g in gangs)
+        self._claims = torch.stack([
+            torch.cat([g._claims, g._claims.new_full((P, mc - g._claims.shape[1]), -1)], dim=1)
+            for g in gangs]).contiguous()
+        self._carriers = (None if g0._carrier is None
+                          else torch.stack([g._carrier for g in gangs]).contiguous())
+
+    def _pending(self, states, sort: bool):
+        """(rows [B, Q], counts [B] int32): each tenant's queue pods —
+        pending first, in queue order, when `sort` — and its pending count;
+        padding (-1) last, never pending."""
+        q = self._queue.long()
+        qc = q.clamp(min=0)
+        pend = ((states.assignment.gather(1, qc) < 0) & self._pod_mask.gather(1, qc)
+                & (q >= 0))
+        count = pend.sum(dim=1, dtype=torch.int32)
+        if not sort:
+            return self._queue, count
+        return self._queue.gather(1, torch.argsort((~pend).to(torch.int8), dim=1,
+                                                   stable=True)), count
+
+    def _round(self, states, w, rows, live):
+        """eval → top-k → match → bind of every tenant (one launch of each
+        kernel), in place. Returns sel [B, K] and stat [B, 2]."""
+        enc = self.enc
+        scores = cuda.batch_eval(self._progs, self._arrays, states, w, rows, live, self._orders)
+        if self.match_width < enc.N:
+            vals, idx = cuda.gang_topk(scores, live, self.match_width)
+        else:
+            vals, idx = scores, None
+        sel, stat = cuda.batch_match(
+            vals, idx, rows, live, self._orders, self._claims, self._carriers, enc.N,
+            enc.arrays.pod_claim.shape[1], self.inner_iters,
+        )
+        cuda.batch_bind(self._progs, self._arrays, states, rows, live, sel, self._orders)
+        return sel, stat
+
+
+def batch_fixpoint(gangs: "list[GangScheduler]") -> list:
+    """K11 `batch.gang.run`: the untracked gang passes (`run()`) of B
+    tenants of one batch window, each at its own weights, launched together:
+    rounds through the K9 kernels' tenant forms to each tenant's fixpoint,
+    then, while a tenant has pods pending and its last phase bound one, a
+    preempt phase of every such tenant in one `cuda.batch_seg` launch (its
+    pending pods in queue order at their queue positions) and a resumed
+    pass of the tenants whose phase bound a pod. A tenant whose phase bound
+    nothing stops there, its state and rounds as they are, and rides along
+    at live 0 (an all-padding segment in a phase): the reference's vmapped
+    fused fixpoint (`gang.py` `fixpoint`), whose session stops with its own
+    outer loop — not `GangSweep`'s lockstep. So each tenant's (state,
+    rounds) equals its solo `GangScheduler.run()`. Sets each engine's
+    `_final_state` and `_rounds` (and `last_stats`: its rounds and phases,
+    the window's readbacks); returns [(final state, rounds)] by tenant."""
+    t = _TenantRounds(gangs)
+    B = len(gangs)
+    w = torch.stack([g.weights for g in gangs]).contiguous()
+    states = cuda.stack_states([g.enc.state0 for g in gangs])
+    rounds, n_pend = t._gang_pass(states, w)
+    phases = [0] * B
+    if t.preempts:
+        active = [n > 0 for n in n_pend]
+        while any(active):
+            rows, _ = t._pending(states, sort=True)
+            K = max(n for n, a in zip(n_pend, active) if a)
+            keep = torch.tensor([n if a else 0 for n, a in zip(n_pend, active)],
+                                dtype=torch.int32, device=t.device)
+            segs = rows[:, :K]
+            segs = torch.where(torch.arange(K, device=t.device)[None, :] < keep[:, None], segs,
+                               -1).contiguous()
+            qpos = torch.where(segs >= 0, t._orders.gather(1, segs.clamp(min=0).long()),
+                               0).contiguous()
+            states, sel = cuda.batch_seg(t._progs, t._arrays, states, segs, w, qpos)
+            n_bound = (sel >= 0).sum(dim=1).tolist()
+            t.last_stats["host_syncs"] += 1
+            resumed = []
+            for b in range(B):
+                phases[b] += active[b]
+                resumed.append(active[b] and n_bound[b] > 0)
+            if not any(resumed):
+                break
+            r, n = t._gang_pass(states, w, start=resumed)
+            for b in range(B):
+                if resumed[b]:
+                    rounds[b] += r[b]
+                    n_pend[b] = n[b]
+            active = [resumed[b] and n_pend[b] > 0 for b in range(B)]
+    out = []
+    for b, g in enumerate(gangs):
+        g._final_state = cuda.variant_state(states, b)
+        g._rounds = rounds[b]
+        g._chronology = g._trace = g._recorded_weights = None
+        g.last_stats = {"rounds": rounds[b], "phases": phases[b],
+                        "host_syncs": t.last_stats["host_syncs"], "tenants": B}
+        out.append((g._final_state, rounds[b]))
+    return out

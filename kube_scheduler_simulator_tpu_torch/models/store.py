@@ -169,6 +169,14 @@ class ResourceStore:
         with self._lock:
             return len(self._objs[kind])
 
+    def count_pending_pods(self) -> int:
+        """Pods without a `spec.nodeName`, counted in place (the session
+        plane's admission checks read it; `list("pods")` would copy every
+        pod for a scalar)."""
+        with self._lock:
+            return sum(1 for p in self._objs["pods"].values()
+                       if not (p.get("spec") or {}).get("nodeName"))
+
     def delete(self, kind: str, name: str, namespace: str = "default") -> bool:
         with self._lock:
             return self._delete_locked(kind, name, namespace)

@@ -18,12 +18,19 @@ synchronous sequential pass:
     ("gang", gang signature, effective window): built on a miss,
     `retarget`ed onto the new encoding on a hit;
   * `SimulatorService` composes the store and the scheduler with export,
-    import and reset.
+    import and reset;
+  * with a cross-tenant batch plane armed (`batch_plane`, set by the
+    session plane, server/sessions.py), a sequential pass, or an unrecorded
+    gang pass, enrolls in the plane's window under its compile signature and
+    comes back with its slice of one batched launch (server/batchplane.py);
+    a pass the plane does not serve — a lone window, a draining plane, a
+    failed batched launch, a recorded gang pass — dispatches solo and counts
+    one `soloFallbacks`.
 
 Not ported: the extender loop (a configuration with extenders raises
 NotImplementedError, for gang passes as for sequential ones), the compile broker's
-speculation, the cross-tenant batch plane, the async pass pipeline and the
-execution ladder's retries and CPU failover: a device fault raises.
+speculation, the async pass pipeline and the execution ladder's retries and
+CPU failover: a device fault raises.
 
 Services run on the CUDA card unless the caller passes `device="cpu"`.
 """
@@ -107,6 +114,15 @@ class SchedulerService:
         self._engines: "dict[tuple, BatchedScheduler | GangScheduler]" = {}
         # the last pass's encode outcome ({"mode": ..., ...})
         self.last_encode_info: "dict | None" = None
+        # the session this service serves (server/sessions.py), and the
+        # cross-tenant batch plane shared by every session (None: off)
+        self.session_id: "str | None" = None
+        self.batch_plane = None
+        # per pass: a solo fallback is counted once; the engines that
+        # decode a batched pass's slice, kept by signature across passes
+        self._batch_fallback_counted = False
+        self._batch_decode_cache: "tuple | None" = None
+        self._batch_gang_decode_cache: "tuple | None" = None
 
     # -- configuration lifecycle -------------------------------------------
 
@@ -141,6 +157,7 @@ class SchedulerService:
         are serialised."""
         with self._schedule_lock:
             config = self.config  # one read: encode and engine see the same
+            self._batch_fallback_counted = False
             with self.metrics.time_pass("sequential") as ctx:
                 results = self._schedule_locked(config)
                 ctx.done(
@@ -160,6 +177,7 @@ class SchedulerService:
         if window is not None and int(window) < 1:
             raise ValueError(f"window must be >= 1, got {window}")
         with self._schedule_lock:
+            self._batch_fallback_counted = False
             return self._schedule_gang_timed(record, window)
 
     def _schedule_gang_timed(self, record: bool, window: "int | None" = None):
@@ -186,6 +204,13 @@ class SchedulerService:
         chunk = gang_chunk()
         sig = ("gang", GangScheduler.compile_signature(enc),
                GangScheduler.effective_window(enc, window, chunk))
+        if not record:
+            disp = self._maybe_batched_gang_dispatch(sig, enc, chunk, window)
+            if disp is not None:
+                return disp
+        else:
+            # recorded passes stay solo: their replay is per-session host work
+            self._count_solo_fallback()
         t0 = time.perf_counter()
         engine = self._engines.pop(sig, None)
         built = engine is None
@@ -271,6 +296,9 @@ class SchedulerService:
         if enc is None:
             return None
         sig = ("seq", BatchedScheduler.compile_signature(enc))
+        disp = self._maybe_batched_dispatch(sig, enc)
+        if disp is not None:
+            return disp
         t0 = time.perf_counter()
         engine = self._engines.pop(sig, None)
         if engine is None:
@@ -290,6 +318,59 @@ class SchedulerService:
         else:
             self.metrics.record_phase_seconds(execute=time.perf_counter() - t0)
         return enc, engine
+
+    def _count_solo_fallback(self) -> None:
+        """One `soloFallbacks` a pass that the armed plane did not serve."""
+        if self.batch_plane is None or self._batch_fallback_counted:
+            return
+        self._batch_fallback_counted = True
+        self.metrics.record_batching(solo_fallbacks=1)
+
+    def _maybe_batched_dispatch(self, sig: tuple, enc):
+        """Serve this sequential pass through the batch plane: enroll it
+        under `sig` and come back with its slice of one `batch.seq.run`
+        launch (placements and trace as a solo pass's). Returns (enc, engine)
+        as `_seq_dispatch_once` does, or None for solo dispatch (a lone
+        window, a draining plane, a failed batched launch: counted)."""
+        plane = self.batch_plane
+        if plane is None:
+            return None
+        # the engine that decodes this pass's slice (never run: the slice
+        # lands in _final_state and _trace); a signature-stable session
+        # reuses the last one through retarget
+        cached = self._batch_decode_cache
+        if cached is not None and cached[0] == sig:
+            engine = cached[1].retarget(enc)
+        else:
+            engine = BatchedScheduler(enc, record=True, strict=True, device=self.device)
+            self._batch_decode_cache = (sig, engine)
+        out = plane.submit(sig, engine, metrics=self.metrics)
+        if out is None:
+            self._count_solo_fallback()
+            return None
+        engine._final_state, engine._trace = out
+        return enc, engine
+
+    def _maybe_batched_gang_dispatch(self, sig: tuple, enc, chunk, window):
+        """The gang twin of `_maybe_batched_dispatch` for an unrecorded gang
+        pass (`batch.gang.run`): returns (enc, gang) with the pass's final
+        state and rounds from one batched fixpoint, or None for solo."""
+        plane = self.batch_plane
+        if plane is None:
+            return None
+        cached = self._batch_gang_decode_cache
+        if cached is not None and cached[0] == sig:
+            gang = cached[1].retarget(enc)
+        else:
+            gang = GangScheduler(enc, strict=True, chunk=chunk, eval_window=window,
+                                 device=self.device)
+            self._batch_gang_decode_cache = (sig, gang)
+        out = plane.submit(sig, gang, metrics=self.metrics, kind="gang")
+        if out is None:
+            self._count_solo_fallback()
+            return None
+        gang._final_state, gang._rounds = out
+        return enc, gang
 
     def _seq_finish_inner(self, disp) -> list[PodSchedulingResult]:
         """Decode the trace, delete the victims, write the records back.

@@ -5,8 +5,10 @@ Each pass lands as a `PassRecord` (mode, pods, scheduled, wall seconds,
 and for a gang pass its rounds);
 the phase breakdown splits a pass's wall time into encode, engine build,
 execute and decode seconds, and counts which encode path served it
-(delta, full, cached, empty) and how many engines were built. `phases()`
-reads them under the reference's key names.
+(delta, full, cached, empty) and how many engines were built; the batch
+plane's counters (server/batchplane.py) count the passes a batched launch
+served, the windows, their fill and the passes that fell back to solo
+dispatch. `phases()` reads them under the reference's key names.
 """
 
 from __future__ import annotations
@@ -39,6 +41,11 @@ class SchedulingMetrics:
         self._encode_counts = {"delta": 0, "full": 0, "cached": 0, "empty": 0}
         self._engine_builds = 0
         self._gang_fixpoint_rounds = 0
+        self._batched_passes = 0
+        self._batch_windows = 0
+        self._batch_occupancy_sum = 0
+        self._solo_fallbacks = 0
+        self._batched_gang_passes = 0
 
     def record(self, rec: PassRecord) -> None:
         with self._lock:
@@ -60,11 +67,27 @@ class SchedulingMetrics:
             self._engine_builds += 1
             self._phase_s["compile"] += float(seconds)
 
-    def record_gang(self, *, fixpoint_rounds: int = 0) -> None:
+    def record_gang(self, *, fixpoint_rounds: int = 0, batched_passes: int = 0) -> None:
         """Gang-engine accounting: the rounds a gang pass used (booked at
-        decode, where they are read with the assignment)."""
+        decode, where they are read with the assignment), and the gang
+        passes a cross-tenant batched launch served (`batch.gang.run`)."""
         with self._lock:
             self._gang_fixpoint_rounds += int(fixpoint_rounds)
+            self._batched_gang_passes += int(batched_passes)
+
+    def record_batching(self, *, batched_passes: int = 0, windows: int = 0, occupancy: int = 0,
+                        solo_fallbacks: int = 0) -> None:
+        """Batch-plane accounting (server/batchplane.py): `batched_passes`
+        this service's passes served by a batched launch, `solo_fallbacks`
+        its passes that fell back to solo dispatch (a lone window, a
+        draining plane, a failed batched launch, an ineligible pass);
+        `windows` batched windows executed and `occupancy` their fill (both
+        booked on the plane's registry)."""
+        with self._lock:
+            self._batched_passes += int(batched_passes)
+            self._batch_windows += int(windows)
+            self._batch_occupancy_sum += int(occupancy)
+            self._solo_fallbacks += int(solo_fallbacks)
 
     def record_phase_seconds(self, execute: float = 0.0, decode: float = 0.0) -> None:
         """A pass's execute (engine run) and decode (results and write-back)
@@ -107,5 +130,10 @@ class SchedulingMetrics:
                 "cachedEncodes": self._encode_counts.get("cached", 0),
                 "emptyEncodes": self._encode_counts.get("empty", 0),
                 "engineBuilds": self._engine_builds,
+                "batchedPasses": self._batched_passes,
+                "batchWindows": self._batch_windows,
+                "batchOccupancySum": self._batch_occupancy_sum,
+                "soloFallbacks": self._solo_fallbacks,
                 "gangFixpointRounds": self._gang_fixpoint_rounds,
+                "batchedGangPasses": self._batched_gang_passes,
             }

@@ -12,8 +12,14 @@ volumes and preemption (`affinity_config()`); `rel_cluster` (test_torch_clusters
 reaches the relational plugins. The default profile's kernels (the volume
 family, `seq_preempt`, `seq_evict`, `seq_run`'s preemption branch) run on
 `synth.dressed_default_cluster`. The gang kernels and `sweep_run` also run
-with a leading variant axis (the gang weight sweep, `GangSweep`).
+with a leading variant axis (the gang weight sweep, `GangSweep`) and in their
+tenant forms (the batch plane's `batch.seq.run`/`batch.gang.run`: B = 3
+tenants with equal shapes and their own values, one of them with nothing to
+do).
 """
+
+import contextlib
+import copy
 
 import numpy as np
 import pytest
@@ -21,6 +27,8 @@ import torch
 
 import kube_scheduler_simulator_tpu_torch as kp
 from kube_scheduler_simulator_tpu_torch.engine import cuda
+from kube_scheduler_simulator_tpu_torch.engine.gang import _TenantRounds, batch_fixpoint
+from kube_scheduler_simulator_tpu_torch.utils.quantity import parse_quantity
 
 from test_torch_clusters import NAMESPACES, rel_cluster
 
@@ -559,3 +567,243 @@ def test_gang_sweep_on_the_card_matches_the_cpu(card, policy):
     want, want_rounds = cpu.run(w)
     assert torch.equal(asg.cpu(), want) and torch.equal(rounds.cpu(), want_rounds)
     assert cpu.last_stats == st
+
+
+# -- the tenant axis: K11 batch.seq.run / batch.gang.run ------------------------
+
+
+def scaled_pods(pods, f):
+    """The pods with every pending pod's CPU request scaled by f (a tenant's
+    own values at its neighbours' shapes, as the reference's batch-plane
+    tests vary their tenants)."""
+    out = copy.deepcopy(pods)
+    for pd in out:
+        if pd["spec"].get("nodeName"):
+            continue
+        for c in pd["spec"].get("containers", []):
+            req = (c.get("resources") or {}).get("requests") or {}
+            if "cpu" in req:
+                req["cpu"] = f"{max(1, round(parse_quantity(req['cpu']).milli * f))}m"
+    return out
+
+
+def tenant_encodings(policy, device, kind="default", B=3, seed=3, size=(48, 200)):
+    """B tenants' encodings on `device` with equal shapes and their own
+    values: tenant b's pending CPU requests scaled by 1 + b / 4. "default":
+    the whole default profile on `dressed_default_cluster(*size)`; "rel":
+    `affinity_config()` on the relational cluster of that size (carriers)."""
+    objects = {}
+    if kind == "default":
+        nodes, pods, objects = kp.synth.dressed_default_cluster(*size, seed=seed)
+        cfg = kp.supported_config()
+    else:
+        nodes, pods = rel_cluster(seed, *size)
+        cfg = kp.affinity_config()
+        objects = {"namespaces": NAMESPACES}
+    return [kp.encode_cluster(nodes, scaled_pods(pods, 1 + b / 4), cfg,
+                              policy=POLICIES[policy], device=device, **objects)
+            for b in range(B)]
+
+
+def check_batch_run(encs, device, record):
+    """batch_run over B tenants (the last one's queue all padding, each at
+    its own weights) against batch_run_plain, and each tenant's slice
+    against its own seq_run_plain. Returns the final selections [B, Q]."""
+    engs = [kp.BatchedScheduler(e, device=device) for e in encs]
+    progs, arrays = [e.program for e in engs], [e.enc.arrays for e in engs]
+    q = np.stack([e.padded_queue() for e in engs])
+    q[-1] = -1
+    q = torch.as_tensor(q, device=device)
+    w0 = engs[0].weights
+    w = torch.stack([w0, torch.ones_like(w0), w0 * 3 + 1][:len(engs)]).contiguous()
+    states0 = cuda.stack_states([e.enc.state0 for e in engs])
+    before = states0.clone()
+    s_k, out_k = cuda.batch_run(progs, arrays, states0, q, w, record=record)
+    s_p, out_p = cuda.batch_run_plain(progs, arrays, states0, q, w, record=record)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(s_k, f), getattr(s_p, f)), f
+        assert torch.equal(getattr(states0, f), getattr(before, f)), ("left as it was", f)
+    for i, (g, h) in enumerate(zip(out_k if record else (out_k,), out_p if record else (out_p,))):
+        assert g.dtype == h.dtype and torch.equal(g, h), i
+    st, tr = cuda.seq_run_plain(progs[1], arrays[1], encs[1].state0, q[1], w[1], record=record)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(s_k, f)[1], getattr(st, f)), ("tenant 1", f)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(s_k, f)[-1], getattr(encs[-1].state0, f)), ("idle", f)
+    sel = out_k[4] if record else out_k
+    if record and engs[0].preempts:
+        sel = out_k[cuda.TRACE_SLOTS_PREEMPT.index("final_sel")]
+    return sel
+
+
+def check_batch_seg(encs, device):
+    """batch_seg (the tenants' preempt phases) over per-tenant segments —
+    tenant 0 its whole queue, tenant 1 none (every step padding), tenant 2
+    every other queued pod — at their queue positions, against
+    batch_seg_plain. Returns the bound selections [3, K]."""
+    gangs = [kp.GangScheduler(e, device=device) for e in encs]
+    t = _TenantRounds(gangs)
+    q = t._queue
+    segs = torch.full_like(q, -1)
+    segs[0] = q[0]
+    n2 = int((q[2] >= 0).sum())
+    every_other = q[2, :n2:2]
+    segs[2, :len(every_other)] = every_other
+    qpos = torch.where(segs >= 0, t._orders.gather(1, segs.clamp(min=0).long()), 0).contiguous()
+    w = torch.stack([g.weights for g in gangs]).contiguous()
+    states0 = cuda.stack_states([e.state0 for e in encs])
+    s_k, sel_k = cuda.batch_seg(t._progs, t._arrays, states0, segs, w, qpos)
+    s_p, sel_p = cuda.batch_seg_plain(t._progs, t._arrays, states0, segs, w, qpos)
+    assert torch.equal(sel_k, sel_p), "segment selections"
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(s_k, f), getattr(s_p, f)), f
+        assert torch.equal(getattr(s_k, f)[1], getattr(encs[1].state0, f)), ("idle", f)
+    return sel_k
+
+
+def check_batch_gang(encs, rng, device, widths=(3,), **opts):
+    """batch_eval, gang_topk, batch_match and batch_bind over B = 3 tenants
+    at random states (live counts K - 4, 0 and K), each tenant with its own
+    planes, order, claims and carriers, against their plain versions.
+    Returns the number of comparisons."""
+    gangs = [kp.GangScheduler(e, device=device, **opts) for e in encs]
+    t = _TenantRounds(gangs)
+    N, C = t.enc.N, t.enc.arrays.pod_claim.shape[1]
+    cpu = torch.device("cpu")
+    states = cuda.stack_states([random_state(e.to(cpu), rng) for e in encs]).to(device)
+    w0 = gangs[0].weights
+    weights = torch.stack([w0, torch.ones_like(w0), w0 * 3 + 1]).contiguous()
+    K = min(24, t._queue.shape[1])
+    rows = torch.as_tensor(np.stack([rng.permutation(np.asarray(e.queue))[:K] for e in encs])
+                           .astype(np.int32), device=device)
+    live = torch.tensor([max(0, K - 4), 0, K], dtype=torch.int32, device=device)
+    n_live = live.tolist()
+    got = cuda.batch_eval(t._progs, t._arrays, states, weights, rows, live, t._orders)
+    want = cuda.batch_eval_plain(t._progs, t._arrays, states, weights, rows, live, t._orders)
+    n = 0
+    for b, lv in enumerate(n_live):
+        assert torch.equal(got[b, :lv], want[b, :lv]), ("eval", b)
+        n += 1
+    assert bool((want[0, :n_live[0]] > cuda._neg(want.dtype)).any()), "no feasible row"
+    for mw in tuple(x for x in widths if x < N) + (N,):
+        if mw < N:
+            vals, idx = cuda.gang_topk(got, live, mw)
+            pv, pi = cuda.gang_topk_plain(want, live, mw)
+        else:
+            vals, idx, pv, pi = got, None, want, None
+        for carriers in (None, t._carriers):
+            args = (rows, live, t._orders, t._claims, carriers, N, C, 64)
+            sel, stat = cuda.batch_match(vals, idx, *args)
+            psel, pstat = cuda.batch_match_plain(pv, pi, *args)
+            assert torch.equal(sel, psel) and torch.equal(stat, pstat), ("match", mw)
+            assert stat[1].tolist() == [0, 0], "the idle tenant matched"
+            n += 1
+        s1 = cuda.batch_bind(t._progs, t._arrays, states.clone(), rows, live, sel, t._orders)
+        s2 = cuda.batch_bind_plain(t._progs, t._arrays, states.clone(), rows, live, sel,
+                                   t._orders)
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(s1, f), getattr(s2, f)), ("bind", mw, f)
+            assert torch.equal(getattr(s1, f)[1], getattr(states, f)[1]), ("idle", f)
+        n += 1
+    return n
+
+
+def check_batch_fixpoint(encs, device, plain=contextlib.nullcontext, **opts):
+    """A whole batched gang pass (`batch_fixpoint`) against each tenant's
+    solo GangScheduler.run() on the CPU's plain versions (inside `plain()`):
+    state and rounds. Returns the tenants' rounds."""
+    got = batch_fixpoint([kp.GangScheduler(e, device=device, **opts) for e in encs])
+    rounds = []
+    for e, (st, r) in zip(encs, got):
+        with plain():
+            solo = kp.GangScheduler(e.to(torch.device("cpu")), device="cpu", **opts)
+            want, want_r = solo.run()
+        assert r == want_r, (r, want_r)
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(st, f).cpu(), getattr(want, f)), f
+        rounds.append(r)
+    return rounds
+
+
+@pytest.mark.parametrize("record", [True, False], ids=["record", "no-record"])
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_batch_run_matches_plain(card, policy, record):
+    cuda.reset_counts()
+    sel = check_batch_run(tenant_encodings(policy, card), card, record)
+    assert cuda.LAUNCHES["batch_run"] == 1 and not any(cuda.PLAIN_CALLS.values())
+    assert bool((sel[0] >= 0).any()) and bool((sel[-1] == -1).all())
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_batch_seg_matches_plain(card, policy):
+    cuda.reset_counts()
+    sel = check_batch_seg(tenant_encodings(policy, card), card)
+    assert cuda.LAUNCHES["batch_seg"] == 1
+    assert bool((sel[0] >= 0).any()) and bool((sel[1] == -1).all())
+
+
+@pytest.mark.parametrize("kind", ["default", "rel"])
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_batch_gang_kernels_match_plain(card, policy, kind):
+    cuda.reset_counts()
+    opts = {"match_width": 8} if kind == "rel" else {}
+    assert check_batch_gang(tenant_encodings(policy, card, kind), np.random.default_rng(23),
+                            card, widths=(4,), **opts) > 0
+    assert not any(cuda.PLAIN_CALLS[k] for k in ("batch_eval", "batch_match", "batch_bind"))
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_batch_fixpoint_on_the_card_matches_solo(card, policy):
+    encs = tenant_encodings(policy, card)
+    cuda.reset_counts()
+    rounds = check_batch_fixpoint(encs, card, chunk=16)
+    assert cuda.LAUNCHES["batch_eval"] > 0 and cuda.LAUNCHES["batch_seg"] > 0
+    assert len(rounds) == 3
+
+
+def test_concurrent_windows_of_different_keys(card):
+    """Two windows of different keys launching at once from two threads, as
+    two leaders of the batch plane do (a sequential window's `run_batch`, a
+    gang window's `batch_fixpoint` on other shapes), each several times:
+    every launch gives what the same window gives alone."""
+    import threading
+
+    from kube_scheduler_simulator_tpu_torch.engine.engine import run_batch
+
+    seq_encs = tenant_encodings("i32", card)
+    gang_encs = tenant_encodings("i32", card, "rel", size=(24, 60))
+
+    def seq():
+        return run_batch([kp.BatchedScheduler(e, device=card) for e in seq_encs])
+
+    def gang():
+        return batch_fixpoint([kp.GangScheduler(e, device=card, chunk=16) for e in gang_encs])
+
+    def same(got, want):
+        for (s, x), (ws, wx) in zip(got, want):
+            for f in STATE_FIELDS:
+                assert torch.equal(getattr(s, f), getattr(ws, f)), f
+            for a, b in zip(*((x, wx) if isinstance(x, tuple) else ((x,), (wx,)))):
+                assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+    want = {seq: seq(), gang: gang()}
+    cuda.reset_counts()
+    errors = []
+    barrier = threading.Barrier(2)
+
+    def loop(fn):
+        try:
+            barrier.wait(timeout=60)
+            for _ in range(6):
+                same(fn(), want[fn])
+        except Exception as e:  # noqa: BLE001 — surfaced by the assert
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=loop, args=(fn,)) for fn in (seq, gang)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors, errors
+    assert cuda.LAUNCHES["batch_run"] == 6 and cuda.LAUNCHES["batch_eval"] >= 6
+    assert not any(cuda.PLAIN_CALLS.values())

@@ -13,6 +13,7 @@ import torch
 
 import kube_scheduler_simulator_tpu_torch as kp
 from kube_scheduler_simulator_tpu_torch.engine import cuda
+from kube_scheduler_simulator_tpu_torch.engine.gang import _TenantRounds
 
 from test_torch_encode import port_cluster
 
@@ -40,16 +41,20 @@ def test_import_leaves_jax_and_reference_out():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == ""
-    # the walk reaches every module, the sweep's and the batch runner's too
+    # the walk reaches every module: the sweep's, the batch runner's, the
+    # session plane's and the batch plane's too
     names = {m.name for m in pkgutil.walk_packages(kp.__path__, kp.__name__ + ".")}
     assert {"kube_scheduler_simulator_tpu_torch.parallel.sweep",
-            "kube_scheduler_simulator_tpu_torch.scenario.batch"} <= names
+            "kube_scheduler_simulator_tpu_torch.scenario.batch",
+            "kube_scheduler_simulator_tpu_torch.server.sessions",
+            "kube_scheduler_simulator_tpu_torch.server.batchplane"} <= names
 
 
 def test_no_module_imports_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    for new in ("parallel/sweep.py", "scenario/batch.py"):  # the sixth slice's
+    for new in ("parallel/sweep.py", "scenario/batch.py",  # the sixth slice's
+                "server/sessions.py", "server/batchplane.py"):  # the session and batch planes
         assert PORT / new in files, new
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -77,6 +82,9 @@ def test_default_device_is_the_card(monkeypatch):
     for engine in (kp.GangScheduler, kp.GangSweep, kp.WeightSweep):
         with pytest.raises(RuntimeError, match="CUDA"):
             engine(enc)
+    for plane in (kp.SessionManager, kp.SimulatorService):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            plane()
 
 
 def test_wrappers_take_plain_versions_on_cpu_tensors(monkeypatch):
@@ -107,6 +115,18 @@ def test_wrappers_take_plain_versions_on_cpu_tensors(monkeypatch):
     cuda.gang_bind(eng.program, a, state, rows, live, sel, g._order)
     # the weight sweep's (K11), once
     kp.WeightSweep(eng.enc, device="cpu").run([eng.weights.numpy()] * 2)
+    # the batch plane's tenant forms (K11 batch.seq.run / batch.gang.run), once
+    t = _TenantRounds([g, kp.GangScheduler(eng.enc, device="cpu")])
+    states = cuda.stack_states([eng.enc.state0] * 2)
+    w2 = torch.stack([eng.weights] * 2)
+    rows2, live2 = torch.stack([rows] * 2), torch.tensor([4, 2], dtype=torch.int32)
+    cuda.batch_run(t._progs, t._arrays, states, torch.stack([t._queue[0]] * 2), w2,
+                   record=False)
+    cuda.batch_seg(t._progs, t._arrays, states, rows2, w2, t._orders.gather(1, rows2.long()))
+    scores = cuda.batch_eval(t._progs, t._arrays, states, w2, rows2, live2, t._orders)
+    sel, _ = cuda.batch_match(scores, None, rows2, live2, t._orders, t._claims, t._carriers,
+                              eng.enc.N, a.pod_claim.shape[1], 8)
+    cuda.batch_bind(t._progs, t._arrays, states, rows2, live2, sel, t._orders)
     assert cuda.PLAIN_CALLS == dict.fromkeys(cuda.KERNELS, 1)
     assert cuda.LAUNCHES == dict.fromkeys(cuda.KERNELS, 0)
 

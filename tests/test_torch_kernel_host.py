@@ -14,6 +14,7 @@ which only the card's tests (test_torch_cuda.py) see. Skipped where no
 `g++` is found. Tolerance: exact equality.
 """
 
+import contextlib
 import re
 import shutil
 import subprocess
@@ -31,11 +32,16 @@ from kube_scheduler_simulator_tpu_torch.sched.config import SchedulerConfigurati
 from test_torch_clusters import NAMESPACES, rel_cluster
 from test_torch_cuda import (
     STATE_FIELDS,
+    check_batch_fixpoint,
+    check_batch_gang,
+    check_batch_run,
+    check_batch_seg,
     check_k10,
     check_segments,
     check_stacked_gang,
     cluster,
     random_state,
+    tenant_encodings,
 )
 from test_torch_delta import TEMPLATES, assert_port_equal, from_template, full_encode
 
@@ -507,3 +513,57 @@ def test_gang_sweep_matches_plain(host, monkeypatch, policy):
     same(asg, want, "assignments")
     same(rounds, want_rounds, "rounds")
     assert plain.last_stats == st
+
+
+# -- the tenant axis (the batch plane's batch.seq.run / batch.gang.run) --------
+
+CPU = torch.device("cpu")
+TENANT_SIZE = (12, 32)
+
+
+@pytest.mark.parametrize("kind", ["default", "rel"])
+@pytest.mark.parametrize("record", [True, False], ids=["record", "no-record"])
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_batch_run_matches_plain(host, policy, record, kind):
+    """batch_run over three tenants (own planes, queue rows, weights; the
+    last one's queue all padding) in one launch against each tenant's plain
+    pass."""
+    encs = tenant_encodings(policy, CPU, kind, size=TENANT_SIZE)
+    sel = check_batch_run(encs, CPU, record)
+    assert cuda.LAUNCHES["batch_run"] == 1 and not cuda.PLAIN_CALLS["seq_run"]
+    assert bool((sel[0] >= 0).any()) and bool((sel[-1] == -1).all())
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_batch_seg_matches_plain(host, policy):
+    sel = check_batch_seg(tenant_encodings(policy, CPU, size=TENANT_SIZE), CPU)
+    assert cuda.LAUNCHES["batch_seg"] == 1
+    assert bool((sel[0] >= 0).any()) and bool((sel[1] == -1).all())
+
+
+@pytest.mark.parametrize("kind", ["default", "rel"])
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_batch_gang_kernels_match_plain(host, policy, kind):
+    opts = {"match_width": 5} if kind == "rel" else {}
+    encs = tenant_encodings(policy, CPU, kind, size=TENANT_SIZE)
+    assert check_batch_gang(encs, np.random.default_rng(29), CPU, widths=(1, 3), **opts) > 0
+    assert cuda.LAUNCHES["batch_eval"] == 1 and cuda.LAUNCHES["batch_match"] == 2 * 3
+    assert not any(cuda.PLAIN_CALLS[k] for k in ("batch_eval", "batch_match", "batch_bind"))
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_batch_fixpoint_matches_solo(host, monkeypatch, policy):
+    """A whole batched gang pass through the host build of the tenant
+    kernels (rounds, the tenants' preempt phases) against each tenant's solo
+    run on the plain versions: state and rounds."""
+    encs = tenant_encodings(policy, CPU, size=TENANT_SIZE)
+
+    @contextlib.contextmanager
+    def plain():
+        with monkeypatch.context() as m:
+            m.setattr(cuda, "_on_cpu", lambda x: True)  # the plain versions again
+            yield
+
+    rounds = check_batch_fixpoint(encs, CPU, plain=plain, chunk=8)
+    assert cuda.LAUNCHES["batch_eval"] > 0 and cuda.LAUNCHES["batch_seg"] > 0
+    assert len(rounds) == 3
