@@ -23,8 +23,11 @@ variant one launch of each K9 kernel, every preempt phase one `sweep_run`
 over per-variant segments). An eighth, the batch plane, serves several
 sessions' passes of a `SessionManager` as one launch (`batch.seq.run`: the
 tenant form of `sweep_run`; `batch.gang.run`: the tenant forms of the K9
-kernels and of `sweep_run`'s segments). The plain versions of the whole
-passes that phases 3, 4, 4b, 4j and 5e are held against run on the host
+kernels and of `sweep_run`'s segments). A ninth, the fault sweep, runs
+`FaultSweep` (node-failure scenarios of one cluster: `fault_evict`, the
+gang rounds of every scenario through the K9 kernels' tenant forms over a
+scenario table, `fault_tally`). The plain versions of the whole
+passes that phases 3, 4, 4b, 4j, 4k and 5e are held against run on the host
 CPU in three more processes (`chip_smoke.py --plain-worker DIR PART`,
 started at once when the build is done and stopped at the end; the card's
 phases hand them their inputs through DIR), beside the card's phases; the
@@ -37,8 +40,9 @@ in order; any failure raises and the process exits non-zero:
 2. build: the CUDA kernels compiled for sm_90a into one library in
    build/kernels/, all at once (csrc/seq_kernels.cu by four `nvcc`
    processes, one an integer type and half of its entry points, the
-   tenant forms apart, csrc/delta_kernels.cu by a fifth), with the
-   compiler's register and spill report;
+   tenant forms apart, csrc/delta_kernels.cu by a fifth,
+   csrc/fault_kernels.cu by a sixth), with the compiler's register and
+   spill report;
 3. each kernel against its plain PyTorch version on the card, under TPU32
    and EXACT, exact equality: (fit) three fit-path configurations on a
    256-node x 2,000-pod cluster dressed with taints, tolerations, cordoned
@@ -103,15 +107,15 @@ in order; any failure raises and the process exits non-zero:
    row and victim records;
 4d. the serving path at BASELINE config #2's width: `synthetic_cluster(1024,
    13072, seed=7)`, its first 10,000 pods bound by one kernel pass and
-   imported with the next 256 pending into a `SimulatorService` on the
-   card; 12 `schedule()` passes, each after 256 arrivals and a cordon (one
-   arrival before pass 8 must preempt), then two with no event between.
+   imported with the next 128 pending into a `SimulatorService` on the
+   card; 7 `schedule()` passes, each after 128 arrivals and a cordon (one
+   arrival before pass 6 must preempt), then two with no event between.
    After each pass the service's retained encoding must equal a
    from-scratch encode of the store, its records, placements, victims and
    written-back annotations a fresh kernel pass's, and the launch counters
    (set to 0 just before the pass) must show K10 on delta passes only,
    `seq_run` on every pass with a queue, and no plain version; on passes
-   5 and 8 (8 holds the preemptor's dry run) the plain version of the
+   5 and 6 (6 holds the preemptor's dry run) the plain version of the
    whole pass on the card over the from-scratch encode must give the
    served pass's trace, victims, final state and records;
 4e. the gang default path at full width: `GangScheduler(enc, chunk=64)` on
@@ -124,7 +128,7 @@ in order; any failure raises and the process exits non-zero:
    1's `gang_eval` rows of 64 sampled pods against `seq_attempt`'s masked
    totals at state0; then `run()` on the 4b cluster under
    `affinity_config()`, one exclusive round a carrier, timed the same way;
-4f. three `schedule_gang(record=True)` passes of 256 arrivals in a
+4f. three `schedule_gang(record=True)` passes of 128 arrivals in a
    1,024-node `SimulatorService` session (the second with `window=64`),
    each with K9 launched and no plain call and its records written back;
    the third held against the plain gang on the card;
@@ -154,12 +158,12 @@ in order; any failure raises and the process exits non-zero:
    armed from `KSS_BATCH` (a long window, `KSS_BATCH_MAX_SESSIONS` = the
    tenants: each window flushes full, the passes barrier-aligned), TPU32:
    (a) 8 tenants of phase 4d's serving cluster (1,024 nodes, 10,000 pods
-   bound, 256 pending; tenant i's pending CPU requests scaled by 1 + i / 8)
+   bound, 128 pending; tenant i's pending CPU requests scaled by 1 + i / 8)
    in one sequential window: one `batch_run` launch, no `seq_run` and no
    plain call, all compile signatures equal, every pass counted batched and
    no solo fallback (a failed batched launch fails the phase); (b) 4
-   tenants of phase 4c's cluster with 256 pending each, a dry run in every
-   tenant; (c) `schedule_gang(record=False)` passes after 256 more
+   tenants of phase 4c's cluster with 128 pending each, a dry run in every
+   tenant; (c) `schedule_gang(record=False)` passes after 128 more
    arrivals each, the 8 serving tenants in one window, 2 of the preempting
    ones in another: every round one launch of each K9 tenant form, every
    phase one `batch_seg`, the preempting window's phases run. In each
@@ -168,6 +172,25 @@ in order; any failure raises and the process exits non-zero:
    encoding on the card (the engine a solo pass runs), timed one after
    another, and the last tenant's records its solo engine's; the windows'
    walls, device ms, peak memory and decisions/s;
+4k. the fault sweep, TPU32: (a) docs/lifecycle.md's example at full
+   width: `FaultSweep.from_cluster` on phase 4's cluster (1,024 nodes x
+   10,000 pods, `fit_config()`) with phase 4's placements as the baseline
+   (placed pods bound, the rest pending), `sample_masks(256, seed=7,
+   fail_prob=0.05)`, `run`, with the counters set to 0 just before the
+   construction and read just after the run: the baseline's one
+   `gang_bind`, one `fault_evict`, each round one launch of each K9 tenant
+   form for all 256 scenarios, one `fault_tally`, no plain call; `run_one`
+   of scenario 0 and of the worst scenario equal their rows of `run`, no
+   scenario places a pod on a failed node, rescheduled + stranded =
+   evicted; wall, scenario-decisions/s, rounds, readbacks, peak memory
+   beside the round-1 scores' size, the profile's totals and (a second
+   run) the device ms by kernel; (b) the default profile at phase 3's
+   size: 8 scenarios at fail_prob 0.02 of phase 3's default cluster, its
+   TPU32 kernel pass's placements as the baseline, whose plain sweep two of
+   the plain processes share (4h compares baseline, assignments, counters,
+   rounds and final states of every scenario), then the same sweep at
+   fail_prob 0.1 on the card alone (launches, `run_one` of scenarios 0 and
+   worst, no pod on a failed node, the counters' sum);
 4h. the plain processes' versions: phase 3's whole gang pass and gang
    sweep (state, rounds, records; assignments, rounds, states, phases);
    phase 3's sweeps (every
@@ -177,8 +200,8 @@ in order; any failure raises and the process exits non-zero:
    #4's variant 0 and first sampled variant (state and selections), and
    tenant 0 of each phase-4j
    cluster run through its session with the plain versions (records,
-   state, trace, rounds, placements, pods), each after checking that both
-   processes encoded the same inputs;
+   state, trace, rounds, placements, pods), and phase 4k(b)'s sweep, each
+   after checking that both processes encoded the same inputs;
 5. kernel times on all paths (CUDA events; the per-pod kernels replayed
    from a CUDA graph so host enqueue time is not counted, at the state
    half-way through the queue; the default path's `seq_run` on its plain
@@ -207,10 +230,15 @@ in order; any failure raises and the process exits non-zero:
    preempting sequential window, `batch_eval`, `batch_match` and
    `batch_bind` at round 1 of the serving gang window, `batch_seg` at the
    preempting gang window's first phase), each first held against its
-   plain version;
+   plain version; 5h: the fault sweep's kernels at phase 4k(a)'s shapes,
+   launched again from the inputs 4k kept: the baseline's `gang_bind`,
+   `fault_evict` and `fault_tally` over all 256 scenarios, and round 1's
+   launches of the tenant forms over the scenario table, each first held
+   against its plain version (`((a >= 0) & m).sum(1)`, `torch.topk` and
+   `index_add_` as the library calls);
 6. the card's name and power limit, then the result line.
 
-Each phase prints its seconds. It runs in 15 to 17 minutes on an H100, the
+Each phase prints its seconds. It runs in 13 to 16 minutes on an H100, the
 build included (the host's speed varies most).
 It imports nothing of JAX or of the reference package.
 """
@@ -257,10 +285,21 @@ PHASE_PLAIN_STEPS = 8
 # cluster with this many pending pods each
 BATCH_TENANTS = 8
 BATCH_PREEMPT_TENANTS = 4
-BATCH_PREEMPT_NODES, BATCH_PREEMPT_PENDING = 1024, 256
+BATCH_PREEMPT_NODES, BATCH_PREEMPT_PENDING = 1024, 128
 # the preempting gang window's tenants (each pass after (b) is a full encode,
 # the costliest host step of the phase)
 BATCH_PREEMPT_GANG = 2
+# the fault sweep (phase 4k): (a) docs/lifecycle.md's example, 256 scenarios
+# at fail_prob 0.05 of phase 4's cluster, phase 4's placements the baseline;
+# (b) 8 scenarios of phase 3's default cluster, its kernel pass's placements
+# the baseline, at fail_prob 0.1 on the card alone and at 0.02 held whole
+# against the plain sweep, which two workers share (their result's name ->
+# its scenarios; worker c is idle sooner and takes the costlier two). At 0.1
+# that plain sweep (558-1,171 evicted pods and 22-50 rounds a scenario on the
+# card) does not end inside the time limit; at 0.02 a scenario evicts 73-469
+FAULT_SCENARIOS, FAULT_SEED, FAULT_PROB = 256, 7, 0.05
+FAULT3_SCENARIOS, FAULT3_SEED, FAULT3_PROB, FAULT3_CARD_PROB = 8, 11, 0.02, 0.1
+FAULT3_PARTS = {"fault3_c": (0, 2), "fault3_b": (2, 8)}
 # the plain versions of whole passes run on the host CPU in a second process
 # (`plain_worker`), beside the card's phases; their results come back here
 PLAIN_DIR = Path(__file__).resolve().parent / "build" / "smoke"
@@ -286,6 +325,8 @@ REPLACES = {
     "gangsweep.vphase": "kube_scheduler_simulator_tpu/parallel/sweep.py:334",
     "batch.seq.run": "kube_scheduler_simulator_tpu/server/batchplane.py:94",
     "batch.gang.run": "kube_scheduler_simulator_tpu/server/batchplane.py:95",
+    "faultsweep.vrun": "kube_scheduler_simulator_tpu/lifecycle/faultsweep.py:107",
+    "faultsweep.bind_all": "kube_scheduler_simulator_tpu/lifecycle/faultsweep.py:167",
 }
 GANG_SOURCE = "kube_scheduler_simulator_tpu_torch/csrc/gang_kernels.cu"
 GANG_KERNELS = ("gang_eval", "gang_topk", "gang_match", "gang_bind")
@@ -315,8 +356,13 @@ def ptxas_report(text):
         m = re.search(r"(?:Compiling entry function|Function properties for) '?_Z\w*?"
                       r"(seq_(?:attempt|bind|run|preempt|evict)_kernel|sweep_(?:run|seg)_kernel|"
                       r"gang_(?:eval|topk|match|bind)_kernel|scatter_set_kernel|"
-                      r"scatter_add_kernel|vec_add_kernel)I([ixlhjm])((?:Lb[01]E)*)", ln)
-        if m:
+                      r"scatter_add_kernel|vec_add_kernel|fault_evict_kernel)I([ixlhjm])"
+                      r"((?:Lb[01]E)*)", ln)
+        untyped = re.search(r"(?:Compiling entry function|Function properties for) '?_Z\w*?"
+                            r"(fault_tally_kernel)E", ln)
+        if untyped:
+            name = untyped.group(1)
+        elif m:
             # the template's bool arguments (PRE, SKIP, STACK, TEN) as 0/1
             flags = "".join(f", {b}" for b in re.findall(r"Lb([01])E", m.group(3)))
             name = f"{m.group(1)}<{types[m.group(2)]}{flags}>"
@@ -539,6 +585,7 @@ def compare_kernels(kp, cuda, diff, path, nodes, pods, cfgs, bind, objects=None)
             if prog.preempt is not None:
                 eng._final_state, eng._trace = s_k, t_k
                 run["records"] = [r.to_annotations() for r in eng.results()]
+                run["placements"] = eng.placements()  # 4k(b)'s baseline
                 did = t_k[slots(prog).index("did")]
                 noms = t_k[slots(prog).index("nominated")]
                 extra = (f"; 64 dry runs ({nominated} nominating) and 64 evictions at random "
@@ -1484,16 +1531,17 @@ TEMPLATES = [
 K10_WRAPPERS = {"scatter_set": "delta_scatter_set", "scatter_add": "delta_scatter_add",
                 "vec_add": "delta_vec_add"}
 # phase 4d: BASELINE config #2's width (1,024 nodes), 10,000 pods bound
-# and 12 passes of 256 arrivals (13,072 pods in all)
+# and 7 passes of 128 arrivals (of the 13,072 pods generated; 4f takes its
+# arrivals from the same list)
 SERVING_NODES, SERVING_PODS, SERVING_BOUND = 1024, 13072, 10000
-SERVING_PASSES = 12
-SERVING_ARRIVALS = 256
-PREEMPT_PASS = 8
+SERVING_PASSES = 7
+SERVING_ARRIVALS = 128
+PREEMPT_PASS = 6
 # the delta passes whose K10 calls phase 5c times: pass 5's set and add
 # calls, pass 2's vector add (it replays the claim pods' binds)
 K10_TIMED_PASSES = {"delta_scatter_set": 5, "delta_scatter_add": 5, "delta_vec_add": 2}
 # the passes whose served run is held against the plain version of the
-# whole pass (pass 8 holds the preemptor's dry run)
+# whole pass (pass 6 holds the preemptor's dry run)
 PLAIN_PASSES = (5, PREEMPT_PASS)
 CARD = torch.device("cuda")
 
@@ -1740,12 +1788,12 @@ def plain_pass(kp, cuda, diff, sched, fresh, results, k):
 
 def drive_serving(kp, cuda, scatter, diff, smi):
     """Phase 4d: a serving session at BASELINE config #2's width through
-    `SimulatorService` on the card. 12 `schedule()` passes, each but the
-    first after 256 arrivals and a cordon/uncordon (pass 8's arrivals carry
-    a pod that must preempt), then two with no event between: the first
-    replays pass 12's write-backs (a delta pass), the second finds the
-    store unchanged (cached). Before each pass the store is encoded from
-    scratch; after it: (a) the service's retained encoding equals that
+    `SimulatorService` on the card. SERVING_PASSES `schedule()` passes, each
+    but the first after SERVING_ARRIVALS arrivals and a cordon/uncordon (PREEMPT_PASS's
+    arrivals carry a pod that must preempt), then two with no event between:
+    the first replays the last pass's write-backs (a delta pass), the second
+    finds the store unchanged (cached). Before each pass the store is
+    encoded from scratch; after it: (a) the service's retained encoding equals that
     encode; (b) a fresh kernel pass over it gives the records, placements,
     victims and 13 annotations the service wrote back; (c) a delta pass
     launched the K10 kernels and no plain scatter, a full or cached pass
@@ -1869,7 +1917,7 @@ def drive_serving(kp, cuda, scatter, diff, smi):
             f"K10 launches {k10} [{smi}]")
     modes = [r[1]["mode"] for r in rows]
     n_delta = modes.count("delta")
-    if (n_delta < 9 or modes[0] != "full" or modes[-2:] != ["delta", "cached"]
+    if (n_delta < SERVING_PASSES - 3 or modes[0] != "full" or modes[-2:] != ["delta", "cached"]
             or preemptor is None):
         raise AssertionError(f"serving modes {modes}, preemptor {preemptor}")
     enc_s = {m: [r[2]["encodeSeconds"] for r in rows if r[1]["mode"] == m]
@@ -2418,7 +2466,7 @@ def gang_rows(kp, cuda, diff, run, smi):
 
 
 def drive_serving_gang(kp, cuda, diff, smi):
-    """Phase 4f: three schedule_gang(record=True) passes of 256 arrivals in
+    """Phase 4f: three schedule_gang(record=True) passes of 128 arrivals in
     a 1,024-node SimulatorService session on the card (the second with
     window=64). The counters are set to 0 just before each pass and read
     just after: K9 and no plain version. Each pass's records are written
@@ -3363,7 +3411,9 @@ class TimedLibrary:
     def __getattr__(self, attr):
         f = getattr(self._lib, attr)
         form, _, t = attr.rpartition("_")
-        if t not in ("i32", "i64") or form not in self._events:
+        if t not in ("i32", "i64"):
+            form = attr
+        if form not in self._events:
             return f
 
         def call(*args):
@@ -3377,15 +3427,16 @@ class TimedLibrary:
 
 
 class TenantLaunches(Swap):
-    """While active, every launch of the tenant forms (and of gang_topk) is
-    timed at its library call (`TimedLibrary`), and the first call of each
-    wrapper keeps its inputs (a stacked state argument cloned: the launches
-    after it update states in place). The calls go through unchanged."""
+    """While active, every launch of the tenant forms (and of gang_topk), or
+    of the wrappers `forms` names, is timed at its library call
+    (`TimedLibrary`), and the first call of each wrapper keeps its inputs (a
+    stacked state argument cloned: the launches after it update states in
+    place). The calls go through unchanged."""
 
-    def __init__(self, cuda):
+    def __init__(self, cuda, forms=TENANT_FORMS):
         from kube_scheduler_simulator_tpu_torch.engine.encode import SchedState
 
-        self.events = {n: [] for n in TENANT_FORMS}
+        self.events = {n: [] for n in forms}
         self.first = {}
 
         def keep(name):
@@ -3398,7 +3449,7 @@ class TenantLaunches(Swap):
                 return call
             return make
 
-        table = {n: keep(n) for n in TENANT_FORMS}
+        table = {n: keep(n) for n in forms}
         table["library"] = lambda f: (lambda: TimedLibrary(f(), self.events))
         super().__init__(cuda, table)
 
@@ -3410,11 +3461,11 @@ class TenantLaunches(Swap):
 RELAUNCHES = 3  # the warm launches a phase-5g time is the median of
 
 
-def relaunch_ms(cuda, name, fn, reps=RELAUNCHES):
-    """fn() (a warm launch of tenant form `name` from captured inputs) `reps`
-    times, each timed at its library call: (the median ms, fn's last
-    output)."""
-    rec = TenantLaunches(cuda)
+def relaunch_ms(cuda, name, fn, reps=RELAUNCHES, forms=TENANT_FORMS):
+    """fn() (a warm launch of tenant form `name`, or of another wrapper of
+    `forms`, from captured inputs) `reps` times, each timed at its library
+    call: (the median ms, fn's last output)."""
+    rec = TenantLaunches(cuda, forms)
     with rec:
         for _ in range(reps):
             out = fn()
@@ -3645,8 +3696,8 @@ def gang_window(kp, cuda, diff, label, mgr, sessions, smi, phases):
 def drive_batch(kp, cuda, diff, serving_in, smi):
     """Phase 4j: the batch plane through SessionManager on the card, TPU32.
     (a) BATCH_TENANTS tenants of phase 4d's serving cluster (1,024 nodes,
-    10,000 pods bound, 256 pending; tenant i's pending CPU requests scaled by
-    1 + i / 8) in one sequential window; (b) BATCH_PREEMPT_TENANTS tenants
+    10,000 pods bound, SERVING_ARRIVALS pending; tenant i's pending CPU
+    requests scaled by 1 + i / 8) in one sequential window; (b) BATCH_PREEMPT_TENANTS tenants
     of phase 4c's preemption cluster with BATCH_PREEMPT_PENDING pending pods
     each, dry runs in every tenant; (c) gang passes
     (`schedule_gang(record=False)`) after as many more arrivals: every
@@ -3854,6 +3905,417 @@ def batch_rows(cuda, diff, run, smi):
 
 
 # ---------------------------------------------------------------------------
+# the fault sweep: K11 `faultsweep.*` (phases 4k and 5h)
+# ---------------------------------------------------------------------------
+
+FAULT_FORMS = ("fault_evict", "batch_eval", "gang_topk", "batch_match", "batch_bind",
+               "fault_tally")
+FAULT_SOURCE = "kube_scheduler_simulator_tpu_torch/csrc/fault_kernels.cu"
+
+
+def fault_baseline(nodes, pods, placed):
+    """The pods as a fault sweep's baseline: each pending pod a pass placed
+    bound where it went (`spec.nodeName`), the others as they were. Pods
+    pinned to a node the cluster lacks are left out: `FaultSweep.from_cluster`
+    rejects a binding to an unknown node, as the reference's does."""
+    names = {nd["metadata"]["name"] for nd in nodes}
+    out = []
+    for pd in pods:
+        node = pd["spec"].get("nodeName")
+        if node and node not in names:
+            continue
+        key = (pd["metadata"].get("namespace", "default"), pd["metadata"]["name"])
+        if not node and placed.get(key):
+            pd = {**pd, "spec": {**pd["spec"], "nodeName": placed[key]}}
+        out.append(pd)
+    return out
+
+
+def fault3_input(kp, passes3):
+    """The default-profile sweep's inputs at phase 3's size: phase 3's
+    default cluster with the TPU32 kernel pass's placements as the
+    baseline."""
+    nodes, pods, _, _, objects = phase3_workloads(kp)["default"]
+    placed = passes3["default", kp.TPU32.name, "default"]["placements"]
+    return dict(nodes=nodes, pods=fault_baseline(nodes, pods, placed), objects=objects)
+
+
+def fault3_sweep(kp, inp, device, lo=0, hi=FAULT3_SCENARIOS):
+    """Scenarios [lo, hi) of the default-profile sweep on `device`: the
+    sweep, its masks, profile and final states. Each scenario runs to its
+    own fixpoint, so a share of the scenarios gives their rows of the whole
+    sweep."""
+    sw = kp.FaultSweep.from_cluster(inp["nodes"], inp["pods"], kp.supported_config(),
+                                    policy=kp.TPU32, device=device, **inp["objects"])
+    masks = sw.sample_masks(FAULT3_SCENARIOS, seed=FAULT3_SEED, fail_prob=FAULT3_PROB)
+    t0 = time.perf_counter()
+    prof = sw.run(masks[lo:hi])
+    return sw, masks, prof, time.perf_counter() - t0
+
+
+def plain_fault3(kp, out_dir, part):
+    """A plain worker's share of the default-profile sweep (phase 4k), on
+    the host CPU through the plain versions."""
+    lo, hi = FAULT3_PARTS[part]
+    inp = wait_input(out_dir, "fault3_in")
+    sw, masks, prof, secs = fault3_sweep(kp, inp, torch.device("cpu"), lo, hi)
+    return dict(digest=encoding_digest(sw.enc), masks=masks, lo=lo, hi=hi, profile=prof,
+                states=_state_dict(sw._states), bound=_state_dict(sw._state_bound),
+                seconds=secs)
+
+
+def fault_launches(counts, plain, rounds, what, topk=True, binds=1):
+    """A sweep's launches: the baseline's `binds` gang_bind (1 with the
+    sweep's construction), one fault_evict and one fault_tally, one launch
+    of each tenant form a round, no plain call."""
+    want = {"gang_bind": binds, "fault_evict": 1, "fault_tally": 1, "batch_eval": rounds,
+            "batch_match": rounds, "batch_bind": rounds, "gang_topk": rounds if topk else 0}
+    got = {k: counts[k] for k in want}
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    if got != want or others or any(plain.values()):
+        raise AssertionError(f"{what}: launches {counts}, want {want}; plain {plain}")
+
+
+def check_run_one(sw, masks, prof, what):
+    """`run_one` of scenario 0 and of the worst scenario equal their rows of
+    `run`. Returns the scenarios checked."""
+    scenarios = sorted({0, prof["worstScenario"]})
+    for s in scenarios:
+        a, ev, re, st, r = sw.run_one(masks[s])
+        if (not np.array_equal(a.cpu().numpy(), prof["assignments"][s])
+                or [int(ev), int(re), int(st), int(r)] != [
+                    prof[k][s] for k in ("evicted", "rescheduled", "stranded", "rounds")]):
+            raise AssertionError(f"{what}: run_one of scenario {s} differs from its row of run")
+    return scenarios
+
+
+def check_fault_profile(prof, masks, what):
+    """No scenario places a pod on a node that failed in it, and every
+    evicted pod is rescheduled or stranded."""
+    a, fail = prof["assignments"], masks.cpu().numpy()
+    s_idx = np.nonzero(a >= 0)
+    if fail[s_idx[0], a[s_idx]].any():
+        raise AssertionError(f"{what}: a pod was placed on a failed node")
+    for s, (ev, re, st) in enumerate(zip(prof["evicted"], prof["rescheduled"], prof["stranded"])):
+        if re + st != ev:
+            raise AssertionError(f"{what}: scenario {s} rescheduled {re} + stranded {st} != "
+                                 f"evicted {ev}")
+
+
+def drive_fault_sweep(kp, cuda, diff, fit, fault3_in, smi):
+    """Phase 4k: (a) the fault sweep at full width, docs/lifecycle.md's
+    example: `FaultSweep.from_cluster` on phase 4's cluster with phase 4's
+    placements as the baseline, `sample_masks(256, seed=7, fail_prob=0.05)`,
+    `run`, with the counters set to 0 just before the construction and read
+    just after the run: one gang_bind (the baseline), one fault_evict, one
+    launch of each tenant form a round, one fault_tally, no plain call.
+    `run_one` of scenario 0 and of the worst scenario equal their rows, no
+    pod lands on a failed node, rescheduled + stranded = evicted. A second
+    run with each launch between CUDA events gives the device ms by kernel
+    and the inputs phase 5h launches again. (b) the default profile at phase
+    3's size: FAULT3_SCENARIOS scenarios at FAULT3_PROB of phase 3's default
+    cluster on the card, whose plain sweep two workers share (4h), then at
+    FAULT3_CARD_PROB on the card alone, checked as (a) is."""
+    nodes, pods, cfg, _ = path_workload(kp, "fit")
+    base = fault_baseline(nodes, pods, fit["placements"])
+    n_bound = sum(1 for pd in base if pd["spec"].get("nodeName"))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    sw = kp.FaultSweep.from_cluster(nodes, base, cfg, policy=kp.TPU32)
+    masks = sw.sample_masks(FAULT_SCENARIOS, seed=FAULT_SEED, fail_prob=FAULT_PROB)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prof = sw.run(masks)
+    wall = time.perf_counter() - t1
+    counts, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() - held
+    stats = dict(sw.last_stats)
+    rounds = prof["rounds"]
+    enc, g = sw.enc, sw.gang
+    fault_launches(counts, plain, max(rounds), "4k", g.match_width < enc.N)
+    check_fault_profile(prof, masks, "4k")
+    S, N = masks.shape
+    worst = prof["worstScenario"]
+    checked = check_run_one(sw, masks, prof, "4k")
+    pending = len(enc.queue) - n_bound
+    decisions = sum(prof["evicted"]) + S * pending
+    k0 = max(prof["evicted"]) + pending
+    isz = enc.arrays.node_alloc.element_size()
+    tot = prof["totals"]
+    log(f"    (a) {S} scenarios of {enc.N} nodes x {len(base)} pods ({n_bound} bound by phase "
+        f"4's pass, {pending} pending), fail_prob {FAULT_PROB}, seed {FAULT_SEED}: set-up "
+        f"(encode, baseline bind, masks) {t1 - t0:.3f} s; run {wall:.3f} s wall, "
+        f"{decisions / wall:.1f} scenario-decisions/s ({decisions} pods to place over the "
+        f"scenarios: the evicted and the baseline's pending); rounds max {max(rounds)} mean "
+        f"{statistics.mean(rounds):.2f}; {stats['host_syncs']} host readbacks; failed nodes "
+        f"mean {prof['failedNodes']['mean']:.2f} max {prof['failedNodes']['max']}; totals "
+        f"{tot}; worst scenario {worst} ({prof['stranded'][worst]} stranded); peak memory "
+        f"{peak / 2**30:.3f} GiB above what was held (scores S x K x N x {isz} B = "
+        f"{S * k0 * N * isz / 2**30:.3f} GiB at round 1's K = {k0}; the order, claim and "
+        f"carrier rows repeated a scenario {stats['dup_bytes'] / 2**20:.1f} MiB); launches "
+        f"{ {k: v for k, v in counts.items() if v} }; run_one of scenarios "
+        f"{checked} equal their rows; no pod on a failed node [{smi}]")
+    timer = TenantLaunches(cuda, FAULT_FORMS)
+    with timer:
+        prof2 = sw.run(masks)
+    if prof2["totals"] != tot or not np.array_equal(prof2["assignments"], prof["assignments"]):
+        raise AssertionError("4k: the timed run differs from the first")
+    ms = {n: sum(timer.ms(n)) for n in FAULT_FORMS}
+    log("    (a) device ms by kernel (a second run, each launch between CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; {sum(ms.values()):.3f} ms of {wall * 1e3:.1f} ms wall [{smi}]")
+    # (b) the default profile at phase 3's size
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    sw3, masks3, prof3, secs3 = fault3_sweep(kp, fault3_in, CARD)
+    states3 = sw3._states  # the next run of sw3 replaces them
+    counts3, plain3 = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    fault_launches(counts3, plain3, max(prof3["rounds"]), "4k(b)",
+                   sw3.gang.match_width < sw3.enc.N)
+    check_fault_profile(prof3, masks3, "4k(b)")
+    log(f"    (b) {FAULT3_SCENARIOS} scenarios of phase 3's default cluster ({sw3.enc.N} nodes, "
+        f"{sw3.enc.n_pods} pods, supported_config(), its kernel pass's placements as the "
+        f"baseline), fail_prob {FAULT3_PROB}: run {secs3:.3f} s ({time.perf_counter() - t0:.3f} "
+        f"s with the encode); evicted {prof3['evicted']}, rescheduled {prof3['rescheduled']}, "
+        f"rounds {prof3['rounds']}; launches { {k: v for k, v in counts3.items() if v} }; the "
+        f"plain sweep's halves in two workers (4h) [{smi}]")
+    # the same sweep at fail_prob FAULT3_CARD_PROB, on the card alone
+    masks_hi = sw3.sample_masks(FAULT3_SCENARIOS, seed=FAULT3_SEED, fail_prob=FAULT3_CARD_PROB)
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    prof_hi = sw3.run(masks_hi)
+    secs_hi = time.perf_counter() - t0
+    fault_launches(dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS), max(prof_hi["rounds"]),
+                   "4k(b) card", sw3.gang.match_width < sw3.enc.N, binds=0)
+    check_fault_profile(prof_hi, masks_hi, "4k(b) card")
+    checked = check_run_one(sw3, masks_hi, prof_hi, "4k(b) card")
+    log(f"    (b) the same {FAULT3_SCENARIOS} scenarios' sweep at fail_prob {FAULT3_CARD_PROB} on "
+        f"the card alone: run {secs_hi:.3f} s; evicted {prof_hi['evicted']}, rescheduled "
+        f"{prof_hi['rescheduled']}, rounds {prof_hi['rounds']}; run_one of scenarios {checked} "
+        f"equal their rows; no pod on a failed node [{smi}]")
+    return dict(sw=sw, masks=masks, prof=prof, counts=counts, rec=timer, k0=k0,
+                fault3=dict(digest=encoding_digest(sw3.enc), masks=masks3, profile=prof3,
+                            states=states3, bound=sw3._state_bound))
+
+
+def check_plain_fault3(diff, run, plains):
+    """Phase 4h for 4k(b): each worker's scenarios (their masks, baseline,
+    assignments, counters, rounds and final states) against the card's
+    sweep, after checking that both processes encoded the same inputs."""
+    secs = []
+    for plain in plains:
+        lo, hi = plain["lo"], plain["hi"]
+        if plain["digest"] != run["digest"] or not torch.equal(plain["masks"],
+                                                                run["masks"].cpu()):
+            raise AssertionError("4k(b): the worker encoded other inputs or drew other masks")
+        got, want = run["profile"], plain["profile"]
+        if not np.array_equal(got["assignments"][lo:hi], want["assignments"]):
+            raise AssertionError(f"4k(b): scenarios {lo}-{hi - 1}' assignments differ")
+        for k in ("evicted", "rescheduled", "stranded", "rounds"):
+            if got[k][lo:hi] != want[k]:
+                raise AssertionError(f"4k(b): scenarios {lo}-{hi - 1}' {k} differ")
+        for f in STATE_FIELDS:
+            diff.check("fault", "fault_evict", f"4k(b) baseline {f}", getattr(run["bound"], f),
+                       plain["bound"][f].to(CARD))
+            diff.check("fault", "batch_bind", f"4k(b) scenarios {lo}-{hi - 1} {f}",
+                       getattr(run["states"], f)[lo:hi], plain["states"][f].to(CARD))
+        secs.append(plain["seconds"])
+    log(f"    4k(b): all {FAULT3_SCENARIOS} scenarios of the default-profile sweep (baseline, "
+        f"assignments, evicted, rescheduled, stranded, rounds, final states) equal the plain "
+        f"versions' in two workers on the host CPU ({' + '.join(f'{x:.1f}' for x in secs)} s)")
+
+
+def fault_rows(kp, cuda, diff, run, smi):
+    """Phase 5h: fault_evict and fault_tally at 4k(a)'s shapes, each held
+    equal to its plain version over all its scenarios and then launched
+    again from the inputs 4k's timed run kept (the median of RELAUNCHES
+    launches, each timed at its library call, `relaunch_ms`); then the
+    round-1 launches of the tenant forms over 4k's scenario table, each
+    held against its plain version (eval on 8 rows of scenarios 0 and 1,
+    the matching on MATCH_PLAIN_VARIANTS scenarios, top-k and bind on all
+    of them). Bounds: bytes over 3.35 TB/s or integer operations over 67
+    TFLOP/s, the larger. Library calls: `((a >= 0) & m).sum(1)` for the
+    tally, torch.topk for top-k."""
+    sw, first, counts = run["sw"], run["rec"].first, run["counts"]
+    enc, g = sw.enc, sw.gang
+    a0, N, P = enc.arrays, enc.N, enc.P
+    isz = a0.node_alloc.element_size()
+    st_row = nbytes(*(getattr(enc.state0, f) for f in STATE_FIELDS))
+    pod_row = nbytes(a0.pod_req[0], a0.pod_sreq[0], a0.want_pair[0], a0.want_wild[0],
+                     a0.want_trip[0], a0.pod_claim[0], a0.pod_disk_any[0], a0.pod_disk_rw[0],
+                     a0.pod_vol3[0])
+    node_row = nbytes(*(getattr(enc.state0, f)[0] for f in (
+        "requested", "s_requested", "used_pair", "used_wild", "used_trip", "node_disk_any",
+        "node_disk_rw", "node_vol3", "n_pods")))
+    rows_out = []
+    # fault_evict over all the scenarios
+    (prog, a, states_in, fail), _ = first["fault_evict"]
+    S = fail.shape[0]
+    s_k, s_p = states_in.clone(), states_in.clone()
+    ev, n_ev, masks = cuda.fault_evict(prog, a, s_k, fail)
+    t0 = time.perf_counter()
+    ev_p, n_p, masks_p = cuda.fault_evict_plain(prog, a, s_p, fail)
+    torch.cuda.synchronize()
+    evict_plain_ms = (time.perf_counter() - t0) * 1e3
+    for what, x, y in (("evict mask", ev, ev_p), ("evicted", n_ev, n_p),
+                       ("node masks", masks, masks_p)):
+        diff.check("fault", "fault_evict", f"{S} scenarios {what}", x, y)
+    for f in STATE_FIELDS:
+        diff.check("fault", "fault_evict", f"{S} scenarios state {f}", getattr(s_k, f),
+                   getattr(s_p, f))
+    evict_ms, _ = relaunch_ms(cuda, "fault_evict",
+                              lambda: cuda.fault_evict(prog, a, states_in.clone(), fail),
+                              forms=FAULT_FORMS)
+    n_evicted = int(n_ev.sum())
+    b_evict = bound(S * P * (4 + 1) + S * N * 2 + N + S * 4
+                    + n_evicted * (pod_row + 2 * node_row + 8),
+                    S * P * 2 + S * N * 2 + n_evicted * (pod_row // 4 + 2))
+    rows_out.append(("fault_evict", FAULT_SOURCE, "faultsweep.vrun", evict_ms, evict_plain_ms,
+                     b_evict, None, counts["fault_evict"],
+                     f"{S} scenarios x {P} pods, {n_evicted} evicted", None))
+    # the tenant forms at round 1 over the scenario table
+    (progs, arrays, st_e, w, rows, live, orders), kw_e = first["batch_eval"]
+    eval_ms, scores = relaunch_ms(
+        cuda, "batch_eval", lambda: cuda.batch_eval(progs, arrays, st_e, w, rows, live, orders,
+                                                    **kw_e), forms=FAULT_FORMS)
+    eight = torch.full((2,), 8, dtype=torch.int32, device=rows.device)
+    sub = cuda.stack_states([cuda.variant_state(st_e, 0), cuda.variant_state(st_e, 1)])
+    t0 = time.perf_counter()
+    want = cuda.batch_eval_plain(progs[:2], arrays[:2], sub, w[:2], rows[:2, :8].contiguous(),
+                                 eight, orders[:2])
+    torch.cuda.synchronize()
+    eval_plain_ms = (time.perf_counter() - t0) * 1e3
+    n8 = min(8, int(live[:2].min()))
+    diff.check("fault", "batch_eval", "round 1, scenarios 0 and 1, 8 rows", scores[:2, :n8],
+               want[:, :n8])
+    K = rows.shape[1]
+    rows_live = int(live.sum())
+    sample = [int(p) for p in rows[0, :8].tolist() if p >= 0]
+    per_row = statistics.mean(attempt_cost(enc, prog, sw._state_bound, p, g.weights)[1]
+                              for p in sample)
+    b_eval = bound(cluster_bytes(enc) + S * N + S * st_row + rows_live * N * isz,
+                   per_row * rows_live)
+    rows_out.append(("batch_eval", GANG_SOURCE, "faultsweep.vrun", eval_ms, eval_plain_ms,
+                     b_eval, None, counts["batch_eval"],
+                     f"{S} scenarios x {K} rows ({rows_live} live)", "8 rows of 2 scenarios"))
+    if "gang_topk" in first:
+        (sc, live_t, mw), _ = first["gang_topk"]
+        topk_ms, (vals, idx) = relaunch_ms(cuda, "gang_topk",
+                                           lambda: cuda.gang_topk(sc, live_t, mw),
+                                           forms=FAULT_FORMS)
+        t0 = time.perf_counter()
+        pv, pi = cuda.gang_topk_plain(sc, live_t, mw)
+        torch.cuda.synchronize()
+        topk_plain_ms = (time.perf_counter() - t0) * 1e3
+        for s, lv in enumerate(live_t.tolist()):
+            diff.check("fault", "gang_topk", f"round 1 scenario {s} vals", vals[s, :lv],
+                       pv[s, :lv])
+            diff.check("fault", "gang_topk", f"round 1 scenario {s} idx", idx[s, :lv],
+                       pi[s, :lv])
+        flat = sc.view(-1, sc.shape[-1])
+        topk_lib_ms = events_ms(lambda: torch.topk(flat, mw, dim=1), 1, 3)
+        b_topk = bound(rows_live * N * isz + rows_live * mw * (isz + 4), rows_live * N)
+        rows_out.append(("gang_topk", GANG_SOURCE, "faultsweep.vrun", topk_ms, topk_plain_ms,
+                         b_topk, topk_lib_ms, counts["gang_topk"],
+                         f"{S} x {K} x {N} -> {mw} ({rows_live} live rows)", None))
+    (vals_m, idx_m, rows_m, live_m, orders_m, claims, carriers, n_nodes, n_claims,
+     iters), _ = first["batch_match"]
+    match_ms, (sel, stat) = relaunch_ms(
+        cuda, "batch_match", lambda: cuda.batch_match(vals_m, idx_m, rows_m, live_m, orders_m,
+                                                      claims, carriers, n_nodes, n_claims,
+                                                      iters), forms=FAULT_FORMS)
+    sub = slice(0, MATCH_PLAIN_VARIANTS)
+    t0 = time.perf_counter()
+    psel, pstat = cuda.batch_match_plain(
+        vals_m[sub], None if idx_m is None else idx_m[sub], rows_m[sub], live_m[sub],
+        orders_m[sub], claims[sub], None if carriers is None else carriers[sub], n_nodes,
+        n_claims, iters)
+    torch.cuda.synchronize()
+    match_plain_ms = (time.perf_counter() - t0) * 1e3
+    diff.check("fault", "batch_match", "round 1 sel", sel[sub], psel)
+    diff.check("fault", "batch_match", "round 1 stat", stat[sub], pstat)
+    Wm = vals_m.shape[2]
+    b_match = bound(rows_live * Wm * (isz + 4) + S * K * 4 * 3, rows_live * Wm)
+    rows_out.append(("batch_match", GANG_SOURCE, "faultsweep.vrun", match_ms, match_plain_ms,
+                     b_match, None, counts["batch_match"], f"{S} x {K} x {Wm}",
+                     f"{MATCH_PLAIN_VARIANTS} of the {S} scenarios"))
+    (progs_b, arrays_b, st_b, rows_b, live_b, sel_b, orders_b), kw_b = first["batch_bind"]
+    bind_ms, s1 = relaunch_ms(
+        cuda, "batch_bind", lambda: cuda.batch_bind(progs_b, arrays_b, st_b.clone(), rows_b,
+                                                    live_b, sel_b, orders_b, **kw_b),
+        forms=FAULT_FORMS)
+    t0 = time.perf_counter()
+    s2 = cuda.batch_bind_plain(progs_b, arrays_b, st_b.clone(), rows_b, live_b, sel_b,
+                               orders_b)
+    torch.cuda.synchronize()
+    bind_plain_ms = (time.perf_counter() - t0) * 1e3
+    for f in STATE_FIELDS:
+        diff.check("fault", "batch_bind", f"round 1 {f}", getattr(s1, f), getattr(s2, f))
+    committed = int((sel_b >= 0).sum())
+    b_bind = bound(4 * 3 * S * K + committed * (pod_row + 2 * node_row + 8),
+                   committed * (pod_row // 4 + 2))
+    rows_out.append(("batch_bind", GANG_SOURCE, "faultsweep.vrun", bind_ms, bind_plain_ms,
+                     b_bind, None, counts["batch_bind"], f"{committed} commits", None))
+    # fault_tally at the sweep's end
+    (asg, evict, evicted), _ = first["fault_tally"]
+    tally_ms, (re, st) = relaunch_ms(cuda, "fault_tally",
+                                     lambda: cuda.fault_tally(asg, evict, evicted),
+                                     forms=FAULT_FORMS)
+    t0 = time.perf_counter()
+    re_p, st_p = cuda.fault_tally_plain(asg, evict, evicted)
+    torch.cuda.synchronize()
+    tally_plain_ms = (time.perf_counter() - t0) * 1e3
+    diff.check("fault", "fault_tally", f"{S} scenarios rescheduled", re, re_p)
+    diff.check("fault", "fault_tally", f"{S} scenarios stranded", st, st_p)
+    tally_lib_ms = events_ms(lambda: ((asg >= 0) & evict).sum(1), 1, 3)
+    b_tally = bound(S * P * (4 + 1) + S * 4 * 3, S * P * 3)
+    rows_out.append(("fault_tally", FAULT_SOURCE, "faultsweep.vrun", tally_ms, tally_plain_ms,
+                     b_tally, tally_lib_ms, counts["fault_tally"], f"{S} scenarios x {P} pods",
+                     None))
+    # the baseline's bind (K11 `faultsweep.bind_all`): one gang_bind over the
+    # assigned pods at construction, launched again from state0
+    asg0 = sw._state_bound.assignment
+    rows0 = torch.nonzero(asg0 >= 0)[:, 0].to(torch.int32)
+    sel0 = asg0[rows0.long()].contiguous()
+    prog0 = g._base.program
+    got0 = cuda.gang_bind(prog0, a0, enc.state0.clone(), rows0, None, sel0, sw._order)
+    t0 = time.perf_counter()
+    want0 = cuda.gang_bind_plain(prog0, a0, enc.state0.clone(), rows0, None, sel0, sw._order)
+    torch.cuda.synchronize()
+    bind0_plain_ms = (time.perf_counter() - t0) * 1e3
+    for f in STATE_FIELDS:
+        diff.check("fault", "gang_bind", f"bind_all {f}", getattr(got0, f), getattr(want0, f))
+        diff.check("fault", "gang_bind", f"bind_all against the sweep's baseline {f}",
+                   getattr(got0, f), getattr(sw._state_bound, f))
+    n0 = rows0.numel()
+    lib0 = stacked_bind_lib(enc, rows0[None], sel0[None], sw._order)
+    st_k0, st_l0 = cuda.as_variants(enc.state0.clone()), cuda.as_variants(enc.state0.clone())
+    bind0_ms = events_ms(lambda: cuda.gang_bind(prog0, a0, st_k0, rows0[None], None, sel0[None],
+                                                sw._order), 1, 3)
+    bind0_lib_ms = events_ms(lambda: lib0(st_l0), 1, 3)
+    b_bind0 = bound(4 * 3 * n0 + n0 * (pod_row + 2 * node_row + 8), n0 * (pod_row // 4 + 2))
+    rows_out.insert(0, ("gang_bind", GANG_SOURCE, "faultsweep.bind_all", bind0_ms,
+                        bind0_plain_ms, b_bind0, bind0_lib_ms, 1, f"{n0} baseline pods", None))
+    out = []
+    for name, source, kind, ms, plain_ms, b, lib_ms, n_launch, shape, basis in rows_out:
+        row = {"name": name, "path": "fault", "route": "cuda", "source": source,
+               "replaces": REPLACES[kind], "launches": n_launch,
+               "max_abs_err": diff.err[("fault", name)], "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms, "shape": shape}
+        if basis:
+            row["plain_basis"] = basis
+        out.append(row)
+        log(f"    fault {name:11s} {ms:.6f} ms at {shape} (plain {plain_ms:.3f} ms"
+            + (f" for {basis}" if basis else "") + f", bound {b[0]:.7f} ms by {b[1]}, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.6f} ms'}), {n_launch} launches on "
+            f"4k's path [{smi}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the second process: the plain versions of whole passes on the host CPU
 # ---------------------------------------------------------------------------
 
@@ -3868,7 +4330,8 @@ def plain_worker(out_dir, part):
     phase 3's sweeps, phase 4's and 4b's passes, config #4's variant 0 and
     first sampled variant; part "b" (a process of its own beside it): phase
     3's whole gang pass and gang sweep; part "c": phase 3's whole sequential
-    passes."""
+    passes. Parts "b" and "c" end with their halves of phase 4k's
+    default-profile fault sweep."""
     torch.set_num_threads(PLAIN_THREADS)
     import kube_scheduler_simulator_tpu_torch as kp
     from kube_scheduler_simulator_tpu_torch.engine import cuda
@@ -3888,6 +4351,7 @@ def plain_worker(out_dir, part):
         save("seg4c", plain_segment(kp, cuda, out_dir))
         inp = wait_input(out_dir, "serving4j_in")
         save("batch_serving", tenant_sequence(inp["snap"], inp["arrivals"]))
+        save("fault3_c", plain_fault3(kp, out_dir, "fault3_c"))
         return
     if part == "b":
         enc = gang_sweep3_encoding(kp, cpu)
@@ -3907,6 +4371,7 @@ def plain_worker(out_dir, part):
         snap, arrivals = preempt_base(kp)
         save("batch_preempt", tenant_sequence(tenant_copy(snap, 0),
                                               tenant_copy({"pods": arrivals}, 0)["pods"]))
+        save("fault3_b", plain_fault3(kp, out_dir, "fault3_b"))
         return
     sweeps = {}
     for pol in (kp.TPU32, kp.EXACT):
@@ -3996,8 +4461,8 @@ def _die_with_parent():
 
 
 PLAIN_PARTS = {"a": ("sweep3", "fit", "affinity", "config4", "config4_sampled"),
-               "b": ("gang3", "gangsweep3", "batch_preempt"),
-               "c": ("passes3", "seg4c", "batch_serving")}
+               "b": ("gang3", "gangsweep3", "batch_preempt", "fault3_b"),
+               "c": ("passes3", "seg4c", "batch_serving", "fault3_c")}
 
 
 class PlainWorker:
@@ -4113,6 +4578,9 @@ def run_phases(kp, workers) -> int:
     compare_k10(kp, scatter, diff)
     gang3 = compare_gang(kp, cuda, diff, smi)
     gsweep3 = compare_gang_sweep3(kp, cuda, diff)
+    # phase 4k(b)'s inputs, for the workers' plain sweep
+    fault3_in = fault3_input(kp, passes3)
+    save_input("fault3_in", fault3_in)
     ph.done("3")
 
     # -- 4. the fit path at full width --------------------------------------
@@ -4185,6 +4653,13 @@ def run_phases(kp, workers) -> int:
     batch = drive_batch(kp, cuda, diff, serving["batch_in"], smi)
     ph.done("4j")
 
+    # -- 4k. the fault sweep: node-failure scenarios in one pass -----------------
+    log(f"[4k] fault sweep: FaultSweep of {FAULT_SCENARIOS} scenarios of phase 4's cluster "
+        f"(fit_config(), fail_prob {FAULT_PROB}), then {FAULT3_SCENARIOS} of phase 3's default "
+        f"cluster (supported_config(), fail_prob {FAULT3_PROB}), TPU32")
+    fault = drive_fault_sweep(kp, cuda, diff, fit, fault3_in, smi)
+    ph.done("4k")
+
     # -- 4h. the kernels' whole passes against the second process's plain ones
     log("[4h] the whole passes against the plain versions run on the host CPU in the second "
         "process (exact equality)")
@@ -4199,6 +4674,8 @@ def run_phases(kp, workers) -> int:
                       worker.result("batch_serving", deadline))
     check_plain_batch(diff, "preempt", batch["preempt"],
                       worker.result("batch_preempt", deadline))
+    check_plain_fault3(diff, fault["fault3"],
+                       [worker.result(name, deadline) for name in FAULT3_PARTS])
     config4_plain = worker.result("config4", deadline)
     config4_sampled = worker.result("config4_sampled", deadline)
     ph.done("4h")
@@ -4228,6 +4705,8 @@ def run_phases(kp, workers) -> int:
     kernels += gangsweep_rows(kp, cuda, diff, gsweep, smi)
     log(f"[5g] the batch plane's tenant forms at their launches in phase 4j, TPU32 [{smi}]")
     kernels += batch_rows(cuda, diff, batch, smi)
+    log(f"[5h] the fault sweep's kernels at phase 4k(a)'s shapes, TPU32 [{smi}]")
+    kernels += fault_rows(kp, cuda, diff, fault, smi)
     ph.done("5")
     log("    phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in ph.seconds.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")

@@ -42,6 +42,13 @@ different sessions as one launch on the card: B sequential passes through
 the tenant form of `sweep_run`, or B gang fixpoints through the tenant forms
 of the K9 kernels, each tenant over its own cluster.
 
+Monte-Carlo node-failure sweeps (`FaultSweep`, lifecycle/faultsweep.py)
+read a policy's disruption profile over S sampled failure scenarios of one
+cluster: the bound pods of each scenario's failed nodes are evicted
+(`fault_evict`, csrc/fault_kernels.cu), every scenario's gang round
+fixpoint runs through the K9 kernels' tenant forms, one launch of each a
+round, and `fault_tally` counts the pods rescheduled and stranded.
+
 Entry points run on the CUDA card unless the caller passes `device="cpu"`;
 with no card and no explicit device they raise RuntimeError.
 
@@ -54,9 +61,11 @@ Layout:
             kernel bindings
   server/   the scheduling service over a store, the session and batch planes
   parallel/ weight sweeps (`WeightSweep`, `GangSweep`, `weights_for`)
+  lifecycle/ node-failure sweeps (`FaultSweep`)
   scenario/ the batch runner's sweep jobs
   csrc/     the CUDA sources
-  utils/    quantities, shape buckets, pass metrics
+  utils/    quantities, shape buckets, pass metrics, the reference's
+            failure-mask draw (`prng`)
 """
 
 from .engine.delta import DeltaEncoder
@@ -70,6 +79,7 @@ from .engine.engine import (
 )
 from .engine.engine import supported_config as slice_config
 from .engine.gang import GangScheduler
+from .lifecycle import FaultSweep
 from .models.store import ResourceStore
 from .parallel import GangSweep, WeightSweep, weights_for
 from .server.batchplane import BatchPlane
@@ -85,6 +95,7 @@ __all__ = [
     "BatchPlane",
     "BatchedScheduler",
     "DeltaEncoder",
+    "FaultSweep",
     "GangScheduler",
     "GangSweep",
     "ResourceStore",

@@ -41,6 +41,19 @@ Their tenant forms carry the batch plane's gang passes (`batch.gang.run`):
 form of `sweep_run`'s per-variant segments) for the preempt phases; each
 tenant has its own planes, order, claims and carriers.
 
+Two more (`csrc/fault_kernels.cu`, a unit of its own that takes
+seq_kernels.cu's device functions) carry the fault sweep's scenario axis,
+K11 `faultsweep.one`/`vrun` (lifecycle/faultsweep.py drives them): S
+failure scenarios of one cluster, each a stacked state slice:
+
+  * `fault_evict` — the scenario prologue: each scenario's bound pods on a
+    failed node leave its state, and its node mask row is written;
+  * `fault_tally` — the disruption counters (rescheduled, stranded).
+
+Between them the scenarios' round fixpoint runs through the tenant forms
+above, each scenario a tenant whose Planes differ from the cluster's only
+in the node mask (`scenario_table`).
+
 Each wrapper takes its plain version (`*_plain`, a line-by-line PyTorch
 rendering of the reference's closure) only for tensors that lie on the CPU;
 for CUDA tensors it launches the kernel or raises. The kernels are built
@@ -89,6 +102,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc" / "seq_kernels.cu"
 LAYOUT_H = CSRC.with_name("seq_layout.h")  # the structs, included by CSRC
 DELTA_CSRC = CSRC.with_name("delta_kernels.cu")  # K10, wrapped by engine/scatter.py
 GANG_CSRC = CSRC.with_name("gang_kernels.cu")  # K9, included by CSRC
+FAULT_CSRC = CSRC.with_name("fault_kernels.cu")  # the fault sweep's, a unit of its own
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -97,7 +111,8 @@ NVCC_FLAGS = (
 
 KERNELS = ("seq_attempt", "seq_bind", "seq_run", "seq_preempt", "seq_evict",
            "gang_eval", "gang_topk", "gang_match", "gang_bind", "sweep_run",
-           "batch_run", "batch_seg", "batch_eval", "batch_match", "batch_bind")
+           "batch_run", "batch_seg", "batch_eval", "batch_match", "batch_bind",
+           "fault_evict", "fault_tally")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _LIB = None
@@ -482,15 +497,16 @@ def seq_run_plain(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue,
 
 def build() -> tuple[Path, float]:
     """Compile the kernel sources for sm_90a into one library in
-    build/kernels/ unless these sources' library is there already: five
+    build/kernels/ unless these sources' library is there already: six
     `nvcc` processes started together, csrc/seq_kernels.cu (with the gang
     kernels it includes) once per integer type (SEQ_ONLY=32, 64) and per
     half of its entry points (SEQ_TENANT=0: all but the tenant forms; 1:
-    the tenant forms), and csrc/delta_kernels.cu, then one link. Returns (library path, build seconds; 0 when it was there). The
+    the tenant forms), csrc/delta_kernels.cu and csrc/fault_kernels.cu,
+    then one link. Returns (library path, build seconds; 0 when it was there). The
     compiler's report (registers, shared memory, spills) is kept beside the
     library as a .log file."""
     src = (CSRC.read_bytes() + LAYOUT_H.read_bytes() + GANG_CSRC.read_bytes()
-           + DELTA_CSRC.read_bytes())
+           + DELTA_CSRC.read_bytes() + FAULT_CSRC.read_bytes())
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libkernels_{tag}.so"
     if out.exists():
@@ -501,7 +517,8 @@ def build() -> tuple[Path, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     units = [(CSRC, [f"-DSEQ_ONLY={b}", f"-DSEQ_TENANT={t}"], f"seq{b}{'t' if t else ''}")
-             for t in (0, 1) for b in (32, 64)] + [(DELTA_CSRC, [], "delta")]
+             for t in (0, 1) for b in (32, 64)] + [(DELTA_CSRC, [], "delta"),
+                                                   (FAULT_CSRC, [], "fault")]
     objs = [out.with_name(f"{out.stem}_{u}.{os.getpid()}.o") for _, _, u in units]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *defs, "-c", "-o", str(o), str(path)],
@@ -666,11 +683,13 @@ def library() -> ctypes.CDLL:
                 ("batch_match", [vp, vp, ci, ci, ci, vp, vp, vp, vp, ci, vp, ci, ci, ci]
                  + [vp] * 7 + [ci, vp]),
                 ("batch_bind", [vp, vp, vp, ci, vp, ci, vp, vp, vp, vp]),
+                ("fault_evict", [vp, vp, vp, ci, vp, vp, vp, vp, vp]),
             ):
                 f = getattr(lib, f"{name}_{t}")
                 f.argtypes, f.restype = args, ci
             f = getattr(lib, f"gang_eval_grid_{t}")
             f.argtypes, f.restype = [ci, ci], ci
+        lib.fault_tally.argtypes, lib.fault_tally.restype = [vp, vp, vp, ci, ci, vp, vp, vp], ci
         cl = ctypes.c_longlong
         for name in ("delta_scatter_set", "delta_scatter_add"):
             f = getattr(lib, name)
@@ -1870,14 +1889,16 @@ def batch_eval_plain(progs, arrays, states: SchedState, weights, rows, live, ord
         for b in range(len(progs))])
 
 
-def batch_eval(progs, arrays, states: SchedState, weights, rows, live, orders):
+def batch_eval(progs, arrays, states: SchedState, weights, rows, live, orders, *, table=None):
     """K9 eval's tenant form, as `batch_eval_plain` (rows from live on are
     left unwritten): a grid of blocks strides over the (row, tenant) pairs,
-    each block loading its pair's tenant planes."""
+    each block loading its pair's tenant planes. `table`: a tenant table
+    built beforehand (`scenario_table`) in place of the one `_tenants`
+    builds from `progs` and `arrays`."""
     if _on_cpu(arrays[0]):
         PLAIN_CALLS["batch_eval"] += 1
         return batch_eval_plain(progs, arrays, states, weights, rows, live, orders)
-    table, b = _tenants(progs, arrays)
+    table, b = table if table is not None else _tenants(progs, arrays)
     prog, B = progs[0], len(progs)
     dev, dt = arrays[0].node_mask.device, prog.score_dtype
     state, ss = _stacked(b, states, B, dev, dt)
@@ -1981,13 +2002,13 @@ def batch_bind_plain(progs, arrays, states: SchedState, rows, live, sel, orders)
     return states
 
 
-def batch_bind(progs, arrays, states: SchedState, rows, live, sel, orders):
-    """K9 bind's tenant form, as `batch_bind_plain`, in place. Returns
-    `states`."""
+def batch_bind(progs, arrays, states: SchedState, rows, live, sel, orders, *, table=None):
+    """K9 bind's tenant form, as `batch_bind_plain`, in place (`table` as
+    `batch_eval`'s). Returns `states`."""
     if _on_cpu(arrays[0]):
         PLAIN_CALLS["batch_bind"] += 1
         return batch_bind_plain(progs, arrays, states, rows, live, sel, orders)
-    table, b = _tenants(progs, arrays)
+    table, b = table if table is not None else _tenants(progs, arrays)
     B = len(progs)
     dev = arrays[0].node_mask.device
     state, ss = _stacked(b, states, B, dev, progs[0].score_dtype)
@@ -2004,3 +2025,118 @@ def batch_bind(progs, arrays, states: SchedState, rows, live, sel, orders):
     _raise_on(rc, "batch_bind")
     LAUNCHES["batch_bind"] += 1
     return states
+
+
+# ---------------------------------------------------------------------------
+# K11 `faultsweep.one`/`vrun` (lifecycle/faultsweep.py drives them): S failure
+# scenarios of one cluster. States stack S scenarios as the sweep's variants
+# do; the round fixpoint between the two kernels below runs through the tenant
+# forms above, over `scenario_table`.
+# ---------------------------------------------------------------------------
+
+
+def scenario_table(prog: SeqProgram, a: ClusterArrays, node_masks: torch.Tensor) -> tuple:
+    """The tenant table of S failure scenarios of one cluster: entry s is
+    the Planes of (prog, a) with its node mask at row s of `node_masks`
+    ([S, N] bool, contiguous, on a's device), every other plane the
+    cluster's own. Returns (the device table, the cluster's `_Bound`) for
+    the tenant forms' `table=`. Built once a sweep (S x ~1.1 KB); it holds
+    the rows' addresses, so the caller keeps `node_masks` while it launches
+    with the table."""
+    dev = a.node_mask.device
+    if dev.type not in KERNEL_DEVICE_TYPES:
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
+    b = _planes(prog, a)
+    N = b.planes.N
+    if (node_masks.device != dev or node_masks.dtype != torch.bool or node_masks.dim() != 2
+            or node_masks.shape[0] < 1 or node_masks.shape[1] != N
+            or not node_masks.is_contiguous()):
+        raise ValueError(f"node masks must be a contiguous bool [S >= 1, {N}] tensor on {dev}")
+    entry = type(b.planes).from_buffer_copy(b.planes)
+    rows = []
+    for s in range(node_masks.shape[0]):
+        entry.node_mask = node_masks[s].data_ptr()
+        rows.append(bytes(entry))
+    table = torch.frombuffer(bytearray(b"".join(rows)), dtype=torch.uint8)
+    if dev.type == "cuda":
+        table = table.pin_memory()
+    return table.to(dev, non_blocking=True), b
+
+
+def _check_scenarios(name: str, x, shape: tuple, dtype, dev) -> None:
+    if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+        raise ValueError(f"{name} must be {dtype} {list(shape)} on {dev}")
+
+
+def fault_evict_plain(prog: SeqProgram, a: ClusterArrays, states: SchedState, fail):
+    """The fault sweep's scenario prologue (faultsweep.py `one_scenario`,
+    :81-90) for S scenarios, in place on the stacked states [S, ...]: in
+    scenario s every bound pod whose node failed in `fail[s]` ([S, N] bool)
+    is evicted (`seq_evict_plain` of the mask (assignment >= 0) &
+    fail[s][clip(assignment, 0)]), and the scenario's node mask is
+    node_mask & ~fail[s]. Returns (evict [S, P] bool, evicted [S] int32,
+    node masks [S, N] bool)."""
+    asg = states.assignment
+    evict = (asg >= 0) & fail.gather(1, asg.clamp(min=0).long())
+    for s in range(fail.shape[0]):
+        seq_evict_plain(prog, a, variant_state(states, s), evict[s])
+    return evict, evict.sum(dim=1, dtype=torch.int32), a.node_mask[None, :] & ~fail
+
+
+def fault_evict(prog: SeqProgram, a: ClusterArrays, states: SchedState, fail):
+    """K11 `faultsweep.*`'s eviction prologue, as `fault_evict_plain`, in
+    place: one launch, a grid over the (scenario, pod) pairs."""
+    if _on_cpu(a):
+        PLAIN_CALLS["fault_evict"] += 1
+        return fault_evict_plain(prog, a, states, fail)
+    dev = a.node_mask.device
+    if fail.dim() != 2:
+        raise ValueError("fail must be a bool [S, N] tensor")
+    S = fail.shape[0]
+    planes, state, ss, t = _launch_state(prog, a, states, None, S)
+    P, N = planes.P, planes.N
+    _check_scenarios("fail", fail, (S, N), torch.bool, dev)
+    fail = fail.contiguous()
+    evict = torch.empty((S, P), dtype=torch.bool, device=dev)
+    evicted = torch.zeros((S,), dtype=torch.int32, device=dev)
+    masks = torch.empty((S, N), dtype=torch.bool, device=dev)
+    rc = getattr(library(), f"fault_evict_{t}")(
+        ctypes.addressof(planes), ctypes.addressof(state), ctypes.addressof(ss), S,
+        fail.data_ptr(), evict.data_ptr(), evicted.data_ptr(), masks.data_ptr(), _stream(),
+    )
+    _raise_on(rc, "fault_evict")
+    LAUNCHES["fault_evict"] += 1
+    return evict, evicted, masks
+
+
+def fault_tally_plain(assignment, evict, evicted):
+    """The fault sweep's counters (faultsweep.py :92-98): rescheduled[s] =
+    the pods of `evict[s]` bound in `assignment[s]` ([S, P] int32),
+    stranded[s] = evicted[s] - rescheduled[s]; both [S] int32."""
+    rescheduled = ((assignment >= 0) & evict).sum(dim=1, dtype=torch.int32)
+    return rescheduled, evicted - rescheduled
+
+
+def fault_tally(assignment, evict, evicted):
+    """K11 `faultsweep.*`'s counters, as `fault_tally_plain`: one launch, a
+    block a scenario."""
+    if _on_cpu(assignment):
+        PLAIN_CALLS["fault_tally"] += 1
+        return fault_tally_plain(assignment, evict, evicted)
+    dev = assignment.device
+    if dev.type not in KERNEL_DEVICE_TYPES:
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
+    S, P = assignment.shape if assignment.dim() == 2 else (-1, -1)
+    _check_scenarios("assignment", assignment, (S, P), torch.int32, dev)
+    _check_scenarios("evict", evict, (S, P), torch.bool, dev)
+    _check_scenarios("evicted", evicted, (S,), torch.int32, dev)
+    rescheduled = torch.empty((S,), dtype=torch.int32, device=dev)
+    stranded = torch.empty((S,), dtype=torch.int32, device=dev)
+    rc = library().fault_tally(
+        assignment.contiguous().data_ptr(), evict.contiguous().data_ptr(),
+        evicted.contiguous().data_ptr(), S, P, rescheduled.data_ptr(), stranded.data_ptr(),
+        _stream(),
+    )
+    _raise_on(rc, "fault_tally")
+    LAUNCHES["fault_tally"] += 1
+    return rescheduled, stranded

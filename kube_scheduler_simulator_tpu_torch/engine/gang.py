@@ -40,7 +40,10 @@ gang weight sweep (parallel/sweep.py `GangSweep`) drives it with V > 1.
 K9 kernels' tenant forms and, for the preempt phases, `sweep_run`'s
 (`batch_seg`); each tenant runs to its own fixpoint as its solo
 `GangScheduler.run()` would (the reference's vmapped fused fixpoint, not
-the gang sweep's lockstep).
+the gang sweep's lockstep). `_ScenarioRounds` drives the same tenant forms
+over S node-failure scenarios of one cluster (lifecycle/faultsweep.py
+`FaultSweep`, `faultsweep.vrun`/`one`): each scenario a tenant whose planes
+differ from the cluster's only in the node mask.
 
 The record path (`run_recorded`, `results`) tracks each pod's bind round,
 records each preempt phase's trace as it runs, and replays the rounds:
@@ -57,6 +60,8 @@ programs the reference keeps for a TPU backend that could not compile
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -89,15 +94,16 @@ class _Rounds:
         at = (lo[:, None] + torch.arange(WP, dtype=torch.int32, device=dev)).clamp(max=Q)
         return padded.gather(1, at.long()), (count - lo).clamp(0, WP), k
 
-    def _gang_pass(self, states, w, chronology=None, start=None):
+    def _gang_pass(self, states, w, chronology=None, start=None, k0=None):
         """Rounds to fixpoint from stacked `states` [V, ...] (in place),
         variant v at weights row w[v], one launch of each kernel a round for
         every variant. Each variant runs until its own fixpoint and then
         rides along frozen (live 0, its counters unchanged), as under the
         reference's vmapped while_loop; `start` ([V] bools, None: all) names
         the variants that run at all, the others ride along from the first
-        round. Returns (rounds, pods still pending), lists of V.
-        `chronology` (the record path) takes V = 1."""
+        round. `k0`: the rows the first round takes (None: the whole queue),
+        at least every variant's pending count. Returns (rounds, pods still
+        pending), lists of V. `chronology` (the record path) takes V = 1."""
         V, P = w.shape[0], self.enc.P
         WP = self._wp
         cap = self.max_rounds if self.max_rounds is not None else P + 1
@@ -110,7 +116,7 @@ class _Rounds:
         active = [cap > 0 and (start is None or bool(start[v])) for v in range(V)]
         sort = self.compact or WP is not None or V > 1
         # the rows a round takes: the queue, then the most pending
-        K = self._queue.shape[-1]
+        K = self._queue.shape[-1] if k0 is None else k0
         while any(active):
             rows, count = self._pending(states, sort)
             gate = None if all(active) else torch.tensor(active, device=self.device)
@@ -523,6 +529,7 @@ class _TenantRounds(_Rounds):
     _SAME = ("P", "N")
     _OPTIONS = ("_wp", "max_rounds", "compact", "match_width", "inner_iters", "rel_serialize",
                 "preempts", "device")
+    _table = None  # the tenant table, when built beforehand (`cuda.scenario_table`)
 
     def __init__(self, gangs: "list[GangScheduler]"):
         if not gangs:
@@ -575,7 +582,8 @@ class _TenantRounds(_Rounds):
         """eval → top-k → match → bind of every tenant (one launch of each
         kernel), in place. Returns sel [B, K] and stat [B, 2]."""
         enc = self.enc
-        scores = cuda.batch_eval(self._progs, self._arrays, states, w, rows, live, self._orders)
+        scores = cuda.batch_eval(self._progs, self._arrays, states, w, rows, live, self._orders,
+                                 table=self._table)
         if self.match_width < enc.N:
             vals, idx = cuda.gang_topk(scores, live, self.match_width)
         else:
@@ -584,8 +592,45 @@ class _TenantRounds(_Rounds):
             vals, idx, rows, live, self._orders, self._claims, self._carriers, enc.N,
             enc.arrays.pod_claim.shape[1], self.inner_iters,
         )
-        cuda.batch_bind(self._progs, self._arrays, states, rows, live, sel, self._orders)
+        cuda.batch_bind(self._progs, self._arrays, states, rows, live, sel, self._orders,
+                        table=self._table)
         return sel, stat
+
+
+class _ScenarioRounds(_TenantRounds):
+    """The round body over S node-failure scenarios of one cluster (K11
+    `faultsweep.vrun`/`one`, lifecycle/faultsweep.py): the K9 kernels'
+    tenant forms, each scenario a tenant whose planes are the cluster's but
+    for its own node mask row (`cuda.scenario_table`, so every read of the
+    node mask — the filters, the relational prologue's topology domains,
+    the spread keys — sees the scenario's row), with the cluster's program,
+    queue, order, claims and carriers (the last three repeated a scenario,
+    as the tenant forms read them: `dup_bytes`). Each scenario evaluates its
+    pending rows only; the reference's `compact=False` evaluates every queue
+    row, and the same pods commit in the same rounds."""
+
+    _pending = GangScheduler._pending  # one queue for every scenario
+
+    def __init__(self, gang: GangScheduler, node_masks: torch.Tensor):
+        gang._prep()
+        for x in self._OPTIONS:
+            setattr(self, x, getattr(gang, x))
+        self.compact = True
+        self.enc = gang.enc
+        self.last_stats = {"host_syncs": 0}
+        S, a, prog = node_masks.shape[0], gang.enc.arrays, gang._base.program
+        self._progs = [prog] * S
+        self._arrays = [dataclasses.replace(a, node_mask=node_masks[s]) for s in range(S)]
+        self._queue = gang._queue
+        self._orders = gang._order.expand(S, -1).contiguous()
+        self._claims = gang._claims.expand(S, -1, -1).contiguous()
+        self._carriers = (None if gang._carrier is None
+                          else gang._carrier.expand(S, -1).contiguous())
+        self.dup_bytes = sum(x.numel() * x.element_size()
+                             for x in (self._orders, self._claims, self._carriers)
+                             if x is not None)
+        self._masks = node_masks  # the table holds its rows' addresses
+        self._table = None if cuda._on_cpu(a) else cuda.scenario_table(prog, a, node_masks)
 
 
 def batch_fixpoint(gangs: "list[GangScheduler]") -> list:

@@ -15,7 +15,10 @@ family, `seq_preempt`, `seq_evict`, `seq_run`'s preemption branch) run on
 with a leading variant axis (the gang weight sweep, `GangSweep`) and in their
 tenant forms (the batch plane's `batch.seq.run`/`batch.gang.run`: B = 3
 tenants with equal shapes and their own values, one of them with nothing to
-do).
+do). The fault sweep's kernels (`fault_evict`, `fault_tally`) run on S
+failure scenarios of one cluster, with one gang round of the scenarios
+through the tenant forms over the scenario table between them, and a whole
+`FaultSweep` runs against the same sweep on the CPU.
 """
 
 import contextlib
@@ -27,7 +30,12 @@ import torch
 
 import kube_scheduler_simulator_tpu_torch as kp
 from kube_scheduler_simulator_tpu_torch.engine import cuda
-from kube_scheduler_simulator_tpu_torch.engine.gang import _TenantRounds, batch_fixpoint
+from kube_scheduler_simulator_tpu_torch.engine.gang import (
+    _ScenarioRounds,
+    _TenantRounds,
+    batch_fixpoint,
+)
+from kube_scheduler_simulator_tpu_torch.synth import HOST, ZONE
 from kube_scheduler_simulator_tpu_torch.utils.quantity import parse_quantity
 
 from test_torch_clusters import NAMESPACES, rel_cluster
@@ -807,3 +815,143 @@ def test_concurrent_windows_of_different_keys(card):
     assert not errors, errors
     assert cuda.LAUNCHES["batch_run"] == 6 and cuda.LAUNCHES["batch_eval"] >= 6
     assert not any(cuda.PLAIN_CALLS.values())
+
+
+# -- the fault sweep (lifecycle/faultsweep.py, K11 `faultsweep.*`) --------------
+
+
+def fault_cluster():
+    """The default profile over 8 nodes in zones a (3 nodes), b (2), c (2)
+    and d (n7 alone). Bound: a `web` pod on every node, `db` on n7 with a
+    ReadWriteOncePod claim and an inline EBS disk. Pending: four `web` pods
+    under a hard zone spread (maxSkew 1) — while n7 stands, zone d holds the
+    minimum; when it fails its domain leaves the count — `db2` on the same
+    claim and `ebs` on the same disk. Returns (nodes, pods, objects)."""
+    nodes = [{"metadata": {"name": f"n{i}", "labels": {HOST: f"n{i}", ZONE: z}}, "spec": {},
+              "status": {"allocatable": {"cpu": "4", "memory": "8Gi", "pods": "110"}}}
+             for i, z in enumerate("aaabbccd")]
+    spread = [{"maxSkew": 1, "topologyKey": ZONE, "whenUnsatisfiable": "DoNotSchedule",
+               "labelSelector": {"matchLabels": {"app": "web"}}}]
+    claim = [{"name": "data", "persistentVolumeClaim": {"claimName": "claim-0"}}]
+    disk = [{"name": "ebs", "awsElasticBlockStore": {"volumeID": "vol-1"}}]
+
+    def pod(name, labels=None, node=None, **spec):
+        spec["containers"] = [{"name": "c", "resources": {"requests": {"cpu": "1",
+                                                                       "memory": "128Mi"}}}]
+        if node:
+            spec["nodeName"] = node
+        return {"metadata": {"name": name, "namespace": "default", "labels": labels or {}},
+                "spec": spec}
+
+    web = {"app": "web"}
+    pods = ([pod(f"web-{i}", web, f"n{i}") for i in range(8)]
+            + [pod("db", node="n7", volumes=claim + disk)]
+            + [pod(f"web-{i}", web, topologySpreadConstraints=spread) for i in range(8, 12)]
+            + [pod("db2", volumes=claim), pod("ebs", volumes=disk)])
+    objects = {
+        "pvcs": [{"metadata": {"name": "claim-0", "namespace": "default"},
+                  "spec": {"volumeName": "pv-0", "accessModes": ["ReadWriteOncePod"],
+                           "resources": {"requests": {"storage": "1Gi"}}}}],
+        "pvs": [{"metadata": {"name": "pv-0"},
+                 "spec": {"capacity": {"storage": "10Gi"},
+                          "accessModes": ["ReadWriteOncePod"]}}],
+        "storageclasses": [],
+    }
+    return nodes, pods, objects
+
+
+def fault_masks(enc, S, seed, p=0.3):
+    """S failure masks of enc's real nodes: scenario 0 none failed, 1 all of
+    them, the others each node at p."""
+    m = np.random.default_rng(seed).random((S, enc.N)) < p
+    m[0], m[1] = False, True
+    return torch.as_tensor(m, device=enc.device) & enc.arrays.node_mask[None, :]
+
+
+def check_fault_kernels(enc, rng, device, S=5, K=8, widths=(3,)):
+    """fault_evict of S scenarios of one random baseline state against
+    fault_evict_plain; one gang round of every scenario through the tenant
+    forms over the scenario table (each scenario its own node mask row)
+    against the plain tenant forms over each scenario's own arrays, at
+    every match width; fault_tally at the round's end against
+    fault_tally_plain. Returns the pods evicted."""
+    g = kp.GangScheduler(enc, device=device)
+    g._prep()
+    prog, a, N, C = g._base.program, enc.arrays, enc.N, enc.arrays.pod_claim.shape[1]
+    base = random_state(enc.to(torch.device("cpu")), rng).to(device)
+    fail = fault_masks(enc, S, int(rng.integers(1 << 30)))
+    states = cuda.stack_states([base] * S)
+    plain = states.clone()
+    ev, n, masks = cuda.fault_evict(prog, a, states, fail)
+    ev_p, n_p, masks_p = cuda.fault_evict_plain(prog, a, plain, fail)
+    assert torch.equal(ev, ev_p) and torch.equal(n, n_p) and torch.equal(masks, masks_p)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(states, f), getattr(plain, f)), ("evict", f)
+    assert int(n[0]) == 0 and torch.equal(ev[1], base.assignment >= 0)
+    t = _ScenarioRounds(g, masks)
+    w = g.weights[None].expand(S, -1).contiguous()
+    rows, count = t._pending(states, sort=True)
+    rows = rows[:, :K].contiguous()
+    live = count.clamp(max=K)
+    got = cuda.batch_eval(t._progs, t._arrays, states, w, rows, live, t._orders, table=t._table)
+    want = cuda.batch_eval_plain(t._progs, t._arrays, states, w, rows, live, t._orders)
+    for s, lv in enumerate(live.tolist()):
+        assert torch.equal(got[s, :lv], want[s, :lv]), ("eval", s)
+    assert bool((got[1, :int(live[1])] == cuda._neg(got.dtype)).all()), "a failed node fits"
+    for mw in tuple(x for x in widths if x < N) + (N,):
+        vals, idx = cuda.gang_topk(got, live, mw) if mw < N else (got, None)
+        pv, pi = cuda.gang_topk_plain(want, live, mw) if mw < N else (want, None)
+        args = (rows, live, t._orders, t._claims, t._carriers, N, C, 64)
+        sel, stat = cuda.batch_match(vals, idx, *args)
+        psel, pstat = cuda.batch_match_plain(pv, pi, *args)
+        assert torch.equal(sel, psel) and torch.equal(stat, pstat), ("match", mw)
+        s1 = cuda.batch_bind(t._progs, t._arrays, states.clone(), rows, live, sel, t._orders,
+                             table=t._table)
+        s2 = cuda.batch_bind_plain(t._progs, t._arrays, states.clone(), rows, live, sel,
+                                   t._orders)
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(s1, f), getattr(s2, f)), ("bind", mw, f)
+        re, st = cuda.fault_tally(s1.assignment, ev, n)
+        re_p, st_p = cuda.fault_tally_plain(s1.assignment, ev, n)
+        assert torch.equal(re, re_p) and torch.equal(st, st_p), ("tally", mw)
+        assert torch.equal(re + st, n)
+    return int(n.sum())
+
+
+def check_fault_sweep(nodes, pods, objects, cfg, device, plain=contextlib.nullcontext, S=5,
+                      **opts):
+    """A whole FaultSweep on `device` against the same sweep on the CPU's
+    plain versions (inside `plain()`): baseline state, profile, every
+    scenario's final state. Returns the profile."""
+    sw = kp.FaultSweep.from_cluster(nodes, pods, cfg, device=device, **objects, **opts)
+    masks = sw.sample_masks(S, seed=5, fail_prob=0.3)
+    got = sw.run(masks)
+    with plain():
+        ref = kp.FaultSweep.from_cluster(nodes, pods, cfg, device="cpu", **objects, **opts)
+        want = ref.run(masks.cpu())
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(sw._state_bound, f).cpu(), getattr(ref._state_bound, f)), f
+        assert torch.equal(getattr(sw._states, f).cpu(), getattr(ref._states, f)), f
+    for k, x in want.items():
+        assert (np.array_equal(got[k], x) if k == "assignments" else got[k] == x), k
+    return got
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_fault_kernels_match_plain(card, policy):
+    cuda.reset_counts()
+    rng = np.random.default_rng(31)
+    assert check_fault_kernels(default_engine(policy).enc, rng, card, S=6, K=24) > 0
+    rel = engine(policy, n_nodes=40, n_pods=200, config="slice", rel=True).enc
+    assert check_fault_kernels(rel, rng, card, S=6, K=24, widths=(8,)) > 0
+    assert cuda.LAUNCHES["fault_evict"] == 2 and not any(cuda.PLAIN_CALLS.values())
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_fault_sweep_on_the_card_matches_the_cpu(card, policy):
+    nodes, pods, objects = fault_cluster()
+    cuda.reset_counts()
+    got = check_fault_sweep(nodes, pods, objects, kp.supported_config(), card,
+                            policy=POLICIES[policy])
+    assert got["totals"]["evicted"] > 0
+    assert cuda.LAUNCHES["fault_evict"] == 1 and cuda.LAUNCHES["batch_eval"] > 0

@@ -42,19 +42,22 @@ def test_import_leaves_jax_and_reference_out():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == ""
     # the walk reaches every module: the sweep's, the batch runner's, the
-    # session plane's and the batch plane's too
+    # session plane's, the batch plane's and the fault sweep's too
     names = {m.name for m in pkgutil.walk_packages(kp.__path__, kp.__name__ + ".")}
     assert {"kube_scheduler_simulator_tpu_torch.parallel.sweep",
             "kube_scheduler_simulator_tpu_torch.scenario.batch",
             "kube_scheduler_simulator_tpu_torch.server.sessions",
-            "kube_scheduler_simulator_tpu_torch.server.batchplane"} <= names
+            "kube_scheduler_simulator_tpu_torch.server.batchplane",
+            "kube_scheduler_simulator_tpu_torch.lifecycle.faultsweep",
+            "kube_scheduler_simulator_tpu_torch.utils.prng"} <= names
 
 
 def test_no_module_imports_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     for new in ("parallel/sweep.py", "scenario/batch.py",  # the sixth slice's
-                "server/sessions.py", "server/batchplane.py"):  # the session and batch planes
+                "server/sessions.py", "server/batchplane.py",  # the session and batch planes
+                "lifecycle/faultsweep.py", "utils/prng.py"):  # the fault sweep's
         assert PORT / new in files, new
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -79,7 +82,7 @@ def test_default_device_is_the_card(monkeypatch):
     enc = kp.encode_cluster(nodes, pods, kp.affinity_config(), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         kp.BatchedScheduler(enc)
-    for engine in (kp.GangScheduler, kp.GangSweep, kp.WeightSweep):
+    for engine in (kp.GangScheduler, kp.GangSweep, kp.WeightSweep, kp.FaultSweep):
         with pytest.raises(RuntimeError, match="CUDA"):
             engine(enc)
     for plane in (kp.SessionManager, kp.SimulatorService):
@@ -127,6 +130,10 @@ def test_wrappers_take_plain_versions_on_cpu_tensors(monkeypatch):
     sel, _ = cuda.batch_match(scores, None, rows2, live2, t._orders, t._claims, t._carriers,
                               eng.enc.N, a.pod_claim.shape[1], 8)
     cuda.batch_bind(t._progs, t._arrays, states, rows2, live2, sel, t._orders)
+    # the fault sweep's prologue and counters (K11 faultsweep.*), once
+    fail = torch.ones((2, eng.enc.N), dtype=torch.bool)
+    evict, evicted, _ = cuda.fault_evict(eng.program, a, states, fail)
+    cuda.fault_tally(states.assignment, evict, evicted)
     assert cuda.PLAIN_CALLS == dict.fromkeys(cuda.KERNELS, 1)
     assert cuda.LAUNCHES == dict.fromkeys(cuda.KERNELS, 0)
 

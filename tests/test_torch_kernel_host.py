@@ -1,6 +1,6 @@
-"""The CUDA sources (csrc/seq_kernels.cu, csrc/delta_kernels.cu) run on
-the CPU against the plain versions, through the wrappers of engine/cuda.py
-and engine/scatter.py.
+"""The CUDA sources (csrc/seq_kernels.cu, csrc/delta_kernels.cu,
+csrc/fault_kernels.cu) run on the CPU against the plain versions, through
+the wrappers of engine/cuda.py and engine/scatter.py.
 
 The host's C++ compiler builds the kernel source with stand-ins for the
 CUDA built-ins (`HOST_CUDA` below): a block of one thread, whose loops
@@ -36,10 +36,13 @@ from test_torch_cuda import (
     check_batch_gang,
     check_batch_run,
     check_batch_seg,
+    check_fault_kernels,
+    check_fault_sweep,
     check_k10,
     check_segments,
     check_stacked_gang,
     cluster,
+    fault_cluster,
     random_state,
     tenant_encodings,
 )
@@ -94,7 +97,7 @@ def host_lib(tmp_path_factory):
         pytest.skip("no g++ to build the kernel source on the host")
     d = tmp_path_factory.mktemp("host_kernels")
     shutil.copy(cuda.LAYOUT_H, d)
-    return host_build(d, (cuda.CSRC, cuda.DELTA_CSRC), "kernels")
+    return host_build(d, (cuda.CSRC, cuda.DELTA_CSRC, cuda.FAULT_CSRC), "kernels")
 
 
 @pytest.fixture
@@ -567,3 +570,33 @@ def test_batch_fixpoint_matches_solo(host, monkeypatch, policy):
     rounds = check_batch_fixpoint(encs, CPU, plain=plain, chunk=8)
     assert cuda.LAUNCHES["batch_eval"] > 0 and cuda.LAUNCHES["batch_seg"] > 0
     assert len(rounds) == 3
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_fault_kernels_match_plain(host, policy):
+    """fault_evict, one round of the tenant forms over the scenario table and
+    fault_tally over five scenarios (none failed, all failed, random) of a
+    dressed default cluster, against their plain versions."""
+    enc = tenant_encodings(policy, CPU, size=TENANT_SIZE, B=1)[0]
+    assert check_fault_kernels(enc, np.random.default_rng(37), CPU) > 0
+    assert cuda.LAUNCHES["fault_evict"] == 1 and cuda.LAUNCHES["fault_tally"] == 2
+    assert cuda.LAUNCHES["batch_eval"] == 1 and not cuda.PLAIN_CALLS["fault_evict"]
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_fault_sweep_matches_plain(host, monkeypatch, policy):
+    """A whole FaultSweep through the host build (the baseline's gang_bind,
+    fault_evict, the rounds' tenant forms over the scenario table,
+    fault_tally) against the plain versions' sweep."""
+
+    @contextlib.contextmanager
+    def plain():
+        with monkeypatch.context() as m:
+            m.setattr(cuda, "_on_cpu", lambda x: True)  # the plain versions again
+            yield
+
+    nodes, pods, objects = fault_cluster()
+    got = check_fault_sweep(nodes, pods, objects, kp.supported_config(), CPU, plain=plain,
+                            policy=POLICIES[policy])
+    assert got["totals"]["evicted"] > 0 and cuda.LAUNCHES["fault_tally"] == 1
+    assert cuda.LAUNCHES["gang_bind"] == 1 and cuda.LAUNCHES["batch_bind"] > 0
