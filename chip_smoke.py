@@ -26,8 +26,11 @@ tenant form of `sweep_run`; `batch.gang.run`: the tenant forms of the K9
 kernels and of `sweep_run`'s segments). A ninth, the fault sweep, runs
 `FaultSweep` (node-failure scenarios of one cluster: `fault_evict`, the
 gang rounds of every scenario through the K9 kernels' tenant forms over a
-scenario table, `fault_tally`). The plain versions of the whole
-passes that phases 3, 4, 4b, 4j, 4k and 5e are held against run on the host
+scenario table, `fault_tally`). A tenth, the counted gang loops, runs
+`GangScheduler`, `GangSweep` and `FaultSweep` with `loop="static"`
+(`gang_match_counted` and `gang_advance`: a pass of round slots with the
+round accounting on the card and one readback). The plain versions of the whole
+passes that phases 3, 4, 4b, 4j, 4k, 4l and 5e are held against run on the host
 CPU in three more processes (`chip_smoke.py --plain-worker DIR PART`,
 started at once when the build is done and stopped at the end; the card's
 phases hand them their inputs through DIR), beside the card's phases; the
@@ -191,6 +194,23 @@ in order; any failure raises and the process exits non-zero:
    rounds and final states of every scenario), then the same sweep at
    fail_prob 0.1 on the card alone (launches, `run_one` of scenarios 0 and
    worst, no pod on a failed node, the counters' sum);
+4l. the counted gang forms (`loop="static"`), TPU32, each run with the
+   counters set to 0 just before and read just after (the counted kernels
+   launched, the while-loop matching never, no plain call) and again with
+   each launch timed: (a) `GangScheduler` on phase 4's fit cluster and on
+   4e's affinity cluster (config #3), placements equal to the dynamic runs
+   at equal `inner_iters`, rounds one fewer; (b) the fit cluster at
+   `static_rounds=4` (resumed passes), the same placements; (c)
+   `GangSweep` of 8 of config #4's variants against the dynamic sweep of
+   the same 8; (d) `FaultSweep` of 4k(a)'s 256 masks, every scenario inside
+   the budget: 4k(a)'s profile; (e) `FaultSweep` of 4k(b)'s 8 scenarios at
+   fail_prob 0.1, at the default budget (every pod of the cluster counts in
+   ceil(P/N) + 4) and at a budget of 2 set after construction, which strands
+   pods the dynamic sweep places (each placed pod where the dynamic sweep
+   put it), the latter held whole against the plain versions in the three
+   workers (4h). Each prints rounds progressed against
+   slots launched, readbacks against the dynamic run's, wall and device ms
+   by kernel;
 4h. the plain processes' versions: phase 3's whole gang pass and gang
    sweep (state, rounds, records; assignments, rounds, states, phases);
    phase 3's sweeps (every
@@ -235,7 +255,10 @@ in order; any failure raises and the process exits non-zero:
    `fault_evict` and `fault_tally` over all 256 scenarios, and round 1's
    launches of the tenant forms over the scenario table, each first held
    against its plain version (`((a >= 0) & m).sum(1)`, `torch.topk` and
-   `index_add_` as the library calls);
+   `index_add_` as the library calls); 5i: `gang_match_counted` at 4l(a)'s
+   round 1, `batch_match_counted` at 4l(d)'s, `gang_advance` at both, each
+   first held against its plain version (the counted sel also against the
+   while-loop matching's, whose time on the same inputs is printed beside);
 6. the card's name and power limit, then the result line.
 
 Each phase prints its seconds. It runs in 13 to 16 minutes on an H100, the
@@ -300,6 +323,20 @@ BATCH_PREEMPT_GANG = 2
 FAULT_SCENARIOS, FAULT_SEED, FAULT_PROB = 256, 7, 0.05
 FAULT3_SCENARIOS, FAULT3_SEED, FAULT3_PROB, FAULT3_CARD_PROB = 8, 11, 0.02, 0.1
 FAULT3_PARTS = {"fault3_c": (0, 2), "fault3_b": (2, 8)}
+# the counted loops (phase 4l): 4l(b)'s budget, below the fit cluster's
+# fixpoint so that its passes resume; 4l(c)'s variants, the first of 4i(a)'s;
+# 4l(e)'s counted sweep at FAULT3_CARD_PROB, at the default budget (ceil(P /
+# N) + 4 with every pod of the cluster in P) on the card alone, then at a
+# budget of FAULT4L_BUDGET set after construction (far below the 22-50
+# dynamic rounds a scenario there), held whole against the plain versions in
+# the three workers (their result's name -> its scenarios; each slot
+# evaluates every pending pod, so a share costs about its scenarios' evicted
+# pods, and each worker takes the share that ends it about when the others
+# end)
+COUNTED_BUDGET = 4
+COUNTED_SWEEP_VARIANTS = 8
+FAULT4L_BUDGET = 2
+FAULT4L_PARTS = {"fault4l_c": (0, 5), "fault4l_b": (5, 7), "fault4l_a": (7, 8)}
 # the plain versions of whole passes run on the host CPU in a second process
 # (`plain_worker`), beside the card's phases; their results come back here
 PLAIN_DIR = Path(__file__).resolve().parent / "build" / "smoke"
@@ -355,11 +392,11 @@ def ptxas_report(text):
     for ln in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?_Z\w*?"
                       r"(seq_(?:attempt|bind|run|preempt|evict)_kernel|sweep_(?:run|seg)_kernel|"
-                      r"gang_(?:eval|topk|match|bind)_kernel|scatter_set_kernel|"
+                      r"gang_(?:eval|topk|match_counted|match|bind)_kernel|scatter_set_kernel|"
                       r"scatter_add_kernel|vec_add_kernel|fault_evict_kernel)I([ixlhjm])"
                       r"((?:Lb[01]E)*)", ln)
         untyped = re.search(r"(?:Compiling entry function|Function properties for) '?_Z\w*?"
-                            r"(fault_tally_kernel)E", ln)
+                            r"(fault_tally_kernel|gang_advance_kernel)E", ln)
         if untyped:
             name = untyped.group(1)
         elif m:
@@ -2350,7 +2387,8 @@ def drive_gang_affinity(kp, cuda, nodes, pods, seq_placements, smi):
         + ", ".join(f"{k} {kms[k]:.1f}" for k in GANG_KERNELS)
         + f" (per round {sum(kms[k] for k in GANG_KERNELS) / rounds:.3f}); launches "
         f"{ {k: counts[k] for k in GANG_KERNELS} } [{smi}]")
-    return dict(run_s=run_s, rounds=rounds, kms=kms)
+    return dict(run_s=run_s, rounds=rounds, kms=kms, enc=enc, placements=placements,
+                state=g._final_state, host_syncs=g.last_stats["host_syncs"], counts=counts)
 
 
 def gang_rows(kp, cuda, diff, run, smi):
@@ -3430,8 +3468,10 @@ class TenantLaunches(Swap):
     """While active, every launch of the tenant forms (and of gang_topk), or
     of the wrappers `forms` names, is timed at its library call
     (`TimedLibrary`), and the first call of each wrapper keeps its inputs (a
-    stacked state argument cloned: the launches after it update states in
-    place). The calls go through unchanged."""
+    stacked state argument cloned, and a tensor that is a view, such as a
+    counted pass's live row of its accounting, or every tensor of
+    gang_advance: the launches after it update them in place). The calls go
+    through unchanged."""
 
     def __init__(self, cuda, forms=TENANT_FORMS):
         from kube_scheduler_simulator_tpu_torch.engine.encode import SchedState
@@ -3439,17 +3479,23 @@ class TenantLaunches(Swap):
         self.events = {n: [] for n in forms}
         self.first = {}
 
-        def keep(name):
+        def keep(wrapper):
             def make(f):
                 def call(*args, **kw):
-                    if name not in self.first:
-                        self.first[name] = ([x.clone() if isinstance(x, SchedState) else x
-                                             for x in args], dict(kw))
+                    # the counted matchings are their wrappers' `counted` calls
+                    name = wrapper
+                    if wrapper.endswith("_match") and kw.get("counted"):
+                        name += "_counted"
+                    if name in forms and name not in self.first:
+                        self.first[name] = ([x.clone() if isinstance(x, SchedState) or (
+                            isinstance(x, torch.Tensor)
+                            and (x._base is not None or name == "gang_advance")) else x
+                            for x in args], dict(kw))
                     return f(*args, **kw)
                 return call
             return make
 
-        table = {n: keep(n) for n in forms}
+        table = {n: keep(n) for n in {f.removesuffix("_counted") for f in forms}}
         table["library"] = lambda f: (lambda: TimedLibrary(f(), self.events))
         super().__init__(cuda, table)
 
@@ -3940,25 +3986,34 @@ def fault3_input(kp, passes3):
     return dict(nodes=nodes, pods=fault_baseline(nodes, pods, placed), objects=objects)
 
 
-def fault3_sweep(kp, inp, device, lo=0, hi=FAULT3_SCENARIOS):
-    """Scenarios [lo, hi) of the default-profile sweep on `device`: the
-    sweep, its masks, profile and final states. Each scenario runs to its
-    own fixpoint, so a share of the scenarios gives their rows of the whole
-    sweep."""
+def fault3_sweep(kp, inp, device, lo=0, hi=FAULT3_SCENARIOS, prob=FAULT3_PROB, budget=None,
+                 **opts):
+    """Scenarios [lo, hi) of the default-profile sweep on `device` (at
+    fail_prob `prob`, FaultSweep options `opts`, a counted budget `budget`
+    set after construction): the sweep, its masks, profile and final
+    states. Each scenario runs on its own, so a share of the scenarios gives
+    their rows of the whole sweep."""
     sw = kp.FaultSweep.from_cluster(inp["nodes"], inp["pods"], kp.supported_config(),
-                                    policy=kp.TPU32, device=device, **inp["objects"])
-    masks = sw.sample_masks(FAULT3_SCENARIOS, seed=FAULT3_SEED, fail_prob=FAULT3_PROB)
+                                    policy=kp.TPU32, device=device, **inp["objects"], **opts)
+    if budget is not None:
+        sw.gang.static_rounds = budget  # read at run time
+    masks = sw.sample_masks(FAULT3_SCENARIOS, seed=FAULT3_SEED, fail_prob=prob)
     t0 = time.perf_counter()
     prof = sw.run(masks[lo:hi])
     return sw, masks, prof, time.perf_counter() - t0
 
 
 def plain_fault3(kp, out_dir, part):
-    """A plain worker's share of the default-profile sweep (phase 4k), on
-    the host CPU through the plain versions."""
-    lo, hi = FAULT3_PARTS[part]
+    """A plain worker's share of the default-profile sweep (phase 4k), or of
+    its counted sweep at FAULT3_CARD_PROB (phase 4l(e)), on the host CPU
+    through the plain versions."""
+    if part in FAULT4L_PARTS:
+        (lo, hi), opts = FAULT4L_PARTS[part], dict(prob=FAULT3_CARD_PROB, loop="static",
+                                                   budget=FAULT4L_BUDGET)
+    else:
+        (lo, hi), opts = FAULT3_PARTS[part], {}
     inp = wait_input(out_dir, "fault3_in")
-    sw, masks, prof, secs = fault3_sweep(kp, inp, torch.device("cpu"), lo, hi)
+    sw, masks, prof, secs = fault3_sweep(kp, inp, torch.device("cpu"), lo, hi, **opts)
     return dict(digest=encoding_digest(sw.enc), masks=masks, lo=lo, hi=hi, profile=prof,
                 states=_state_dict(sw._states), bound=_state_dict(sw._state_bound),
                 seconds=secs)
@@ -4088,6 +4143,7 @@ def drive_fault_sweep(kp, cuda, diff, fit, fault3_in, smi):
     t0 = time.perf_counter()
     prof_hi = sw3.run(masks_hi)
     secs_hi = time.perf_counter() - t0
+    syncs_hi = sw3.last_stats["host_syncs"]
     fault_launches(dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS), max(prof_hi["rounds"]),
                    "4k(b) card", sw3.gang.match_width < sw3.enc.N, binds=0)
     check_fault_profile(prof_hi, masks_hi, "4k(b) card")
@@ -4096,13 +4152,15 @@ def drive_fault_sweep(kp, cuda, diff, fit, fault3_in, smi):
         f"the card alone: run {secs_hi:.3f} s; evicted {prof_hi['evicted']}, rescheduled "
         f"{prof_hi['rescheduled']}, rounds {prof_hi['rounds']}; run_one of scenarios {checked} "
         f"equal their rows; no pod on a failed node [{smi}]")
-    return dict(sw=sw, masks=masks, prof=prof, counts=counts, rec=timer, k0=k0,
+    return dict(sw=sw, masks=masks, prof=prof, counts=counts, rec=timer, k0=k0, wall=wall,
+                host_syncs=stats["host_syncs"], sw3=sw3, masks_hi=masks_hi, prof_hi=prof_hi,
+                syncs_hi=syncs_hi, wall_hi=secs_hi,
                 fault3=dict(digest=encoding_digest(sw3.enc), masks=masks3, profile=prof3,
                             states=states3, bound=sw3._state_bound))
 
 
-def check_plain_fault3(diff, run, plains):
-    """Phase 4h for 4k(b): each worker's scenarios (their masks, baseline,
+def check_plain_fault3(diff, run, plains, what="4k(b)", path="fault"):
+    """Phase 4h for 4k(b) (and 4l(e)): each worker's scenarios (their masks, baseline,
     assignments, counters, rounds and final states) against the card's
     sweep, after checking that both processes encoded the same inputs."""
     secs = []
@@ -4110,22 +4168,23 @@ def check_plain_fault3(diff, run, plains):
         lo, hi = plain["lo"], plain["hi"]
         if plain["digest"] != run["digest"] or not torch.equal(plain["masks"],
                                                                 run["masks"].cpu()):
-            raise AssertionError("4k(b): the worker encoded other inputs or drew other masks")
+            raise AssertionError(f"{what}: the worker encoded other inputs or drew other masks")
         got, want = run["profile"], plain["profile"]
         if not np.array_equal(got["assignments"][lo:hi], want["assignments"]):
-            raise AssertionError(f"4k(b): scenarios {lo}-{hi - 1}' assignments differ")
+            raise AssertionError(f"{what}: scenarios {lo}-{hi - 1}' assignments differ")
         for k in ("evicted", "rescheduled", "stranded", "rounds"):
             if got[k][lo:hi] != want[k]:
-                raise AssertionError(f"4k(b): scenarios {lo}-{hi - 1}' {k} differ")
+                raise AssertionError(f"{what}: scenarios {lo}-{hi - 1}' {k} differ")
         for f in STATE_FIELDS:
-            diff.check("fault", "fault_evict", f"4k(b) baseline {f}", getattr(run["bound"], f),
+            diff.check(path, "fault_evict", f"{what} baseline {f}", getattr(run["bound"], f),
                        plain["bound"][f].to(CARD))
-            diff.check("fault", "batch_bind", f"4k(b) scenarios {lo}-{hi - 1} {f}",
+            diff.check(path, "batch_bind", f"{what} scenarios {lo}-{hi - 1} {f}",
                        getattr(run["states"], f)[lo:hi], plain["states"][f].to(CARD))
         secs.append(plain["seconds"])
-    log(f"    4k(b): all {FAULT3_SCENARIOS} scenarios of the default-profile sweep (baseline, "
+    log(f"    {what}: all {FAULT3_SCENARIOS} scenarios of the default-profile sweep (baseline, "
         f"assignments, evicted, rescheduled, stranded, rounds, final states) equal the plain "
-        f"versions' in two workers on the host CPU ({' + '.join(f'{x:.1f}' for x in secs)} s)")
+        f"versions' in {len(secs)} workers on the host CPU "
+        f"({' + '.join(f'{x:.1f}' for x in secs)} s)")
 
 
 def fault_rows(kp, cuda, diff, run, smi):
@@ -4316,6 +4375,302 @@ def fault_rows(kp, cuda, diff, run, smi):
 
 
 # ---------------------------------------------------------------------------
+# the counted loops: K9's counted forms (phases 4l and 5i)
+# ---------------------------------------------------------------------------
+
+COUNTED_FORMS = ("gang_eval", "gang_topk", "gang_match_counted", "gang_bind", "gang_advance")
+COUNTED_FAULT_FORMS = ("fault_evict", "batch_eval", "gang_topk", "batch_match_counted",
+                       "batch_bind", "gang_advance", "fault_tally")
+COUNTED_SOURCE = GANG_SOURCE
+REPLACES.update({"gang.m_scan": "kube_scheduler_simulator_tpu/engine/gang.py:884",
+                 "gang.r_scan": "kube_scheduler_simulator_tpu/engine/gang.py:1055"})
+
+
+def counted_forms(forms, g):
+    """The kernels a counted pass of gang `g` launches: gang_topk only below
+    full width."""
+    return tuple(k for k in forms if k != "gang_topk" or g.match_width < g.enc.N)
+
+
+def check_counted_launches(counts, plain, forms, what):
+    """Each kernel of `forms` launched, the while-loop matching never, no
+    plain call."""
+    if (any(counts[k] < 1 for k in forms) or counts["gang_match"] or counts["batch_match"]
+            or any(plain.values())):
+        raise AssertionError(f"{what}: launches {counts}, plain calls {plain}")
+
+
+def counted_run(cuda, forms, fn, what):
+    """fn() with the counters set to 0 just before and read just after, then
+    again with each launch of `forms` timed at its library call
+    (`TenantLaunches`): (the first call's output, its wall s, its launches,
+    device ms by kernel of the second, the second's first inputs of each
+    kernel). Both calls must give equal outputs (`same`)."""
+    torch.cuda.synchronize()
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    check_counted_launches(counts, plain, forms, what)
+    rec = TenantLaunches(cuda, forms)
+    with rec:
+        out2 = fn()
+    return out, out2, wall, counts, {n: sum(rec.ms(n)) for n in forms}, rec.first
+
+
+def log_counted(what, rounds, slots, syncs, dyn_rounds, dyn_syncs, wall, dyn_wall, ms, counts,
+                forms, smi, extra=""):
+    log(f"    {what}: {rounds} rounds progressed in {slots} round slots launched; readbacks "
+        f"{syncs} (dynamic {dyn_syncs}); dynamic rounds {dyn_rounds}; wall {wall:.3f} s "
+        f"(dynamic {dyn_wall:.3f} s); device ms (a second run, each launch timed at its library "
+        "call): " + ", ".join(f"{k} {ms[k]:.3f}" for k in forms)
+        + f"; launches { {k: counts[k] for k in forms} }{extra} [{smi}]")
+
+
+def counted_gang(kp, cuda, enc, dyn, what, smi, **kw):
+    """GangScheduler(enc, loop="static", **kw).run() through `counted_run`:
+    its placements and assignment equal the dynamic run `dyn`'s (same
+    inner_iters), its rounds one fewer (the slots that progressed: the
+    dynamic loop counts its last, empty round)."""
+    forms = counted_forms(COUNTED_FORMS, kp.GangScheduler(enc, **kw))
+    engines = []
+
+    def run():
+        engines.append(kp.GangScheduler(enc, loop="static", **kw))
+        return engines[-1].run()
+
+    (state, rounds), (state2, rounds2), wall, counts, ms, first = counted_run(cuda, forms, run,
+                                                                               what)
+    g = engines[0]
+    if (g.placements() != dyn["placements"] or rounds != dyn["rounds"] - 1
+            or not torch.equal(state.assignment, dyn["state"].assignment)):
+        raise AssertionError(f"{what}: {rounds} rounds (dynamic {dyn['rounds']}), or placements "
+                             "other than the dynamic run's")
+    if rounds2 != rounds or not torch.equal(state2.assignment, state.assignment):
+        raise AssertionError(f"{what}: the timed run differs from the first")
+    st = g.last_stats
+    log_counted(what, rounds, counts["gang_advance"], st["host_syncs"], dyn["rounds"],
+                dyn["host_syncs"], wall, dyn["wall"], ms, counts, forms, smi,
+                f"; budget {g.static_rounds} slots a pass, {st['phases']} preempt phases")
+    return dict(g=g, counts=counts, first=first, ms=ms, wall=wall, rounds=rounds)
+
+
+def dynamic_gang(kp, enc):
+    """A dynamic GangScheduler(enc).run(): what counted_gang compares."""
+    g = kp.GangScheduler(enc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, rounds = g.run()
+    torch.cuda.synchronize()
+    return dict(placements=g.placements(), rounds=rounds, state=state,
+                host_syncs=g.last_stats["host_syncs"], wall=time.perf_counter() - t0)
+
+
+def baseline_of(sw):
+    """A fault sweep's baseline as FaultSweep's assignment argument."""
+    return {k: v for k, v in sw.enc.decode_assignment(sw._state_bound.assignment).items() if v}
+
+
+def counted_fault(kp, cuda, diff, sw, masks, prof, dyn_syncs, dyn_wall, what, smi, budget=None):
+    """FaultSweep(loop="static") over `sw`'s encoding and baseline (the
+    construction's baseline bind inside the counted run; `budget`, when
+    given, set after construction) on `masks` through `counted_run`. Each
+    scenario's rounds are min(dynamic - 1, budget) and
+    every pod the counted sweep places is where the dynamic sweep `prof`
+    placed it (its slots are the dynamic loop's first rounds); returns the
+    sweep, its profile and, where every scenario fit the budget, checks it
+    equal to `prof`."""
+    forms = counted_forms(COUNTED_FAULT_FORMS, sw.gang)
+    sweeps, base = [], baseline_of(sw)
+
+    def run():
+        sweeps.append(kp.FaultSweep(sw.enc, base, loop="static"))
+        if budget is not None:
+            sweeps[-1].gang.static_rounds = budget
+        return sweeps[-1].run(masks)
+
+    got, got2, wall, counts, ms, first = counted_run(cuda, forms + ("gang_bind",), run, what)
+    sw_s = sweeps[0]
+    budget = sw_s.gang.static_rounds
+    for f in STATE_FIELDS:
+        diff.check("counted", "gang_bind", f"{what} baseline {f}", getattr(sw_s._state_bound, f),
+                   getattr(sw._state_bound, f))
+    check_fault_profile(got, masks, what)
+    a_s, a_d = got["assignments"], prof["assignments"]
+    want_rounds = [min(r - 1, budget) for r in prof["rounds"]]
+    if got["rounds"] != want_rounds or ((a_s >= 0) & (a_s != a_d)).any():
+        raise AssertionError(f"{what}: rounds {got['rounds']} (want {want_rounds}), or a pod "
+                             "placed where the dynamic sweep did not place it")
+    if max(prof["rounds"]) - 1 <= budget and (not np.array_equal(a_s, a_d) or any(
+            got[k] != prof[k] for k in ("evicted", "rescheduled", "stranded"))):
+        raise AssertionError(f"{what}: every scenario fit the budget, yet the profile differs "
+                             "from the dynamic sweep's")
+    if got2["totals"] != got["totals"] or not np.array_equal(got2["assignments"], a_s):
+        raise AssertionError(f"{what}: the timed run differs from the first")
+    each = masks.shape[0] <= FAULT3_SCENARIOS  # few scenarios: print each one's
+    stranded = [(x["stranded"] if each else x["totals"]["stranded"]) for x in (got, prof)]
+    log_counted(what, got["rounds"] if each else f"max {max(got['rounds'])}",
+                counts["gang_advance"], sw_s.last_stats["host_syncs"],
+                prof["rounds"] if each else f"max {max(prof['rounds'])}", dyn_syncs, wall,
+                dyn_wall, ms, counts, forms, smi,
+                f"; budget {budget} slots; stranded {stranded[0]} (dynamic {stranded[1]})")
+    return dict(sw=sw_s, prof=got, counts=counts, first=first, ms=ms, wall=wall)
+
+
+def drive_counted(kp, cuda, diff, fit, gang_aff, gsweep, fault, smi):
+    """Phase 4l: the counted gang forms (loop="static"), TPU32, each run with
+    the counters set to 0 just before and read just after (every counted
+    kernel launched, the while-loop matching never, no plain call), then
+    again with each launch timed: (a) GangScheduler on phase 4's fit cluster
+    and on phase 4e's affinity gang cluster (config #3), placements and
+    assignment equal to the dynamic runs (a fresh one on the fit cluster,
+    4e's on the affinity one) at equal inner_iters, rounds one fewer; (b)
+    the fit cluster at static_rounds=COUNTED_BUDGET, so that passes resume: the same
+    placements; (c) GangSweep(loop="static") of config #4's first
+    COUNTED_SWEEP_VARIANTS variants (4i(a)'s weights) against the dynamic
+    sweep of the same; (d) FaultSweep(loop="static") of 4k(a)'s 256 masks,
+    whose every scenario fits the budget: 4k(a)'s profile; (e) the same
+    over 4k(b)'s 8 scenarios at FAULT3_CARD_PROB, whose longer fixpoints
+    the budget cuts, at the default budget and at FAULT4L_BUDGET set after
+    construction: stranded pods, the placed ones where the dynamic sweep put
+    them, the latter held whole against the plain versions in the three
+    workers (4h). Each prints rounds progressed against slots launched, readbacks against
+    the dynamic run's, wall and device ms by kernel."""
+    out = {}
+    enc_fit = fit["eng"].enc
+    dyn_fit = dynamic_gang(kp, enc_fit)
+    out["fit"] = counted_gang(kp, cuda, enc_fit, dyn_fit, "(a) fit cluster", smi)
+    aff = dict(gang_aff, wall=gang_aff["run_s"])
+    out["affinity"] = counted_gang(kp, cuda, gang_aff["enc"], aff, "(a) affinity cluster", smi)
+    out["resumed"] = counted_gang(kp, cuda, enc_fit, dyn_fit,
+                                  f"(b) fit cluster, budget {COUNTED_BUDGET}", smi,
+                                  static_rounds=COUNTED_BUDGET)
+    if out["resumed"]["g"].last_stats["host_syncs"] < 2:
+        raise AssertionError(f"4l(b): the budget of {COUNTED_BUDGET} did not resume")
+    # (c) the gang sweep
+    enc4, w8 = gsweep["a"]["enc"], gsweep["a"]["w"][:COUNTED_SWEEP_VARIANTS]
+    dyn_sw = kp.GangSweep(enc4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    asg_d, rounds_d = dyn_sw.run(w8)
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    forms = counted_forms(COUNTED_FORMS, dyn_sw.gang)
+    sweeps = []
+
+    def sweep():
+        sweeps.append(kp.GangSweep(enc4, loop="static"))
+        return sweeps[-1].run(w8)
+
+    (asg_s, rounds_s), (asg_2, _), wall, counts, ms, _ = counted_run(cuda, forms, sweep,
+                                                                     "4l(c)")
+    if not torch.equal(asg_s, asg_d) or not torch.equal(asg_2, asg_s):
+        raise AssertionError("4l(c): the counted sweep places otherwise than the dynamic one")
+    st = sweeps[0].last_stats
+    log_counted(f"(c) GangSweep of {len(w8)} config #4 variants", rounds_s.tolist(),
+                counts["gang_advance"], st["host_syncs"], rounds_d.tolist(),
+                dyn_sw.last_stats["host_syncs"], wall, wall_d, ms, counts, forms, smi,
+                f"; {st['passes']} passes, {st['phases']} phases; assignments equal the dynamic "
+                "sweep's")
+    out["sweep"] = dict(counts=counts, ms=ms, wall=wall)
+    # (d), (e) the fault sweeps
+    out["fault"] = counted_fault(kp, cuda, diff, fault["sw"], fault["masks"], fault["prof"],
+                                 fault["host_syncs"], fault["wall"],
+                                 f"(d) FaultSweep of 4k(a)'s {FAULT_SCENARIOS} masks", smi)
+    sw3, what = fault["sw3"], (f"(e) FaultSweep of 4k(b)'s {FAULT3_SCENARIOS} scenarios at "
+                               f"fail_prob {FAULT3_CARD_PROB}")
+    args = (kp, cuda, diff, sw3, fault["masks_hi"], fault["prof_hi"], fault["syncs_hi"],
+            fault["wall_hi"])
+    out["faulte_default"] = counted_fault(*args, f"{what}, the default budget", smi)
+    e = counted_fault(*args, f"{what}, a budget of {FAULT4L_BUDGET}", smi, FAULT4L_BUDGET)
+    if e["prof"]["totals"]["stranded"] <= fault["prof_hi"]["totals"]["stranded"]:
+        raise AssertionError("4l(e): the budget stranded no pod the dynamic sweep placed")
+    out["faulte"] = e
+    out["fault4l"] = dict(digest=encoding_digest(sw3.enc), masks=fault["masks_hi"],
+                          profile=e["prof"], states=e["sw"]._states, bound=e["sw"]._state_bound)
+    return out
+
+
+def counted_rows(cuda, diff, run, smi):
+    """Phase 5i: gang_match's counted form at 4l(a)'s round 1 on the fit
+    cluster (one variant, every pending row) and its tenant form at 4l(d)'s
+    round 1 (every scenario), gang_advance at both: each held equal to its
+    plain version (the tenant matching on MATCH_PLAIN_VARIANTS scenarios),
+    the counted matching's sel also to the while-loop matching's, then
+    launched again from the inputs 4l's timed runs kept (the median of
+    RELAUNCHES launches at the library call, `relaunch_ms`), beside the
+    while-loop matching's time on the same inputs. Bounds: bytes over 3.35
+    TB/s or integer operations over 67 TFLOP/s, the larger; the counted
+    matching's operations are its iterations' compares. No PyTorch call
+    computes either function."""
+    names = ("gang_match_counted", "batch_match_counted", "gang_advance")
+    launches = {k: sum(run[r]["counts"][k] for r in ("fit", "affinity", "resumed", "sweep",
+                                                      "fault", "faulte_default", "faulte"))
+                for k in names}
+    forms = names + ("gang_match", "batch_match")
+    out = []
+
+    def row(path, name, kind, ms, plain_ms, b, shape, basis=None, **extra):
+        r = {"name": name, "path": path, "route": "cuda", "source": COUNTED_SOURCE,
+             "replaces": REPLACES[kind], "launches": launches[name],
+             "max_abs_err": diff.err[(path, name)], "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b[0], "bound_by": b[1], "library_ms": None, "shape": shape, **extra}
+        if basis:
+            r["plain_basis"] = basis
+        out.append(r)
+        log(f"    {path:13s} {name:19s} {ms:.6f} ms at {shape} (plain {plain_ms:.3f} ms"
+            + (f" for {basis}" if basis else "") + f", bound {b[0]:.7f} ms by {b[1]}, library "
+            f"none), {launches[name]} launches on 4l's runs [{smi}]")
+
+    for path, what, src, name, plain_fn, sub in (
+            ("counted", "4l(a) fit, round 1", run["fit"], "gang_match_counted",
+             cuda.gang_match_plain, slice(None)),
+            ("counted fault", f"4l(d) {FAULT_SCENARIOS} scenarios, round 1", run["fault"],
+             "batch_match_counted", cuda.batch_match_plain, slice(0, MATCH_PLAIN_VARIANTS))):
+        args, _ = src["first"][name]
+        vals, idx, rows, live, order, claims, carrier, n_nodes, n_claims, iters = args
+        wrapper = cuda.gang_match if name == "gang_match_counted" else cuda.batch_match
+        ms, (sel, stat) = relaunch_ms(cuda, name, lambda: wrapper(*args, counted=True),
+                                      forms=forms)
+        dyn_ms, (dsel, _) = relaunch_ms(cuda, name.replace("_counted", ""),
+                                        lambda: wrapper(*args), forms=forms)
+        tenant = name == "batch_match_counted"
+        cut = [vals[sub], None if idx is None else idx[sub], rows[sub], live[sub]] + [
+            x if x is None or not tenant else x[sub] for x in (order, claims, carrier)]
+        t0 = time.perf_counter()
+        psel, pstat = plain_fn(*cut, n_nodes, n_claims, iters, counted=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        diff.check(path, name, f"{what} sel", sel[sub], psel)
+        diff.check(path, name, f"{what} stat", stat[sub], pstat)
+        diff.check(path, name, f"{what} sel against the while loop's", sel, dsel)
+        V, K, W = vals.shape
+        n_live = int(live.clamp(min=0).sum())
+        b = bound(n_live * W * (vals.element_size() + (4 if idx is not None else 0))
+                  + V * K * 4 * 3, iters * n_live * W)
+        row(path, name, "gang.m_scan", ms, plain_ms, b,
+            f"{V} x {K} x {W}, {iters} iterations, {n_live} live rows",
+            None if sub == slice(None) else f"{MATCH_PLAIN_VARIANTS} of the {V} scenarios",
+            while_loop_ms=dyn_ms)
+        (stat_a, acc, wp, n_pods), _ = src["first"]["gang_advance"]
+        adv_ms, acc_k = relaunch_ms(cuda, "gang_advance",
+                                    lambda: cuda.gang_advance(stat_a, acc.clone(), wp, n_pods),
+                                    forms=forms)
+        t0 = time.perf_counter()
+        acc_p = cuda.gang_advance_plain(stat_a, acc.clone(), wp, n_pods)
+        torch.cuda.synchronize()
+        adv_plain_ms = (time.perf_counter() - t0) * 1e3
+        diff.check(path, "gang_advance", f"{what} accounting", acc_k, acc_p)
+        Va = acc.shape[1]
+        row(path, "gang_advance", "gang.r_scan", adv_ms, adv_plain_ms,
+            bound(Va * (8 + 2 * 4 * acc.shape[0]), Va * 24),
+            f"{Va} variants' accounting, window {wp or 'none'}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the second process: the plain versions of whole passes on the host CPU
 # ---------------------------------------------------------------------------
 
@@ -4330,8 +4685,9 @@ def plain_worker(out_dir, part):
     phase 3's sweeps, phase 4's and 4b's passes, config #4's variant 0 and
     first sampled variant; part "b" (a process of its own beside it): phase
     3's whole gang pass and gang sweep; part "c": phase 3's whole sequential
-    passes. Parts "b" and "c" end with their halves of phase 4k's
-    default-profile fault sweep."""
+    passes. Parts "b" and "c" end with their shares of phase 4k's
+    default-profile fault sweep, and every part with its share of 4l(e)'s
+    counted one."""
     torch.set_num_threads(PLAIN_THREADS)
     import kube_scheduler_simulator_tpu_torch as kp
     from kube_scheduler_simulator_tpu_torch.engine import cuda
@@ -4352,6 +4708,7 @@ def plain_worker(out_dir, part):
         inp = wait_input(out_dir, "serving4j_in")
         save("batch_serving", tenant_sequence(inp["snap"], inp["arrivals"]))
         save("fault3_c", plain_fault3(kp, out_dir, "fault3_c"))
+        save("fault4l_c", plain_fault3(kp, out_dir, "fault4l_c"))
         return
     if part == "b":
         enc = gang_sweep3_encoding(kp, cpu)
@@ -4372,6 +4729,7 @@ def plain_worker(out_dir, part):
         save("batch_preempt", tenant_sequence(tenant_copy(snap, 0),
                                               tenant_copy({"pods": arrivals}, 0)["pods"]))
         save("fault3_b", plain_fault3(kp, out_dir, "fault3_b"))
+        save("fault4l_b", plain_fault3(kp, out_dir, "fault4l_b"))
         return
     sweeps = {}
     for pol in (kp.TPU32, kp.EXACT):
@@ -4411,6 +4769,7 @@ def plain_worker(out_dir, part):
                                   torch.as_tensor(wv).to(enc.policy.score), record=False)
     save("config4_sampled", dict(digest=digest, v=v, weights=wv, state=_state_dict(st),
                                  sels=sels, seconds=time.perf_counter() - t0))
+    save("fault4l_a", plain_fault3(kp, out_dir, "fault4l_a"))
 
 
 def save_input(name, obj):
@@ -4460,9 +4819,9 @@ def _die_with_parent():
     ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGKILL)
 
 
-PLAIN_PARTS = {"a": ("sweep3", "fit", "affinity", "config4", "config4_sampled"),
-               "b": ("gang3", "gangsweep3", "batch_preempt", "fault3_b"),
-               "c": ("passes3", "seg4c", "batch_serving", "fault3_c")}
+PLAIN_PARTS = {"a": ("sweep3", "fit", "affinity", "config4", "config4_sampled", "fault4l_a"),
+               "b": ("gang3", "gangsweep3", "batch_preempt", "fault3_b", "fault4l_b"),
+               "c": ("passes3", "seg4c", "batch_serving", "fault3_c", "fault4l_c")}
 
 
 class PlainWorker:
@@ -4622,7 +4981,7 @@ def run_phases(kp, workers) -> int:
         "supported_config(), TPU32 (match width 128)")
     gang = drive_gang_default(kp, cuda, diff, *default_cluster, smi)
     nodes, pods = kp.synthetic_affinity_cluster(500, 5000, seed=11)
-    drive_gang_affinity(kp, cuda, nodes, pods, aff["eng"].placements(), smi)
+    gang_aff = drive_gang_affinity(kp, cuda, nodes, pods, aff["eng"].placements(), smi)
     ph.done("4e")
 
     # -- 4f. gang passes through the serving path ----------------------------
@@ -4660,6 +5019,14 @@ def run_phases(kp, workers) -> int:
     fault = drive_fault_sweep(kp, cuda, diff, fit, fault3_in, smi)
     ph.done("4k")
 
+    # -- 4l. the counted gang forms (loop="static") -----------------------------
+    log("[4l] the counted gang forms (loop=\"static\"), TPU32: GangScheduler on the fit and "
+        f"affinity clusters and at a budget of {COUNTED_BUDGET}, GangSweep of "
+        f"{COUNTED_SWEEP_VARIANTS} config #4 variants, FaultSweep of 4k(a)'s masks and 4k(b)'s "
+        f"scenarios at fail_prob {FAULT3_CARD_PROB}")
+    counted = drive_counted(kp, cuda, diff, fit, gang_aff, gsweep, fault, smi)
+    ph.done("4l")
+
     # -- 4h. the kernels' whole passes against the second process's plain ones
     log("[4h] the whole passes against the plain versions run on the host CPU in the second "
         "process (exact equality)")
@@ -4676,6 +5043,9 @@ def run_phases(kp, workers) -> int:
                       worker.result("batch_preempt", deadline))
     check_plain_fault3(diff, fault["fault3"],
                        [worker.result(name, deadline) for name in FAULT3_PARTS])
+    check_plain_fault3(diff, counted["fault4l"],
+                       [worker.result(name, deadline) for name in FAULT4L_PARTS], "4l(e)",
+                       "counted fault")
     config4_plain = worker.result("config4", deadline)
     config4_sampled = worker.result("config4_sampled", deadline)
     ph.done("4h")
@@ -4707,6 +5077,8 @@ def run_phases(kp, workers) -> int:
     kernels += batch_rows(cuda, diff, batch, smi)
     log(f"[5h] the fault sweep's kernels at phase 4k(a)'s shapes, TPU32 [{smi}]")
     kernels += fault_rows(kp, cuda, diff, fault, smi)
+    log(f"[5i] the counted forms' kernels at phase 4l(a)'s and 4l(d)'s round 1, TPU32 [{smi}]")
+    kernels += counted_rows(cuda, diff, counted, smi)
     ph.done("5")
     log("    phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in ph.seconds.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")

@@ -238,8 +238,11 @@ __device__ __forceinline__ bool row_ok(const I* vals, int W, int i, I NEG) {
   return false;
 }
 
-// One variant's matching (gang_match_kernel): rows [0, n_live).
-template <typename I>
+// One variant's matching (gang_match_kernel): rows [0, n_live). COUNTED (the
+// reference's inner_loop="static", gang.py:884-901 `m_scan`): exactly `iters`
+// iterations, each after the matching settles a no-op, in place of the exit
+// at the first iteration that commits nothing; the sel is the same.
+template <typename I, bool COUNTED = false>
 __device__ void match_one(const I* vals, const int* idx, int W, int K, int n_live,
                           const int* rows, const int* order, const int* claims, int MC,
                           const unsigned char* carrier, int N, int C, int iters, int* sel,
@@ -356,7 +359,10 @@ __device__ void match_one(const I* vals, const int* idx, int W, int K, int n_liv
     __syncthreads();
     for (int n = threadIdx.x; n <= N; n += blockDim.x) winner[n] = NO_ORDER;
     for (int k = threadIdx.x; k < C; k += blockDim.x) cmin[k] = NO_ORDER;
-    if (__syncthreads_or(any) == 0) break;
+    if constexpr (COUNTED)
+      __syncthreads();
+    else if (__syncthreads_or(any) == 0)
+      break;
   }
   if (committed) atomicAdd(&stat[0], committed);
 }
@@ -399,6 +405,29 @@ __global__ void __launch_bounds__(1024)
     int* stat = stat0 + 2 * (size_t)v;
     match_one<I>(vals, idx, W, K, live_rows(live, v, K), rows, order, claims, MC, carrier, N,
                  C, iters, sel, cand, taken, winner, cmin, ctaken, stat, smi);
+    __syncthreads();  // the next variant reuses the shared reduction words
+  }
+}
+
+// K9 match's counted form (inner_loop="static"): gang_match_kernel with
+// match_one<I, true>, the same arguments, slices and TEN rows. A kernel of its
+// own, so that gang_match_kernel's instantiations keep their code.
+template <typename I, bool TEN = false>
+__global__ void __launch_bounds__(1024)
+    gang_match_counted_kernel(const I* vals0, const int* idx0, int W, int V, int K,
+                              const int* live, const int* rows0, const int* order0,
+                              const int* claims0, int MC, const unsigned char* carrier0, int N,
+                              int C, int iters, int* sel0, int* cand0, int* taken0,
+                              int* winner0, int* cmin0, int* ctaken0, int* stat0, int P) {
+  __shared__ Smem<int> smi;
+  for (int v = blockIdx.x; v < V; v += gridDim.x) {
+    const size_t vp = TEN ? (size_t)v * P : 0, vk = (size_t)v * K;
+    match_one<I, true>(vals0 + vk * W, idx0 ? idx0 + vk * W : nullptr, W, K,
+                       live_rows(live, v, K), rows0 + vk, order0 + vp, claims0 + vp * MC, MC,
+                       carrier0 ? carrier0 + vp : nullptr, N, C, iters, sel0 + vk, cand0 + vk,
+                       taken0 + (size_t)v * N, winner0 + (size_t)v * (N + 1),
+                       cmin0 + (size_t)v * C, ctaken0 + (size_t)v * C, stat0 + 2 * (size_t)v,
+                       smi);
     __syncthreads();  // the next variant reuses the shared reduction words
   }
 }
@@ -488,6 +517,58 @@ int gang_rows_grid(int V, int K) {
 
 }  // namespace
 
+// gang_advance is defined once in the library: in the unit of the one-variant
+// int32 entry points.
+#if (!defined(SEQ_TENANT) || SEQ_TENANT == 0) && (!defined(SEQ_ONLY) || SEQ_ONLY == 32)
+namespace {
+
+// -(-a // b) for b > 0, as jnp's floor division gives it
+__device__ __forceinline__ int ceil_div(int a, int b) {
+  return a >= 0 ? (a + b - 1) / b : -(-a / b);
+}
+
+// K9's counted round accounting (gang.py:995-1037 `round_once`'s sweep
+// state, :1055-1081 `r_scan`/`rw_scan`): after round slot s's match and
+// bind, each variant's (tenant's, scenario's) counters for slot s + 1, on the
+// card, so that a counted pass enqueues all its slots with no readback
+// between them. acc is [6, V] int32: rounds progressed, window index w_idx,
+// done, pending count, the next slot's window start lo and live row count.
+// stat [V, 2] is gang_match's (rows committed, live). WP = 0: no window,
+// progressed = a commit; else w_next = committed ? 0 : w_idx + 1, w_max =
+// max(1, ceil(pending / WP)), done = no commit and k + 1 >= w_max (k = w_idx
+// clamped to the last window), progressed = not done, lo = min(k' WP, P - WP)
+// at the next k'. A variant that is done stays as it is: its later slots
+// commit nothing (a round without a commit leaves the state unchanged), so
+// gating it off (live 0) is exact. One thread a variant; it moves 32 bytes a
+// variant (a few µs for any V the card holds), bound by its launch.
+__global__ void gang_advance_kernel(const int* stat, int* acc, int V, int WP, int P) {
+  int *rounds = acc, *w_idx = acc + V, *done = acc + 2 * (size_t)V, *pend = acc + 3 * (size_t)V;
+  int *lo = acc + 4 * (size_t)V, *live = acc + 5 * (size_t)V;
+  for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < V; v += gridDim.x * blockDim.x) {
+    if (done[v]) continue;
+    const int committed = stat[2 * (size_t)v], n = pend[v], left = n - committed;
+    int w = w_idx[v];
+    bool fin = committed == 0;
+    if (WP > 0) {
+      const int last = ceil_div(P, WP) - 1;
+      const int w_max = imax<int>(1, ceil_div(n, WP));
+      fin = fin && imin<int>(w, last) + 1 >= w_max;
+      w = committed ? 0 : w + 1;
+      lo[v] = imin<int>(imin<int>(w, last) * WP, P - WP);
+      live[v] = fin ? 0 : imax<int>(0, imin<int>(left - lo[v], WP));
+    } else {
+      live[v] = fin ? 0 : left;
+    }
+    rounds[v] += !fin;
+    done[v] = fin;
+    pend[v] = left;
+    w_idx[v] = w;
+  }
+}
+
+}  // namespace
+#endif
+
 // ---------------------------------------------------------------------------
 // plain C interface (engine/cuda.py binds it with ctypes), as seq_kernels.cu's
 // ---------------------------------------------------------------------------
@@ -534,6 +615,16 @@ extern "C" {
         sel, cand, taken, winner, cmin, ctaken, stat, 0);                                     \
     return (int)cudaGetLastError();                                                           \
   }                                                                                           \
+  int gang_match_counted_##T(const void* vals, const int* idx, int W, int V, int K,          \
+                             const int* live, const int* rows, const int* order,              \
+                             const int* claims, int MC, const unsigned char* carrier, int N,  \
+                             int C, int iters, int* sel, int* cand, int* taken, int* winner,  \
+                             int* cmin, int* ctaken, int* stat, void* stream) {               \
+    gang_match_counted_kernel<I><<<V, block_threads(K), 0, (cudaStream_t)stream>>>(           \
+        (const I*)vals, idx, W, V, K, live, rows, order, claims, MC, carrier, N, C, iters,    \
+        sel, cand, taken, winner, cmin, ctaken, stat, 0);                                     \
+    return (int)cudaGetLastError();                                                           \
+  }                                                                                           \
   int gang_bind_##T(const Planes* a, const State* s, const StateStride* ss, int V,            \
                     const int* rows, int K, const int* live, const int* sel,                  \
                     const int* order, void* stream) {                                         \
@@ -569,6 +660,16 @@ extern "C" {
         sel, cand, taken, winner, cmin, ctaken, stat, P);                                     \
     return (int)cudaGetLastError();                                                           \
   }                                                                                           \
+  int batch_match_counted_##T(const void* vals, const int* idx, int W, int V, int K,         \
+                              const int* live, const int* rows, const int* order,             \
+                              const int* claims, int MC, const unsigned char* carrier, int N, \
+                              int C, int iters, int* sel, int* cand, int* taken, int* winner, \
+                              int* cmin, int* ctaken, int* stat, int P, void* stream) {       \
+    gang_match_counted_kernel<I, true><<<V, block_threads(K), 0, (cudaStream_t)stream>>>(     \
+        (const I*)vals, idx, W, V, K, live, rows, order, claims, MC, carrier, N, C, iters,    \
+        sel, cand, taken, winner, cmin, ctaken, stat, P);                                     \
+    return (int)cudaGetLastError();                                                           \
+  }                                                                                           \
   int batch_bind_##T(const Planes* tab, const State* s, const StateStride* ss, int V,         \
                      const int* rows, int K, const int* live, const int* sel,                 \
                      const int* order, void* stream) {                                        \
@@ -592,6 +693,13 @@ GANG_TENANT_ENTRY_POINTS(i32, int)
 #if !defined(SEQ_ONLY) || SEQ_ONLY == 64
 GANG_TENANT_ENTRY_POINTS(i64, long long)
 #endif
+#endif
+#if (!defined(SEQ_TENANT) || SEQ_TENANT == 0) && (!defined(SEQ_ONLY) || SEQ_ONLY == 32)
+// gang_advance: the counted round's accounting of V variants, in place
+int gang_advance(const int* stat, int* acc, int V, int WP, int P, void* stream) {
+  gang_advance_kernel<<<(V + 127) / 128, 128, 0, (cudaStream_t)stream>>>(stat, acc, V, WP, P);
+  return (int)cudaGetLastError();
+}
 #endif
 
 }  // extern "C"

@@ -36,6 +36,13 @@ share its device functions) carry the gang engine's rounds, K9 of
   * `gang_match` — one round's one-commit-per-node matching;
   * `gang_bind` — `bind_all`, the round's commits scattered into state.
 
+The counted loops (`loop="static"`, `inner_loop="static"`) add two:
+`gang_match_counted` (and its tenant form `batch_match_counted`), the
+matching's `m_scan` of exactly `inner_iters` iterations, and
+`gang_advance`, a counted round slot's accounting (rounds progressed, the
+window index, done, the next slot's window and live count) on the card, so
+that a counted pass enqueues all its slots and reads back once.
+
 Their tenant forms carry the batch plane's gang passes (`batch.gang.run`):
 `batch_eval`, `batch_match` and `batch_bind`, with `batch_seg` (the tenant
 form of `sweep_run`'s per-variant segments) for the preempt phases; each
@@ -112,7 +119,8 @@ NVCC_FLAGS = (
 KERNELS = ("seq_attempt", "seq_bind", "seq_run", "seq_preempt", "seq_evict",
            "gang_eval", "gang_topk", "gang_match", "gang_bind", "sweep_run",
            "batch_run", "batch_seg", "batch_eval", "batch_match", "batch_bind",
-           "fault_evict", "fault_tally")
+           "fault_evict", "fault_tally", "gang_match_counted", "batch_match_counted",
+           "gang_advance")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _LIB = None
@@ -652,6 +660,7 @@ def library() -> ctypes.CDLL:
             fn.argtypes, fn.restype = [], ci
         lib.seq_workspace_bytes.argtypes = [vp, ci, ci]
         lib.seq_workspace_bytes.restype = ctypes.c_longlong
+        match = [vp, vp, ci, ci, ci, vp, vp, vp, vp, ci, vp, ci, ci, ci]  # the matchings' head
         for t in ("i32", "i64"):
             for name, args in (
                 ("seq_attempt", [vp, vp, vp, vp, ci] + [vp] * 8),
@@ -662,8 +671,8 @@ def library() -> ctypes.CDLL:
                 ("gang_eval", [vp] * 5 + [ci, vp, ci, vp, vp, ci] + [vp] * 6 + [ci]
                  + [vp] * 4 + [ctypes.c_longlong, vp]),
                 ("gang_topk", [vp, ci, ci, ci, vp, ci, vp, vp, vp]),
-                ("gang_match", [vp, vp, ci, ci, ci, vp, vp, vp, vp, ci, vp, ci, ci, ci]
-                 + [vp] * 8),
+                ("gang_match", match + [vp] * 8),
+                ("gang_match_counted", match + [vp] * 8),
                 ("gang_bind", [vp, vp, vp, ci, vp, ci, vp, vp, vp, vp]),
                 ("sweep_run", [vp] * 5 + [ci, vp, ci, vp, vp, ci] + [vp] * 4
                  + [ctypes.c_longlong, vp]),
@@ -680,8 +689,8 @@ def library() -> ctypes.CDLL:
                 ("batch_eval_grid", [ci]),
                 ("batch_eval", [vp, vp, ci, vp, vp, vp, ci, vp, ci, vp, vp, vp, ci] + [vp] * 4
                  + [ctypes.c_longlong, vp]),
-                ("batch_match", [vp, vp, ci, ci, ci, vp, vp, vp, vp, ci, vp, ci, ci, ci]
-                 + [vp] * 7 + [ci, vp]),
+                ("batch_match", match + [vp] * 7 + [ci, vp]),
+                ("batch_match_counted", match + [vp] * 7 + [ci, vp]),
                 ("batch_bind", [vp, vp, vp, ci, vp, ci, vp, vp, vp, vp]),
                 ("fault_evict", [vp, vp, vp, ci, vp, vp, vp, vp, vp]),
             ):
@@ -690,6 +699,7 @@ def library() -> ctypes.CDLL:
             f = getattr(lib, f"gang_eval_grid_{t}")
             f.argtypes, f.restype = [ci, ci], ci
         lib.fault_tally.argtypes, lib.fault_tally.restype = [vp, vp, vp, ci, ci, vp, vp, vp], ci
+        lib.gang_advance.argtypes, lib.gang_advance.restype = [vp, vp, ci, ci, ci, vp], ci
         cl = ctypes.c_longlong
         for name in ("delta_scatter_set", "delta_scatter_add"):
             f = getattr(lib, name)
@@ -1383,7 +1393,8 @@ def gang_topk(scores, live, mw: int):
     return (vals[0], idx[0]) if single else (vals, idx)
 
 
-def _gang_match_one(vals, idx, rows, live, order, claims, carrier, n_nodes, n_claims, iters):
+def _gang_match_one(vals, idx, rows, live, order, claims, carrier, n_nodes, n_claims, iters,
+                    counted=False):
     K = rows.shape[0]
     n = _n_live(live, K)
     dev = vals.device
@@ -1438,14 +1449,14 @@ def _gang_match_one(vals, idx, rows, live, order, claims, carrier, n_nodes, n_cl
         sel_acc = torch.where(commit, cand.to(torch.int32), sel_acc)
         taken[cand[commit]] = True
         claim_taken |= (pc & commit[:, None]).any(dim=0)
-        if not bool(commit.any()):
+        if not counted and not bool(commit.any()):
             break
     sel[:n] = sel_acc
     return sel, torch.tensor([int((sel_acc >= 0).sum()), n], dtype=torch.int32, device=dev)
 
 
 def gang_match_plain(vals, idx, rows, live, order, claims, carrier, n_nodes: int,
-                     n_claims: int, iters: int):
+                     n_claims: int, iters: int, counted: bool = False):
     """One round's matching (gang.py make_match_step/match) over rows
     [0, live): `vals` [K, W] candidate scores, `idx` [K, W] their nodes
     (None: column j is node j), `rows` the rows' pods, `order` [P] queue
@@ -1453,24 +1464,29 @@ def gang_match_plain(vals, idx, rows, live, order, claims, carrier, n_nodes: int
     padded), `carrier` [P] bool (None without rel_serialize). Returns (sel
     [K] int32, the committed node or -1; stat [2] int32: rows committed,
     live). The stacked form (vals [V, K, W], rows [V, K], live [V]) matches
-    each variant alone: sel [V, K], stat [V, 2]."""
+    each variant alone: sel [V, K], stat [V, 2]. Up to `iters` iterations,
+    ending at the first that commits nothing (`while_loop`); `counted`
+    (inner_loop="static", `m_scan`): exactly `iters`, the same sel."""
     if rows.dim() == 1:
         return _gang_match_one(vals, idx, rows, live, order, claims, carrier, n_nodes,
-                               n_claims, iters)
+                               n_claims, iters, counted)
     outs = [_gang_match_one(vals[v], None if idx is None else idx[v], rows[v],
-                            _live_of(live, v), order, claims, carrier, n_nodes, n_claims, iters)
+                            _live_of(live, v), order, claims, carrier, n_nodes, n_claims, iters,
+                            counted)
             for v in range(rows.shape[0])]
     return torch.stack([x for x, _ in outs]), torch.stack([x for _, x in outs])
 
 
 def gang_match(vals, idx, rows, live, order, claims, carrier, n_nodes: int, n_claims: int,
-               iters: int):
+               iters: int, counted: bool = False):
     """K9 match, as `gang_match_plain`: one block a variant runs the round's
-    whole matching loop."""
+    whole matching loop; `counted` launches the counted form
+    (`gang_match_counted`, its own kernel and counter)."""
+    kernel = "gang_match_counted" if counted else "gang_match"
     if _on_cpu(vals):
-        PLAIN_CALLS["gang_match"] += 1
+        PLAIN_CALLS[kernel] += 1
         return gang_match_plain(vals, idx, rows, live, order, claims, carrier, n_nodes,
-                                n_claims, iters)
+                                n_claims, iters, counted)
     dev = vals.device
     if dev.type not in KERNEL_DEVICE_TYPES:
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
@@ -1500,15 +1516,15 @@ def gang_match(vals, idx, rows, live, order, claims, carrier, n_nodes: int, n_cl
     stat = torch.empty((V, 2), **i32)
     claims = claims.contiguous()
     t = "i32" if vals.dtype == torch.int32 else "i64"
-    rc = getattr(library(), f"gang_match_{t}")(
+    rc = getattr(library(), f"{kernel}_{t}")(
         vals.contiguous().data_ptr(), _ptr(None if idx is None else idx.contiguous()), W, V, K,
         _ptr(live), rows.contiguous().data_ptr(), order.contiguous().data_ptr(),
         claims.data_ptr(), claims.shape[1], _ptr(None if carrier is None else carrier.contiguous()),
         n_nodes, n_claims, iters, sel.data_ptr(), cand.data_ptr(), taken.data_ptr(),
         winner.data_ptr(), cmin.data_ptr(), ctaken.data_ptr(), stat.data_ptr(), _stream(),
     )
-    _raise_on(rc, "gang_match")
-    LAUNCHES["gang_match"] += 1
+    _raise_on(rc, kernel)
+    LAUNCHES[kernel] += 1
     return (sel[0], stat[0]) if single else (sel, stat)
 
 
@@ -1568,6 +1584,66 @@ def gang_bind(prog: SeqProgram, a: ClusterArrays, s: SchedState, rows, live, sel
     _raise_on(rc, "gang_bind")
     LAUNCHES["gang_bind"] += 1
     return s
+
+
+ADVANCE_ROWS = ("rounds", "w_idx", "done", "pend", "lo", "live")  # gang_advance's acc rows
+
+
+def gang_advance_plain(stat, acc, wp: int, n_pods: int):
+    """The counted round's accounting (gang.py round_once's sweep state and
+    `r_scan`/`rw_scan`'s progressed sum), in place: after a slot's match and
+    bind, each variant's counters for the next slot. `acc` [6, V] int32
+    holds per variant the rounds progressed, the window index, done, the
+    pending count, the next slot's window start and its live row count
+    (ADVANCE_ROWS); `stat` [V, 2] is the slot's gang_match stat (rows
+    committed first). `wp` 0: no window, a round progressed when it
+    committed; else a commit resets the window index to 0 and a round
+    without one moves it on, and a variant is done after a whole sweep of
+    its pending windows without a commit (every other round progressed).
+    A done variant keeps its counters and live 0. Returns `acc`."""
+    rounds, w_idx, done, pend, lo, live = acc.unbind(0)
+    committed = stat[:, 0]
+    run = done == 0
+    fin = committed == 0
+    left = pend - committed
+    if wp:
+        last = -(-n_pods // wp) - 1
+        w_max = torch.div(pend + (wp - 1), wp, rounding_mode="floor").clamp(min=1)
+        fin = fin & (w_idx.clamp(max=last) + 1 >= w_max)
+        w_next = torch.where(committed > 0, 0, w_idx + 1)
+        lo_next = (w_next.clamp(max=last) * wp).clamp(max=n_pods - wp)
+        live_next = torch.where(fin, 0, (left - lo_next).clamp(0, wp))
+    else:
+        w_next, lo_next = w_idx, lo
+        live_next = torch.where(fin, 0, left)
+    for dst, src in ((rounds, rounds + (~fin).to(torch.int32)), (w_idx, w_next),
+                     (done, fin.to(torch.int32)), (pend, left), (lo, lo_next),
+                     (live, live_next)):
+        dst.copy_(torch.where(run, src, dst))
+    return acc
+
+
+def gang_advance(stat, acc, wp: int, n_pods: int):
+    """The counted round's accounting, as `gang_advance_plain`: one thread a
+    variant, in place. Returns `acc`."""
+    if _on_cpu(acc):
+        PLAIN_CALLS["gang_advance"] += 1
+        return gang_advance_plain(stat, acc, wp, n_pods)
+    dev = acc.device
+    if dev.type not in KERNEL_DEVICE_TYPES:
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
+    V = acc.shape[1] if acc.dim() == 2 else -1
+    for name, x, shape in (("acc", acc, (len(ADVANCE_ROWS), V)), ("stat", stat, (V, 2))):
+        if (x.device != dev or x.dtype != torch.int32 or tuple(x.shape) != shape
+                or not x.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32 {shape} tensor on {dev}")
+    if wp and not 0 < wp < n_pods:
+        raise ValueError(f"window {wp} outside (0, {n_pods})")
+    rc = library().gang_advance(stat.data_ptr(), acc.data_ptr(), V, int(wp or 0), n_pods,
+                                _stream())
+    _raise_on(rc, "gang_advance")
+    LAUNCHES["gang_advance"] += 1
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -1934,25 +2010,27 @@ def batch_eval(progs, arrays, states: SchedState, weights, rows, live, orders, *
 
 
 def batch_match_plain(vals, idx, rows, live, orders, claims, carriers, n_nodes: int,
-                      n_claims: int, iters: int):
+                      n_claims: int, iters: int, counted: bool = False):
     """The tenants' matchings: `gang_match_plain` of tenant b's candidates
     with its own order [P], claims [P, MC] and carriers [P] (carriers None:
     no rel_serialize). Returns (sel [B, K], stat [B, 2])."""
     outs = [_gang_match_one(vals[b], None if idx is None else idx[b], rows[b], _live_of(live, b),
                             orders[b], claims[b], None if carriers is None else carriers[b],
-                            n_nodes, n_claims, iters)
+                            n_nodes, n_claims, iters, counted)
             for b in range(rows.shape[0])]
     return torch.stack([x for x, _ in outs]), torch.stack([x for _, x in outs])
 
 
 def batch_match(vals, idx, rows, live, orders, claims, carriers, n_nodes: int, n_claims: int,
-                iters: int):
+                iters: int, counted: bool = False):
     """K9 match's tenant form, as `batch_match_plain`: one block a tenant,
-    each reading its own order, claims and carriers."""
+    each reading its own order, claims and carriers; `counted` launches the
+    counted form (`batch_match_counted`)."""
+    kernel = "batch_match_counted" if counted else "batch_match"
     if _on_cpu(vals):
-        PLAIN_CALLS["batch_match"] += 1
+        PLAIN_CALLS[kernel] += 1
         return batch_match_plain(vals, idx, rows, live, orders, claims, carriers, n_nodes,
-                                 n_claims, iters)
+                                 n_claims, iters, counted)
     dev = vals.device
     if dev.type not in KERNEL_DEVICE_TYPES:
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
@@ -1979,7 +2057,7 @@ def batch_match(vals, idx, rows, live, orders, claims, carriers, n_nodes: int, n
     stat = torch.empty((B, 2), **i32)
     claims = claims.contiguous()
     t = "i32" if vals.dtype == torch.int32 else "i64"
-    rc = getattr(library(), f"batch_match_{t}")(
+    rc = getattr(library(), f"{kernel}_{t}")(
         vals.contiguous().data_ptr(), _ptr(None if idx is None else idx.contiguous()), W, B, K,
         _ptr(live), rows.contiguous().data_ptr(), orders.contiguous().data_ptr(),
         claims.data_ptr(), claims.shape[2],
@@ -1987,8 +2065,8 @@ def batch_match(vals, idx, rows, live, orders, claims, carriers, n_nodes: int, n
         sel.data_ptr(), cand.data_ptr(), taken.data_ptr(), winner.data_ptr(), cmin.data_ptr(),
         ctaken.data_ptr(), stat.data_ptr(), P, _stream(),
     )
-    _raise_on(rc, "batch_match")
-    LAUNCHES["batch_match"] += 1
+    _raise_on(rc, kernel)
+    LAUNCHES[kernel] += 1
     return sel, stat
 
 

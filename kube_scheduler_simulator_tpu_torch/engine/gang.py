@@ -24,12 +24,12 @@ own queue position (`qpos`) — and rounds resume until a phase binds
 nothing. The divergence policy is the reference's (its module docstring):
 exact sequential parity where no pod loses a round.
 
-The round loop is driven from the host with one readback a round (the
-count `gang_match` committed and the pending count, two integers a
-variant): the pending list, its count and the phase segment are built on
-the card (a stable order of the queue's pending pods), and every kernel
-reads the live row count there. A phase costs one more readback (the pods
-it bound), and `seq_run`'s own checks three.
+The round loop (`loop="dynamic"`) is driven from the host with one
+readback a round (the count `gang_match` committed and the pending count,
+two integers a variant): the pending list, its count and the phase segment
+are built on the card (a stable order of the queue's pending pods), and
+every kernel reads the live row count there. A phase costs one more
+readback (the pods it bound), and `seq_run`'s own checks three.
 
 The round body runs on a stack of V variants' states with a [V, S] weight
 matrix (`_gang_pass`): one launch of each kernel a round for all of them,
@@ -53,10 +53,17 @@ final state. The result is the sequential trace in the port's layout
 (engine/cuda.py TRACE_SLOTS_PREEMPT, victims as CSR records), decoded by
 the sequential engine's `results()`.
 
-Not ported: `loop="static"` and `inner_loop="static"` (the counted-loop
-programs the reference keeps for a TPU backend that could not compile
-`while_loop`; the same placements), which raise NotImplementedError
-(ROADMAP.md).
+The counted loops (`loop="static"`, `inner_loop="static"`: the programs the
+reference keeps for a TPU backend that could not compile `while_loop`; the
+same placements at equal `inner_iters`). A counted pass (`_counted_pass`)
+runs exactly `static_rounds` round slots with no readback between them:
+each slot's rows, window and live counts are built on the card, and after
+its match and bind `cuda.gang_advance` updates each variant's round
+accounting there, so the pass reads back once (rounds progressed and the
+pending count). The host auto-resumes a pass that spent its whole budget
+(`_resumed_pass`; GangSweep's per-variant form in parallel/sweep.py).
+`inner_loop="static"` runs the matching's exactly `inner_iters` iterations
+(`cuda.gang_match(counted=True)`, its own kernel).
 """
 
 from __future__ import annotations
@@ -80,21 +87,22 @@ class _Rounds:
     `_wp`, `max_rounds`, `compact`, `device`, `last_stats`, the queue rows
     `_queue` ([Q], or [V, Q] -1 padded), `_pending` and `_round`."""
 
-    def _window_rows(self, rows, count, w_idx):
+    def _window_rows(self, rows, lo):
         """Each variant's eval window of its pending-first rows [V, Q]: WP
-        rows from lo = min(k * WP, P - WP), k = min(w_idx, windows - 1)
-        (-1 past the queue), and its live count. Returns (rows [V, WP], live
-        [V], k per variant)."""
-        P, WP, dev = self.enc.P, self._wp, self.device
-        n_win = -(-P // WP)
-        k = [min(x, n_win - 1) for x in w_idx]
-        lo = torch.tensor([min(kk * WP, P - WP) for kk in k], dtype=torch.int32, device=dev)
-        Q = rows.shape[1]
+        rows from lo [V] on the device (-1 past the queue)."""
+        WP, Q = self._wp, rows.shape[1]
         padded = torch.cat([rows, rows.new_full((rows.shape[0], 1), -1)], dim=1)
-        at = (lo[:, None] + torch.arange(WP, dtype=torch.int32, device=dev)).clamp(max=Q)
-        return padded.gather(1, at.long()), (count - lo).clamp(0, WP), k
+        at = (lo[:, None] + torch.arange(WP, dtype=torch.int32, device=self.device)).clamp(max=Q)
+        return padded.gather(1, at.long())
 
     def _gang_pass(self, states, w, chronology=None, start=None, k0=None):
+        """One gang pass of stacked `states` (in place): the counted pass
+        under loop="static", else rounds to each variant's fixpoint. Returns
+        (rounds, pods still pending), lists of V."""
+        fn = self._counted_pass if self.loop == "static" else self._fixpoint_pass
+        return fn(states, w, chronology, start, k0)
+
+    def _fixpoint_pass(self, states, w, chronology=None, start=None, k0=None):
         """Rounds to fixpoint from stacked `states` [V, ...] (in place),
         variant v at weights row w[v], one launch of each kernel a round for
         every variant. Each variant runs until its own fixpoint and then
@@ -125,7 +133,10 @@ class _Rounds:
                 if sort:
                     rows = rows[:, :max(1, K)].contiguous()
             else:
-                rows, live, k = self._window_rows(rows, count, w_idx)
+                k = [min(x, -(-P // WP) - 1) for x in w_idx]
+                lo = torch.tensor([min(kk * WP, P - WP) for kk in k], dtype=torch.int32,
+                                  device=self.device)
+                rows, live = self._window_rows(rows, lo), (count - lo).clamp(0, WP)
             if gate is not None:
                 live = torch.where(gate, live, 0)
             sel, stat = self._round(states, w, rows, live)
@@ -160,6 +171,72 @@ class _Rounds:
                                states.assignment[0].clone()))
         return rounds, n_pend
 
+    def _counted_pass(self, states, w, chronology=None, start=None, k0=None):
+        """The counted pass (loop="static"; gang.py `r_scan`/`rw_scan`):
+        exactly `static_rounds` round slots of every variant, enqueued with
+        no readback between them. Each slot takes the pending-first queue
+        (the first slot's row count `k0`, or the queue: pending only
+        shrinks within a pass), in its window from the device's `lo` under
+        a binding eval_window, at the device's live count; after its match
+        and bind, `cuda.gang_advance` updates each variant's rounds
+        progressed, window index, done flag and the next slot's window and
+        live count (ADVANCE_ROWS). A variant is gated off (live 0) after its
+        first round that does not progress: such a round leaves the state
+        unchanged, so every later slot of the reference's scan commits
+        nothing. Reads back once: rounds progressed (the reference's
+        `progressed.sum()`) and pending pods per variant. `start` and
+        `chronology` as `_fixpoint_pass`'s; the record path numbers each
+        pod's bind round by its slot (gaps where a window slot bound
+        nothing, as the reference's tracked scan)."""
+        V, P, WP, dev = w.shape[0], self.enc.P, self._wp, self.device
+        tracked = chronology is not None
+        if tracked:
+            start_state = cuda.variant_state(states, 0).clone()
+            br = torch.full((P + 1,), -1, dtype=torch.int32, device=dev)
+        rows, count = self._pending(states, sort=True)
+        K = max(1, rows.shape[1] if k0 is None else min(k0, rows.shape[1]))
+        acc = torch.zeros((len(cuda.ADVANCE_ROWS), V), dtype=torch.int32, device=dev)
+        _, _, done, pend, lo, live = acc.unbind(0)
+        pend.copy_(count)
+        if start is not None:
+            done.copy_(~torch.as_tensor(start, dtype=torch.bool, device=dev))
+        if self.static_rounds < 1:
+            done.fill_(1)
+        live.copy_(torch.where(done > 0, 0, count if WP is None else count.clamp(max=WP)))
+        for slot in range(self.static_rounds):
+            if slot:
+                rows, _ = self._pending(states, sort=True)
+            rows_s = rows[:, :K].contiguous() if WP is None else self._window_rows(rows, lo)
+            sel, stat = self._round(states, w, rows_s, live)
+            if tracked:
+                br.index_fill_(0, torch.where(sel[0] >= 0, rows_s[0], P).long(), slot)
+            cuda.gang_advance(stat, acc, WP or 0, P)
+        rounds, n_pend = torch.stack([acc[0], pend]).tolist()
+        self.last_stats["host_syncs"] += 1
+        if tracked:
+            br[P] = -1
+            chronology.append(("rounds", start_state, br[:P], rounds[0],
+                               states.assignment[0].clone()))
+        return rounds, n_pend
+
+    def _resumed_pass(self, states, w, chronology=None):
+        """One variant's gang pass with the static auto-resume (gang.py
+        `_drive.gang_pass`): under loop="static" another counted pass while
+        the last used its whole budget, pods are pending and an explicit
+        max_rounds (a total cap across passes) is not reached, until the
+        pending count stops shrinking. Returns (rounds, pods pending)."""
+        r, n = self._gang_pass(states, w, chronology)
+        rounds = last = r[0]
+        pend = n[0]
+        while (self.loop == "static" and pend > 0 and last >= self.static_rounds
+               and (self.max_rounds is None or rounds < self.max_rounds)):
+            r, n = self._gang_pass(states, w, chronology)
+            rounds, last = rounds + r[0], r[0]
+            stalled, pend = n[0] >= pend, n[0]
+            if stalled:
+                break
+        return rounds, pend
+
 
 class GangScheduler(_Rounds):
     """Fixpoint batch scheduler over one `EncodedCluster`, on `device` (the
@@ -173,7 +250,13 @@ class GangScheduler(_Rounds):
     the InterPodAffinity filter is enabled) and `eval_window` (each round
     evaluates a window of that many pending pods in queue order, rounded up
     to the chunk; a commit resets the window to the front, a round without
-    one moves it on, a whole sweep without one ends the pass)."""
+    one moves it on, a whole sweep without one ends the pass). `loop` and
+    `inner_loop` ("dynamic" or "static"; `inner_loop` None takes `loop`'s)
+    choose the counted forms of the round and matching loops;
+    `static_rounds` (default `max_rounds`, else ceil(P/N) + 4, raised to
+    one whole window sweep under a binding `eval_window`) is a counted
+    pass's round budget, read at run time; an explicit one below the sweep
+    raises ValueError under loop="static"."""
 
     def __init__(
         self,
@@ -212,19 +295,31 @@ class GangScheduler(_Rounds):
             inner_loop = loop
         if inner_loop not in ("dynamic", "static"):
             raise ValueError(f"inner_loop must be dynamic|static|None, got {inner_loop!r}")
-        if "static" in (loop, inner_loop) or static_rounds is not None:
-            raise NotImplementedError(
-                "the counted-loop gang programs (loop='static', inner_loop='static', "
-                "static_rounds) are not ported yet (ROADMAP.md); loop='dynamic' places the "
-                "same pods"
-            )
         self.loop, self.inner_loop = loop, inner_loop
+        explicit = static_rounds is not None or max_rounds is not None
+        if static_rounds is None:
+            # an explicit max_rounds is the budget too; else about the most
+            # pods a node takes, plus slack (a longer fixpoint auto-resumes)
+            static_rounds = (max_rounds if max_rounds is not None
+                             else -(-enc.P // max(1, enc.N)) + 4)
+        # read at run time (GangSweep's resume rule reads it too)
+        self.static_rounds = int(static_rounds)
         self._wp = self.effective_window(enc, self.eval_window, self.chunk)
-        if self._wp is not None and max_rounds is not None:
+        if self._wp is not None:
+            # a commit resets the window to the front, so a budget below one
+            # whole sweep of the windows could end a pass before later windows
+            # were evaluated (and a counted pass without a commit would stop
+            # the auto-resume with feasible pods pending)
             n_win = -(-enc.P // self._wp)
-            if max_rounds < n_win:
-                # a commit resets the window to the front, so a smaller cap
-                # could end the pass before later windows were evaluated
+            if not explicit:
+                self.static_rounds = max(self.static_rounds, n_win)
+            elif loop == "static" and self.static_rounds < n_win:
+                raise ValueError(
+                    f"static per-pass budget {self.static_rounds} cannot cover a full "
+                    f"eval_window sweep (ceil(P/WP) = {n_win}): raise static_rounds/max_rounds "
+                    "or eval_window"
+                )
+            elif loop == "dynamic" and max_rounds is not None and max_rounds < n_win:
                 raise ValueError(
                     f"dynamic per-pass commit budget max_rounds={max_rounds} cannot cover a "
                     f"full eval_window sweep (ceil(P/WP) = {n_win}): raise max_rounds or "
@@ -308,7 +403,7 @@ class GangScheduler(_Rounds):
             vals, idx = scores, None
         sel, stat = cuda.gang_match(
             vals, idx, rows, live, self._order, self._claims, self._carrier, enc.N,
-            a.pod_claim.shape[1], self.inner_iters,
+            a.pod_claim.shape[1], self.inner_iters, counted=self.inner_loop == "static",
         )
         cuda.gang_bind(prog, a, states, rows, live, sel, self._order)
         return sel, stat
@@ -346,8 +441,7 @@ class GangScheduler(_Rounds):
         self.last_stats = {"rounds": 0, "phases": 0, "host_syncs": 0, "phase_pods": 0}
         state = self.enc.state0.clone()
         # the one-variant stack of the round kernels (views of `state`)
-        r, n = self._gang_pass(cuda.as_variants(state), w[None], chronology)
-        rounds, n_pend = r[0], n[0]
+        rounds, n_pend = self._resumed_pass(cuda.as_variants(state), w[None], chronology)
         prog, a = self._base.program, self.enc.arrays
         if self.preempts:
             while n_pend > 0:
@@ -364,8 +458,8 @@ class GangScheduler(_Rounds):
                 self.last_stats["host_syncs"] += 1
                 if n_bound == 0:
                     break
-                r, n = self._gang_pass(cuda.as_variants(state), w[None], chronology)
-                rounds, n_pend = rounds + r[0], n[0]
+                r, n_pend = self._resumed_pass(cuda.as_variants(state), w[None], chronology)
+                rounds += r
         elif tracked and n_pend > 0:
             rows, _ = self._pending(cuda.as_variants(state), sort=True)
             chronology.append(("leftover", rows[0, :n_pend].contiguous()))
@@ -431,13 +525,13 @@ class GangScheduler(_Rounds):
         state = None
         for entry in self._chronology:
             if entry[0] == "rounds":
-                _, start, br, n_rounds, assign_after = entry
+                _, start, br, _, assign_after = entry
                 state = start.clone()
                 br_np = br.cpu().numpy()
-                for r in range(n_rounds):
+                # the bind rounds present, in order (a counted pass numbers
+                # them by slot, with gaps where a slot bound nothing)
+                for r in np.unique(br_np[br_np >= 0]):
                     pods = np.nonzero(br_np == r)[0].astype(np.int32)
-                    if not pods.size:
-                        continue
                     pods_t = torch.as_tensor(pods, device=dev)
                     slot = order[pods_t.long()]
                     cuda.gang_eval(prog, a, state, w, pods_t, None, order, check_pending=False,
@@ -528,7 +622,7 @@ class _TenantRounds(_Rounds):
 
     _SAME = ("P", "N")
     _OPTIONS = ("_wp", "max_rounds", "compact", "match_width", "inner_iters", "rel_serialize",
-                "preempts", "device")
+                "preempts", "device", "loop", "inner_loop", "static_rounds")
     _table = None  # the tenant table, when built beforehand (`cuda.scenario_table`)
 
     def __init__(self, gangs: "list[GangScheduler]"):
@@ -591,6 +685,7 @@ class _TenantRounds(_Rounds):
         sel, stat = cuda.batch_match(
             vals, idx, rows, live, self._orders, self._claims, self._carriers, enc.N,
             enc.arrays.pod_claim.shape[1], self.inner_iters,
+            counted=self.inner_loop == "static",
         )
         cuda.batch_bind(self._progs, self._arrays, states, rows, live, sel, self._orders,
                         table=self._table)

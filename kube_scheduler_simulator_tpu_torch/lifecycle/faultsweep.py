@@ -13,8 +13,9 @@ K11 `faultsweep.one`, `vrun` and `bind_all`).
      its failed nodes and writes its node mask (node_mask & ~fail); the
      gang round fixpoint runs every scenario through the K9 kernels' tenant
      forms, one launch of each a round (engine/gang.py `_ScenarioRounds`),
-     each scenario to its own fixpoint; `cuda.fault_tally` counts the
-     evicted pods bound again (rescheduled) and the rest (stranded).
+     each scenario to its own fixpoint (loop="static": one counted pass);
+     `cuda.fault_tally` counts the evicted pods bound again (rescheduled)
+     and the rest (stranded).
 
 As the reference's, the sweep runs the round fixpoint only, with no
 preempt phases even where the profile enables DefaultPreemption: it
@@ -36,9 +37,11 @@ from ..utils import prng
 class FaultSweep:
     """Monte-Carlo node-failure sweep over one encoded cluster, on `device`
     (the CUDA card unless the caller names another). `chunk`, `loop` and
-    `eval_window` are `GangScheduler`'s (`loop="static"` is not ported and
-    raises NotImplementedError); `mesh` (sharding the scenarios over
-    several cards) is not ported and raises NotImplementedError."""
+    `eval_window` are `GangScheduler`'s; under loop="static" each scenario
+    runs exactly one counted pass of the gang's `static_rounds` slots, with
+    no auto-resume, as the reference's (a scenario that needs more rounds
+    strands pods the dynamic sweep places). `mesh` (sharding the scenarios
+    over several cards) is not ported and raises NotImplementedError."""
 
     def __init__(
         self,
@@ -172,7 +175,8 @@ class FaultSweep:
         states = cuda.stack_states([self._state_bound] * S)
         evict, evicted, node_masks = cuda.fault_evict(g._base.program, enc.arrays, states, fail)
         t = _ScenarioRounds(g, node_masks)
-        # the first round takes rows up to the most pods pending in a scenario
+        # the first round takes rows up to the most pods pending in a scenario;
+        # a counted pass (loop="static") is one, not resumed
         k0 = int(t._pending(states, sort=False)[1].max())
         rounds, _ = t._gang_pass(states, w, k0=k0)
         rescheduled, stranded = cuda.fault_tally(states.assignment, evict, evicted)

@@ -119,9 +119,12 @@ class GangSweep:
     """The gang (fixpoint) pass over score-weight variants: the reference's
     `GangSweep` (its `gangsweep.vrun`, `vrun_resume` and `vphase`).
 
-    `chunk` and `eval_window` are `GangScheduler`'s (each variant keeps its
-    own window offset); `loop="static"` (the counted-loop programs) and a
-    `mesh` other than None are not ported and raise NotImplementedError.
+    `chunk`, `loop` and `eval_window` are `GangScheduler`'s (each variant
+    keeps its own window offset); under loop="static" a gang pass is
+    counted passes of every variant, resumed while any variant spent its
+    whole budget (`gang.static_rounds`, read at run time) and the total
+    pending count shrinks (`_passes`). A `mesh` other than None is not
+    ported and raises NotImplementedError.
     Runs on the CUDA card unless `device` names another. The reference
     evaluates every queue row every round (`compact=False`); this sweep
     evaluates each variant's pending rows only, which places the same pods
@@ -175,7 +178,7 @@ class GangSweep:
         stats = {"rounds": [0] * V, "passes": 0, "phases": 0, "phase_pods": [0] * V,
                  "phase_pending": [], "phase_bound": [], "host_syncs": 0, "groups": []}
         self.last_stats = g.last_stats = stats  # _gang_pass counts its readbacks there
-        rounds, n_pend = self._pass(states, weights)
+        rounds, n_pend = self._passes(states, weights)
         hold = self._hold
         prog, a = g._base.program, enc.arrays
         while g.preempts:
@@ -193,11 +196,29 @@ class GangSweep:
             stats["phase_pods"] = [x + y for x, y in zip(stats["phase_pods"], n_pend)]
             if (sum(n_bound) == 0 if hold is None else stats["passes"] >= hold[1]):
                 break
-            r2, n_pend = self._pass(states, weights)
+            r2, n_pend = self._passes(states, weights)
             rounds = [x + y for x, y in zip(rounds, r2)]
         stats["rounds"] = rounds
         self._states = states  # every variant's final state, for checks
         return states.assignment, torch.tensor(rounds, dtype=torch.int32, device=self.device)
+
+    def _passes(self, states: SchedState, weights) -> tuple:
+        """A gang pass of every variant; under loop="static" the reference's
+        per-variant-array auto-resume (its `GangSweep.run.gang_pass`):
+        another counted pass of every variant while any variant's last pass
+        progressed through the whole budget and pods are pending, until
+        the total pending count stops shrinking. Returns (rounds, pods still
+        pending), lists of V."""
+        rounds, n_pend = self._pass(states, weights)
+        last = rounds
+        while (self.loop == "static" and sum(n_pend) > 0
+               and any(r >= self.gang.static_rounds for r in last)):
+            last, n2 = self._pass(states, weights)
+            rounds = [x + y for x, y in zip(rounds, last)]
+            stalled, n_pend = sum(n2) >= sum(n_pend), n2
+            if stalled:
+                break
+        return rounds, n_pend
 
     def _pass(self, states: SchedState, weights) -> tuple:
         """One gang pass of every variant, in place, the variants in groups

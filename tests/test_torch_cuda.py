@@ -455,10 +455,12 @@ def stacked_inputs(g, rng, device, K=24):
     return states, weights, rows, live
 
 
-def check_stacked_gang(g, rng, device, widths=(3,)):
+def check_stacked_gang(g, rng, device, widths=(3,), counted=False):
     """gang_eval, gang_topk, gang_match and gang_bind at V = 3 (one launch
     each) against their plain versions, which run each variant alone.
-    Returns the number of comparisons."""
+    `counted`: the counted matching (gang_match_counted) at 1, 2 and 64
+    iterations, its sel also equal to the while-loop matching's. Returns
+    the number of comparisons."""
     g._prep()
     enc, prog, a = g.enc, g._base.program, g.enc.arrays
     N, C = enc.N, a.pod_claim.shape[1]
@@ -482,12 +484,15 @@ def check_stacked_gang(g, rng, device, widths=(3,)):
         else:
             vals, idx, pv, pi = got, None, want, None
         for carrier in (None, g._carrier):
-            args = (rows, live, g._order, g._claims, carrier, N, C, 64)
-            sel, stat = cuda.gang_match(vals, idx, *args)
-            psel, pstat = cuda.gang_match_plain(pv, pi, *args)
-            assert torch.equal(sel, psel) and torch.equal(stat, pstat), ("match", mw)
-            assert stat[1].tolist() == [0, 0], "the frozen variant matched"
-            n += 1
+            for iters in ((1, 2, 64) if counted else (64,)):
+                args = (rows, live, g._order, g._claims, carrier, N, C, iters)
+                sel, stat = cuda.gang_match(vals, idx, *args, counted=counted)
+                psel, pstat = cuda.gang_match_plain(pv, pi, *args, counted=counted)
+                assert torch.equal(sel, psel) and torch.equal(stat, pstat), ("match", mw)
+                assert stat[1].tolist() == [0, 0], "the frozen variant matched"
+                if counted:
+                    assert torch.equal(sel, cuda.gang_match_plain(pv, pi, *args)[0]), iters
+                n += 1
         s1 = cuda.gang_bind(prog, a, states.clone(), rows, live, sel, g._order)
         s2 = cuda.gang_bind_plain(prog, a, states.clone(), rows, live, sel, g._order)
         for f in STATE_FIELDS:
@@ -669,11 +674,13 @@ def check_batch_seg(encs, device):
     return sel_k
 
 
-def check_batch_gang(encs, rng, device, widths=(3,), **opts):
+def check_batch_gang(encs, rng, device, widths=(3,), counted=False, **opts):
     """batch_eval, gang_topk, batch_match and batch_bind over B = 3 tenants
     at random states (live counts K - 4, 0 and K), each tenant with its own
     planes, order, claims and carriers, against their plain versions.
-    Returns the number of comparisons."""
+    `counted`: the counted matching (batch_match_counted) at 1, 2 and 64
+    iterations, its sel also the while-loop matching's. Returns the number
+    of comparisons."""
     gangs = [kp.GangScheduler(e, device=device, **opts) for e in encs]
     t = _TenantRounds(gangs)
     N, C = t.enc.N, t.enc.arrays.pod_claim.shape[1]
@@ -700,12 +707,15 @@ def check_batch_gang(encs, rng, device, widths=(3,), **opts):
         else:
             vals, idx, pv, pi = got, None, want, None
         for carriers in (None, t._carriers):
-            args = (rows, live, t._orders, t._claims, carriers, N, C, 64)
-            sel, stat = cuda.batch_match(vals, idx, *args)
-            psel, pstat = cuda.batch_match_plain(pv, pi, *args)
-            assert torch.equal(sel, psel) and torch.equal(stat, pstat), ("match", mw)
-            assert stat[1].tolist() == [0, 0], "the idle tenant matched"
-            n += 1
+            for iters in ((1, 2, 64) if counted else (64,)):
+                args = (rows, live, t._orders, t._claims, carriers, N, C, iters)
+                sel, stat = cuda.batch_match(vals, idx, *args, counted=counted)
+                psel, pstat = cuda.batch_match_plain(pv, pi, *args, counted=counted)
+                assert torch.equal(sel, psel) and torch.equal(stat, pstat), ("match", mw)
+                assert stat[1].tolist() == [0, 0], "the idle tenant matched"
+                if counted:
+                    assert torch.equal(sel, cuda.batch_match_plain(pv, pi, *args)[0]), iters
+                n += 1
         s1 = cuda.batch_bind(t._progs, t._arrays, states.clone(), rows, live, sel, t._orders)
         s2 = cuda.batch_bind_plain(t._progs, t._arrays, states.clone(), rows, live, sel,
                                    t._orders)
@@ -955,3 +965,77 @@ def test_fault_sweep_on_the_card_matches_the_cpu(card, policy):
                             policy=POLICIES[policy])
     assert got["totals"]["evicted"] > 0
     assert cuda.LAUNCHES["fault_evict"] == 1 and cuda.LAUNCHES["batch_eval"] > 0
+
+
+# -- the counted loops: gang_match's counted form, gang_advance ----------------
+
+
+def check_advance(rng, device, V=7, P=20):
+    """gang_advance against its plain version over random round accounting
+    (some variants done, window index past the last window, pending counts
+    from 0), without a window and with one of 3 rows, four slots in turn.
+    Returns the number of comparisons."""
+    n = 0
+    for wp in (0, 3):
+        acc = torch.zeros((len(cuda.ADVANCE_ROWS), V), dtype=torch.int32)
+        acc[1] = torch.as_tensor(rng.integers(0, 9, V))
+        acc[2] = torch.as_tensor(rng.random(V) < 0.25)
+        acc[3] = torch.as_tensor(rng.integers(0, P + 1, V))
+        acc, plain = acc.to(device), acc.clone().to(device)
+        for _ in range(4):
+            committed = torch.as_tensor(rng.integers(0, 3, V), device=device).minimum(acc[3])
+            stat = torch.stack([committed, acc[5]], dim=1).to(torch.int32).contiguous()
+            cuda.gang_advance(stat, acc, wp, P)
+            cuda.gang_advance_plain(stat, plain, wp, P)
+            assert torch.equal(acc, plain), (wp, acc, plain)
+            n += 1
+    return n
+
+
+def check_counted_pass(enc, device, plain=contextlib.nullcontext, **opts):
+    """A counted GangScheduler pass (`loop="static"`; records replayed) on
+    `device` against the same on the CPU's plain versions (inside
+    `plain()`): state, rounds, readbacks and records. Returns the engine on
+    `device`."""
+    g = kp.GangScheduler(enc, device=device, loop="static", **opts)
+    got = g.results()
+    with plain():
+        p = kp.GangScheduler(enc.to(torch.device("cpu")), device="cpu", loop="static", **opts)
+        want = p.results()
+    assert g._rounds == p._rounds and g.last_stats == p.last_stats
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(g._final_state, f).cpu(), getattr(p._final_state, f)), f
+    assert [r.to_annotations() for r in got] == [r.to_annotations() for r in want]
+    return g
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_counted_kernels_match_plain(card, policy):
+    """gang_match's counted form, stacked and TEN, and gang_advance against
+    their plain versions."""
+    cuda.reset_counts()
+    rng = np.random.default_rng(41)
+    for g in gang_engines(policy):
+        assert check_stacked_gang(g, rng, card, widths=(4,), counted=True) > 0
+    encs = tenant_encodings(policy, card)
+    assert check_batch_gang(encs, rng, card, counted=True) > 0
+    assert check_advance(rng, card) == 8
+    assert cuda.LAUNCHES["gang_match_counted"] > 0 and cuda.LAUNCHES["batch_match_counted"] > 0
+    assert cuda.LAUNCHES["gang_advance"] == 8 and not any(cuda.PLAIN_CALLS.values())
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_counted_passes_on_the_card_match_the_cpu(card, policy):
+    """A counted GangScheduler (the default cluster's preempt phases, the
+    relational cluster's carriers in a window) and a counted FaultSweep on
+    the card against the CPU."""
+    cuda.reset_counts()
+    g = check_counted_pass(default_engine(policy).enc, card, static_rounds=3)  # it resumes
+    assert g.last_stats["phases"] > 0
+    rel = engine(policy, n_nodes=40, n_pods=100, config="slice", rel=True).enc
+    check_counted_pass(rel, card, match_width=8, chunk=16, eval_window=16, inner_loop="dynamic")
+    nodes, pods, objects = fault_cluster()
+    check_fault_sweep(nodes, pods, objects, kp.supported_config(), card,
+                      policy=POLICIES[policy], loop="static")
+    assert cuda.LAUNCHES["gang_advance"] > 0 and cuda.LAUNCHES["batch_match_counted"] > 0
+    assert cuda.LAUNCHES["gang_match_counted"] > 0 and not cuda.LAUNCHES["batch_match"]

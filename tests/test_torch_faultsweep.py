@@ -246,14 +246,15 @@ def test_unknown_baseline_node_rejected():
 
 
 def test_mesh_and_static_loop_are_not_ported():
-    """In place of the reference's sharded case: a mesh (and the counted
-    loop) raise NotImplementedError."""
+    """In place of the reference's sharded case: a mesh raises
+    NotImplementedError. (The counted loop is ported:
+    tests/test_torch_gang_static.py.)"""
     nodes, pods, _ = basic()
     cfg = PConfig.from_dict(restricted_config().to_dict())
     with pytest.raises(NotImplementedError, match="mesh"):
         FaultSweep.from_cluster(nodes, pods, cfg, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="static"):
-        FaultSweep.from_cluster(nodes, pods, cfg, device="cpu", loop="static")
+    sweep = FaultSweep.from_cluster(nodes, pods, cfg, device="cpu", loop="static")
+    assert sweep.gang.loop == "static"
 
 
 # -- beyond the reference's tests --------------------------------------------------

@@ -281,13 +281,20 @@ def test_small_preemption_cluster(policy):
 
 
 def test_static_loops_are_not_ported():
+    """The counted loops are ported now (tests/test_torch_gang_static.py
+    holds them against the reference): each loop option constructs as the
+    reference's does, and a loop name outside dynamic|static raises its
+    ValueError."""
     nodes, pods = pinned()
     _, p_enc = encodings(nodes, pods, PINNED_CFG, "i32")
-    for kw in ({"loop": "static"}, {"inner_loop": "static"}, {"static_rounds": 8}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw, want in (({"loop": "static"}, ("static", "static", 5)),  # ceil(8 / 8) + 4
+                     ({"inner_loop": "static"}, ("dynamic", "static", 5)),
+                     ({"static_rounds": 8}, ("dynamic", "dynamic", 8))):
+        g = kp.GangScheduler(p_enc, device="cpu", **kw)
+        assert (g.loop, g.inner_loop, g.static_rounds) == want, kw
+    for kw in ({"loop": "banana"}, {"inner_loop": "banana"}):
+        with pytest.raises(ValueError, match="loop"):
             kp.GangScheduler(p_enc, device="cpu", **kw)
-    with pytest.raises(ValueError, match="loop"):
-        kp.GangScheduler(p_enc, device="cpu", loop="banana")
 
 
 def test_plain_versions_run_on_the_cpu_only():

@@ -206,13 +206,13 @@ def test_groups_change_nothing():
 
 
 def test_rejections():
-    """A mesh and the counted-loop programs are not ported; a weight matrix
-    of the wrong shape raises the reference's ValueError."""
+    """A mesh is not ported; a weight matrix of the wrong shape raises the
+    reference's ValueError. (The counted loop is ported:
+    tests/test_torch_gang_static.py.)"""
     _, p_enc = encodings("evict", "i32")
     with pytest.raises(NotImplementedError, match="mesh"):
         GangSweep(p_enc, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="counted-loop"):
-        GangSweep(p_enc, loop="static", device="cpu")
+    assert GangSweep(p_enc, loop="static", device="cpu").gang.loop == "static"
     sweep = GangSweep(p_enc, device="cpu")
     S = len(weights_for(p_enc, {}))
     for bad in (np.ones((S,), np.int32), np.ones((2, S + 1), np.int32)):

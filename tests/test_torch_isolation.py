@@ -113,9 +113,14 @@ def test_wrappers_take_plain_versions_on_cpu_tensors(monkeypatch):
     live = torch.tensor([4], dtype=torch.int32)
     scores = cuda.gang_eval(eng.program, a, state, eng.weights, rows, live, g._order)
     vals, idx = cuda.gang_topk(scores, live, 2)
-    sel, _ = cuda.gang_match(vals, idx, rows, live, g._order, g._claims, g._carrier,
-                             eng.enc.N, a.pod_claim.shape[1], 8)
+    sel, stat = cuda.gang_match(vals, idx, rows, live, g._order, g._claims, g._carrier,
+                                eng.enc.N, a.pod_claim.shape[1], 8)
     cuda.gang_bind(eng.program, a, state, rows, live, sel, g._order)
+    # the counted loops' two (the counted matching, the round accounting)
+    cuda.gang_match(vals, idx, rows, live, g._order, g._claims, g._carrier, eng.enc.N,
+                    a.pod_claim.shape[1], 8, counted=True)
+    cuda.gang_advance(stat[None], torch.zeros((len(cuda.ADVANCE_ROWS), 1), dtype=torch.int32),
+                      0, eng.enc.P)
     # the weight sweep's (K11), once
     kp.WeightSweep(eng.enc, device="cpu").run([eng.weights.numpy()] * 2)
     # the batch plane's tenant forms (K11 batch.seq.run / batch.gang.run), once
@@ -129,6 +134,8 @@ def test_wrappers_take_plain_versions_on_cpu_tensors(monkeypatch):
     scores = cuda.batch_eval(t._progs, t._arrays, states, w2, rows2, live2, t._orders)
     sel, _ = cuda.batch_match(scores, None, rows2, live2, t._orders, t._claims, t._carriers,
                               eng.enc.N, a.pod_claim.shape[1], 8)
+    cuda.batch_match(scores, None, rows2, live2, t._orders, t._claims, t._carriers, eng.enc.N,
+                     a.pod_claim.shape[1], 8, counted=True)
     cuda.batch_bind(t._progs, t._arrays, states, rows2, live2, sel, t._orders)
     # the fault sweep's prologue and counters (K11 faultsweep.*), once
     fail = torch.ones((2, eng.enc.N), dtype=torch.bool)

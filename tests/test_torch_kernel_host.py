@@ -34,8 +34,10 @@ from test_torch_cuda import (
     STATE_FIELDS,
     check_batch_fixpoint,
     check_batch_gang,
+    check_advance,
     check_batch_run,
     check_batch_seg,
+    check_counted_pass,
     check_fault_kernels,
     check_fault_sweep,
     check_k10,
@@ -570,6 +572,44 @@ def test_batch_fixpoint_matches_solo(host, monkeypatch, policy):
     rounds = check_batch_fixpoint(encs, CPU, plain=plain, chunk=8)
     assert cuda.LAUNCHES["batch_eval"] > 0 and cuda.LAUNCHES["batch_seg"] > 0
     assert len(rounds) == 3
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_counted_kernels_match_plain(host, policy):
+    """gang_match's counted form (stacked on the relational cluster's
+    carriers, and TEN over three tenants) at 1, 2 and 64 iterations, and
+    gang_advance without and with a window, against their plain versions."""
+    rng = np.random.default_rng(43)
+    g = gang_engine(policy, "rel", "slice", None)
+    assert check_stacked_gang(g, rng, CPU, widths=(1, 3), counted=True) > 0
+    encs = tenant_encodings(policy, CPU, size=TENANT_SIZE)
+    assert check_batch_gang(encs, rng, CPU, counted=True) > 0
+    assert check_advance(rng, CPU) == 8
+    assert cuda.LAUNCHES["gang_match_counted"] == 3 * 2 * 3  # widths, carriers, iterations
+    assert cuda.LAUNCHES["batch_match_counted"] == 2 * 2 * 3
+    assert cuda.LAUNCHES["gang_advance"] == 8 and not any(cuda.PLAIN_CALLS.values())
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_counted_passes_match_plain(host, monkeypatch, policy):
+    """A counted GangScheduler pass (a budget of 3 slots, resumed; preempt
+    phases; records) and a counted FaultSweep through the host build against
+    the plain versions."""
+
+    @contextlib.contextmanager
+    def plain():
+        with monkeypatch.context() as m:
+            m.setattr(cuda, "_on_cpu", lambda x: True)  # the plain versions again
+            yield
+
+    enc = preempt_engine(policy, "preempt").enc
+    g = check_counted_pass(enc, CPU, plain=plain, static_rounds=3, chunk=8, match_width=3)
+    assert g.last_stats["phases"] > 0 and g.last_stats["host_syncs"] > g.last_stats["phases"] + 1
+    nodes, pods, objects = fault_cluster()
+    got = check_fault_sweep(nodes, pods, objects, kp.supported_config(), CPU, plain=plain,
+                            policy=POLICIES[policy], loop="static")
+    assert got["totals"]["evicted"] > 0 and cuda.LAUNCHES["batch_match_counted"] > 0
+    assert cuda.LAUNCHES["gang_advance"] > 0
 
 
 @pytest.mark.parametrize("policy", sorted(POLICIES))
