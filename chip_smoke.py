@@ -29,7 +29,10 @@ gang rounds of every scenario through the K9 kernels' tenant forms over a
 scenario table, `fault_tally`). A tenth, the counted gang loops, runs
 `GangScheduler`, `GangSweep` and `FaultSweep` with `loop="static"`
 (`gang_match_counted` and `gang_advance`: a pass of round slots with the
-round accounting on the card and one readback). The plain versions of the whole
+round accounting on the card and one readback). An eleventh, the PACKED
+dtype policy (`KSS_DTYPE_POLICY=packed`), runs the sequential, gang and
+serving paths on narrow, bit-packed encodings that the K8 kernel
+(`pack_widen`, csrc/pack_kernels.cu) widens once a pass. The plain versions of the whole
 passes that phases 3, 4, 4b, 4j, 4k, 4l and 5e are held against run on the host
 CPU in three more processes (`chip_smoke.py --plain-worker DIR PART`,
 started at once when the build is done and stopped at the end; the card's
@@ -44,8 +47,8 @@ in order; any failure raises and the process exits non-zero:
    build/kernels/, all at once (csrc/seq_kernels.cu by four `nvcc`
    processes, one an integer type and half of its entry points, the
    tenant forms apart, csrc/delta_kernels.cu by a fifth,
-   csrc/fault_kernels.cu by a sixth), with the compiler's register and
-   spill report;
+   csrc/fault_kernels.cu by a sixth, csrc/pack_kernels.cu by a seventh),
+   with the compiler's register and spill report;
 3. each kernel against its plain PyTorch version on the card, under TPU32
    and EXACT, exact equality: (fit) three fit-path configurations on a
    256-node x 2,000-pod cluster dressed with taints, tolerations, cordoned
@@ -211,6 +214,19 @@ in order; any failure raises and the process exits non-zero:
    workers (4h). Each prints rounds progressed against
    slots launched, readbacks against the dynamic run's, wall and device ms
    by kernel;
+4m. the PACKED policy at full width, each run with the counters set to 0
+   just before and read just after (one `pack_widen` a pass, no plain
+   call): (a) the fit, affinity and default cells (phases 4, 4b and 4c's
+   clusters) through `encode_cluster(policy=PACKED)`, the pass and the
+   decode of the sampled pods, each byte-equal to its TPU32 run (trace,
+   final state, placements, annotations), with the planes bit-packed and
+   narrowed, the encoding's bytes, peak memory and the encode / pass /
+   decode split under both policies; (b) the fit cell's gang on (a)'s
+   encoding: rounds, state and placements 4l(a)'s dynamic TPU32 gang's;
+   (c) 4d's first 5 serving passes again on a service
+   under `KSS_DTYPE_POLICY=packed`: passes 2-4 delta passes that launch
+   K10's 2-byte set, every pass's records 4d's, the fifth after a flip to
+   TPU32 (a full encode, one `encodePolicyMisses`);
 4h. the plain processes' versions: phase 3's whole gang pass and gang
    sweep (state, rounds, records; assignments, rounds, states, phases);
    phase 3's sweeps (every
@@ -259,6 +275,10 @@ in order; any failure raises and the process exits non-zero:
    round 1, `batch_match_counted` at 4l(d)'s, `gang_advance` at both, each
    first held against its plain version (the counted sel also against the
    while-loop matching's, whose time on the same inputs is printed beside);
+   5j: `pack_widen` on 4m(a)'s three PACKED encodings, held bit for bit
+   against its plain version on the card over every leaf, then timed (a
+   CUDA graph of its launch), beside `.to(torch.int32)` over the narrow
+   leaves; K10's 2-byte set at 4m(c)'s recorded calls;
 6. the card's name and power limit, then the result line.
 
 Each phase prints its seconds. It runs in 13 to 16 minutes on an H100, the
@@ -386,17 +406,17 @@ def ptxas_report(text):
     spills."""
     import re
 
-    types = {"i": "int32", "x": "int64", "l": "int64", "h": "uint8", "j": "uint32",
-             "m": "uint64"}
+    types = {"i": "int32", "x": "int64", "l": "int64", "h": "uint8", "t": "uint16",
+             "j": "uint32", "m": "uint64"}
     out, name, props = [], None, ""
     for ln in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?_Z\w*?"
                       r"(seq_(?:attempt|bind|run|preempt|evict)_kernel|sweep_(?:run|seg)_kernel|"
                       r"gang_(?:eval|topk|match_counted|match|bind)_kernel|scatter_set_kernel|"
-                      r"scatter_add_kernel|vec_add_kernel|fault_evict_kernel)I([ixlhjm])"
+                      r"scatter_add_kernel|vec_add_kernel|fault_evict_kernel)I([ixlhtjm])"
                       r"((?:Lb[01]E)*)", ln)
         untyped = re.search(r"(?:Compiling entry function|Function properties for) '?_Z\w*?"
-                            r"(fault_tally_kernel|gang_advance_kernel)E", ln)
+                            r"(fault_tally_kernel|gang_advance_kernel|pack_widen_kernel)E", ln)
         if untyped:
             name = untyped.group(1)
         elif m:
@@ -1103,7 +1123,7 @@ def drive_path(kp, cuda, diff, path, nodes, pods, cfg, sample, smi):
         f"final state equal the pass's; launches {step_counts}")
     return dict(enc=enc, eng=eng, trace=trace_k, state=state_k, placements=placements,
                 annotations=got, digest=encoding_digest(enc), pass_counts=pass_counts,
-                step_counts=step_counts, mid=mid_state(cuda, eng))
+                step_counts=step_counts, mid=mid_state(cuda, eng), peak=peak, split=split)
 
 
 def check_plain_path(cuda, diff, path, run, plain):
@@ -1173,9 +1193,11 @@ def drive_default(kp, cuda, diff, nodes, pods, objects, sample, smi):
     t2 = time.perf_counter()
     pass_ms = e0.elapsed_time(e1)
     placements = eng.placements()
-    eng.results(pods=sample)
+    annotations = {(r.pod_namespace, r.pod_name): r.to_annotations()
+                   for r in eng.results(pods=sample)}
     t3 = time.perf_counter()
     wall_s = t3 - t0
+    split = (t1 - t0, t2 - t1, t3 - t2)
     pass_counts, pass_plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
     peak = torch.cuda.max_memory_allocated() - base
     if pass_counts["seq_run"] < 1 or any(pass_plain.values()):
@@ -1295,7 +1317,8 @@ def drive_default(kp, cuda, diff, nodes, pods, objects, sample, smi):
     return dict(enc=enc, eng=eng, trace=trace_k, pass_counts=pass_counts,
                 step_counts=step_counts, pass_ms=pass_ms, seg=[s0, seg_ms, None, seg],
                 seg_out=(s_k, t_k, n_did, n_nom), mid=mid, dry=(st_f, int(enc.queue[qf]), qf),
-                wall_s=wall_s, digest=digest)
+                wall_s=wall_s, digest=digest, state=state_k, placements=placements,
+                annotations=annotations, peak=peak, split=split)
 
 
 def check_plain_segment(cuda, diff, run, plain):
@@ -1574,6 +1597,9 @@ SERVING_NODES, SERVING_PODS, SERVING_BOUND = 1024, 13072, 10000
 SERVING_PASSES = 7
 SERVING_ARRIVALS = 128
 PREEMPT_PASS = 6
+# phase 4m(c): the first passes of 4d again under PACKED (passes 2..4 delta
+# passes), the last of them after a flip back to TPU32
+PACKED_SERVING_PASSES = 5
 # the delta passes whose K10 calls phase 5c times: pass 5's set and add
 # calls, pass 2's vector add (it replays the claim pods' binds)
 K10_TIMED_PASSES = {"delta_scatter_set": 5, "delta_scatter_add": 5, "delta_vec_add": 2}
@@ -1856,6 +1882,9 @@ def drive_serving(kp, cuda, scatter, diff, smi):
     log(f"    snapshot: {n_nodes} nodes, {n_kept} of the first {n_bound} pods bound by one "
         f"kernel pass, {SERVING_ARRIVALS} pending (8 with a ReadWriteOncePod claim); set-up "
         f"{time.perf_counter() - t_setup:.1f} s")
+    # phase 4m(c) replays the first PACKED_SERVING_PASSES passes' events
+    replay = dict(snap=json.loads(json.dumps(snap)), records={}, later=json.loads(json.dumps(
+        later[:(PACKED_SERVING_PASSES - 1) * SERVING_ARRIVALS])))
     totals = dict.fromkeys(scatter.KERNELS, 0)
     rows, recorded, walls, placed, peak = [], {}, [], 0, 0
     preemptor = None
@@ -1918,6 +1947,8 @@ def drive_serving(kp, cuda, scatter, diff, smi):
         want = eng.results()
         if results != want:
             raise AssertionError(f"pass {k}: the served records differ from a fresh pass's")
+        if k <= PACKED_SERVING_PASSES:
+            replay["records"][k] = results
         if k in PLAIN_PASSES:
             plain_pass(kp, cuda, diff, sched, fresh, results, k)
         want_place = fresh.decode_assignment(eng._final_state.assignment)
@@ -1968,7 +1999,7 @@ def drive_serving(kp, cuda, scatter, diff, smi):
         f"{preemptor[0]} with {preemptor[1]} victims deleted; K10 launches {totals}; peak "
         f"memory of a pass {peak / 2**30:.3f} GiB above what was held before it [{smi}]")
     calls = [c for k, cs in recorded.items() for c in cs if K10_TIMED_PASSES[c[0]] == k]
-    return dict(calls=calls, totals=totals, n_delta=n_delta, batch_in=batch_in)
+    return dict(calls=calls, totals=totals, n_delta=n_delta, batch_in=batch_in, replay=replay)
 
 
 def k10_rows(kp, scatter, diff, serving, smi):
@@ -4540,7 +4571,7 @@ def drive_counted(kp, cuda, diff, fit, gang_aff, gsweep, fault, smi):
     the dynamic run's, wall and device ms by kernel."""
     out = {}
     enc_fit = fit["eng"].enc
-    dyn_fit = dynamic_gang(kp, enc_fit)
+    dyn_fit = out["dyn_fit"] = dynamic_gang(kp, enc_fit)  # phase 4m(b) reads it too
     out["fit"] = counted_gang(kp, cuda, enc_fit, dyn_fit, "(a) fit cluster", smi)
     aff = dict(gang_aff, wall=gang_aff["run_s"])
     out["affinity"] = counted_gang(kp, cuda, gang_aff["enc"], aff, "(a) affinity cluster", smi)
@@ -4667,6 +4698,265 @@ def counted_rows(cuda, diff, run, smi):
         row(path, "gang_advance", "gang.r_scan", adv_ms, adv_plain_ms,
             bound(Va * (8 + 2 * 4 * acc.shape[0]), Va * 24),
             f"{Va} variants' accounting, window {wp or 'none'}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the PACKED dtype policy: K8 (phases 4m and 5j)
+# ---------------------------------------------------------------------------
+
+PACK_SOURCE = "kube_scheduler_simulator_tpu_torch/csrc/pack_kernels.cu"
+PACK_REPLACES = "kube_scheduler_simulator_tpu/engine/packing.py:158"
+
+
+def pack_leaves(enc):
+    """(names, leaves, lane counts) of every bit-packed (lanes n > 0) or
+    narrow (0) plane of a PACKED encoding: what `packing.widen` hands K8."""
+    from kube_scheduler_simulator_tpu_torch.engine.packing import widen_leaves
+
+    picked = widen_leaves(enc.arrays, enc.aux["packed_dims"])
+    return ([name for _, name, _, _ in picked], [t for _, _, t, _ in picked],
+            [n for _, _, _, n in picked])
+
+
+def check_same_run(what, got_trace, got_state, want_trace, want_state, slots):
+    """Byte equality of two kernel runs' traces and final states."""
+    if len(got_trace) != len(want_trace):
+        raise AssertionError(f"{what}: {len(got_trace)} trace slots against {len(want_trace)}")
+    for slot, g, h in zip(slots, got_trace, want_trace):
+        if g.dtype != h.dtype or g.shape != h.shape or not torch.equal(g, h):
+            raise AssertionError(f"{what}: trace slot {slot} differs from the TPU32 run's")
+    for f in STATE_FIELDS:
+        if not torch.equal(getattr(got_state, f), getattr(want_state, f)):
+            raise AssertionError(f"{what}: final state {f} differs from the TPU32 run's")
+
+
+def packed_pass(kp, cuda, path, cluster, tpu32, smi):
+    """Phase 4m(a) for one cell: encode_cluster(policy=PACKED), the pass
+    (one K8 launch at its entry, then seq_run), placements and the sampled
+    records, each part timed, the counters set to 0 just before and read
+    just after; held byte-equal to the TPU32 kernel run of phase 4, 4b or
+    4c (trace, final state, placements, the sampled pods' annotations)."""
+    from kube_scheduler_simulator_tpu_torch.engine.packing import encoded_device_bytes
+
+    nodes, pods, cfg, sample, objects = cluster
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    enc = kp.encode_cluster(nodes, pods, cfg, policy=kp.PACKED, **objects)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng = kp.BatchedScheduler(enc)
+    state, trace = eng.run()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    placements = eng.placements()
+    annotations = {(r.pod_namespace, r.pod_name): r.to_annotations()
+                   for r in eng.results(pods=sample)}
+    t3 = time.perf_counter()
+    counts, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() - base
+    if counts["pack_widen"] != 1 or counts["seq_run"] != 1 or any(plain.values()):
+        raise AssertionError(f"4m(a) {path}: launches {counts}, plain calls {plain}")
+    slots = cuda.TRACE_SLOTS_PREEMPT if eng.preempts else cuda.TRACE_SLOTS_PLAIN
+    check_same_run(f"4m(a) {path}", trace, state, tpu32["trace"], tpu32["state"], slots)
+    if placements != tpu32["placements"] or annotations != tpu32["annotations"]:
+        raise AssertionError(f"4m(a) {path}: placements or sampled annotations differ from "
+                             "the TPU32 run's")
+    names, _, lanes = pack_leaves(enc)
+    bits = {n: k for n, k in zip(names, lanes) if k}
+    b_p, b_w = encoded_device_bytes(enc), encoded_device_bytes(tpu32["enc"])
+    sw = tpu32["split"]
+    log(f"    {path}: {len(enc.queue)} pods; bit-packed {bits}, {len(names) - len(bits)} planes "
+        f"narrowed; arrays {b_w['arrays']} -> {b_p['arrays']} bytes on the card (state0 "
+        f"{b_p['state0']}); peak memory {peak / 2**30:.3f} GiB (TPU32 {tpu32['peak'] / 2**30:.3f}"
+        f" GiB); encode {t1 - t0:.3f} s, pass {t2 - t1:.3f} s, decode {t3 - t2:.3f} s (TPU32 "
+        f"{sw[0]:.3f} / {sw[1]:.3f} / {sw[2]:.3f} s); trace, state, {len(placements)} placements "
+        f"and {len(annotations)} pods' annotations equal the TPU32 run's; launches "
+        f"{ {k: v for k, v in counts.items() if v} } [{smi}]")
+    if path != "fit" and not bits:
+        raise AssertionError(f"4m(a) {path}: no plane was bit-packed")
+    return dict(enc=enc, counts=counts, peak=peak, split=(t1 - t0, t2 - t1, t3 - t2),
+                bytes=(b_w, b_p), bits=bits, narrowed=len(names) - len(bits))
+
+
+def packed_gang(kp, cuda, enc, dyn, smi):
+    """Phase 4m(b): the fit cell's gang under PACKED on 4m(a)'s PACKED
+    encoding: one K8 launch for the drive, then the K9 kernels; rounds,
+    final state and placements equal 4l(a)'s dynamic TPU32 gang `dyn` on
+    the same cluster."""
+    g = kp.GangScheduler(enc)
+    torch.cuda.synchronize()
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    state, rounds = g.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    if counts["pack_widen"] != 1 or counts["gang_eval"] < 1 or any(plain.values()):
+        raise AssertionError(f"4m(b): launches {counts}, plain calls {plain}")
+    if (rounds != dyn["rounds"] or g.placements() != dyn["placements"]
+            or any(not torch.equal(getattr(state, f), getattr(dyn["state"], f))
+                   for f in STATE_FIELDS)):
+        raise AssertionError("4m(b): the PACKED gang differs from 4l(a)'s dynamic TPU32 gang")
+    log(f"    fit gang: {rounds} rounds in {wall:.3f} s (TPU32 {dyn['wall']:.3f} s), state and "
+        f"placements equal 4l(a)'s dynamic gang's; launches {counts['pack_widen']} pack_widen, "
+        f"{ {k: counts[k] for k in GANG_KERNELS} } [{smi}]")
+    return dict(counts=counts, wall=wall)
+
+
+def drive_packed_serving(kp, cuda, scatter, serving, smi):
+    """Phase 4m(c): 4d's first PACKED_SERVING_PASSES passes again, on a
+    service under KSS_DTYPE_POLICY=packed: the snapshot, then each pass's
+    arrivals and cordon. Pass 1 is a full encode, passes 2.. delta passes
+    (no `packed-overflow` fallback) that launch K10's 2-byte set for the
+    int16 planes; each pass's records (placements, annotations, victims)
+    equal 4d's TPU32 pass's. The last pass runs after a flip back to TPU32:
+    a full encode with `dtype-policy-change`, counted once in
+    `encodePolicyMisses`, its records 4d's too."""
+    from kube_scheduler_simulator_tpu_torch.server.service import SimulatorService
+
+    rp = serving["replay"]
+    old = os.environ.get("KSS_DTYPE_POLICY")
+    os.environ["KSS_DTYPE_POLICY"] = "packed"
+    try:
+        sim = SimulatorService()
+        sim.import_(json.loads(json.dumps(rp["snap"])))
+        store, sched = sim.store, sim.scheduler
+        calls, modes, walls, widen = [], [], [], 0
+        for k in range(1, PACKED_SERVING_PASSES + 1):
+            if k >= 2:
+                for pd in rp["later"][(k - 2) * SERVING_ARRIVALS:(k - 1) * SERVING_ARRIVALS]:
+                    store.apply("pods", pd)
+                store.apply("nodes", {"metadata": {"name": f"node-{k}"},
+                                      "spec": {"unschedulable": True}})
+                store.apply("nodes", {"metadata": {"name": f"node-{k - 1}"},
+                                      "spec": {"unschedulable": False}})
+            if k == PACKED_SERVING_PASSES:
+                os.environ["KSS_DTYPE_POLICY"] = "i32"
+            cuda.reset_counts()
+            scatter.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with K10Recorder(scatter) as rec:
+                results = sched.schedule()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            info = dict(sched.last_encode_info)
+            modes.append(info)
+            widen += cuda.LAUNCHES["pack_widen"]
+            if any(cuda.PLAIN_CALLS.values()) or any(scatter.PLAIN_CALLS.values()):
+                raise AssertionError(f"4m(c) pass {k}: plain calls")
+            want_mode = ("full" if k in (1, PACKED_SERVING_PASSES) else "delta")
+            if info["mode"] != want_mode or cuda.LAUNCHES["pack_widen"] != int(
+                    k < PACKED_SERVING_PASSES):
+                raise AssertionError(f"4m(c) pass {k}: {info}, pack_widen "
+                                     f"{cuda.LAUNCHES['pack_widen']}")
+            if results != rp["records"][k]:
+                raise AssertionError(f"4m(c) pass {k}: records differ from 4d's TPU32 pass")
+            calls += [c for c in rec.calls
+                      if c[0] == "delta_scatter_set" and c[1].element_size() == 2]
+        misses = sched.metrics.phases()["encodePolicyMisses"]
+        if modes[-1].get("reason") != "dtype-policy-change" or misses != 1 or not calls:
+            raise AssertionError(f"4m(c): last pass {modes[-1]}, encodePolicyMisses {misses}, "
+                                 f"{len(calls)} 2-byte sets")
+    finally:
+        if old is None:
+            os.environ.pop("KSS_DTYPE_POLICY", None)
+        else:
+            os.environ["KSS_DTYPE_POLICY"] = old
+    log(f"    serving under PACKED: passes {[m['mode'] for m in modes]} in "
+        + ", ".join(f"{w:.3f}" for w in walls) + " s; every pass's records equal 4d's; "
+        f"{widen} pack_widen launches; {len(calls)} 2-byte delta_scatter_set launches; the "
+        f"flip to TPU32: {modes[-1]}, encodePolicyMisses {misses} [{smi}]")
+    return dict(calls=calls, walls=walls, widen=widen)
+
+
+def drive_packed(kp, cuda, scatter, clusters, runs, dyn_fit, serving, smi):
+    """Phase 4m: (a) the fit, affinity and default cells under PACKED
+    against their TPU32 runs, (b) the fit cell's gang, (c) the serving
+    passes. Returns what phase 5j times."""
+    out = {path: packed_pass(kp, cuda, path, clusters[path], runs[path], smi)
+           for path in ("fit", "affinity", "default")}
+    out["gang"] = packed_gang(kp, cuda, out["fit"]["enc"], dyn_fit, smi)
+    out["serving"] = drive_packed_serving(kp, cuda, scatter, serving, smi)
+    return out
+
+
+def pack_rows(kp, cuda, scatter, diff, packed, smi):
+    """Phase 5j: K8 on each PACKED encoding of 4m(a), first held bit for bit
+    against its plain version on the card over every leaf, then its launch
+    timed (a CUDA graph of 100 launches over one table), beside the plain
+    version (CUDA events) and `.to(torch.int32)` over the narrow leaves (the
+    one PyTorch call for that part; none for the bit planes). Bound: every
+    leaf read once and its widened form written once, over 3.35 TB/s. Then
+    K10's 2-byte set at 4m(c)'s recorded calls, timed as phase 5c times
+    K10."""
+    out = []
+    for path in ("fit", "affinity", "default"):
+        run = packed[path]
+        names, leaves, lanes = pack_leaves(run["enc"])
+        got = cuda.pack_widen(leaves, lanes)
+        want = cuda.pack_widen_plain(leaves, lanes)
+        for name, g, w in zip(names, got, want):
+            diff.check(path, "pack_widen", f"leaf {name}", g, w)
+        outs, table, n_rows, n_chunks = cuda.pack_table(leaves, lanes)
+        ms = graph_ms(lambda: cuda.pack_launch(table, n_rows, n_chunks))
+        for name, g, w in zip(names, outs, want):
+            diff.check(path, "pack_widen", f"timed leaf {name}", g, w)
+        plain_ms = events_ms(lambda: cuda.pack_widen_plain(leaves, lanes), 3)
+        narrow = [t for t, n in zip(leaves, lanes) if n == 0]
+        library_ms = graph_ms(lambda: [t.to(torch.int32) for t in narrow])
+        moved = nbytes(*leaves) + nbytes(*outs)
+        b = bound(moved, 0)
+        out.append({"name": "pack_widen", "path": path, "route": "cuda", "source": PACK_SOURCE,
+                    "replaces": PACK_REPLACES, "launches": run["counts"]["pack_widen"],
+                    "max_abs_err": diff.err.get((path, "pack_widen"), 0.0), "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                    "library_ms": library_ms, "leaves": len(leaves), "bytes": moved})
+        log(f"    {path:8s} pack_widen  {ms:.6f} ms a launch over {len(leaves)} leaves "
+            f"({len(leaves) - len(narrow)} bit-packed), {moved} bytes (plain {plain_ms:.4f} ms, "
+            f"library (.to(torch.int32), the {len(narrow)} narrow leaves only) "
+            f"{library_ms:.6f} ms, bound {b[0]:.7f} ms by {b[1]}), "
+            f"{run['counts']['pack_widen']} launch a pass [{smi}]")
+    calls = [(before.clone(), [r.to(CARD) for r in rows])
+             for _, _, before, rows in packed["serving"]["calls"]]
+    for arr, rows in calls:
+        diff.check("serving", "delta_scatter_set", f"2-byte {tuple(arr.shape)}",
+                   scatter.launch_set(arr.clone(), *rows), scatter.scatter_set_plain(
+                       arr.clone(), *rows))
+
+    def run_all():
+        for arr, rows in calls:
+            scatter.launch_set(arr, *rows)
+
+    def run_plain():
+        for arr, rows in calls:
+            scatter.scatter_set_plain(arr, *rows)
+
+    lib = [(a, r[0].long(), r[1]) for a, r in calls]
+
+    def run_lib():
+        for a, i, r in lib:
+            a.index_copy_(0, i, r)
+
+    n = len(calls)
+    ms, plain_ms, library_ms = graph_ms(run_all) / n, events_ms(run_plain, 5) / n, \
+        graph_ms(run_lib) / n
+    moved = sum(rows[0].shape[0] * (2 * arr[0].numel() * arr.element_size() + 4)
+                for arr, rows in calls)
+    b = bound(moved / n, 0)
+    out.append({"name": "delta_scatter_set (2-byte rows)", "path": "serving", "route": "cuda",
+                "source": "kube_scheduler_simulator_tpu_torch/csrc/delta_kernels.cu",
+                "replaces": REPLACES["delta_scatter_set"], "launches": n,
+                "max_abs_err": diff.err.get(("serving", "delta_scatter_set"), 0.0), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                "library_ms": library_ms, "calls_timed": n})
+    log(f"    serving  delta_scatter_set, 2-byte rows: {ms:.6f} ms a launch over the {n} calls "
+        f"of 4m(c)'s delta passes (plain {plain_ms:.4f} ms, library {library_ms:.6f} ms, bound "
+        f"{b[0]:.7f} ms by {b[1]}) [{smi}]")
     return out
 
 
@@ -4947,6 +5237,7 @@ def run_phases(kp, workers) -> int:
     log(f"[4] fit path at full width: 1024 nodes x {len(pods)} pods, fit_config(), TPU32, "
         "trace recorded")
     fit = drive_path(kp, cuda, diff, "fit", nodes, pods, cfg, sample, smi)
+    clusters = {"fit": (nodes, pods, cfg, sample, {})}  # phase 4m's cells
     ph.done("4")
 
     # -- 4b. the affinity path at full width (BASELINE config #3) -----------
@@ -4954,6 +5245,7 @@ def run_phases(kp, workers) -> int:
     log(f"[4b] affinity path at full width: 500 nodes x {len(pods)} pods "
         "(synthetic_affinity_cluster, seed 11), affinity_config(), TPU32, trace recorded")
     aff = drive_path(kp, cuda, diff, "affinity", nodes, pods, cfg, sample, smi)
+    clusters["affinity"] = (nodes, pods, cfg, sample, {})
     ph.done("4b")
 
     # -- 4c. the default path at full width (BASELINE config #2's width) ----
@@ -4967,6 +5259,7 @@ def run_phases(kp, workers) -> int:
         "recorded")
     dflt = drive_default(kp, cuda, diff, nodes, pods, objects, sample, smi)
     default_cluster = (nodes, pods, objects, sample)
+    clusters["default"] = (nodes, pods, kp.supported_config(), sample, objects)
     ph.done("4c")
 
     # -- 4d. the serving path at BASELINE config #2's width -----------------
@@ -5027,6 +5320,16 @@ def run_phases(kp, workers) -> int:
     counted = drive_counted(kp, cuda, diff, fit, gang_aff, gsweep, fault, smi)
     ph.done("4l")
 
+    # -- 4m. the PACKED dtype policy at full width ------------------------------
+    log("[4m] PACKED (KSS_DTYPE_POLICY=packed) at full width: (a) the fit, affinity and "
+        "default cells (phases 4, 4b, 4c) through encode_cluster(policy=PACKED), the pass and "
+        "the decode, each against its TPU32 run; (b) the fit cell's gang; (c) 4d's first "
+        f"{PACKED_SERVING_PASSES} serving passes, the last after a flip to TPU32")
+    packed = drive_packed(kp, cuda, scatter, clusters, {"fit": fit, "affinity": aff,
+                                                        "default": dflt}, counted["dyn_fit"],
+                          serving, smi)
+    ph.done("4m")
+
     # -- 4h. the kernels' whole passes against the second process's plain ones
     log("[4h] the whole passes against the plain versions run on the host CPU in the second "
         "process (exact equality)")
@@ -5079,6 +5382,9 @@ def run_phases(kp, workers) -> int:
     kernels += fault_rows(kp, cuda, diff, fault, smi)
     log(f"[5i] the counted forms' kernels at phase 4l(a)'s and 4l(d)'s round 1, TPU32 [{smi}]")
     kernels += counted_rows(cuda, diff, counted, smi)
+    log(f"[5j] K8 at phase 4m(a)'s three PACKED encodings, K10's 2-byte set at 4m(c)'s delta "
+        f"passes [{smi}]")
+    kernels += pack_rows(kp, cuda, scatter, diff, packed, smi)
     ph.done("5")
     log("    phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in ph.seconds.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")

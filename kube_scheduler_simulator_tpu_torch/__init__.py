@@ -49,6 +49,13 @@ cluster: the bound pods of each scenario's failed nodes are evicted
 fixpoint runs through the K9 kernels' tenant forms, one launch of each a
 round, and `fault_tally` counts the pods rescheduled and stranded.
 
+Three dtype policies: `EXACT` (int64), `TPU32` (int32, memory in Mi; the
+default) and `PACKED` (``KSS_DTYPE_POLICY=packed``: TPU32's arithmetic with
+ids and counts narrowed and masks bit-packed at rest, engine/packing.py).
+Every path widens a PACKED encoding once at a pass's entry with the K8
+kernel (csrc/pack_kernels.cu) and then runs as under TPU32, with the same
+placements and trace.
+
 Entry points run on the CUDA card unless the caller passes `device="cpu"`;
 with no card and no explicit device they raise RuntimeError.
 
@@ -69,7 +76,7 @@ Layout:
 """
 
 from .engine.delta import DeltaEncoder
-from .engine.encode import EXACT, TPU32, encode_cluster, from_reference_arrays
+from .engine.encode import EXACT, PACKED, TPU32, encode_cluster, from_reference_arrays
 from .engine.engine import (
     BatchedScheduler,
     affinity_config,
@@ -91,6 +98,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "EXACT",
+    "PACKED",
     "TPU32",
     "BatchPlane",
     "BatchedScheduler",

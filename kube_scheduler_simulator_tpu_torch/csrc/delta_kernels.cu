@@ -3,7 +3,9 @@
 // programs in engine/delta.py `_scatter_fns` (delta.py:183 `delta.scatter_set`,
 // :188 `delta.scatter_add`, :193 `delta.vec_add`):
 //
-//   delta_scatter_set  arr[idx[j]] = rows[j]      (rows of 1-, 4- or 8-byte elements)
+//   delta_scatter_set  arr[idx[j]] = rows[j]      (rows of 1-, 2-, 4- or 8-byte elements:
+//                                                 bool and int8, int16, int32 and the
+//                                                 PACKED words, int64)
 //   delta_scatter_add  arr[idx[j]] += rows[j]     (int32 or int64; repeated indices sum)
 //   delta_vec_add      arr += vec                 (int32 or int64)
 //
@@ -111,6 +113,7 @@ extern "C" int delta_scatter_set(void* arr, const void* idx, const void* rows, l
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (elem) {
     case 1: return launch_set<uint8_t>(arr, idx, rows, k, w, s);
+    case 2: return launch_set<uint16_t>(arr, idx, rows, k, w, s);
     case 4: return launch_set<uint32_t>(arr, idx, rows, k, w, s);
     case 8: return launch_set<uint64_t>(arr, idx, rows, k, w, s);
     default: return -1;

@@ -1247,6 +1247,11 @@ __device__ int attempt_body(const Cfg& c, const Need& nd, const Planes& a, const
         else
           normed = m == 0 ? r : scaled;
       }
+      // PACKED's bf16 score lane (the reference's engine.py:438-453) is a
+      // round trip of `normed` through bfloat16 where 0 <= normed <= 256
+      // and the mode is not custom: integers there are exact in bfloat16,
+      // so it changes nothing and the kernel leaves it out (the plain
+      // attempt keeps it, and tests pin it as the identity).
       const I fv = wmul<I>(normed, w[j]);
       if (fin) fin[(size_t)n * S + j] = fv;
       total = wadd<I>(total, fv);

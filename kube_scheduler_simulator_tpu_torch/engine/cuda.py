@@ -61,12 +61,18 @@ Between them the scenarios' round fixpoint runs through the tenant forms
 above, each scenario a tenant whose Planes differ from the cluster's only
 in the node mask (`scenario_table`).
 
+One more (`csrc/pack_kernels.cu`, a unit of its own) is K8, the PACKED
+policy's widening (`pack_widen`, the reference's `packing.py`
+`unpack_bits`/`make_unpacker`): one launch a pass widens an encoding's
+bit-packed and narrow planes into the logical int32/bool planes the
+kernels above read (engine/packing.py `widen`).
+
 Each wrapper takes its plain version (`*_plain`, a line-by-line PyTorch
 rendering of the reference's closure) only for tensors that lie on the CPU;
 for CUDA tensors it launches the kernel or raises. The kernels are built
 with `nvcc` for sm_90a into `build/kernels/` at first use, in one library
 with the delta encoder's K10 kernels (`csrc/delta_kernels.cu`, wrapped by
-`engine/scatter.py`), and bound through a plain C interface with ctypes. Module state is the library handle and the
+`engine/scatter.py`) and K8, and bound through a plain C interface with ctypes. Module state is the library handle and the
 per-wrapper counters `LAUNCHES` (kernel launches) and `PLAIN_CALLS`.
 
 `seq_bind` and `seq_evict` (both versions) update the state they are given
@@ -110,6 +116,7 @@ LAYOUT_H = CSRC.with_name("seq_layout.h")  # the structs, included by CSRC
 DELTA_CSRC = CSRC.with_name("delta_kernels.cu")  # K10, wrapped by engine/scatter.py
 GANG_CSRC = CSRC.with_name("gang_kernels.cu")  # K9, included by CSRC
 FAULT_CSRC = CSRC.with_name("fault_kernels.cu")  # the fault sweep's, a unit of its own
+PACK_CSRC = CSRC.with_name("pack_kernels.cu")  # K8, the PACKED policy's widening
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -120,7 +127,7 @@ KERNELS = ("seq_attempt", "seq_bind", "seq_run", "seq_preempt", "seq_evict",
            "gang_eval", "gang_topk", "gang_match", "gang_bind", "sweep_run",
            "batch_run", "batch_seg", "batch_eval", "batch_match", "batch_bind",
            "fault_evict", "fault_tally", "gang_match_counted", "batch_match_counted",
-           "gang_advance")
+           "gang_advance", "pack_widen")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _LIB = None
@@ -175,6 +182,9 @@ class SeqProgram:
     prefilters: tuple[Callable, ...] = ()  # VolumeBinding's, when enabled
     preempt: "Callable | None" = None  # the plain dry run (preempt.py)
     vbound: int = 0  # victims per node the dry run keeps (0: no preemption)
+    # PACKED's bf16 score lane in the plain attempt's normalize (the kernel
+    # leaves the identity out: csrc/seq_kernels.cu beside `normed`)
+    bf16_lane: bool = False
     # the cluster planes checked for this program's launches, by id(arrays)
     # (`_planes`); the newest _BOUND_MAX
     bound: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
@@ -247,6 +257,7 @@ def build_program(enc: EncodedCluster, filter_names, score_names, prefilter_name
         prefilters=tuple(K.PREFILTER_KERNELS[n][0](enc) for n in prefilter_names),
         preempt=PR.build_preemption(enc, filter_names) if preempt else None,
         vbound=vbound,
+        bf16_lane=enc.policy.packed,
     )
 
 
@@ -290,6 +301,8 @@ def seq_attempt_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights
                 normed = prog.scores[j]._normalize(a, s, p, r, feasible)
             else:
                 normed = r
+            if prog.bf16_lane and mode != "custom":
+                normed = bf16_lane(normed.to(score_dt))
             finals.append(normed.to(score_dt) * weights[j])
         final = torch.stack(finals, dim=1)  # [N,S]
         total = final.sum(dim=1, dtype=score_dt)
@@ -302,6 +315,14 @@ def seq_attempt_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, weights
     sel = torch.argmax(masked).to(torch.int32)  # first occurrence: lowest index
     sel = torch.where(feasible.any(), sel, torch.full_like(sel, -1))
     return codes, raw, final, sel, pf_codes
+
+
+def bf16_lane(v: torch.Tensor) -> torch.Tensor:
+    """PACKED's bf16 score lane (the reference's engine.py:438-453): the
+    values in [0, 256] round-trip through bfloat16, the others ride
+    through. Integers there are exact in bfloat16, so it is the identity."""
+    safe = (v >= 0) & (v <= 256)
+    return torch.where(safe, v.to(torch.bfloat16).to(v.dtype), v)
 
 
 def seq_bind_plain(prog: SeqProgram, a: ClusterArrays, s: SchedState, p: int,
@@ -505,16 +526,16 @@ def seq_run_plain(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue,
 
 def build() -> tuple[Path, float]:
     """Compile the kernel sources for sm_90a into one library in
-    build/kernels/ unless these sources' library is there already: six
+    build/kernels/ unless these sources' library is there already: seven
     `nvcc` processes started together, csrc/seq_kernels.cu (with the gang
     kernels it includes) once per integer type (SEQ_ONLY=32, 64) and per
     half of its entry points (SEQ_TENANT=0: all but the tenant forms; 1:
-    the tenant forms), csrc/delta_kernels.cu and csrc/fault_kernels.cu,
-    then one link. Returns (library path, build seconds; 0 when it was there). The
+    the tenant forms), csrc/delta_kernels.cu, csrc/fault_kernels.cu and
+    csrc/pack_kernels.cu, then one link. Returns (library path, build seconds; 0 when it was there). The
     compiler's report (registers, shared memory, spills) is kept beside the
     library as a .log file."""
     src = (CSRC.read_bytes() + LAYOUT_H.read_bytes() + GANG_CSRC.read_bytes()
-           + DELTA_CSRC.read_bytes() + FAULT_CSRC.read_bytes())
+           + DELTA_CSRC.read_bytes() + FAULT_CSRC.read_bytes() + PACK_CSRC.read_bytes())
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libkernels_{tag}.so"
     if out.exists():
@@ -526,7 +547,8 @@ def build() -> tuple[Path, float]:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     units = [(CSRC, [f"-DSEQ_ONLY={b}", f"-DSEQ_TENANT={t}"], f"seq{b}{'t' if t else ''}")
              for t in (0, 1) for b in (32, 64)] + [(DELTA_CSRC, [], "delta"),
-                                                   (FAULT_CSRC, [], "fault")]
+                                                   (FAULT_CSRC, [], "fault"),
+                                                   (PACK_CSRC, [], "pack")]
     objs = [out.with_name(f"{out.stem}_{u}.{os.getpid()}.o") for _, _, u in units]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *defs, "-c", "-o", str(o), str(path)],
@@ -705,6 +727,8 @@ def library() -> ctypes.CDLL:
             f = getattr(lib, name)
             f.argtypes, f.restype = [vp, vp, vp, cl, cl, ci, vp], ci
         lib.delta_vec_add.argtypes, lib.delta_vec_add.restype = [vp, vp, cl, ci, vp], ci
+        lib.pack_widen.argtypes, lib.pack_widen.restype = [vp, ci, cl, ci, vp], ci
+        lib.pack_widen_chunk.argtypes, lib.pack_widen_chunk.restype = [], cl
         layout = _Layout(lib.seq_layout().decode())
         counts = (ctypes.c_int * len(_CFG_FIELDS))()
         if (lib.seq_cfg_counts(counts) != len(_CFG_FIELDS)
@@ -2218,3 +2242,97 @@ def fault_tally(assignment, evict, evicted):
     _raise_on(rc, "fault_tally")
     LAUNCHES["fault_tally"] += 1
     return rescheduled, stranded
+
+
+# ---------------------------------------------------------------------------
+# K8: the PACKED policy's widening (csrc/pack_kernels.cu)
+# ---------------------------------------------------------------------------
+
+PACK_BLOCKS = 4096  # the widening's grid at most (its blocks stride over chunks)
+
+
+def _check_widen(srcs, lanes, dev) -> None:
+    """A packed leaf (lanes n > 0): int32 words [..., ceil(n / 32)]; a
+    narrow one (n == 0): int8 or int16; each contiguous, on `dev`."""
+    if len(srcs) != len(lanes):
+        raise ValueError("pack_widen takes one lane count a leaf")
+    for i, (t, n) in enumerate(zip(srcs, lanes)):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"leaf {i}: want a contiguous tensor on {dev}")
+        if n > 0:
+            if t.dtype != torch.int32 or t.dim() < 1 or t.shape[-1] != -(-n // 32):
+                raise ValueError(f"leaf {i}: want int32 words [..., {-(-n // 32)}] for {n} "
+                                 f"lanes, got {t.dtype} {tuple(t.shape)}")
+        elif t.dtype not in (torch.int8, torch.int16):
+            raise ValueError(f"leaf {i}: a narrow leaf is int8 or int16, got {t.dtype}")
+
+
+def pack_widen_plain(srcs, lanes) -> list:
+    """The plain version of K8 (the reference's `make_unpacker` widen):
+    each packed leaf (lanes n > 0) unpacked to bool [..., n], bit j of word
+    w to lane 32 w + j (int32's arithmetic shift, then `& 1`, gives the
+    bit whatever bit 31 holds); each narrow leaf (n == 0) sign-extended to
+    int32."""
+    out = []
+    for t, n in zip(srcs, lanes):
+        if n:
+            shifts = torch.arange(32, dtype=torch.int32, device=t.device)
+            bits = (t[..., None] >> shifts) & 1
+            out.append(bits.reshape(*t.shape[:-1], t.shape[-1] * 32)[..., :n]
+                       .to(torch.bool).contiguous())
+        else:
+            out.append(t.to(torch.int32))
+    return out
+
+
+def pack_table(srcs, lanes) -> tuple:
+    """K8's launch inputs for device leaves: (the widened outputs,
+    allocated; the device table of the non-empty leaves, a row of 8 int64s
+    each — source, destination, kind, words a row, lanes, output elements,
+    first chunk, 0; its row count; the chunk count). The table is None when
+    no element is left."""
+    dev = srcs[0].device
+    chunk = int(library().pack_widen_chunk())
+    outs, rows, n_chunks = [], [], 0
+    for t, n in zip(srcs, lanes):
+        if n:
+            o = torch.empty((*t.shape[:-1], n), dtype=torch.bool, device=dev)
+        else:
+            o = torch.empty(t.shape, dtype=torch.int32, device=dev)
+        outs.append(o)
+        if o.numel():
+            kind = 0 if n else (1 if t.dtype == torch.int8 else 2)
+            rows.append([t.data_ptr(), o.data_ptr(), kind, t.shape[-1] if n else 0, n,
+                         o.numel(), n_chunks, 0])
+            n_chunks += -(-o.numel() // chunk)
+    table = torch.tensor(rows, dtype=torch.int64).to(dev) if rows else None
+    return outs, table, len(rows), n_chunks
+
+
+def pack_launch(table: torch.Tensor, n_rows: int, n_chunks: int) -> None:
+    """The K8 launch alone over a `pack_table` table (what chip_smoke.py
+    times): its outputs are written in place."""
+    rc = library().pack_widen(table.data_ptr(), n_rows, n_chunks, min(n_chunks, PACK_BLOCKS),
+                              _stream())
+    _raise_on(rc, "pack_widen")
+    LAUNCHES["pack_widen"] += 1
+
+
+def pack_widen(srcs, lanes) -> list:
+    """K8: widen packed and narrow leaves (`pack_widen_plain`'s function)
+    in one launch over a device table of the leaves; new tensors. CPU
+    tensors take the plain version; empty leaves are allocated and left
+    out of the table, and nothing launches when no element is left."""
+    if not srcs:
+        return []
+    dev = srcs[0].device
+    _check_widen(srcs, lanes, dev)
+    if _on_cpu(srcs[0]):
+        PLAIN_CALLS["pack_widen"] += 1
+        return pack_widen_plain(srcs, lanes)
+    if dev.type not in KERNEL_DEVICE_TYPES:
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
+    outs, table, n_rows, n_chunks = pack_table(srcs, lanes)
+    if table is not None:
+        pack_launch(table, n_rows, n_chunks)
+    return outs

@@ -1,5 +1,5 @@
 """Incremental (delta) cluster encoding: O(Δ) host work for a steady-state
-pass. The reference package's `engine/delta.py` under EXACT and TPU32.
+pass. The reference package's `engine/delta.py`.
 
 `DeltaEncoder` retains the last pass's `EncodedCluster` (its tensors on the
 device) and, on the next pass, replays `ResourceStore.dirty_since(rv)`:
@@ -31,6 +31,13 @@ resourceVersion, a dirty fraction past the threshold, a capacity-bucket
 crossing) raises `_Fallback` inside the attempt, and the pass re-encodes
 from scratch, which re-arms the retained state. Only `_Fallback` turns a
 delta pass into a full one: a device error inside the attempt propagates.
+
+Under PACKED the host mirrors keep logical rows, the dirty rows of a
+bit-packed plane ship as its words (K10's 4-byte set), those of a narrowed
+plane in its int8 or int16 (the 1- and 2-byte sets), and a row whose
+values do not fit a narrowed plane falls back (`packed-overflow`): the full
+encode re-runs the width rules. A policy flip falls back too
+(`dtype-policy-change`).
 
 Aliasing: the retained tensors are updated in place, so an encoding this
 encoder returned earlier shares them. The engines the serving layer keeps
@@ -74,9 +81,11 @@ from .encode import (
 )
 from .encode_rel import CL_PAD, _ClauseBuilder, _pack_spread, parse_pod_spread
 from .encode_vol import pod_disk_vol_rows
-from .packing import encoded_device_bytes, rows_fit
+from .packing import NARROW, encoded_device_bytes, logical_dim, pack_bits_np, rows_fit, \
+    unpack_bits_np
 
-_NP_DTYPES = {torch.bool: np.bool_, torch.int32: np.int32, torch.int64: np.int64}
+_NP_DTYPES = {torch.bool: np.bool_, torch.int8: np.int8, torch.int16: np.int16,
+              torch.int32: np.int32, torch.int64: np.int64}
 
 
 class _Fallback(Exception):
@@ -189,11 +198,22 @@ class _Retained:
             (pc.get("metadata", {}) or {}).get("name", ""): pc
             for pc in enc.objects.get("priorityclasses", [])
         }
-        # host mirrors of the pod-axis planes the binding math reads, in the
-        # tensors' dtypes. Copies: a CPU tensor's numpy() shares its storage,
-        # which the in-place scatters write
+        # host mirrors of the pod-axis planes the binding math reads, as
+        # logical rows: a bit-packed plane unpacked to bool, a narrow one in
+        # int32 (its values fit it exactly), the rest in the tensors' dtypes.
+        # Copies: a CPU tensor's numpy() shares its storage, which the
+        # in-place scatters write
         a = enc.arrays
-        self.m = {name: getattr(a, name).cpu().numpy().copy() for name in _MIRRORED}
+        pd = enc.aux.get("packed_dims") or {}
+
+        def mirror(name):
+            t = getattr(a, name)
+            v = t.cpu().numpy()
+            if name in pd and t.dtype == torch.int32:
+                return unpack_bits_np(v, pd[name])
+            return v.astype(np.int32) if t.dtype in NARROW else v.copy()
+
+        self.m = {name: mirror(name) for name in _MIRRORED}
 
 
 class DeltaEncoder:
@@ -401,6 +421,7 @@ class DeltaEncoder:
         # -- apply on the device, in place -------------------------------------
         a = enc.arrays
         rel_fields = set(type(a.rel).__dataclass_fields__)
+        packed_dims = enc.aux.get("packed_dims") or {}
         xfer = 0
 
         def row_bytes(arr, idx, rows):
@@ -409,9 +430,13 @@ class DeltaEncoder:
 
         for field, (idx, rows) in arr_set.items():
             arr = getattr(a.rel if field in rel_fields else a, field)
-            if not rows_fit(rows, arr.dtype):
-                # a cast would wrap silently; the full encode re-runs the
-                # width rules
+            if field in packed_dims:
+                # PACKED bit-packs this plane: ship the dirty rows as the
+                # words a full encode stores
+                rows = [pack_bits_np(r).view(np.int32) for r in rows]
+            elif not rows_fit(rows, arr.dtype):
+                # a cast would wrap silently (a narrowed plane); the full
+                # encode re-runs the width rules
                 raise _Fallback("packed-overflow")
             xfer += row_bytes(arr, idx, rows)
             _apply_set(arr, idx, rows)
@@ -621,8 +646,9 @@ class DeltaEncoder:
                 or _preferred_terms(pv.pod_anti_affinity)
             ):
                 raise _Fallback("pod carries inter-pod affinity")
-            pair_row = np.zeros(rel.pair_present.shape[1], bool)
-            key_row = np.zeros(rel.key_present.shape[1], bool)
+            # logical row widths: PACKED stores these planes as words
+            pair_row = np.zeros(logical_dim(enc, "pair_present"), bool)
+            key_row = np.zeros(logical_dim(enc, "key_present"), bool)
             for k, v in pv.labels.items():
                 key_row[cb_ng.key_vocab.intern(k)] = True
                 pair_row[cb_ng.pair_id(k, str(v))] = True

@@ -13,11 +13,15 @@ reference encoder byte for byte.
     through `models.vocab.Vocab` — tensors only hold int32 ids;
   * pods and nodes beyond the live counts are padding rows behind masks.
 
-Two dtype policies:
+Three dtype policies:
   * EXACT — int64/float64: the pure-Python oracle's integer semantics for
     arbitrary quantities;
   * TPU32 — int32/float32 with per-resource unit scaling (memory in Mi);
-    exact whenever quantities are Mi-granular, which real manifests are.
+    exact whenever quantities are Mi-granular, which real manifests are;
+  * PACKED — TPU32's arithmetic with narrow storage at rest
+    (engine/packing.py): each field's width class (`WIDTH_CLASSES`,
+    encode_rel.py `REL_WIDTH_CLASSES`) narrows ids and counts and
+    bit-packs masks; a pass widens them once at its entry (K8).
 
 Every plane is encoded whatever the configuration, as the reference does
 (the spread kernels read the NodeAffinity filter body even where
@@ -52,6 +56,7 @@ from ..sched.oracle_plugins import (
 from ..sched.resources import to_int_resources
 from .encode_rel import PodRelArrays, encode_pod_relations
 from .encode_vol import encode_volumes
+from .packing import put_field
 
 # Node index sentinels in pod_node_name: -1 = no nodeName requested,
 # -2 = names a node that does not exist (fails NodeName everywhere,
@@ -85,6 +90,9 @@ class DTypePolicy:
     score: torch.dtype
     flt: torch.dtype
     scale_bytes: bool = False  # divide bytes-like resources by 2**20 (Mi)
+    # narrow and bit-packed storage (engine/packing.py); the arithmetic, so
+    # every placement and trace byte, is the policy's without it
+    packed: bool = False
 
     def divisor(self, resource: str) -> int:
         if self.scale_bytes and (
@@ -109,21 +117,21 @@ class DTypePolicy:
 
 EXACT = DTypePolicy("exact", torch.int64, torch.int64, torch.float64)
 TPU32 = DTypePolicy("i32", torch.int32, torch.int32, torch.float32, scale_bytes=True)
+# TPU32's unit scaling and int32 arithmetic with packed storage: the
+# encoding at rest and the delta encoder's row updates shrink, the trace
+# does not change
+PACKED = DTypePolicy(
+    "packed", torch.int32, torch.int32, torch.float32, scale_bytes=True, packed=True
+)
 
-POLICIES = {"exact": EXACT, "i32": TPU32}
+POLICIES = {"exact": EXACT, "i32": TPU32, "packed": PACKED}
 
 
 def policy_from_env() -> DTypePolicy:
     """The dtype policy KSS_DTYPE_POLICY selects (default TPU32; unknown
-    spellings give TPU32, as the reference's). "packed" raises: the PACKED
-    policy's unpack kernels are not ported yet, and serving TPU32 under
-    its name would hide that."""
+    spellings give TPU32, as the reference's)."""
     raw = os.environ.get("KSS_DTYPE_POLICY", "").strip().lower()
-    if raw == "packed":
-        raise NotImplementedError(
-            "KSS_DTYPE_POLICY=packed is not ported yet (its unpack kernels, K8)"
-        )
-    return {"exact": EXACT, "i32": TPU32, "tpu32": TPU32}.get(raw, TPU32)
+    return {"exact": EXACT, "i32": TPU32, "tpu32": TPU32, "packed": PACKED}.get(raw, TPU32)
 
 # Taint/toleration effect ids.
 EFFECTS = {"NoSchedule": 0, "PreferNoSchedule": 1, "NoExecute": 2}
@@ -218,6 +226,73 @@ class ClusterArrays:
         return ClusterArrays(
             **{f.name: _to(getattr(self, f.name), device) for f in dataclasses.fields(self)}
         )
+
+
+# Width class per ClusterArrays field (every field but `rel`,
+# which nests PodRelArrays, classed in encode_rel.py).
+#   exact — kernel arithmetic operand, dtype is the policy's (capacities,
+#           requests, Gt/Lt numerics, image byte sums, priorities);
+#   id    — vocab ids / node indices: int16 when values fit (enum
+#           families in ENUM8 go int8);
+#   count — small counters / weights: int16 when values fit;
+#   mask  — bool planes: bitpacked per engine/packing.py rules.
+WIDTH_CLASSES: "dict[str, str]" = {
+    "node_alloc": "exact",
+    "node_unsched": "mask",
+    "node_mask": "mask",
+    "pod_req": "exact",
+    "pod_sreq": "exact",
+    "pod_req_rank": "count",
+    "pod_node_name": "id",
+    "pod_tol_unsched": "mask",
+    "pod_priority": "exact",  # k8s priorities reach 2e9 (system-critical)
+    "pod_mask": "mask",
+    "taint_key": "id",
+    "taint_val": "id",
+    "taint_effect": "id",
+    "tol_key": "id",
+    "tol_val": "id",
+    "tol_effect": "id",
+    "tol_op": "id",
+    "label_val": "id",
+    "label_num": "exact",
+    "label_num_ok": "mask",
+    "nsel_key": "id",
+    "nsel_val": "id",
+    "raff_key": "id",
+    "raff_op": "id",
+    "raff_vals": "id",
+    "raff_num": "exact",
+    "raff_num_ok": "mask",
+    "raff_term_valid": "mask",
+    "pod_has_raff": "mask",
+    "paff_key": "id",
+    "paff_op": "id",
+    "paff_vals": "id",
+    "paff_num": "exact",
+    "paff_num_ok": "mask",
+    "paff_weight": "count",
+    "paff_term_valid": "mask",
+    "want_wild": "count",
+    "want_trip": "count",
+    "want_pair": "count",
+    "trip_pair": "id",
+    "img_contrib": "exact",
+    "pod_img": "count",
+    "pod_ncont": "count",
+    "vb_row": "id",
+    "vb_code": "id",
+    "vz_code": "id",
+    "vb_pf": "id",
+    "pod_claim": "mask",
+    "pod_disk_any": "count",
+    "pod_disk_rw": "count",
+    "pod_vol3": "count",
+}
+
+# id-class fields whose values are tiny closed enums (effect/op ids in
+# [-2, 6]) — these narrow all the way to int8.
+ENUM8 = frozenset({"taint_effect", "tol_effect", "tol_op", "raff_op", "paff_op"})
 
 
 @dataclass
@@ -768,7 +843,7 @@ def encode_cluster(
     rel, rel_aux = encode_pod_relations(
         node_views, pod_views, N, P,
         label_keys=label_keys, constraints=pod_constraints,
-        namespaces=namespaces, device=device,
+        namespaces=namespaces, policy=policy, device=device,
     )
     vol_arrays, vol_aux = encode_volumes(
         pod_views, nodes, N, P, pvcs or [], pvs or [], storageclasses or [], config
@@ -815,22 +890,23 @@ def encode_cluster(
     def put(v, dtype=None):
         return torch.as_tensor(v, dtype=dtype, device=device)
 
+    host_arrays = dict(
+        node_alloc=node_alloc, node_unsched=node_unsched, node_mask=node_mask,
+        pod_req=pod_req, pod_sreq=pod_sreq, pod_req_rank=pod_req_rank,
+        pod_node_name=pod_node_name, pod_tol_unsched=pod_tol_unsched,
+        pod_priority=pod_priority, pod_mask=pod_mask,
+        **taint_arrays, **label_arrays, **port_arrays, **img_arrays, **vol_arrays,
+    )
+    # the logical last dim of every field PACKED bit-packed; the relational
+    # planes' come with rel_aux
+    packed_dims: "dict[str, int]" = dict(rel_aux.pop("packed_dims"))
     arrays = ClusterArrays(
-        node_alloc=put(node_alloc, policy.res),
-        node_unsched=put(node_unsched),
-        node_mask=put(node_mask),
-        pod_req=put(pod_req, policy.res),
-        pod_sreq=put(pod_sreq, policy.res),
-        pod_req_rank=put(pod_req_rank),
-        pod_node_name=put(pod_node_name),
-        pod_tol_unsched=put(pod_tol_unsched),
-        pod_priority=put(pod_priority),
-        pod_mask=put(pod_mask),
-        **{k: put(v) for k, v in taint_arrays.items()},
-        # Gt/Lt numerics and image sums carry the policy's integer type
-        **{k: put(v, policy.res if k in RES_TYPED else None)
-           for k, v in {**label_arrays, **port_arrays, **img_arrays}.items()},
-        **{k: put(v) for k, v in vol_arrays.items()},
+        # the resource planes, Gt/Lt numerics and image sums carry the
+        # policy's integer type
+        **{k: put_field(k, v, WIDTH_CLASSES[k], policy=policy, enum8=ENUM8,
+                        packed_dims=packed_dims, device=device,
+                        dtype=policy.res if k in RES_TYPED else None)
+           for k, v in host_arrays.items()},
         rel=rel,
     )
     state0 = SchedState(
@@ -867,6 +943,7 @@ def encode_cluster(
             "label_vals": label_vals,
             "res_vocab": res_vocab,
             "topo_keys": set(topo_keys),
+            "packed_dims": packed_dims,
         },
     )
     enc.objects = {
@@ -934,7 +1011,10 @@ def from_reference_arrays(
     `ClusterArrays` and `SchedState` leaves); `arrays["rel"]` maps the
     nested `PodRelArrays` leaves the same way. `queue` is the reference's
     pending queue. `meta` carries `node_names`, `pod_keys`,
-    `resource_names`, `policy` (the policy name, "exact" or "i32"),
+    `resource_names`, `policy` (the policy name, "exact", "i32" or
+    "packed"; for "packed", `packed_dims`, the logical last dim of each
+    bit-packed field: its uint32 words come across as int32 with the same
+    bits, its int8 and int16 leaves as they are),
     `config` (the configuration dict, as `SchedulerConfiguration.to_dict()`
     gives it), for the TaintToleration messages `node_taints` (each node's
     taint list) and for the volume messages `vol_messages` (the interned
@@ -949,7 +1029,10 @@ def from_reference_arrays(
         if name not in src:
             raise KeyError(f"reference encoding lacks field {name!r}")
         dtype = policy.res if name in RES_TYPED else None
-        return torch.tensor(np.asarray(src[name]), dtype=dtype, device=device)
+        v = np.asarray(src[name])
+        if v.dtype == np.uint32:  # PACKED's words
+            v = v.view(np.int32)
+        return torch.tensor(v, dtype=dtype, device=device)
 
     if "rel" not in arrays:
         raise KeyError("reference encoding lacks field 'rel'")
@@ -985,5 +1068,6 @@ def from_reference_arrays(
             "vol_messages": list(meta.get("vol_messages") or [""]),
             # node-pair ids run 1..n_node_pairs
             "n_node_pairs": int(rel.node_pair.max()) if rel.node_pair.numel() else 0,
+            "packed_dims": dict(meta.get("packed_dims") or {}),
         },
     )

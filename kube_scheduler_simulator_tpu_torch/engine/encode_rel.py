@@ -5,8 +5,7 @@ bound pods, which changes at every step of the pass. The encoder compiles
 every label selector into fixed clause tensors once; each step evaluates
 them against static pod-label bitsets and reduces the counts by
 scatter-adds keyed on `state.assignment` — no P×P matrix is ever built.
-This is the reference package's `engine/encode_rel.py` without the PACKED
-storage.
+This is the reference package's `engine/encode_rel.py`.
 
 Selector → clauses (upstream metav1.LabelSelector semantics):
   * matchLabels k=v and In(k, vs)  → PAIR_ANY over the (k,v) pair ids
@@ -34,6 +33,7 @@ from ..sched.oracle_plugins import (
     _term_matches_pod,
     spread_log_weight,
 )
+from .packing import put_field
 
 PAIR_ANY, NOTIN, EXISTS, DNE, NEVER = 0, 1, 2, 3, 4
 CL_PAD = -1
@@ -115,6 +115,64 @@ class PodRelArrays:
                 for f in dataclasses.fields(self)
             }
         )
+
+
+# Width class per PodRelArrays field (classes as in engine/encode.py
+# WIDTH_CLASSES; field names are unique across the two dataclasses, so the
+# delta encoder and `packing.widen` use one flat namespace).
+REL_WIDTH_CLASSES: "dict[str, str]" = {
+    "pair_present": "mask",
+    "key_present": "mask",
+    "ns_id": "id",
+    "deleted": "mask",
+    "node_pair": "id",
+    "sph_key": "id",
+    "sph_skew": "count",
+    "sph_self": "mask",
+    "sph_ctype": "id",
+    "sph_ckey": "id",
+    "sph_cpairs": "id",
+    "sps_key": "id",
+    "sps_skew": "count",
+    "sps_host": "mask",
+    "sps_ctype": "id",
+    "sps_ckey": "id",
+    "sps_cpairs": "id",
+    "req_all": "mask",
+    "spread_lut": "exact",  # fixed-point log weights, full int32 range
+    "ia_key": "id",
+    "ia_ctype": "id",
+    "ia_ckey": "id",
+    "ia_cpairs": "id",
+    "ia_nsall": "mask",
+    "ia_ns": "mask",
+    "ia_self": "mask",
+    "ian_key": "id",
+    "ian_ctype": "id",
+    "ian_ckey": "id",
+    "ian_cpairs": "id",
+    "ian_nsall": "mask",
+    "ian_ns": "mask",
+    "ipa_key": "id",
+    "ipa_ctype": "id",
+    "ipa_ckey": "id",
+    "ipa_cpairs": "id",
+    "ipa_nsall": "mask",
+    "ipa_ns": "mask",
+    "ipa_weight": "count",
+    "ipan_key": "id",
+    "ipan_ctype": "id",
+    "ipan_ckey": "id",
+    "ipan_cpairs": "id",
+    "ipan_nsall": "mask",
+    "ipan_ns": "mask",
+    "ipan_weight": "count",
+}
+
+# clause-type ids are the tiny closed enum above (PAIR_ANY..NEVER, CL_PAD)
+REL_ENUM8 = frozenset(
+    {"sph_ctype", "sps_ctype", "ia_ctype", "ian_ctype", "ipa_ctype", "ipan_ctype"}
+)
 
 
 class _ClauseBuilder:
@@ -246,9 +304,11 @@ def encode_pod_relations(
     label_keys: Vocab,
     constraints,
     namespaces: "list[dict] | None" = None,
+    policy=None,
     device: "torch.device | None" = None,
 ) -> tuple[PodRelArrays, dict]:
-    """Build PodRelArrays on `device`.
+    """Build PodRelArrays on `device`, stored as `policy` says (PACKED:
+    engine/packing.py; None: as TPU32).
 
     `label_keys` is the node-label key vocabulary of the affinity encoder
     (topology keys are interned there first, so they index the same
@@ -425,11 +485,15 @@ def encode_pod_relations(
         ipan_ns=qns,
         ipan_weight=qw,
     )
-    rel = PodRelArrays(**{k: torch.as_tensor(v, device=device) for k, v in host.items()})
+    packed_dims: "dict[str, int]" = {}
+    rel = PodRelArrays(**{
+        k: put_field(k, v, REL_WIDTH_CLASSES[k], policy=policy, enum8=REL_ENUM8,
+                     packed_dims=packed_dims, device=device)
+        for k, v in host.items()})
     # the clause builder and namespace vocabulary stay for the delta
     # encoder, which compiles an appended pod's selectors against them
     return rel, {"n_node_pairs": len(node_pair_vocab), "clause_builder": cb,
-                 "ns_vocab": ns_vocab}
+                 "ns_vocab": ns_vocab, "packed_dims": packed_dims}
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,11 @@ then binds the retry's selection (the reference's `lax.cond` branch).
 On the card the whole pass is one launch of the `seq_run` kernel
 (engine/cuda.py); on the CPU its plain PyTorch version runs. `results()`
 converts the trace host-side into the reference's exact annotation wire
-format (sched/results.py). This is the reference package's
-`engine/engine.py` without PACKED or chunked runs; its `preempt_mode`
+format (sched/results.py). Under PACKED every entry point widens the
+encoding's planes at its start (`packing.widen`, one K8 launch) and runs on
+the logical planes; the step functions widen the arrays they are handed at
+each call. This is the reference package's `engine/engine.py` without
+chunked runs; its `preempt_mode`
 ("cond" or "masked") selects no other code here (the reference pins the
 two byte-identical). Sweeps over weight variants are `parallel/sweep.py`;
 `run_batch` runs several tenants' engines in one launch (the batch plane,
@@ -42,6 +45,7 @@ from ..sched.results import (
 )
 from . import cuda
 from . import kernels as K
+from . import packing
 from . import preempt as PR
 from .cuda import TRACE_SLOTS_PLAIN, TRACE_SLOTS_PREEMPT  # noqa: F401  (the trace layouts)
 from .encode import TPU32, DTypePolicy, EncodedCluster, encode_cluster, resolve_device
@@ -220,22 +224,28 @@ class BatchedScheduler:
     # -- single-pod segments (the reference's seq.attempt / seq.bind /
     # seq.step programs, and the extender loop's preempt / evict) ---------
 
+    def _widen(self, arrays):
+        """`arrays` (this engine's encoding's, packed or widened) as logical
+        planes: one K8 launch where any plane is packed or narrow."""
+        return packing.widen(arrays, self.enc.aux.get("packed_dims") or {})
+
     def attempt_fn(self, arrays, state, weights, p):
         """One PreFilter→Filter→Score→Normalize→select pass for pod p:
         (pf_codes, codes, raw, final, sel, pf_ok) as the reference's
         attempt_fn."""
         codes, raw, final, sel, pf_codes = cuda.seq_attempt(
-            self.program, arrays, state, weights, int(p))
+            self.program, self._widen(arrays), state, weights, int(p))
         return pf_codes, codes, raw, final, sel, (pf_codes == 0).all()
 
     def bind_fn(self, arrays, state, p, sel, qi):
         """Bind pod p to node `sel` at queue position qi, updating `state`
         in place (the reference returns a new state); returns it."""
-        return cuda.seq_bind(self.program, arrays, state, int(p), sel, int(qi))
+        return cuda.seq_bind(self.program, self._widen(arrays), state, int(p), sel, int(qi))
 
     def attempt_bind_fn(self, arrays, state, weights, p, qi):
         """The single-pod step: attempt, then bind its selection (in
         place). Returns the attempt outputs and the state."""
+        arrays = self._widen(arrays)
         out = self.attempt_fn(arrays, state, weights, p)
         return (*out, self.bind_fn(arrays, state, p, out[4], qi))
 
@@ -243,12 +253,12 @@ class BatchedScheduler:
         """The DefaultPreemption dry run for pod p at `state`: (pcode [N],
         victim offsets [N+1], victim pod indices, nominated) — the
         reference's preempt closure, victims as a CSR record."""
-        return cuda.seq_preempt(self.program, arrays, state, int(p))
+        return cuda.seq_preempt(self.program, self._widen(arrays), state, int(p))
 
     def evict_fn(self, arrays, state, mask):
         """Remove the pods of `mask` ([P] bool) from their nodes, in place
         (the reference's evict_all); returns the state."""
-        return cuda.seq_evict(self.program, arrays, state, mask)
+        return cuda.seq_evict(self.program, self._widen(arrays), state, mask)
 
     # -- engine reuse (the serving layer's engine cache) ---------------------
 
@@ -271,7 +281,9 @@ class BatchedScheduler:
         preemption victim bound (from node capacities and the initial
         assignment), the queue's bucket (left out with
         `include_queue_len=False`: the gang engine takes the queue as a
-        fixed-[P] order), and every tensor's shape and dtype. Two encodings
+        fixed-[P] order), every tensor's shape and dtype, and PACKED's
+        logical lane counts (`packed_dims`: the word count ceil(n / 32) is
+        not injective in n). Two encodings
         with equal signatures can share one engine through `retarget`. The
         reference's signature, component for component (with no custom
         plugin statics).
@@ -302,6 +314,7 @@ class BatchedScheduler:
             BatchedScheduler.queue_bucket(len(enc.queue)) if include_queue_len else None,
             record,
             shapes,
+            tuple(sorted((enc.aux.get("packed_dims") or {}).items())),
         )
         memo[key] = sig
         return sig
@@ -330,7 +343,7 @@ class BatchedScheduler:
         queue are padding (`results()` decodes the live queue only)."""
         w = self.weights if weights is None else weights
         state, out = self.run_fn(
-            self.enc.arrays, self.enc.state0,
+            packing.widen(self.enc), self.enc.state0,
             torch.as_tensor(self.padded_queue(), device=self.device), w
         )
         self._final_state = state
@@ -529,7 +542,9 @@ def run_batch(engines: "list[BatchedScheduler]") -> list[tuple]:
     compile signature (equal record flag, kernel config, dims and queue
     bucket). Each engine's `_final_state` and `_trace` become its slice, as
     its own `run()` would leave them (its victim list cut to its own
-    victims), so `results()` decodes it unchanged. Returns [(final state, trace)] by engine."""
+    victims), so `results()` decodes it unchanged. A PACKED tenant's planes
+    are widened for the window (a K8 launch a tenant). Returns [(final
+    state, trace)] by engine."""
     if not engines:
         return []
     e0 = engines[0]
@@ -537,7 +552,7 @@ def run_batch(engines: "list[BatchedScheduler]") -> list[tuple]:
         raise ValueError("a batch's engines share one record flag and device")
     q = torch.as_tensor(np.stack([e.padded_queue() for e in engines]), device=e0.device)
     states, out = cuda.batch_run(
-        [e.program for e in engines], [e.enc.arrays for e in engines],
+        [e.program for e in engines], [packing.widen(e.enc) for e in engines],
         cuda.stack_states([e.enc.state0 for e in engines]), q,
         torch.stack([e.weights for e in engines]).contiguous(), record=e0.record,
     )

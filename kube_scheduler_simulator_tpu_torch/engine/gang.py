@@ -64,10 +64,17 @@ pending count). The host auto-resumes a pass that spent its whole budget
 (`_resumed_pass`; GangSweep's per-variant form in parallel/sweep.py).
 `inner_loop="static"` runs the matching's exactly `inner_iters` iterations
 (`cuda.gang_match(counted=True)`, its own kernel).
+
+Under PACKED a drive widens the encoding's planes once at its start
+(`packing.widen`, one K8 launch: the reference widens before its
+while_loop) and every round and phase reads the widened planes, which are
+freed when the drive ends; so do a gang sweep's run, each batch window's
+tenants and a fault sweep's scenario rounds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -75,6 +82,7 @@ import torch
 
 from . import cuda
 from . import kernels as K
+from . import packing
 from .cuda import NO_ORDER, TRACE_SLOTS_PREEMPT
 from .encode import EncodedCluster
 from .engine import BatchedScheduler
@@ -341,6 +349,7 @@ class GangScheduler(_Rounds):
         self._trace = None
         self._recorded_weights = None
         self._rec = None
+        self._a = None  # the widened planes while a drive runs (`widened`)
         # what the last drive did: rounds, preempt phases, host readbacks
         self.last_stats: dict = {}
 
@@ -357,13 +366,15 @@ class GangScheduler(_Rounds):
         order_t = torch.as_tensor(order, device=self.device)
         return order_t, order_t != NO_ORDER
 
-    def _prep(self) -> None:
-        """The encoding's device-side round inputs: the queue, the order,
-        each pod's RWOP claims as a -1-padded list [P, MC] and the carriers."""
+    def _prep(self, a=None) -> None:
+        """The encoding's device-side round inputs, from its widened planes
+        `a` (None: widened here): the queue, the order, each pod's RWOP
+        claims as a -1-padded list [P, MC] and the carriers."""
         enc = self.enc
         if self._prepped is enc:
             return
-        a = enc.arrays
+        if a is None:
+            a = packing.widen(enc)
         self._order, _ = self.order_arrays()
         self._queue = torch.as_tensor(np.asarray(enc.queue, np.int32), device=self.device)
         pc = a.pod_claim
@@ -382,7 +393,7 @@ class GangScheduler(_Rounds):
         variant's queue pods — pending first, in queue order, when `sort`,
         else as queued — and its pending count, both on the device."""
         q = self._queue.long()
-        pend = (states.assignment[:, q] < 0) & self.enc.arrays.pod_mask[q]
+        pend = (states.assignment[:, q] < 0) & self.enc.arrays.pod_mask[q]  # 1-D: never packed
         count = pend.sum(dim=1, dtype=torch.int32)
         if not sort:
             return self._queue.expand(pend.shape[0], -1), count
@@ -395,7 +406,7 @@ class GangScheduler(_Rounds):
         (weights [V, S], rows [V, K]) over rows [0, live[v]) (all rows when
         live is None), in place: one launch of each kernel. Returns the
         round's sel [V, K] and stat [V, 2]."""
-        enc, prog, a = self.enc, self._base.program, self.enc.arrays
+        enc, prog, a = self.enc, self._base.program, self._a
         scores = cuda.gang_eval(prog, a, states, w, rows, live, self._order)
         if self.match_width < enc.N:
             vals, idx = cuda.gang_topk(scores, live, self.match_width)
@@ -403,7 +414,8 @@ class GangScheduler(_Rounds):
             vals, idx = scores, None
         sel, stat = cuda.gang_match(
             vals, idx, rows, live, self._order, self._claims, self._carrier, enc.N,
-            a.pod_claim.shape[1], self.inner_iters, counted=self.inner_loop == "static",
+            packing.logical_dim(enc, "pod_claim"), self.inner_iters,
+            counted=self.inner_loop == "static",
         )
         cuda.gang_bind(prog, a, states, rows, live, sel, self._order)
         return sel, stat
@@ -431,18 +443,33 @@ class GangScheduler(_Rounds):
         self._trace = self._recorded_weights = None
         return self
 
+    @contextlib.contextmanager
+    def widened(self):
+        """The encoding's logical planes for one drive (`packing.widen`),
+        kept as `_a` while it runs and let go after it; the round inputs
+        prepared from them."""
+        self._a = packing.widen(self.enc)
+        try:
+            self._prep(self._a)
+            yield self._a
+        finally:
+            self._a = None
+
     def _drive(self, weights, chronology: "list | None"):
         """The one driver behind `run()` and `run_recorded()`: gang passes
-        alternating with preempt phases."""
+        alternating with preempt phases, on the widened planes."""
+        with self.widened():
+            return self._drive_widened(weights, chronology)
+
+    def _drive_widened(self, weights, chronology: "list | None"):
         w = self.weights if weights is None else torch.as_tensor(
             weights, dtype=self.enc.policy.score, device=self.device)
-        self._prep()
         tracked = chronology is not None
         self.last_stats = {"rounds": 0, "phases": 0, "host_syncs": 0, "phase_pods": 0}
         state = self.enc.state0.clone()
         # the one-variant stack of the round kernels (views of `state`)
         rounds, n_pend = self._resumed_pass(cuda.as_variants(state), w[None], chronology)
-        prog, a = self._base.program, self.enc.arrays
+        prog, a = self._base.program, self._a
         if self.preempts:
             while n_pend > 0:
                 rows, _ = self._pending(cuda.as_variants(state), sort=True)
@@ -494,7 +521,11 @@ class GangScheduler(_Rounds):
         replay does: a gang round's pods are re-evaluated against the
         round's start state (and their rounds bound in turn), a phase's rows
         are its own trace, leftovers are evaluated against the final state."""
-        enc, prog, a = self.enc, self._base.program, self.enc.arrays
+        with self.widened() as a:
+            return self._assemble_widened(a)
+
+    def _assemble_widened(self, a) -> tuple:
+        enc, prog = self.enc, self._base.program
         rec = self._recorder()
         w = self._recorded_weights
         order = self._order
@@ -634,14 +665,16 @@ class _TenantRounds(_Rounds):
             bad += [x for x in self._OPTIONS if getattr(g, x) != getattr(g0, x)]
             if bad:
                 raise ValueError(f"tenant {i} differs from tenant 0 in {bad}")
-            g._prep()
+        # each tenant's widened planes, for this window
+        self._arrays = [packing.widen(g.enc) for g in gangs]
+        for g, a in zip(gangs, self._arrays):
+            g._prep(a)
         self.gangs = gangs
         self.enc = g0.enc
         for x in self._OPTIONS:
             setattr(self, x, getattr(g0, x))
         self.last_stats = {"host_syncs": 0}
         self._progs = [g._base.program for g in gangs]
-        self._arrays = [g.enc.arrays for g in gangs]
         dev, P = self.device, g0.enc.P
         # each tenant's queue as a -1 padded row, its order, claims (-1 padded
         # to the widest tenant's) and carriers
@@ -684,7 +717,7 @@ class _TenantRounds(_Rounds):
             vals, idx = scores, None
         sel, stat = cuda.batch_match(
             vals, idx, rows, live, self._orders, self._claims, self._carriers, enc.N,
-            enc.arrays.pod_claim.shape[1], self.inner_iters,
+            packing.logical_dim(enc, "pod_claim"), self.inner_iters,
             counted=self.inner_loop == "static",
         )
         cuda.batch_bind(self._progs, self._arrays, states, rows, live, sel, self._orders,
@@ -706,14 +739,18 @@ class _ScenarioRounds(_TenantRounds):
 
     _pending = GangScheduler._pending  # one queue for every scenario
 
-    def __init__(self, gang: GangScheduler, node_masks: torch.Tensor):
-        gang._prep()
+    def __init__(self, gang: GangScheduler, node_masks: torch.Tensor, a=None):
+        """`a`: the gang's encoding's widened planes (`GangScheduler.widened`;
+        None: widened here)."""
+        if a is None:
+            a = packing.widen(gang.enc)
+        gang._prep(a)
         for x in self._OPTIONS:
             setattr(self, x, getattr(gang, x))
         self.compact = True
         self.enc = gang.enc
         self.last_stats = {"host_syncs": 0}
-        S, a, prog = node_masks.shape[0], gang.enc.arrays, gang._base.program
+        S, prog = node_masks.shape[0], gang._base.program
         self._progs = [prog] * S
         self._arrays = [dataclasses.replace(a, node_mask=node_masks[s]) for s in range(S)]
         self._queue = gang._queue

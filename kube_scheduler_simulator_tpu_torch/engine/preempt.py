@@ -36,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import packing
 from .encode import PODS_RES, ClusterArrays, EncodedCluster, SchedState
 
 PREEMPT_NO_LOWER = 0  # "no lower-priority pods to preempt"
@@ -405,7 +406,9 @@ def victim_bound(enc: EncodedCluster, filter_names) -> int:
     with NodeResourcesFit enabled no node ever holds more pods than
     max(pods capacity, its initial load); rounded up to its shape bucket.
     A node with more lower-priority pods than this is processed only up to
-    the bound, as the reference's reprieve scan is."""
+    the bound, as the reference's reprieve scan is. It reads the exact and
+    1-D planes only (`node_alloc`, `node_mask`, the initial assignment),
+    which PACKED never narrows or packs."""
     from ..utils.compilecache import shape_bucket
 
     P = enc.P
@@ -456,8 +459,12 @@ def build_preemption(enc: EncodedCluster, filter_names):
                 "state-independent (preempt.STATELESS_FILTERS)"
             )
     V = victim_bound(enc, filter_names)
+    packed_dims = enc.aux.get("packed_dims") or {}
 
     def preempt(a: ClusterArrays, s: SchedState, p: int):
+        # PACKED planes widen here (K8) where a caller hands the raw
+        # encoding's; the engine's callers hand widened planes, a no-op
+        a = packing.widen(a, packed_dims)
         N, P = a.node_mask.shape[0], a.pod_mask.shape[0]
         dev = a.node_mask.device
         prio = a.pod_priority

@@ -29,6 +29,7 @@ KERNELS = ("delta_scatter_set", "delta_scatter_add", "delta_vec_add")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _ADD_TYPES = (torch.int32, torch.int64)
+_SET_SIZES = (1, 2, 4, 8)  # bool, int8; int16 (PACKED); int32, PACKED's words; int64
 
 
 def reset_counts() -> None:
@@ -121,8 +122,11 @@ def _launch_rows(name: str, arr, idx, rows) -> torch.Tensor:
 
 
 def launch_set(arr: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """The set kernel on device tensors: arr[idx[j]] = rows[j], in place.
-    The indices must be distinct and in range (`scatter_set` checks them)."""
+    """The set kernel on device tensors: arr[idx[j]] = rows[j], in place,
+    for elements of 1, 2, 4 or 8 bytes. The indices must be distinct and in
+    range (`scatter_set` checks them)."""
+    if arr.element_size() not in _SET_SIZES:
+        raise ValueError(f"delta_scatter_set takes 1-, 2-, 4- or 8-byte elements, got {arr.dtype}")
     return _launch_rows("delta_scatter_set", arr, idx, rows)
 
 

@@ -20,7 +20,9 @@ K11 `faultsweep.one`, `vrun` and `bind_all`).
 As the reference's, the sweep runs the round fixpoint only, with no
 preempt phases even where the profile enables DefaultPreemption: it
 measures re-placement capacity, not eviction cascades. `run_one` is the
-S = 1 form of the same code, the parity probe of `run`.
+S = 1 form of the same code, the parity probe of `run`. Under PACKED the
+baseline bind and each sweep widen the encoding's planes once
+(`packing.widen`, a K8 launch each).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..engine import cuda
+from ..engine import cuda, packing
 from ..engine.encode import TPU32, EncodedCluster, SchedState, encode_cluster
 from ..engine.gang import GangScheduler, _ScenarioRounds
 from ..utils import prng
@@ -131,8 +133,9 @@ class FaultSweep:
         state = enc.state0.clone()
         if pods:
             i32 = dict(dtype=torch.int32, device=self.device)
-            cuda.gang_bind(self.gang._base.program, enc.arrays, state, torch.tensor(pods, **i32),
-                           None, torch.tensor(nodes, **i32), self._order)
+            cuda.gang_bind(self.gang._base.program, packing.widen(enc), state,
+                           torch.tensor(pods, **i32), None, torch.tensor(nodes, **i32),
+                           self._order)
         return state
 
     # -- sampling ---------------------------------------------------------------
@@ -173,12 +176,13 @@ class FaultSweep:
             weights, dtype=enc.policy.score, device=self.device)
         w = w[None].expand(S, -1).contiguous()
         states = cuda.stack_states([self._state_bound] * S)
-        evict, evicted, node_masks = cuda.fault_evict(g._base.program, enc.arrays, states, fail)
-        t = _ScenarioRounds(g, node_masks)
-        # the first round takes rows up to the most pods pending in a scenario;
-        # a counted pass (loop="static") is one, not resumed
-        k0 = int(t._pending(states, sort=False)[1].max())
-        rounds, _ = t._gang_pass(states, w, k0=k0)
+        with g.widened() as a:
+            evict, evicted, node_masks = cuda.fault_evict(g._base.program, a, states, fail)
+            t = _ScenarioRounds(g, node_masks, a)
+            # the first round takes rows up to the most pods pending in a
+            # scenario; a counted pass (loop="static") is one, not resumed
+            k0 = int(t._pending(states, sort=False)[1].max())
+            rounds, _ = t._gang_pass(states, w, k0=k0)
         rescheduled, stranded = cuda.fault_tally(states.assignment, evict, evicted)
         self._states = states  # every scenario's final state, for checks
         self.last_stats = {"scenarios": S, "rounds": rounds,

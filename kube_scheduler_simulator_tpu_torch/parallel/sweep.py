@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..engine import cuda
+from ..engine import cuda, packing
 from ..engine.encode import EncodedCluster, SchedState
 from ..engine.engine import BatchedScheduler
 from ..engine.gang import GangScheduler
@@ -106,7 +106,7 @@ class WeightSweep:
         weights = torch.as_tensor(w).to(device=dev, dtype=enc.policy.score)
         states0 = cuda.stack_states([enc.state0] * w.shape[0])
         queue = torch.as_tensor(np.asarray(enc.queue, np.int32), device=dev)
-        return cuda.sweep_run(self.sched.program, enc.arrays, states0, queue, weights,
+        return cuda.sweep_run(self.sched.program, packing.widen(enc), states0, queue, weights,
                               record=self.sched.record)
 
     def placements(self, sels) -> list[dict]:
@@ -170,8 +170,12 @@ class GangSweep:
         S = len(self.gang.weights)
         if w.ndim != 2 or w.shape[1] != S:
             raise ValueError(f"weight matrix must be [V, {S}], got {w.shape}")
+        with self.gang.widened() as a:
+            return self._run(w, a)
+
+    def _run(self, w, a) -> tuple:
+        """`run` on the widened planes `a`."""
         g, enc = self.gang, self.enc
-        g._prep()
         V = w.shape[0]
         weights = torch.as_tensor(w).to(device=self.device, dtype=enc.policy.score)
         states = cuda.stack_states([enc.state0] * V)
@@ -180,7 +184,7 @@ class GangSweep:
         self.last_stats = g.last_stats = stats  # _gang_pass counts its readbacks there
         rounds, n_pend = self._passes(states, weights)
         hold = self._hold
-        prog, a = g._base.program, enc.arrays
+        prog = g._base.program
         while g.preempts:
             # the reference's rule: a phase while any variant has pods pending,
             # a resumed pass of every variant while any phase bound a pod
@@ -248,7 +252,7 @@ class GangSweep:
         Q, N = len(enc.queue), enc.N
         isz = torch.empty((), dtype=enc.policy.score).element_size()
         W = g.match_width if g.match_width < N else 0
-        C = enc.arrays.pod_claim.shape[1]
+        C = packing.logical_dim(enc, "pod_claim")
         per_variant = Q * (N * isz + W * (isz + 4) + 64) + 4 * (3 * N + 2 * C + 8)
         free, _ = torch.cuda.mem_get_info(self.device)
         free += torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)

@@ -10,7 +10,11 @@ ONE launch on the card: B sequential passes through the tenant form of
 through the tenant forms of the K9 kernels and of `sweep_run`'s segments
 (`gang.batch_fixpoint`, K11 `batch.gang.run`). Each tenant keeps its own
 cluster planes on the card (the kernels read them through a table of the
-tenants' Planes structs), its own queue, weights, state and trace.
+tenants' Planes structs), its own queue, weights, state and trace. A
+tenant's encoding may be PACKED (its batch key carries the policy and the
+packed lane counts, so only PACKED tenants of one shape share a window): it
+stays packed at rest, and the window widens each tenant's planes once (a K8
+launch a tenant) for the launch.
 
 How a window forms (the reference's semantics):
 

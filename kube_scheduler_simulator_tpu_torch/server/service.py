@@ -276,6 +276,8 @@ class SchedulerService:
             return cached
         self._delta.policy = policy
         enc, info = self._delta.encode(self.store, config)
+        if info.get("reason") == "dtype-policy-change":
+            self.metrics.record_encode_policy_miss()
         self._enc_cache.put(cache_key, config, enc)
         with self._lock:
             self.last_encode_info = info

@@ -16,7 +16,8 @@ engines. The manager admits sessions and requests:
 
 The ``default`` session wraps the service the manager is given (or a new
 one). Every service runs on `device` (the CUDA card unless the caller names
-another).
+another). Under ``KSS_DTYPE_POLICY=packed`` a session keeps only its packed
+encoding between passes: the widened planes live while a pass runs.
 
 Not ported (ROADMAP.md queue 1 item 8): idle eviction and restore,
 snapshots, `fork`, `drain`/`adopt_snapshots`, journals, replication,

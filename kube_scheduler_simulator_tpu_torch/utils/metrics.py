@@ -8,7 +8,10 @@ execute and decode seconds, and counts which encode path served it
 (delta, full, cached, empty) and how many engines were built; the batch
 plane's counters (server/batchplane.py) count the passes a batched launch
 served, the windows, their fill and the passes that fell back to solo
-dispatch. `phases()` reads them under the reference's key names.
+dispatch; `encodePolicyMisses` counts the full encodes a dtype-policy flip
+forced. `phases()` reads them under the reference's key names, and
+`render_prometheus` gives the counters in the Prometheus text format under
+the reference's metric names.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ class SchedulingMetrics:
         self._batch_occupancy_sum = 0
         self._solo_fallbacks = 0
         self._batched_gang_passes = 0
+        self._encode_policy_misses = 0
 
     def record(self, rec: PassRecord) -> None:
         with self._lock:
@@ -59,6 +63,12 @@ class SchedulingMetrics:
         with self._lock:
             self._encode_counts[mode] = self._encode_counts.get(mode, 0) + 1
             self._phase_s["encode"] += float(seconds)
+
+    def record_encode_policy_miss(self) -> None:
+        """One full re-encode forced by a dtype-policy flip
+        (KSS_DTYPE_POLICY changed between passes)."""
+        with self._lock:
+            self._encode_policy_misses += 1
 
     def record_engine_build(self, seconds: float = 0.0) -> None:
         """One engine built (its first run included); a pass that reuses an
@@ -129,6 +139,7 @@ class SchedulingMetrics:
                 "fullEncodes": self._encode_counts.get("full", 0),
                 "cachedEncodes": self._encode_counts.get("cached", 0),
                 "emptyEncodes": self._encode_counts.get("empty", 0),
+                "encodePolicyMisses": self._encode_policy_misses,
                 "engineBuilds": self._engine_builds,
                 "batchedPasses": self._batched_passes,
                 "batchWindows": self._batch_windows,
@@ -137,3 +148,30 @@ class SchedulingMetrics:
                 "gangFixpointRounds": self._gang_fixpoint_rounds,
                 "batchedGangPasses": self._batched_gang_passes,
             }
+
+
+# (metric name, help, `phases()` key): the reference's names for the
+# counters the port keeps
+_PROM_COUNTERS = (
+    ("kss_encode_policy_misses_total", "Full re-encodes forced by a dtype-policy flip.",
+     "encodePolicyMisses"),
+    ("kss_engine_builds_total", "Compiled-engine constructions (the recompile proxy).",
+     "engineBuilds"),
+)
+_ENCODE_MODES = (("delta", "deltaEncodes"), ("full", "fullEncodes"),
+                 ("cached", "cachedEncodes"), ("empty", "emptyEncodes"))
+
+
+def render_prometheus(metrics: SchedulingMetrics) -> str:
+    """The service's counters in the Prometheus text exposition format
+    (version 0.0.4): the policy misses, the engine builds and the encodes
+    by the path that served them."""
+    phases = metrics.phases()
+    lines = []
+    for name, help_text, key in _PROM_COUNTERS:
+        lines += [f"# HELP {name} {help_text}", f"# TYPE {name} counter",
+                  f"{name} {phases[key]}"]
+    lines += ["# HELP kss_encodes_total Cluster encodes by the path that served them.",
+              "# TYPE kss_encodes_total counter"]
+    lines += [f'kss_encodes_total{{mode="{mode}"}} {phases[key]}' for mode, key in _ENCODE_MODES]
+    return "\n".join(lines) + "\n"

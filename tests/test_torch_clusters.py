@@ -38,3 +38,25 @@ def test_rel_cluster_reaches_every_path():
     assert bool((rel.ian_ctype == 4).any())  # Gt in a label selector
     assert rel.ia_ns.shape[2] == 2 and bool(rel.deleted.any())
     assert int((enc.state0.assignment >= 0).sum()) > 1
+
+
+def claim_cluster(n_nodes=8, n_pending=48, seed=5, n_rwop=10):
+    """A small `preemption_cluster` (the whole default profile) with
+    `n_rwop` more ReadWriteOncePod claims, each bound to a PV of its own,
+    which every fourth pending pod mounts (two pods a claim): its
+    `pod_claim` plane has at least 8 lanes, so PACKED bit-packs it into one
+    word a pod, and a reader of the stored shape would see 1 claim."""
+    nodes, pods, objects = kp.preemption_cluster(n_nodes, n_pending, seed=seed)
+    for k in range(n_rwop):
+        objects["pvcs"].append({"metadata": {"name": f"rwop-{k}", "namespace": "default"},
+                                "spec": {"volumeName": f"pv-rwop-{k}",
+                                         "accessModes": ["ReadWriteOncePod"],
+                                         "resources": {"requests": {"storage": "1Gi"}}}})
+        objects["pvs"].append({"metadata": {"name": f"pv-rwop-{k}"},
+                               "spec": {"capacity": {"storage": "10Gi"},
+                                        "accessModes": ["ReadWriteOncePod"]}})
+    pending = [p for p in pods if not p["spec"].get("nodeName")]
+    for j, p in enumerate(pending[::4]):
+        p["spec"]["volumes"] = list(p["spec"].get("volumes", [])) + [
+            {"name": "rwop", "persistentVolumeClaim": {"claimName": f"rwop-{j % n_rwop}"}}]
+    return nodes, pods, objects

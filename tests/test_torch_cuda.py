@@ -29,7 +29,7 @@ import pytest
 import torch
 
 import kube_scheduler_simulator_tpu_torch as kp
-from kube_scheduler_simulator_tpu_torch.engine import cuda
+from kube_scheduler_simulator_tpu_torch.engine import cuda, packing
 from kube_scheduler_simulator_tpu_torch.engine.gang import (
     _ScenarioRounds,
     _TenantRounds,
@@ -38,7 +38,7 @@ from kube_scheduler_simulator_tpu_torch.engine.gang import (
 from kube_scheduler_simulator_tpu_torch.synth import HOST, ZONE
 from kube_scheduler_simulator_tpu_torch.utils.quantity import parse_quantity
 
-from test_torch_clusters import NAMESPACES, rel_cluster
+from test_torch_clusters import NAMESPACES, claim_cluster, rel_cluster
 
 pytestmark = pytest.mark.cuda
 
@@ -50,7 +50,8 @@ CONFIGS = {"fit": kp.fit_config, "slice": kp.affinity_config}
 
 # K10 (engine/scatter.py): random retained planes of every dtype the delta
 # encoder scatters into, rows of rank 0 to 3 and a zero-width plane
-K10_DTYPES = (torch.bool, torch.int32, torch.int64)
+K10_DTYPES = (torch.bool, torch.int32, torch.int64, torch.int16)  # int16: PACKED's planes
+K10_ADD_DTYPES = (torch.int32, torch.int64)
 K10_ROW_SHAPES = ((), (3,), (2, 5), (2, 3, 4), (0,))
 
 
@@ -58,7 +59,7 @@ def k10_cases(seed=0, P=300, k=64):
     """(label, plane, set indices, set rows, add indices, add rows, vector)
     on the CPU. Set indices are distinct; add indices repeat (several rows
     into one node); int32 values sit at the type's edges, so sums wrap.
-    Bool planes have no add (None)."""
+    Bool and int16 planes have no add (None)."""
     rng = np.random.default_rng(seed)
 
     def rand(dtype, shape):
@@ -76,7 +77,7 @@ def k10_cases(seed=0, P=300, k=64):
             idx = torch.as_tensor(rng.choice(P, k, replace=False).astype(np.int32))
             rows = rand(dtype, (k, *shape))
             add = vec = None
-            if dtype != torch.bool:
+            if dtype in K10_ADD_DTYPES:
                 add_idx = torch.as_tensor(rng.integers(0, 8, 3 * k).astype(np.int32))
                 add = (add_idx, rand(dtype, (3 * k, *shape)))
                 vec = rand(dtype, (P, *shape))
@@ -100,6 +101,49 @@ def check_k10(device, scatter, seed=0):
             want = scatter.vec_add_plain(arr.clone(), vec)
             assert torch.equal(got, want), ("vec", label)
             n += 2
+    return n
+
+
+def widen_leaves(enc):
+    """(leaves, lane counts) of every packed (lanes n > 0) or narrow (0)
+    plane of a PACKED encoding: what `packing.widen` hands K8."""
+    picked = packing.widen_leaves(enc.arrays, enc.aux["packed_dims"])
+    return [t for _, _, t, _ in picked], [n for _, _, _, n in picked]
+
+
+def pack_cases(seed=0):
+    """(leaves, lane counts) on the CPU: random words (bit 31 and the tail
+    word's padding bits set in many) of 2-, 3- and 4-D planes at odd lane
+    counts, int8 and int16 planes at their types' edges, and empty ones."""
+    rng = np.random.default_rng(seed)
+    leaves, lanes = [], []
+    for shape, n in (((3, 1), 8), ((5, 2), 33), ((2, 4, 2), 40), ((7, 2), 64),
+                     ((2, 3, 2, 1), 17), ((0, 2), 40), ((6, 1), 32)):
+        w = rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+        leaves.append(torch.as_tensor(w))
+        lanes.append(n)
+    for dtype, shape in ((np.int8, (4, 5)), (np.int16, (3, 7)), (np.int16, (9,)),
+                         (np.int8, (2, 3, 4)), (np.int16, (0, 3))):
+        info = np.iinfo(dtype)
+        leaves.append(torch.as_tensor(rng.integers(info.min, info.max, shape, dtype=np.int64,
+                                                   endpoint=True).astype(dtype)))
+        lanes.append(0)
+    return leaves, lanes
+
+
+def check_pack_widen(device, cuda, encs=(), seed=0):
+    """K8 on `device` against its plain version on the CPU, bit for bit,
+    over `pack_cases` and every packed or narrow leaf of each PACKED
+    encoding of `encs`, one call each. Returns the leaves compared."""
+    n = 0
+    for leaves, lanes in [pack_cases(seed)] + [widen_leaves(e) for e in encs]:
+        assert leaves
+        got = cuda.pack_widen([t.to(device) for t in leaves], lanes)
+        want = cuda.pack_widen_plain(leaves, lanes)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == w.dtype and g.shape == w.shape, i
+            assert g.device.type == device.type and torch.equal(g.cpu(), w), i
+        n += len(leaves)
     return n
 
 
@@ -298,12 +342,53 @@ def test_k10_kernels_match_plain(card):
     from kube_scheduler_simulator_tpu_torch.engine import scatter
 
     scatter.reset_counts()
-    assert check_k10(card, scatter) == 35
-    # a zero-width plane launches nothing: 3 dtypes x 4 shapes of set, 2 x 4
-    # of add and vec
-    assert scatter.LAUNCHES == {"delta_scatter_set": 12, "delta_scatter_add": 8,
+    assert check_k10(card, scatter) == 40
+    # a zero-width plane launches nothing: 4 dtypes x 4 shapes of set (the
+    # 2-byte rows of int16 among them), 2 x 4 of add and vec
+    assert scatter.LAUNCHES == {"delta_scatter_set": 16, "delta_scatter_add": 8,
                                 "delta_vec_add": 8}
     assert not any(scatter.PLAIN_CALLS.values())
+
+
+def packed_encodings(device=None):
+    """PACKED encodings of the affinity cluster and of the small default
+    cluster whose `pod_claim` bit-packs."""
+    nodes, pods = kp.synthetic_affinity_cluster(32, 96, seed=5)
+    aff = kp.encode_cluster(nodes, pods, kp.supported_config(), policy=kp.PACKED, device=device)
+    nodes, pods, objects = claim_cluster()
+    dflt = kp.encode_cluster(nodes, pods, kp.supported_config(), policy=kp.PACKED,
+                             device=device, **objects)
+    return aff, dflt
+
+
+def test_pack_widen_matches_plain(card):
+    """K8 (csrc/pack_kernels.cu): odd lane counts, words with bit 31 and
+    padding bits set, 3-D and 4-D planes, int8 and int16 at their edges,
+    empty planes, and every packed or narrow leaf of two PACKED encodings,
+    each call one launch."""
+    cuda.reset_counts()
+    encs = packed_encodings("cpu")
+    assert check_pack_widen(card, cuda, encs) > 12
+    assert cuda.LAUNCHES["pack_widen"] == 3 and cuda.PLAIN_CALLS["pack_widen"] == 0
+
+
+def test_packed_pass_matches_tpu32(card):
+    """The default profile's pass under PACKED on the card: one K8 launch,
+    then the trace, final state and placements of the TPU32 pass."""
+    nodes, pods, objects = claim_cluster()
+    runs = []
+    for policy in (kp.TPU32, kp.PACKED):
+        enc = kp.encode_cluster(nodes, pods, kp.supported_config(), policy=policy, **objects)
+        eng = kp.BatchedScheduler(enc)
+        cuda.reset_counts()
+        runs.append(eng.run() + (eng.placements(), dict(cuda.LAUNCHES)))
+    (st_a, tr_a, pl_a, n_a), (st_b, tr_b, pl_b, n_b) = runs
+    assert n_a["pack_widen"] == 0 and n_b["pack_widen"] == 1 and n_b["seq_run"] == 1
+    for g, h in zip(tr_b, tr_a):
+        assert g.dtype == h.dtype and torch.equal(g, h)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(st_b, f), getattr(st_a, f)), f
+    assert pl_a == pl_b
 
 
 @pytest.mark.parametrize("policy", sorted(POLICIES))

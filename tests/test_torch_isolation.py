@@ -4,6 +4,7 @@ take their plain versions only for tensors on the CPU."""
 
 import ast
 import pathlib
+import re
 import pkgutil
 import subprocess
 import sys
@@ -57,8 +58,15 @@ def test_no_module_imports_jax_or_the_reference():
     assert len(files) > 10
     for new in ("parallel/sweep.py", "scenario/batch.py",  # the sixth slice's
                 "server/sessions.py", "server/batchplane.py",  # the session and batch planes
-                "lifecycle/faultsweep.py", "utils/prng.py"):  # the fault sweep's
+                "lifecycle/faultsweep.py", "utils/prng.py",  # the fault sweep's
+                "engine/packing.py"):  # the PACKED policy's
         assert PORT / new in files, new
+    # the CUDA sources include the toolkit's headers and their own only
+    for src in sorted((PORT / "csrc").glob("*.cu")):
+        for inc in re.findall(r'#include [<"]([^>"]+)[>"]', src.read_text()):
+            assert inc in ("cuda_runtime.h", "stdint.h", "climits", "type_traits") or (
+                PORT / "csrc" / inc).exists(), (src.name, inc)
+    assert cuda.PACK_CSRC.exists() and cuda.PACK_CSRC.parent == PORT / "csrc"
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -141,6 +149,9 @@ def test_wrappers_take_plain_versions_on_cpu_tensors(monkeypatch):
     fail = torch.ones((2, eng.enc.N), dtype=torch.bool)
     evict, evicted, _ = cuda.fault_evict(eng.program, a, states, fail)
     cuda.fault_tally(states.assignment, evict, evicted)
+    # the PACKED policy's widening (K8), once
+    cuda.pack_widen([torch.zeros((3, 1), dtype=torch.int32), torch.zeros(4, dtype=torch.int16)],
+                    [9, 0])
     assert cuda.PLAIN_CALLS == dict.fromkeys(cuda.KERNELS, 1)
     assert cuda.LAUNCHES == dict.fromkeys(cuda.KERNELS, 0)
 

@@ -41,10 +41,12 @@ from test_torch_cuda import (
     check_fault_kernels,
     check_fault_sweep,
     check_k10,
+    check_pack_widen,
     check_segments,
     check_stacked_gang,
     cluster,
     fault_cluster,
+    packed_encodings,
     random_state,
     tenant_encodings,
 )
@@ -99,7 +101,8 @@ def host_lib(tmp_path_factory):
         pytest.skip("no g++ to build the kernel source on the host")
     d = tmp_path_factory.mktemp("host_kernels")
     shutil.copy(cuda.LAYOUT_H, d)
-    return host_build(d, (cuda.CSRC, cuda.DELTA_CSRC, cuda.FAULT_CSRC), "kernels")
+    return host_build(d, (cuda.CSRC, cuda.DELTA_CSRC, cuda.FAULT_CSRC, cuda.PACK_CSRC),
+                      "kernels")
 
 
 @pytest.fixture
@@ -332,19 +335,39 @@ def test_sweep_matches_plain(host, policy, kind, record):
 
 def test_k10_kernels_match_plain(host):
     """K10 (csrc/delta_kernels.cu): set, add (repeated indices, int32
-    wrap) and vector add over bool, int32 and int64 planes with rows of
-    rank 0 to 3; a zero-width plane launches nothing."""
-    assert check_k10(torch.device("cpu"), scatter, seed=4) == 35
-    assert scatter.LAUNCHES == {"delta_scatter_set": 12, "delta_scatter_add": 8,
+    wrap) and vector add over bool, int32 and int64 planes, and set over
+    int16 planes (the 2-byte rows), with rows of rank 0 to 3; a zero-width
+    plane launches nothing."""
+    assert check_k10(torch.device("cpu"), scatter, seed=4) == 40
+    assert scatter.LAUNCHES == {"delta_scatter_set": 16, "delta_scatter_add": 8,
                                 "delta_vec_add": 8}
     assert not any(scatter.PLAIN_CALLS.values())
 
 
-@pytest.mark.parametrize("policy", sorted(POLICIES))
-def test_delta_passes_through_the_k10_kernels(host, policy):
+def test_pack_widen_matches_plain(host):
+    """K8 (csrc/pack_kernels.cu) through the wrapper against its plain
+    version: odd lane counts, words with bit 31 and padding bits set, 3-D
+    and 4-D planes, int8 and int16 at their edges, empty planes, and every
+    packed or narrow leaf of the PACKED affinity and claim clusters; one
+    launch a call."""
+    assert check_pack_widen(torch.device("cpu"), cuda, packed_encodings("cpu"), seed=3) > 12
+    assert cuda.LAUNCHES["pack_widen"] == 3 and cuda.PLAIN_CALLS["pack_widen"] == 0
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES) + ["packed"])
+def test_delta_passes_through_the_k10_kernels(host, monkeypatch, policy):
     """Arrivals from the delta templates, binds and a cordon: each delta
     pass goes through the kernels, and the retained encoding equals a
-    from-scratch encode."""
+    from-scratch encode. Under PACKED the int16 planes' rows go through the
+    2-byte set."""
+    sizes = []
+    launch_rows = scatter._launch_rows
+
+    def recorded(name, arr, idx, rows):
+        sizes.append((name, arr.element_size()))
+        return launch_rows(name, arr, idx, rows)
+
+    monkeypatch.setattr(scatter, "_launch_rows", recorded)
     store = ResourceStore()
     cfg = SchedulerConfiguration.default()
     for i in range(4):
@@ -353,7 +376,7 @@ def test_delta_passes_through_the_k10_kernels(host, policy):
             "status": {"allocatable": {"cpu": "8", "memory": "16Gi", "pods": "110"}}})
     for j, t in enumerate(TEMPLATES * 2):  # 10 pods: the 16-pod bucket holds the arrivals
         store.apply("pods", from_template(t, f"{t['metadata']['name']}-seed{j}"))
-    delta = DeltaEncoder(policy=POLICIES[policy], device="cpu")
+    delta = DeltaEncoder(policy=POLICIES.get(policy, kp.PACKED), device="cpu")
     assert delta.encode(store, cfg)[1]["mode"] == "full"
     for k in range(6):
         store.apply("pods", from_template(TEMPLATES[k % len(TEMPLATES)], f"a{k}"))
@@ -366,6 +389,7 @@ def test_delta_passes_through_the_k10_kernels(host, policy):
         assert info["mode"] == "delta", info
         assert scatter.LAUNCHES["delta_scatter_set"] > 0 and not any(scatter.PLAIN_CALLS.values())
         assert_port_equal(delta._st.enc, full_encode(store, cfg, delta.policy), k)
+    assert (("delta_scatter_set", 2) in sizes) == (policy == "packed"), sizes
 
 
 # -- K9: the gang kernels (csrc/gang_kernels.cu) ------------------------------

@@ -126,11 +126,18 @@ def test_reset_restart_and_refusals(sims, monkeypatch):
     with pytest.raises(NotImplementedError, match="extenders"):
         p.scheduler.restart({"extenders": [{"urlPrefix": "http://localhost:1"}]})
     assert p.scheduler.get_config() == j.scheduler.get_config()
-    # PACKED (K8) is not ported: the service refuses it rather than serve TPU32
-    monkeypatch.setenv("KSS_DTYPE_POLICY", "packed")
+    # PACKED serves the same placements as TPU32: a second port service on
+    # the same store state schedules the same arrival under TPU32
+    q = SimulatorService(device="cpu")
+    for sim in (p, q):
+        sim.import_(snapshot())
     p.store.apply("pods", pod("late"))
-    with pytest.raises(NotImplementedError, match="packed"):
-        p.scheduler.schedule()
+    q.store.apply("pods", pod("late"))
+    monkeypatch.delenv("KSS_DTYPE_POLICY", raising=False)
+    want = [record(r) for r in q.scheduler.schedule()]
+    monkeypatch.setenv("KSS_DTYPE_POLICY", "packed")
+    assert [record(r) for r in p.scheduler.schedule()] == want and want
+    assert p.scheduler._delta.policy.name == "packed"
 
 
 def test_service_runs_on_the_card_by_default(monkeypatch):
