@@ -32,8 +32,14 @@ scenario table, `fault_tally`). A tenth, the counted gang loops, runs
 round accounting on the card and one readback). An eleventh, the PACKED
 dtype policy (`KSS_DTYPE_POLICY=packed`), runs the sequential, gang and
 serving paths on narrow, bit-packed encodings that the K8 kernel
-(`pack_widen`, csrc/pack_kernels.cu) widens once a pass. The plain versions of the whole
-passes that phases 3, 4, 4b, 4j, 4k, 4l and 5e are held against run on the host
+(`pack_widen`, csrc/pack_kernels.cu) widens once a pass. A twelfth, the
+demo out-of-tree plugins (NetworkBandwidth and NodeNumber, registered by
+importing `plugins.networkbandwidth` and `plugins.nodenumber`), runs the
+sequential path, its step functions and the gang kernels with both
+plugins' bodies (csrc/seq_kernels.cu `F_NETBW`, `S_NETBW`, `S_NODENUM`,
+NetworkBandwidth's prologue sum, normalize and dry-run row) on clusters
+annotated by `synth.annotate_bandwidth`. The plain versions of the whole
+passes that phases 3, 4, 4b, 4j, 4k, 4l, 4n and 5e are held against run on the host
 CPU in three more processes (`chip_smoke.py --plain-worker DIR PART`,
 started at once when the build is done and stopped at the end; the card's
 phases hand them their inputs through DIR), beside the card's phases; the
@@ -74,7 +80,15 @@ in order; any failure raises and the process exits non-zero:
    2000)` (required anti-affinity carriers), TPU32 and EXACT, then one
    whole gang pass, `run_recorded()` + `results()`, through the kernels on
    `dressed_default_cluster(256, 300)` (the plain versions' pass in the
-   third process; 4h compares state, rounds, records);
+   third process; 4h compares state, rounds, records), and the four on
+   the annotated `dressed_default_cluster(256, 64)` under the demo plugins'
+   configuration, TPU32; (plugins) `kp.demo_config()` (the default profile
+   plus NetworkBandwidth's filter and score at weight 2 and NodeNumber's
+   score: 16 filters, 9 scores) on the annotated
+   `dressed_default_cluster(256, 300)` as the default path's checks, under
+   TPU32 and EXACT, and with NodeNumber's `reverse` arg under TPU32
+   (attempts, binds and the whole pass): every whole pass's plain version in
+   the fourth process, some pod carrying NetworkBandwidth's filter message;
    (K11) `WeightSweep.run` with and without the trace, three weight
    variants (the configuration's own, then two random) on the default
    path's cluster under TPU32 and EXACT, and one `sweep_run` launch of two
@@ -163,14 +177,14 @@ in order; any failure raises and the process exits non-zero:
 4j. the batch plane through `SessionManager` on the card with its plane
    armed from `KSS_BATCH` (a long window, `KSS_BATCH_MAX_SESSIONS` = the
    tenants: each window flushes full, the passes barrier-aligned), TPU32:
-   (a) 8 tenants of phase 4d's serving cluster (1,024 nodes, 10,000 pods
+   (a) 4 tenants of phase 4d's serving cluster (1,024 nodes, 10,000 pods
    bound, 128 pending; tenant i's pending CPU requests scaled by 1 + i / 8)
    in one sequential window: one `batch_run` launch, no `seq_run` and no
    plain call, all compile signatures equal, every pass counted batched and
-   no solo fallback (a failed batched launch fails the phase); (b) 4
+   no solo fallback (a failed batched launch fails the phase); (b) 2
    tenants of phase 4c's cluster with 128 pending each, a dry run in every
    tenant; (c) `schedule_gang(record=False)` passes after 128 more
-   arrivals each, the 8 serving tenants in one window, 2 of the preempting
+   arrivals each, the 4 serving tenants in one window, 2 of the preempting
    ones in another: every round one launch of each K9 tenant form, every
    phase one `batch_seg`, the preempting window's phases run. In each
    window every tenant's final state, trace and victims (sequential) or
@@ -227,11 +241,24 @@ in order; any failure raises and the process exits non-zero:
    under `KSS_DTYPE_POLICY=packed`: passes 2-4 delta passes that launch
    K10's 2-byte set, every pass's records 4d's, the fifth after a flip to
    TPU32 (a full encode, one `encodePolicyMisses`);
+4n. the demo plugins at full width, annotated by `synth.annotate_bandwidth`
+   (seed 7), each pass through the entry points `schedule()` composes with
+   the counters set to 0 just before and read just after (`seq_run`, no
+   plain call; at least a tenth of the pods carry NetworkBandwidth's filter
+   message): (a) phase 4's fit cell under `fit_config()` plus both plugins,
+   TPU32 (its whole pass held against the plain version in the second
+   worker, 4h) and PACKED (byte-equal to TPU32's run); (b)
+   `preemption_cluster(1024, 2500, seed=7)` under `kp.demo_config()`: the
+   pass, the 64-step segment with the fewest dry runs among those holding 4
+   nominations run again from the kernel pass's state and held against the
+   plain version on the card, and the single-pod step path over it. Each
+   prints its wall (encode, pass, decode), decisions/s, peak memory, dry
+   runs and nominations, and the pods carrying the filter message;
 4h. the plain processes' versions: phase 3's whole gang pass and gang
    sweep (state, rounds, records; assignments, rounds, states, phases);
    phase 3's sweeps (every
-   variant's trace, victims, state and selections), phases 4's and 4b's
-   passes (trace, state, placements, sampled annotations), phase 4c's
+   variant's trace, victims, state and selections), phases 4's, 4b's and
+   4n(a)'s passes (trace, state, placements, sampled annotations), phase 4c's
    segment (trace, victims, state; its plain version on the card), config
    #4's variant 0 and first sampled variant (state and selections), and
    tenant 0 of each phase-4j
@@ -278,7 +305,12 @@ in order; any failure raises and the process exits non-zero:
    5j: `pack_widen` on 4m(a)'s three PACKED encodings, held bit for bit
    against its plain version on the card over every leaf, then timed (a
    CUDA graph of its launch), beside `.to(torch.int32)` over the narrow
-   leaves; K10's 2-byte set at 4m(c)'s recorded calls;
+   leaves; K10's 2-byte set at 4m(c)'s recorded calls; 5k: each demo
+   plugin body alone inside `seq_attempt` at 4n(a)'s mid-queue state
+   (NetworkBandwidth's filter, its score with its normalize, NodeNumber's
+   score), beside NetworkBandwidth's allocated sum as one
+   `torch.zeros(N).index_add_` call, `seq_preempt` with NetworkBandwidth's
+   row at 4n(b)'s first nominating step past the middle, and 4n's passes;
 6. the card's name and power limit, then the result line.
 
 Each phase prints its seconds. It runs in 13 to 16 minutes on an H100, the
@@ -323,11 +355,12 @@ GANGSWEEP_PREEMPT_VARIANTS = 4
 # of each variant's preempt segment
 MATCH_PLAIN_VARIANTS = 8
 PHASE_PLAIN_STEPS = 8
-# the batch plane (phase 4j): tenants of the serving cluster in one window (the
-# reference's default KSS_BATCH_MAX_SESSIONS), tenants of the preemption
-# cluster with this many pending pods each
-BATCH_TENANTS = 8
-BATCH_PREEMPT_TENANTS = 4
+# the batch plane (phase 4j): tenants of the serving cluster in one window,
+# tenants of the preemption cluster with this many pending pods each (each
+# tenant's full encode and decode is host work on the main thread: 4 and 2
+# tenants, from 8 and 4, make room for phase 4n)
+BATCH_TENANTS = 4
+BATCH_PREEMPT_TENANTS = 2
 BATCH_PREEMPT_NODES, BATCH_PREEMPT_PENDING = 1024, 128
 # the preempting gang window's tenants (each pass after (b) is a full encode,
 # the costliest host step of the phase)
@@ -357,6 +390,15 @@ COUNTED_BUDGET = 4
 COUNTED_SWEEP_VARIANTS = 8
 FAULT4L_BUDGET = 2
 FAULT4L_PARTS = {"fault4l_c": (0, 5), "fault4l_b": (5, 7), "fault4l_a": (7, 8)}
+# the demo out-of-tree plugins (phases 3, 4n, 5k): 4n(b)'s queue on config
+# #2's 1,024 nodes, a quarter of the default cell's (its encode and its dry
+# runs are main-thread time), and its segment held against the plain version
+# on the card (at least PLUGINS_NOMINATIONS nominations, the fewest dry runs)
+PLUGINS_NODES, PLUGINS_PENDING = 1024, 2500
+PLUGINS_SEGMENT, PLUGINS_NOMINATIONS = 64, 4
+# NodeNumber's reverse arg changes its score only: phase 3 runs that
+# configuration under TPU32, without the dry-run checks
+TPU32_ONLY = {"plugins-rev"}
 # the plain versions of whole passes run on the host CPU in a second process
 # (`plain_worker`), beside the card's phases; their results come back here
 PLAIN_DIR = Path(__file__).resolve().parent / "build" / "smoke"
@@ -384,6 +426,11 @@ REPLACES = {
     "batch.gang.run": "kube_scheduler_simulator_tpu/server/batchplane.py:95",
     "faultsweep.vrun": "kube_scheduler_simulator_tpu/lifecycle/faultsweep.py:107",
     "faultsweep.bind_all": "kube_scheduler_simulator_tpu/lifecycle/faultsweep.py:167",
+    # the demo plugins' bodies (inside seq_attempt / seq_run) and row (seq_preempt)
+    "filter NetworkBandwidth": "kube_scheduler_simulator_tpu/plugins/networkbandwidth.py:131",
+    "score NetworkBandwidth": "kube_scheduler_simulator_tpu/plugins/networkbandwidth.py:158",
+    "score NodeNumber": "kube_scheduler_simulator_tpu/plugins/nodenumber.py:53",
+    "row NetworkBandwidth": "kube_scheduler_simulator_tpu/plugins/networkbandwidth.py:196",
 }
 GANG_SOURCE = "kube_scheduler_simulator_tpu_torch/csrc/gang_kernels.cu"
 GANG_KERNELS = ("gang_eval", "gang_topk", "gang_match", "gang_bind")
@@ -563,24 +610,62 @@ def slots(prog):
     return cuda.TRACE_SLOTS_PREEMPT if prog.preempt is not None else cuda.TRACE_SLOTS_PLAIN
 
 
+def demo_plugins():
+    """Register the demo out-of-tree plugins, as a user does: by importing
+    their modules."""
+    import kube_scheduler_simulator_tpu_torch.plugins.networkbandwidth  # noqa: F401
+    import kube_scheduler_simulator_tpu_torch.plugins.nodenumber  # noqa: F401
+
+
+def plugins_cluster(kp, n_nodes, n_pending, seed=11):
+    """The dressed default cluster annotated for NetworkBandwidth
+    (`synth.annotate_bandwidth`, seed 7): (nodes, pods, objects)."""
+    from kube_scheduler_simulator_tpu_torch.synth import annotate_bandwidth, dressed_default_cluster
+
+    nodes, pods, objects = dressed_default_cluster(n_nodes, n_pending, seed=seed)
+    annotate_bandwidth(nodes, pods, seed=7)
+    return nodes, pods, objects
+
+
 def phase3_workloads(kp):
     """Phase 3's clusters by path: (nodes, pods, {name: configuration},
-    bind random states, the encoder's extra objects)."""
+    bind random states, the encoder's extra objects). The plugins path:
+    the default cluster annotated, under the default profile plus both
+    demo plugins (16 filters, 9 scores), and with NodeNumber's reverse arg."""
     from kube_scheduler_simulator_tpu_torch.synth import (
         DRESSED_NAMESPACES,
         dressed_affinity_cluster,
         dressed_default_cluster,
     )
 
+    demo_plugins()
     nodes, pods = dressed_cluster(kp, 256, 2000, seed=11)
     an, ap = dressed_affinity_cluster(256, 2000, seed=11)
     dn, dp, objects = dressed_default_cluster(256, DEFAULT_PHASE3_PENDING, seed=11)
+    pn, pp, pobj = plugins_cluster(kp, 256, DEFAULT_PHASE3_PENDING)
     return {
         "fit": (nodes, pods, configs(kp), False, {}),
         "affinity": (an, ap, {"affinity": kp.affinity_config()}, True,
                      {"namespaces": DRESSED_NAMESPACES}),
         "default": (dn, dp, {"default": kp.supported_config()}, True, objects),
+        "plugins": (pn, pp, {"plugins": kp.demo_config(),
+                             "plugins-rev": kp.demo_config(reverse=True)}, True, pobj),
     }
+
+
+def phase3_cases(kp, cfgs):
+    """(policy, configuration name, configuration) of a phase-3 path: each
+    under TPU32 and EXACT, those of TPU32_ONLY under TPU32."""
+    return [(pol, cname, cfg) for pol in (kp.TPU32, kp.EXACT) for cname, cfg in cfgs.items()
+            if pol is kp.TPU32 or cname not in TPU32_ONLY]
+
+
+def nb_rejections(eng, codes):
+    """Steps whose pod carries NetworkBandwidth's filter message: on some
+    real node every filter before it passes and it fails (codes [Q, N, F])."""
+    j = eng.program.filter_names.index("NetworkBandwidth")
+    c = codes[:, :eng.enc.n_nodes]
+    return int(((c[..., j] != 0) & (c[..., :j] == 0).all(dim=-1)).any(dim=1).sum())
 
 
 def compare_kernels(kp, cuda, diff, path, nodes, pods, cfgs, bind, objects=None):
@@ -594,68 +679,75 @@ def compare_kernels(kp, cuda, diff, path, nodes, pods, cfgs, bind, objects=None)
     DefaultPreemption its decoded records (victim lists included)."""
     objects = objects or {}
     runs = {}
-    for pol in (kp.TPU32, kp.EXACT):
-        for cname, cfg in cfgs.items():
-            enc = kp.encode_cluster(nodes, pods, cfg, policy=pol, **objects)
-            eng = kp.BatchedScheduler(enc)
-            prog, a, w = eng.program, enc.arrays, eng.weights
-            rng = np.random.default_rng(3)
-            for k in range(4):
+    for pol, cname, cfg in phase3_cases(kp, cfgs):
+        enc = kp.encode_cluster(nodes, pods, cfg, policy=pol, **objects)
+        eng = kp.BatchedScheduler(enc)
+        prog, a, w = eng.program, enc.arrays, eng.weights
+        rng = np.random.default_rng(3)
+        for k in range(4):
+            st = random_state(enc, rng, bind)
+            for qi, p in enumerate(rng.choice(enc.n_pods, 16, replace=False).tolist()):
+                got = cuda.seq_attempt(prog, a, st, w, p)
+                want = cuda.seq_attempt_plain(prog, a, st, w, p)
+                for name, g, h in zip(ATTEMPT_OUT, got, want):
+                    diff.check(path, "seq_attempt", f"{pol.name}/{cname} pod {p} {name}",
+                               g, h)
+                # bind the selection, an unschedulable pick, and a padding step
+                for pp, sel in ((p, got[3]), (p, torch.full_like(got[3], -1)),
+                                (-1, got[3])):
+                    s1 = cuda.seq_bind(prog, a, st.clone(), pp, sel, qi + 16 * k)
+                    s2 = cuda.seq_bind_plain(prog, a, st.clone(), pp, sel, qi + 16 * k)
+                    for f in STATE_FIELDS:
+                        diff.check(path, "seq_bind", f"{pol.name}/{cname} pod {pp} {f}",
+                                   getattr(s1, f), getattr(s2, f))
+        nominated = 0
+        if prog.preempt is not None and cname not in TPU32_ONLY:
+            for k in range(16):
                 st = random_state(enc, rng, bind)
-                for qi, p in enumerate(rng.choice(enc.n_pods, 16, replace=False).tolist()):
-                    got = cuda.seq_attempt(prog, a, st, w, p)
-                    want = cuda.seq_attempt_plain(prog, a, st, w, p)
-                    for name, g, h in zip(ATTEMPT_OUT, got, want):
-                        diff.check(path, "seq_attempt", f"{pol.name}/{cname} pod {p} {name}",
-                                   g, h)
-                    # bind the selection, an unschedulable pick, and a padding step
-                    for pp, sel in ((p, got[3]), (p, torch.full_like(got[3], -1)),
-                                    (-1, got[3])):
-                        s1 = cuda.seq_bind(prog, a, st.clone(), pp, sel, qi + 16 * k)
-                        s2 = cuda.seq_bind_plain(prog, a, st.clone(), pp, sel, qi + 16 * k)
-                        for f in STATE_FIELDS:
-                            diff.check(path, "seq_bind", f"{pol.name}/{cname} pod {pp} {f}",
-                                       getattr(s1, f), getattr(s2, f))
-            nominated = 0
-            if prog.preempt is not None:
-                for k in range(16):
-                    st = random_state(enc, rng, bind)
-                    for p in rng.choice(enc.n_pods, 4, replace=False).tolist():
-                        got = cuda.seq_preempt(prog, a, st, p)
-                        want = cuda.seq_preempt_plain(prog, a, st, p)
-                        for name, g, h in zip(("pcode", "voff", "vidx", "nominated"), got, want):
-                            diff.check(path, "seq_preempt", f"{pol.name} pod {p} {name}", g, h)
-                        nominated += int(got[3]) >= 0
-                        mask = (st.assignment >= 0) & torch.as_tensor(
-                            rng.random(enc.P) < 0.3, device=enc.device)
-                        s1 = cuda.seq_evict(prog, a, st.clone(), mask)
-                        s2 = cuda.seq_evict_plain(prog, a, st.clone(), mask)
-                        for f in STATE_FIELDS:
-                            diff.check(path, "seq_evict", f"{pol.name} state {f}",
-                                       getattr(s1, f), getattr(s2, f))
-            queue = padded_queue(eng)
-            s_k, t_k = cuda.seq_run(prog, a, enc.state0, queue, w, record=True)
-            s_n, sel_n = cuda.seq_run(prog, a, enc.state0, queue, w, record=False)
-            run = dict(digest=encoding_digest(enc), state=s_k, trace=t_k, unrecorded=(s_n, sel_n),
-                       slots=slots(prog))
-            extra = ""
-            if prog.preempt is not None:
-                eng._final_state, eng._trace = s_k, t_k
-                run["records"] = [r.to_annotations() for r in eng.results()]
-                run["placements"] = eng.placements()  # 4k(b)'s baseline
-                did = t_k[slots(prog).index("did")]
-                noms = t_k[slots(prog).index("nominated")]
-                extra = (f"; 64 dry runs ({nominated} nominating) and 64 evictions at random "
-                         f"states; the pass fired {int(did.sum())} dry runs, "
-                         f"{int((noms >= 0).sum())} nominating")
-            runs[path, pol.name, cname] = run
-            placed = int((s_k.assignment >= 0).sum()) - int((enc.state0.assignment >= 0).sum())
-            codes = t_k[1][: len(enc.queue)]
-            seen = [sorted(set(codes[:, :, f].unique().tolist())) for f in range(codes.shape[2])]
-            log(f"  {path:8s} {pol.name:5s} {cname:7s}: 64 attempts and 192 binds equal to "
-                f"plain, a {len(queue)}-step pass ({placed} of {len(enc.queue)} pending pods "
-                f"placed; filter codes seen {seen}){extra}; its plain version in the fourth "
-                "process (4h)")
+                for p in rng.choice(enc.n_pods, 4, replace=False).tolist():
+                    got = cuda.seq_preempt(prog, a, st, p)
+                    want = cuda.seq_preempt_plain(prog, a, st, p)
+                    for name, g, h in zip(("pcode", "voff", "vidx", "nominated"), got, want):
+                        diff.check(path, "seq_preempt", f"{pol.name} pod {p} {name}", g, h)
+                    nominated += int(got[3]) >= 0
+                    mask = (st.assignment >= 0) & torch.as_tensor(
+                        rng.random(enc.P) < 0.3, device=enc.device)
+                    s1 = cuda.seq_evict(prog, a, st.clone(), mask)
+                    s2 = cuda.seq_evict_plain(prog, a, st.clone(), mask)
+                    for f in STATE_FIELDS:
+                        diff.check(path, "seq_evict", f"{pol.name} state {f}",
+                                   getattr(s1, f), getattr(s2, f))
+        queue = padded_queue(eng)
+        s_k, t_k = cuda.seq_run(prog, a, enc.state0, queue, w, record=True)
+        s_n, sel_n = cuda.seq_run(prog, a, enc.state0, queue, w, record=False)
+        run = dict(digest=encoding_digest(enc), state=s_k, trace=t_k, unrecorded=(s_n, sel_n),
+                   slots=slots(prog))
+        extra = ""
+        if prog.preempt is not None:
+            eng._final_state, eng._trace = s_k, t_k
+            run["records"] = [r.to_annotations() for r in eng.results()]
+            run["placements"] = eng.placements()  # 4k(b)'s baseline
+            did = t_k[slots(prog).index("did")]
+            noms = t_k[slots(prog).index("nominated")]
+            extra = (f"; 64 dry runs ({nominated} nominating) and 64 evictions at random "
+                     f"states" if cname not in TPU32_ONLY else "") + (
+                f"; the pass fired {int(did.sum())} dry runs, "
+                f"{int((noms >= 0).sum())} nominating")
+        if "NetworkBandwidth" in prog.filter_names:
+            n_nb = nb_rejections(eng, t_k[1][: len(enc.queue)])
+            if n_nb == 0 or (len(prog.filter_names), len(prog.score_names)) != (16, 9):
+                raise AssertionError(f"{path} {cname}: {len(prog.filter_names)} filters, "
+                                     f"{len(prog.score_names)} scores, {n_nb} pods with "
+                                     "NetworkBandwidth's filter message")
+            extra += f"; {n_nb} pods carry NetworkBandwidth's filter message"
+        runs[path, pol.name, cname] = run
+        placed = int((s_k.assignment >= 0).sum()) - int((enc.state0.assignment >= 0).sum())
+        codes = t_k[1][: len(enc.queue)]
+        seen = [sorted(set(codes[:, :, f].unique().tolist())) for f in range(codes.shape[2])]
+        log(f"  {path:8s} {pol.name:5s} {cname:7s}: 64 attempts and 192 binds equal to "
+            f"plain, a {len(queue)}-step pass ({placed} of {len(enc.queue)} pending pods "
+            f"placed; filter codes seen {seen}){extra}; its plain version in the fourth "
+            "process (4h)")
     return runs
 
 
@@ -666,19 +758,18 @@ def plain_passes(kp, cuda):
     cpu = torch.device("cpu")
     out = {}
     for path, (nodes, pods, cfgs, _, objects) in phase3_workloads(kp).items():
-        for pol in (kp.TPU32, kp.EXACT):
-            for cname, cfg in cfgs.items():
-                enc = kp.encode_cluster(nodes, pods, cfg, policy=pol, device=cpu, **objects)
-                eng = kp.BatchedScheduler(enc, device=cpu)
-                t0 = time.perf_counter()
-                s_p, t_p = cuda.seq_run_plain(eng.program, enc.arrays, enc.state0,
-                                              padded_queue(eng), eng.weights, record=True)
-                run = dict(digest=encoding_digest(enc), state=_state_dict(s_p), trace=t_p,
-                           seconds=time.perf_counter() - t0)
-                if eng.program.preempt is not None:
-                    eng._final_state, eng._trace = s_p, t_p
-                    run["records"] = [r.to_annotations() for r in eng.results()]
-                out[path, pol.name, cname] = run
+        for pol, cname, cfg in phase3_cases(kp, cfgs):
+            enc = kp.encode_cluster(nodes, pods, cfg, policy=pol, device=cpu, **objects)
+            eng = kp.BatchedScheduler(enc, device=cpu)
+            t0 = time.perf_counter()
+            s_p, t_p = cuda.seq_run_plain(eng.program, enc.arrays, enc.state0,
+                                          padded_queue(eng), eng.weights, record=True)
+            run = dict(digest=encoding_digest(enc), state=_state_dict(s_p), trace=t_p,
+                       seconds=time.perf_counter() - t0)
+            if eng.program.preempt is not None:
+                eng._final_state, eng._trace = s_p, t_p
+                run["records"] = [r.to_annotations() for r in eng.results()]
+            out[path, pol.name, cname] = run
     return out
 
 
@@ -707,9 +798,9 @@ def check_plain_passes(cuda, diff, runs, plain):
         if run.get("records") != want.get("records"):
             raise AssertionError(f"phase 3 {key}: decoded records differ")
         secs += want["seconds"]
-    log(f"    phase 3's {len(runs)} whole passes (fit, affinity, default; TPU32 and EXACT): "
-        f"traces, final states, unrecorded selections and the default path's records equal "
-        f"the plain versions' (host CPU, {secs:.3f} s in all)")
+    log(f"    phase 3's {len(runs)} whole passes (fit, affinity, default, plugins; TPU32 and "
+        f"EXACT): traces, final states, unrecorded selections and the preempting paths' "
+        f"records equal the plain versions' (host CPU, {secs:.3f} s in all)")
 
 
 def padded_queue(eng):
@@ -775,13 +866,14 @@ def ops_per_node(enc, prog):
                   "InterPodAffinity": 3 * K_ + 4 * rel.ian_key.shape[1] + 6 * rel.ia_key.shape[1],
                   "VolumeRestrictions": 2 + 5 * n_disks, "EBSLimits": 4, "GCEPDLimits": 4,
                   "AzureDiskLimits": 4, "NodeVolumeLimits": 1, "VolumeBinding": 3,
-                  "VolumeZone": 3}
+                  "VolumeZone": 3, "NetworkBandwidth": 5}
     per_score = {"NodeResourcesFit": 12 * len(K.fit_score_args(enc)[1]) + 4,
                  "NodeResourcesBalancedAllocation": 45 * len(K.balanced_resources(enc)) + 20,
                  "TaintToleration": taint,
                  "NodeAffinity": a.paff_vals.shape[1] * E * (VV + 6),
                  "ImageLocality": 3 * a.pod_img.shape[1] + 20,
-                 "PodTopologySpread": 14 * SC + 10, "InterPodAffinity": 3 * K_}
+                 "PodTopologySpread": 14 * SC + 10, "InterPodAffinity": 3 * K_,
+                 "NetworkBandwidth": 3, "NodeNumber": 5}
     normalize_select = 10 * len(prog.score_names) + 8
     # the relational node phases: NodeAffinity per node, pair aggregation,
     # the spread score's prologue
@@ -811,7 +903,8 @@ def cluster_bytes(enc):
 NODE_PLANES = {"node_alloc", "node_unsched", "node_mask", "taint_key", "taint_val",
                "taint_effect", "label_val", "label_num", "label_num_ok", "trip_pair",
                "img_contrib", "node_pair", "spread_lut", "requested", "s_requested",
-               "n_pods", "used_pair", "used_wild", "used_trip", "used_claims", "node_vol3"}
+               "n_pods", "used_pair", "used_wild", "used_trip", "used_claims", "node_vol3",
+               "nb_limit", "nb_has", "nn_node"}
 # planes an attempt reads one column of, [N, ·]: one 32-byte sector a node
 COLUMN_PLANES = {"vb_code", "vz_code"}
 LABELS = ("label_val", "label_num", "label_num_ok")
@@ -863,6 +956,12 @@ READS = {
     ("filter", "VolumeBinding"): ("vb_row", "vb_code"),
     ("filter", "VolumeZone"): ("vb_row", "vz_code"),
     ("preFilter", "VolumeBinding"): ("vb_pf",),
+    # the demo plugins (their planes are the program's); NetworkBandwidth's
+    # allocated sum reads every pod's request, assignment and mask besides
+    # (`plugin_cost`)
+    ("filter", "NetworkBandwidth"): ("nb_limit", "nb_has", "nb_bw"),
+    ("score", "NetworkBandwidth"): ("nb_limit", "nb_has"),
+    ("score", "NodeNumber"): ("nn_node", "nn_pod"),
 }
 
 
@@ -1000,8 +1099,12 @@ def attempt_cost(enc, prog, st, p, weights):
         planes.update(READS["preFilter", "VolumeBinding"])
     a, P = enc.arrays, enc.P
     byts = vol_disk_bytes(enc, p) if "VolumeRestrictions" in prog.filter_names else 0
+    plugin_b, plugin_ops = plugin_cost(enc, prog)
+    byts += plugin_b
     for name in planes:
-        t = next((getattr(o, name) for o in (a, a.rel, st) if hasattr(o, name)), None)
+        t = prog.planes.get(name)
+        t = t if t is not None else next(
+            (getattr(o, name) for o in (a, a.rel, st) if hasattr(o, name)), None)
         if t is None:
             continue
         if name in NODE_PLANES:
@@ -1013,7 +1116,18 @@ def attempt_cost(enc, prog, st, p, weights):
     F, S, isz = len(prog.filter_names), len(prog.score_names), a.node_alloc.element_size()
     rel_b, rel_ops = rel_reads(enc, prog, st, p)
     byts += rel_b + nbytes(weights) + enc.N * (4 * F + 2 * isz * S) + 4
-    return byts, ops_per_node(enc, prog) * enc.N + rel_ops
+    return byts, ops_per_node(enc, prog) * enc.N + rel_ops + plugin_ops
+
+
+def plugin_cost(enc, prog):
+    """(bytes, operations) of NetworkBandwidth's allocated sum in a step's
+    prologue, where the program enables the plugin: every pod's assignment,
+    mask and request read, the [N] sum cleared and each bound pod's atomic
+    add (this run's bound pods)."""
+    if "nb_bw" not in prog.planes:
+        return 0, 0
+    isz, P, N = prog.planes["nb_bw"].element_size(), enc.P, enc.N
+    return P * (4 + 1 + isz) + 2 * N * isz, 3 * P + N
 
 
 def mid_state(cuda, eng):
@@ -1260,10 +1374,48 @@ def drive_default(kp, cuda, diff, nodes, pods, objects, sample, smi):
 
     # the single-pod step path over the same queue
     st = enc.state0.clone()
-    bad = torch.zeros((), dtype=torch.bool, device=enc.device)
     cuda.reset_counts()
     t0 = time.perf_counter()
-    for qi, p in enumerate(enc.queue.tolist()):
+    bad = default_steps(eng, t, host, st, range(Q))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step_counts, step_plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    if bool(bad):
+        raise AssertionError("default: single-pod steps differ from the pass's trace rows")
+    for f in STATE_FIELDS:
+        diff.check(path, "seq_evict", f"step path state {f}", getattr(st, f),
+                   getattr(state_k, f))
+    n_fire = int(did.sum())
+    want = {"seq_attempt": Q + n_fire, "seq_bind": Q, "seq_preempt": 2 * n_fire,
+            "seq_evict": int((nominated >= 0).sum())}
+    if any(step_counts[k] != n for k, n in want.items()) or any(step_plain.values()):
+        raise AssertionError(f"default step path launches {step_counts}, plain {step_plain}")
+    log(f"    single-pod step path: {Q} steps in {step_s:.3f} s, every trace row, victim "
+        f"record and the final state equal the pass's; launches {step_counts}")
+    mid = mid_state(cuda, eng)
+    # a dry run mid-pass: the first step past the middle whose dry run
+    # nominated, at the kernel pass's state before it
+    qf = next(qi for qi in range(Q // 2, Q) if did[qi] and nominated[qi] >= 0)
+    st_f, _ = cuda.seq_run(prog, a, enc.state0, queue[:qf].contiguous(), w, record=False)
+    return dict(enc=enc, eng=eng, trace=trace_k, pass_counts=pass_counts,
+                step_counts=step_counts, pass_ms=pass_ms, seg=[s0, seg_ms, None, seg],
+                seg_out=(s_k, t_k, n_did, n_nom), mid=mid, dry=(st_f, int(enc.queue[qf]), qf),
+                wall_s=wall_s, digest=digest, state=state_k, placements=placements,
+                annotations=annotations, peak=peak, split=split)
+
+
+def default_steps(eng, t, host, st, steps):
+    """The single-pod step path (`attempt_fn`, `preempt_fn`, `evict_fn`,
+    `bind_fn`) of a preempting engine over the queue positions `steps`,
+    from state st (updated in place), against the recorded pass's rows
+    (`t`: its trace slots by name; `host`: did, nominated, voff, vidx on the
+    host). Returns a 0-dim bool on the card: some row differed."""
+    enc = eng.enc
+    a, w = enc.arrays, eng.weights
+    did, nominated, voff, vidx = (host[k] for k in ("did", "nominated", "voff", "vidx"))
+    bad = torch.zeros((), dtype=torch.bool, device=enc.device)
+    for qi in steps:
+        p = int(enc.queue[qi])
         pf, codes_, raw, final, sel, pf_ok = eng.attempt_fn(a, st, w, p)
         for name, out in (("codes", codes_), ("raw", raw), ("final", final), ("sel", sel)):
             bad |= (t[name][qi] != out).any()
@@ -1294,31 +1446,7 @@ def drive_default(kp, cuda, diff, nodes, pods, objects, sample, smi):
                         fsel = sel2
         bad |= fsel != t["final_sel"][qi]
         eng.bind_fn(a, st, p, fsel, qi)
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t0
-    step_counts, step_plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
-    if bool(bad):
-        raise AssertionError("default: single-pod steps differ from the pass's trace rows")
-    for f in STATE_FIELDS:
-        diff.check(path, "seq_evict", f"step path state {f}", getattr(st, f),
-                   getattr(state_k, f))
-    n_fire = int(did.sum())
-    want = {"seq_attempt": Q + n_fire, "seq_bind": Q, "seq_preempt": 2 * n_fire,
-            "seq_evict": int((nominated >= 0).sum())}
-    if any(step_counts[k] != n for k, n in want.items()) or any(step_plain.values()):
-        raise AssertionError(f"default step path launches {step_counts}, plain {step_plain}")
-    log(f"    single-pod step path: {Q} steps in {step_s:.3f} s, every trace row, victim "
-        f"record and the final state equal the pass's; launches {step_counts}")
-    mid = mid_state(cuda, eng)
-    # a dry run mid-pass: the first step past the middle whose dry run
-    # nominated, at the kernel pass's state before it
-    qf = next(qi for qi in range(Q // 2, Q) if did[qi] and nominated[qi] >= 0)
-    st_f, _ = cuda.seq_run(prog, a, enc.state0, queue[:qf].contiguous(), w, record=False)
-    return dict(enc=enc, eng=eng, trace=trace_k, pass_counts=pass_counts,
-                step_counts=step_counts, pass_ms=pass_ms, seg=[s0, seg_ms, None, seg],
-                seg_out=(s_k, t_k, n_did, n_nom), mid=mid, dry=(st_f, int(enc.queue[qf]), qf),
-                wall_s=wall_s, digest=digest, state=state_k, placements=placements,
-                annotations=annotations, peak=peak, split=split)
+    return bad
 
 
 def check_plain_segment(cuda, diff, run, plain):
@@ -1422,6 +1550,8 @@ def preempt_bound(enc, prog, st, p, n_victims):
     per_node = np.bincount(asg[lower], minlength=enc.N)
     row = nbytes(a.pod_req[0], a.want_pair[0], a.want_wild[0], a.want_trip[0], a.pod_claim[0],
                  a.pod_disk_any[0], a.pod_disk_rw[0], a.pod_vol3[0]) + 4
+    if "NetworkBandwidth" in prog.filter_names:  # its row: the victim's request
+        row += prog.planes["nb_bw"].element_size()
     node_row = nbytes(st.requested[0], st.used_pair[0], st.used_wild[0], st.used_trip[0],
                       st.node_disk_any[0], st.node_disk_rw[0], st.node_vol3[0]) + 4
     att_bytes, att_ops = attempt_cost(enc, prog, st, p, torch.zeros(0))
@@ -1544,7 +1674,8 @@ def body_times(kp, cuda, run, bodies, smi):
         enc1 = type(enc)(a, enc.state0, node_names=enc.node_names, pod_keys=enc.pod_keys,
                          resource_names=enc.resource_names, queue=enc.queue,
                          policy=enc.policy, config=cfg, n_nodes=enc.n_nodes,
-                         n_pods=enc.n_pods, aux=enc.aux)
+                         n_pods=enc.n_pods, aux=enc.aux, pods=enc.pods)
+        enc1.objects = enc.objects  # what out-of-tree plugins featurize
         eng = kp.BatchedScheduler(enc1)
         prog, w = eng.program, eng.weights
         p = body_pod(enc, st, name, q)
@@ -1555,10 +1686,14 @@ def body_times(kp, cuda, run, bodies, smi):
         feasible = a.node_mask.clone()
         plain = (lambda: body(a, st, p, feasible)) if point == "score" else (
             lambda: body(a, st, p))
+        if name in PLUGIN_NAMES and hasattr(body, "_normalize"):
+            # the demo plugin's row is its score with its normalize
+            def plain(body=body):
+                return body._normalize(a, st, p, body(a, st, p, feasible), feasible)
         plain_ms = events_ms(plain, 20)
         b = attempt_bound(enc1, prog, st, p, w)
         label = name + (f" ({args['scoringStrategy']['type']})" if args else "")
-        out.append((point, label, ms, plain_ms, b))
+        out.append((point, label, ms, plain_ms, b, p))
         log(f"    {point:9s} {label:44s} seq_attempt alone {ms:.6f} ms on pod {p} (plain body "
             f"{plain_ms:.3f} ms, bound {b[0]:.7f} ms by {b[1]}) [{smi}]")
     return out
@@ -2229,7 +2364,8 @@ def compare_gang(kp, cuda, diff, smi):
     """Phase 3 for K9: the four gang kernels against their plain versions on
     the 256-node dressed default cluster (64 pending pods) and the dressed
     affinity cluster (required anti-affinity carriers) under TPU32 and
-    EXACT, one variant and V = 3; then one whole gang pass, run_recorded()
+    EXACT, one variant and V = 3, and on the default cluster annotated under
+    the demo plugins' configuration (TPU32); then one whole gang pass, run_recorded()
     + results(), through the kernels on dressed_default_cluster(256, 300),
     TPU32. The plain versions' pass runs in the third process; phase 4h
     compares final state, rounds and every record (`check_plain_gang`).
@@ -2251,6 +2387,11 @@ def compare_gang(kp, cuda, diff, smi):
         compare_gang_kernels(kp, cuda, diff, "gang affinity", enc_a, rng)
         compare_stacked_gang(kp, cuda, diff, "gang default", enc_d, rng)
         compare_stacked_gang(kp, cuda, diff, "gang affinity", enc_a, rng)
+    # the demo plugins' bodies through gang_eval (attempt_body), one round's
+    # kernels at 4 random states of the annotated default cluster
+    pn, pp, pobj = plugins_cluster(kp, 256, 64)
+    compare_gang_kernels(kp, cuda, diff, "gang plugins",
+                         kp.encode_cluster(pn, pp, kp.demo_config(), policy=kp.TPU32, **pobj), rng)
     enc = gang_sweep3_encoding(kp)
     g = kp.GangScheduler(enc)
     cuda.reset_counts()
@@ -4965,6 +5106,267 @@ def pack_rows(kp, cuda, scatter, diff, packed, smi):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# the demo out-of-tree plugins at full width (phases 4n and 5k)
+# ---------------------------------------------------------------------------
+
+PLUGIN_NAMES = ("NetworkBandwidth", "NodeNumber")
+# phase 5k's bodies, each timed alone inside seq_attempt on 4n(a)'s cell
+PLUGIN_BODIES = (("filter", "NetworkBandwidth", None), ("score", "NetworkBandwidth", None),
+                 ("score", "NodeNumber", None))
+
+
+def plugins_fit_workload(kp):
+    """4n(a)'s cell: phase 4's fit cell annotated for NetworkBandwidth,
+    `fit_config()` plus both demo plugins, phase 4's 100 sampled pods:
+    (nodes, pods, config, sample)."""
+    from kube_scheduler_simulator_tpu_torch.synth import annotate_bandwidth
+
+    demo_plugins()
+    nodes, pods, cfg, sample = path_workload(kp, "fit")
+    annotate_bandwidth(nodes, pods, seed=7)
+    return nodes, pods, kp.demo_config(base=cfg), sample
+
+
+def plugins_pass(kp, cuda, what, nodes, pods, cfg, sample, policy, smi, objects=None):
+    """One pass of a phase-4n cell through the entry points `schedule()`
+    composes (encode_cluster, BatchedScheduler.run, placements, the
+    sampled records), each part timed, the counters set to 0 just before
+    and read just after."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    enc = kp.encode_cluster(nodes, pods, cfg, policy=policy, **(objects or {}))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng = kp.BatchedScheduler(enc)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    state, trace = eng.run()
+    e1.record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    placements = eng.placements()
+    annotations = {(r.pod_namespace, r.pod_name): r.to_annotations()
+                   for r in eng.results(pods=sample)}
+    t3 = time.perf_counter()
+    counts, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated() - base
+    if counts["seq_run"] != 1 or any(plain.values()):
+        raise AssertionError(f"4n {what}: launches {counts}, plain calls {plain}")
+    Q, wall = len(enc.queue), t3 - t0
+    slots = cuda.TRACE_SLOTS_PREEMPT if eng.preempts else cuda.TRACE_SLOTS_PLAIN
+    t = dict(zip(slots, trace))
+    n_nb = nb_rejections(eng, t["codes"][:Q])
+    extra = ""
+    if eng.preempts:
+        did, nom = t["did"][:Q], t["nominated"][:Q]
+        extra = f", dry runs {int(did.sum())}, nominations {int((nom >= 0).sum())}"
+    placed = sum(1 for v in placements.values() if v)
+    log(f"    {what}: {wall:.3f} s wall (encode {t1 - t0:.3f} s, engine + pass {t2 - t1:.3f} s, "
+        f"seq_run {e0.elapsed_time(e1):.1f} ms on the card, decode of placements and "
+        f"{len(annotations)} records {t3 - t2:.3f} s), {Q / wall:.1f} decisions/s, {placed} of "
+        f"{Q} placed{extra}; {n_nb} pods carry NetworkBandwidth's filter message; peak memory "
+        f"{peak / 2**30:.3f} GiB; launches { {k: v for k, v in counts.items() if v} } [{smi}]")
+    if n_nb < Q // 10:
+        raise AssertionError(f"4n {what}: NetworkBandwidth rejects a node for {n_nb} of {Q} "
+                             "pods (under a tenth)")
+    return dict(enc=enc, eng=eng, state=state, trace=trace, t=t, placements=placements,
+                annotations=annotations, counts=counts, pass_ms=e0.elapsed_time(e1),
+                split=(t1 - t0, t2 - t1, t3 - t2), wall=wall, peak=peak, nb=n_nb,
+                digest=encoding_digest(enc))
+
+
+def drive_plugins(kp, cuda, diff, smi):
+    """Phase 4n: the demo plugins at full width. (a) the fit cell annotated
+    under `fit_config()` plus both plugins, TPU32 (its whole pass held
+    against the plain version in the second worker, 4h) and PACKED (held
+    byte-equal to TPU32's run); (b) `preemption_cluster(1024,
+    PLUGINS_PENDING, seed=7)` annotated under the default profile plus both
+    plugins: the pass, a PLUGINS_SEGMENT-step segment with nominations held
+    against the plain version on the card from the kernel pass's state, and
+    the single-pod step path over it (attempt, preempt, evict, bind: the
+    counts set to 0 before and read after). Returns what 4h and 5k need."""
+    nodes, pods, cfg, sample = plugins_fit_workload(kp)
+    fit = plugins_pass(kp, cuda, "(a) fit cell TPU32", nodes, pods, cfg, sample, kp.TPU32, smi)
+    fit["mid"] = mid_state(cuda, fit["eng"])
+    packed = plugins_pass(kp, cuda, "(a) fit cell PACKED", nodes, pods, cfg, sample, kp.PACKED,
+                          smi)
+    check_same_run("4n(a) PACKED", packed["trace"], packed["state"], fit["trace"], fit["state"],
+                   cuda.TRACE_SLOTS_PLAIN)
+    if (packed["placements"], packed["annotations"]) != (fit["placements"], fit["annotations"]):
+        raise AssertionError("4n(a) PACKED: placements or sampled records differ from TPU32's")
+    if packed["counts"]["pack_widen"] != 1:
+        raise AssertionError(f"4n(a) PACKED: launches {packed['counts']}")
+    log("    (a) PACKED: trace, state, placements and sampled records equal TPU32's")
+
+    from kube_scheduler_simulator_tpu_torch.synth import annotate_bandwidth
+
+    nodes, pods, objects = kp.preemption_cluster(PLUGINS_NODES, PLUGINS_PENDING, seed=7)
+    annotate_bandwidth(nodes, pods, seed=7)
+    rng = np.random.default_rng(7)
+    sample = {("default", f"pod-{i}") for i in rng.choice(PLUGINS_PENDING, 100, replace=False)}
+    dflt = plugins_pass(kp, cuda, f"(b) default profile, {PLUGINS_NODES} nodes", nodes, pods,
+                        kp.demo_config(), sample, kp.TPU32, smi, objects)
+    enc, eng, t = dflt["enc"], dflt["eng"], dflt["t"]
+    prog, a, w = eng.program, enc.arrays, eng.weights
+    Q = len(enc.queue)
+    host = {k: t[k].cpu().numpy() for k in ("did", "nominated", "voff", "vidx")}
+    did, nominated = host["did"][:Q], host["nominated"][:Q]
+    s0, n_nom, n_did = segment_of(did, nominated, PLUGINS_SEGMENT, PLUGINS_NOMINATIONS)
+    queue = padded_queue(eng)
+    seg = queue[s0:s0 + PLUGINS_SEGMENT].contiguous()
+    st0, _ = cuda.seq_run(prog, a, enc.state0, queue[:s0].contiguous(), w, record=False)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    s_k, t_k = cuda.seq_run(prog, a, st0, seg, w, record=True, step0=s0)
+    e1.record()
+    torch.cuda.synchronize()
+    seg_ms = e0.elapsed_time(e1)
+    t0 = time.perf_counter()
+    s_p, t_p = cuda.seq_run_plain(prog, a, st0, seg, w, record=True, step0=s0)
+    torch.cuda.synchronize()
+    seg_plain_ms = (time.perf_counter() - t0) * 1e3
+    for name, g, h in zip(cuda.TRACE_SLOTS_PREEMPT, t_k, t_p):
+        diff.check("plugins default", "seq_run", f"segment {name}", g, h)
+    for f in STATE_FIELDS:
+        diff.check("plugins default", "seq_run", f"segment state {f}", getattr(s_k, f),
+                   getattr(s_p, f))
+    for name in ("codes", "raw", "final", "sel", "did", "pcode", "nominated", "final_sel"):
+        diff.check("plugins default", "seq_run", f"segment against the pass {name}",
+                   t_k[cuda.TRACE_SLOTS_PREEMPT.index(name)], t[name][s0:s0 + PLUGINS_SEGMENT])
+    steps = range(s0, min(s0 + PLUGINS_SEGMENT, Q))
+    st = st0.clone()
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    bad = default_steps(eng, t, host, st, steps)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step_counts, step_plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    if bool(bad):
+        raise AssertionError("4n(b): single-pod steps differ from the pass's trace rows")
+    for f in STATE_FIELDS:
+        diff.check("plugins default", "seq_evict", f"step path state {f}", getattr(st, f),
+                   getattr(s_k, f))
+    fired = int(did[s0:s0 + PLUGINS_SEGMENT].sum())
+    want = {"seq_attempt": len(steps) + fired, "seq_bind": len(steps),
+            "seq_preempt": 2 * fired, "seq_evict": int((nominated[steps.start:steps.stop]
+                                                        >= 0).sum())}
+    if any(step_counts[k] != n for k, n in want.items()) or any(step_plain.values()):
+        raise AssertionError(f"4n(b) step path launches {step_counts}, plain {step_plain}")
+    log(f"    (b) steps {s0}..{s0 + PLUGINS_SEGMENT - 1} ({n_did} dry runs, {n_nom} nominations) "
+        f"again from the kernel pass's state: {seg_ms:.1f} ms, the plain version on the card "
+        f"{seg_plain_ms:.1f} ms; trace, victims and state equal, and equal to the pass's rows; "
+        f"the single-pod step path over them {step_s:.3f} s, every row and the state equal; "
+        f"launches { {k: v for k, v in step_counts.items() if v} } [{smi}]")
+    # 5k's dry run: the first nominating step past the middle of the queue
+    qf = next(qi for qi in range(Q // 2, Q) if did[qi] and nominated[qi] >= 0)
+    st_f, _ = cuda.seq_run(prog, a, enc.state0, queue[:qf].contiguous(), w, record=False)
+    dflt.update(seg=(s0, seg, seg_ms, seg_plain_ms, s_k, t_k), step_counts=step_counts,
+                dry=(st_f, int(enc.queue[qf]), qf))
+    return dict(fit=fit, packed=packed, default=dflt)
+
+
+def plain_plugins_fit(kp):
+    """The second worker's share of phase 4n: 4n(a)'s TPU32 pass through the
+    plain versions on the host CPU (trace, state, placements, sampled
+    records)."""
+    cpu = torch.device("cpu")
+    nodes, pods, cfg, sample = plugins_fit_workload(kp)
+    enc = kp.encode_cluster(nodes, pods, cfg, policy=kp.TPU32, device=cpu)
+    eng = kp.BatchedScheduler(enc, device=cpu)
+    t0 = time.perf_counter()
+    st, tr = eng.run()
+    secs = time.perf_counter() - t0
+    ann = {(r.pod_namespace, r.pod_name): r.to_annotations() for r in eng.results(pods=sample)}
+    return dict(digest=encoding_digest(enc), state=_state_dict(st), trace=tr,
+                placements=eng.placements(), annotations=ann, seconds=secs)
+
+
+def plugin_rows(kp, cuda, diff, run, smi):
+    """Phase 5k: each demo plugin body alone inside `seq_attempt` at 4n(a)'s
+    mid-queue state (`body_times`), beside NetworkBandwidth's allocated sum
+    as one `index_add_` call; `seq_preempt` with NetworkBandwidth's row at
+    4n(b)'s first nominating step past the middle, held against its plain
+    version there first; and 4n's passes (`seq_run`: (a)'s whole pass
+    against its plain version on the host CPU, (b)'s segment against its
+    plain version on the card). Entries of the kernels line."""
+    fit, dflt = run["fit"], run["default"]
+    enc, fa = fit["enc"], fit["eng"]
+    st, q = fit["mid"]
+    got = cuda.seq_attempt(fa.program, enc.arrays, st, fa.weights, q)
+    want = cuda.seq_attempt_plain(fa.program, enc.arrays, st, fa.weights, q)
+    for name, g, h in zip(ATTEMPT_OUT, got, want):
+        diff.check("plugins fit", "seq_attempt", f"mid-queue pod {q} {name}", g, h)
+    bw = fa.program.planes["nb_bw"]
+    bound_ = (st.assignment >= 0) & enc.arrays.pod_mask
+    tgt = torch.clamp(st.assignment, min=0).long()
+    vals = bw * bound_.to(bw.dtype)
+    lib_ms = graph_ms(lambda: torch.zeros(enc.N, dtype=bw.dtype, device=bw.device)
+                      .index_add_(0, tgt, vals))
+    log(f"    NetworkBandwidth's allocated sum as one torch.zeros({enc.N}).index_add_ call over "
+        f"{enc.P} pods: {lib_ms:.6f} ms [{smi}]")
+    rows = []
+    att = dflt["step_counts"]["seq_attempt"]
+    for point, label, ms, plain_ms, b, p in body_times(kp, cuda, fit, PLUGIN_BODIES, smi):
+        key = f"{point} {label}"
+        rows.append({"name": "seq_attempt", "path": f"plugins: {key}", "route": "cuda",
+                     "source": SOURCE, "replaces": REPLACES[key], "launches": att,
+                     "max_abs_err": diff.err["plugins fit", "seq_attempt"], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                     "library_ms": lib_ms if label == "NetworkBandwidth" else None,
+                     "body": f"{label} {point} alone, pod {p}"})
+    enc_b, eng_b = dflt["enc"], dflt["eng"]
+    a, prog = enc_b.arrays, eng_b.program
+    st_f, p, qf = dflt["dry"]
+    got = cuda.seq_preempt(prog, a, st_f, p)
+    want = cuda.seq_preempt_plain(prog, a, st_f, p)
+    for name, g, h in zip(("pcode", "voff", "vidx", "nominated"), got, want):
+        diff.check("plugins default", "seq_preempt", f"step {qf} {name}", g, h)
+    ms = graph_ms(lambda: cuda.preempt_launch(prog, a, st_f, p))
+    plain_ms = events_ms(lambda: cuda.seq_preempt_plain(prog, a, st_f, p), 3, 3)
+    b = preempt_bound(enc_b, prog, st_f, p, int(got[2].shape[0]))
+    log(f"    seq_preempt with NetworkBandwidth's row at 4n(b)'s step {qf} (pod {p}, nominated "
+        f"{int(got[3])}, {int(got[2].shape[0])} victims named): {ms:.6f} ms (plain {plain_ms:.3f} "
+        f"ms, bound {b[0]:.7f} ms by {b[1]}) [{smi}]")
+    rows.append({"name": "seq_preempt", "path": "plugins default", "route": "cuda",
+                 "source": SOURCE, "replaces": REPLACES["seq_preempt"],
+                 "launches": dflt["step_counts"]["seq_preempt"],
+                 "max_abs_err": diff.err["plugins default", "seq_preempt"], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+                 "row": REPLACES["row NetworkBandwidth"]})
+    # 4n's passes: (a)'s whole pass, (b)'s segment
+    queue = padded_queue(fa)
+    run_ms = events_ms(lambda: cuda.seq_run(fa.program, enc.arrays, enc.state0, queue,
+                                            fa.weights, record=True), 1, 3)
+    step_ops = (ops_per_node(enc, fa.program) * enc.N
+                + plugin_cost(enc, fa.program)[1]) * len(queue)
+    state_bytes = nbytes(*(getattr(enc.state0, f) for f in STATE_FIELDS))
+    b_a = bound(cluster_bytes(enc) + 2 * state_bytes + nbytes(queue, fa.weights)
+                + nbytes(*fit["trace"]) + nbytes(*fa.program.planes.values()), step_ops)
+    s0, seg, seg_ms, seg_plain_ms, _, t_k = dflt["seg"]
+    step_ops_b = (ops_per_node(enc_b, prog) * enc_b.N + plugin_cost(enc_b, prog)[1]
+                  + rel_reads(enc_b, prog, st_f, p)[1]) * len(seg)
+    b_b = bound(cluster_bytes(enc_b) + 2 * nbytes(*(getattr(enc_b.state0, f)
+                                                     for f in STATE_FIELDS))
+                + nbytes(seg, eng_b.weights, *t_k, *prog.planes.values()), step_ops_b)
+    for path, launches, ms_, plain, b_, basis, extra in (
+            ("plugins fit", fit["counts"]["seq_run"], run_ms, fit["plain_run_s"] * 1e3, b_a,
+             "host CPU (the second process)", {}),
+            ("plugins default", dflt["counts"]["seq_run"], seg_ms, seg_plain_ms, b_b,
+             "on the card, in the main process", {"steps": [s0, s0 + len(seg)]})):
+        rows.append({"name": "seq_run", "path": path, "route": "cuda", "source": SOURCE,
+                     "replaces": REPLACES["seq_run"], "launches": launches,
+                     "max_abs_err": diff.err[path, "seq_run"], "ms": ms_, "plain_ms": plain,
+                     "bound_ms": b_[0], "bound_by": b_[1], "library_ms": None,
+                     "plain_basis": basis, **extra})
+        log(f"    seq_run {path}: {ms_:.3f} ms (plain {plain:.3f} ms, {basis}; bound "
+            f"{b_[0]:.7f} ms by {b_[1]}) [{smi}]")
+    return rows
+
+
 def _state_dict(st):
     return {f: getattr(st, f).cpu() for f in STATE_FIELDS}
 
@@ -5020,6 +5422,7 @@ def plain_worker(out_dir, part):
                                               tenant_copy({"pods": arrivals}, 0)["pods"]))
         save("fault3_b", plain_fault3(kp, out_dir, "fault3_b"))
         save("fault4l_b", plain_fault3(kp, out_dir, "fault4l_b"))
+        save("fit4n", plain_plugins_fit(kp))
         return
     sweeps = {}
     for pol in (kp.TPU32, kp.EXACT):
@@ -5110,7 +5513,7 @@ def _die_with_parent():
 
 
 PLAIN_PARTS = {"a": ("sweep3", "fit", "affinity", "config4", "config4_sampled", "fault4l_a"),
-               "b": ("gang3", "gangsweep3", "batch_preempt", "fault3_b", "fault4l_b"),
+               "b": ("gang3", "gangsweep3", "batch_preempt", "fault3_b", "fault4l_b", "fit4n"),
                "c": ("passes3", "seg4c", "batch_serving", "fault3_c", "fault4l_c")}
 
 
@@ -5330,6 +5733,15 @@ def run_phases(kp, workers) -> int:
                           serving, smi)
     ph.done("4m")
 
+    # -- 4n. the demo out-of-tree plugins at full width -------------------------
+    log("[4n] the demo plugins (NetworkBandwidth, NodeNumber) at full width, annotated "
+        "(synth.annotate_bandwidth, seed 7): (a) the fit cell under fit_config() plus both "
+        f"plugins, TPU32 and PACKED; (b) preemption_cluster({PLUGINS_NODES}, "
+        f"{PLUGINS_PENDING}, seed=7) under the default profile plus both (16 filters, 9 "
+        "scores), TPU32")
+    plugins = drive_plugins(kp, cuda, diff, smi)
+    ph.done("4n")
+
     # -- 4h. the kernels' whole passes against the second process's plain ones
     log("[4h] the whole passes against the plain versions run on the host CPU in the second "
         "process (exact equality)")
@@ -5349,6 +5761,7 @@ def run_phases(kp, workers) -> int:
     check_plain_fault3(diff, counted["fault4l"],
                        [worker.result(name, deadline) for name in FAULT4L_PARTS], "4l(e)",
                        "counted fault")
+    check_plain_path(cuda, diff, "plugins fit", plugins["fit"], worker.result("fit4n", deadline))
     config4_plain = worker.result("config4", deadline)
     config4_sampled = worker.result("config4_sampled", deadline)
     ph.done("4h")
@@ -5385,6 +5798,9 @@ def run_phases(kp, workers) -> int:
     log(f"[5j] K8 at phase 4m(a)'s three PACKED encodings, K10's 2-byte set at 4m(c)'s delta "
         f"passes [{smi}]")
     kernels += pack_rows(kp, cuda, scatter, diff, packed, smi)
+    log(f"[5k] the demo plugins' bodies at 4n(a)'s mid-queue state, seq_preempt with "
+        f"NetworkBandwidth's row at 4n(b)'s, 4n's passes, TPU32 [{smi}]")
+    kernels += plugin_rows(kp, cuda, diff, plugins, smi)
     ph.done("5")
     log("    phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in ph.seconds.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")

@@ -80,6 +80,7 @@ from .engine.encode import EXACT, PACKED, TPU32, encode_cluster, from_reference_
 from .engine.engine import (
     BatchedScheduler,
     affinity_config,
+    demo_config,
     fit_config,
     schedule,
     supported_config,
@@ -112,6 +113,7 @@ __all__ = [
     "SimulatorService",
     "WeightSweep",
     "affinity_config",
+    "demo_config",
     "encode_cluster",
     "fit_config",
     "from_reference_arrays",

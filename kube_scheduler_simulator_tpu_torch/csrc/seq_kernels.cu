@@ -69,7 +69,13 @@
 // their order), aggregate nodes into topology pairs, then the node sweep
 // (filters), the spread score's prologue over feasible nodes, the raw
 // scores with their block reductions, and the normalize, argmax and bind.
-// Plugins that are not enabled skip their phases.
+// Plugins that are not enabled skip their phases. The demo out-of-tree
+// plugins (plugins/networkbandwidth.py, plugins/nodenumber.py), once
+// registered, read planes the program brings beside the encoding's (the
+// featurized annotations and names): NetworkBandwidth's allocated sum is
+// one more prologue phase, a strided pass over the pods with integer
+// atomics into a per-node workspace slot that its filter, its score and
+// its dry-run row read; its normalize is InterPodAffinity's min-max.
 //
 // The dry run (one thread per candidate node) appends each bound pod of
 // lower priority to its node's list with an atomic cursor, sorts each list
@@ -115,7 +121,8 @@ enum {
   F_UNSCHED = 0, F_NODENAME = 1, F_TAINT = 2, F_FIT = 3,
   F_AFFINITY = 4, F_PORTS = 5, F_SPREAD = 6, F_INTERPOD = 7,
   F_VOLRESTR = 8, F_EBS = 9, F_GCEPD = 10, F_AZURE = 11, F_NODEVOL = 12,
-  F_VOLBIND = 13, F_VOLZONE = 14
+  F_VOLBIND = 13, F_VOLZONE = 14,
+  F_NETBW = 15  // NetworkBandwidth (plugins/networkbandwidth.py), once registered
 };
 // DefaultPreemption's per-node codes (engine/preempt.py PREEMPT_*)
 enum { P_NO_LOWER = 0, P_NO_FIT = 1, P_CANDIDATE = 2, P_SELECTED = 3, P_SILENT = 4 };
@@ -123,7 +130,8 @@ enum { P_NO_LOWER = 0, P_NO_FIT = 1, P_CANDIDATE = 2, P_SELECTED = 3, P_SILENT =
 enum { VR_RWOP = 1, VR_DISK = 2 };
 enum {
   S_FIT = 0, S_BALANCED = 1, S_TAINT = 2,
-  S_AFFINITY = 3, S_IMAGE = 4, S_SPREAD = 5, S_INTERPOD = 6
+  S_AFFINITY = 3, S_IMAGE = 4, S_SPREAD = 5, S_INTERPOD = 6,
+  S_NETBW = 7, S_NODENUM = 8  // the demo out-of-tree plugins (plugins/), once registered
 };
 enum { NORM_NONE = 0, NORM_DEFAULT = 1, NORM_REVERSE = 2, NORM_CUSTOM = 3 };
 enum { FIT_LEAST = 0, FIT_MOST = 1, FIT_RTCR = 2 };
@@ -204,6 +212,7 @@ struct Pws {
   long long* total3;      // [N] InterPodAffinity affinity matches over all pairs
   unsigned char* alive;   // [N] still a candidate in the ranking
   char* req;              // [N, R] NodeResourcesFit's requested, policy type
+  char* nb_cur;           // [N] NetworkBandwidth's allocated, policy type
   int* npods;             // [N]
   int* upair;             // [N, Q] NodePorts' counters
   int* uwild;             // [N, Q]
@@ -238,6 +247,8 @@ struct Ws {
   int* scal;              // [2] affinity matches over all pairs > 0, scored nodes
   unsigned char* aff_ok;  // [N] the NodeAffinity filter body holds
   unsigned char* ign;     // [N] the spread score ignores the node
+  char* nb_alloc;         // [N] NetworkBandwidth's allocated sum, policy type (its
+                          //   planes present only)
   int n_words;            // 32-bit words from wsum through scal, cleared each step
   int min_lo, min_hi;     // the words of min_h (cleared to INT_MAX)
   int* vol;               // [4] a RWOP claim of the pod is in use, its disks, its
@@ -273,6 +284,8 @@ __host__ __device__ inline size_t ws_layout(const Planes& a, size_t isz, int V, 
   const size_t o_aff = off;    off += N;
   const size_t o_ign = off;    off += N;
   off = (off + 7) & ~(size_t)7;
+  const size_t nb = a.nb_bw ? N : 0;
+  const size_t o_nb = off;     off += (nb * isz + 7) & ~(size_t)7;
   if (w) {
     w->wsum = base;
     w->cnt_h = (int*)(base + o_cnt_h);
@@ -289,6 +302,7 @@ __host__ __device__ inline size_t ws_layout(const Planes& a, size_t isz, int V, 
     w->scal = (int*)(base + o_scal);
     w->aff_ok = (unsigned char*)(base + o_aff);
     w->ign = (unsigned char*)(base + o_ign);
+    w->nb_alloc = base + o_nb;
     w->n_words = (int)words;
     w->min_lo = (int)(o_min_h / 4);
     w->min_hi = (int)(o_min_h / 4 + HC);
@@ -308,6 +322,7 @@ __host__ __device__ inline size_t ws_layout(const Planes& a, size_t isz, int V, 
   p.sump = (long long*)take(N * 8);
   p.total3 = (long long*)take(N * 8);
   p.req = take(N * a.R * isz);
+  p.nb_cur = take(nb * isz);
   p.vlist = (int*)take(N * (size_t)V * 4);
   p.vcount = (int*)take(N * 4);
   p.nrec = (int*)take(N * 4);
@@ -341,6 +356,8 @@ struct Need {
   bool s_ipa;     // InterPodAffinity score, PreScore enabled
   bool rel;       // any of the four: the workspace is cleared and filled
   bool vr;        // VolumeRestrictions filter: the pod's claims and disks
+  bool nb;        // NetworkBandwidth's filter or score: the allocated sum
+  bool f_nb;      // its filter: a row of the dry run
   bool fit, ports, lim[N_VOL3];  // the other state-dependent filters
 };
 
@@ -354,12 +371,15 @@ __device__ Need need_of(const Cfg& c) {
     nd.vr |= id == F_VOLRESTR;
     nd.fit |= id == F_FIT;
     nd.ports |= id == F_PORTS;
+    nd.f_nb |= id == F_NETBW;
     if (id >= F_EBS && id <= F_AZURE) nd.lim[id - F_EBS] = true;
   }
   for (int j = 0; j < c.n_scores; ++j) {
     nd.s_spread |= c.score[j] == S_SPREAD && c.spread_on;
     nd.s_ipa |= c.score[j] == S_INTERPOD && c.interpod_on;
+    nd.nb |= c.score[j] == S_NETBW;
   }
+  nd.nb |= nd.f_nb;
   nd.aff |= nd.f_spread || nd.s_spread;
   nd.rel = nd.f_spread || nd.s_spread || nd.f_ipa || nd.s_ipa;
   return nd;
@@ -743,6 +763,15 @@ __device__ int filter_code(const Cfg& c, int fid, const Planes& a, const State& 
       return vol_table(a, a.vb_code, ps, n);
     case F_VOLZONE:
       return vol_table(a, a.vz_code, ps, n);
+    case F_NETBW: {
+      // NetworkBandwidth: the pod's request on top of the node's allocated
+      // sum (the prologue's) beyond its limit; a node without a limit and a
+      // pod without a request pass
+      const I want = ((const I*)a.nb_bw)[ps];
+      return (a.nb_has[n] && want > 0 &&
+              wadd<I>(((const I*)w.nb_alloc)[n], want) > ((const I*)a.nb_limit)[n])
+                 ? 1 : 0;
+    }
   }
   return 0;  // F_NODEVOL: a pass-through
 }
@@ -978,6 +1007,15 @@ __device__ I score_raw(const Cfg& c, int j, const Planes& a, const State& s, con
       return spread_score<I>(c, a, w, ps, n);
     case S_INTERPOD:
       return interpod_score<I>(c, a, w, n);
+    case S_NETBW:  // the node's remaining bandwidth, 0 without a limit
+      return a.nb_has[n] ? wsub<I>(((const I*)a.nb_limit)[n], ((const I*)w.nb_alloc)[n]) : (I)0;
+    case S_NODENUM: {
+      // 10 where the trailing digits of the node's and the pod's names
+      // match (do not match, with `reverse`); 0 where either has none
+      const int dn = a.nn_node[n], dp = a.nn_pod[ps];
+      if (dn < 0 || dp < 0) return 0;
+      return ((dn == dp) != (c.nn_reverse != 0)) ? (I)10 : (I)0;
+    }
   }
   return 0;
 }
@@ -1094,7 +1132,9 @@ __device__ __forceinline__ void score_node(const Cfg& c, const Planes& a, const 
 }
 
 // The custom normalizes (engine/kernels.py build_spread_score/
-// build_interpod_score `normalize`), on the reductions of every node.
+// build_interpod_score `normalize`; plugins/networkbandwidth.py
+// `_normalize`, InterPodAffinity's min-max without its PreScore gate), on
+// the reductions of every node.
 // Integer // floors and the arithmetic wraps in I, as the reference's does
 // when no node is feasible and the sentinels meet.
 template <typename I>
@@ -1105,7 +1145,7 @@ __device__ I norm_custom(const Cfg& c, int j, const Ws& ws, int n, I r, I maxv, 
     if (maxv == 0) return (I)MAX_NODE_SCORE;
     return fdiv<I>(wmul<I>((I)MAX_NODE_SCORE, wsub<I>(wadd<I>(maxv, minv), r)), imax<I>(maxv, 1));
   }
-  if (c.score[j] == S_INTERPOD && c.interpod_on) {
+  if ((c.score[j] == S_INTERPOD && c.interpod_on) || c.score[j] == S_NETBW) {
     const I diff = wsub<I>(maxv, minv);
     return diff > 0 ? fdiv<I>(wmul<I>((I)MAX_NODE_SCORE, wsub<I>(r, minv)), imax<I>(diff, 1))
                     : (I)0;
@@ -1142,6 +1182,20 @@ __device__ void prologue(const Cfg& c, const Need& nd, const Planes& a, const St
       words[i] = (i >= ws.min_lo && i < ws.min_hi) ? INT_MAX : 0;
     __syncthreads();
     for (int q = threadIdx.x; q < a.P; q += blockDim.x) rel_pod<I>(c, a, s, nd, ws, ps, q);
+    __syncthreads();
+  }
+  if (nd.nb) {
+    // NetworkBandwidth's allocated sum: each bound pod's request onto its
+    // node (integer adds commute and wrap in I, as the reference's
+    // scatter-add)
+    I* alloc = (I*)ws.nb_alloc;
+    const I* bw = (const I*)a.nb_bw;
+    for (int n = threadIdx.x; n < N; n += blockDim.x) alloc[n] = 0;
+    __syncthreads();
+    for (int q = threadIdx.x; q < a.P; q += blockDim.x) {
+      const int nq = s.assignment[q];
+      if (nq >= 0 && a.pod_mask[q] && bw[q] != 0) atomic_add(&alloc[nq], bw[q]);
+    }
     __syncthreads();
   }
   if (nd.aff) {
@@ -1453,6 +1507,11 @@ __device__ void row_apply(int sign, const Need& nd, const Planes& a, const Ws& w
     if (nd.lim[j])
       pw.vol3[(size_t)n * N_VOL3 + j] =
           wadd<int>(pw.vol3[(size_t)n * N_VOL3 + j], sign * a.pod_vol3[(size_t)v * N_VOL3 + j]);
+  if (nd.f_nb) {
+    I* cur = (I*)pw.nb_cur + n;
+    const I b = ((const I*)a.nb_bw)[v];
+    *cur = sign > 0 ? wadd<I>(*cur, b) : wsub<I>(*cur, b);
+  }
 }
 
 // Node n's row counters from the state, before any victim is taken away.
@@ -1502,6 +1561,7 @@ __device__ void row_init(const Need& nd, const Planes& a, const State& s, const 
     }
   }
   for (int j = 0; j < N_VOL3; ++j) pw.vol3[(size_t)n * N_VOL3 + j] = s.node_vol3[(size_t)n * N_VOL3 + j];
+  if (nd.f_nb) ((I*)pw.nb_cur)[n] = ((const I*)ws.nb_alloc)[n];
 }
 
 // Pod ps passes every row filter on node n from the node's counters alone
@@ -1579,6 +1639,12 @@ __device__ bool row_check(const Cfg& c, const Need& nd, const Planes& a, const W
   }
   for (int j = 0; j < N_VOL3; ++j)
     if (nd.lim[j] && vol_limit(c, a, pw.vol3 + (size_t)n * N_VOL3, ps, j)) return false;
+  if (nd.f_nb) {
+    const I want = ((const I*)a.nb_bw)[ps];
+    if (a.nb_has[n] && want > 0 &&
+        wadd<I>(((const I*)pw.nb_cur)[n], want) > ((const I*)a.nb_limit)[n])
+      return false;
+  }
   return true;
 }
 

@@ -10,7 +10,7 @@
 
 // capacities of Cfg's arrays
 constexpr int MAX_F = 16;
-constexpr int MAX_S = 8;
+constexpr int MAX_S = 9;  // the default profile's 7 scores and both demo plugins
 constexpr int MAX_SPEC = 16;
 constexpr int MAX_PTS = 16;
 constexpr int MAX_BAL = 16;
@@ -34,14 +34,15 @@ constexpr int N_VOL3 = 3;  // the volume-count limit plugins (EBS, GCE PD, Azure
 // hard_w: InterPodAffinityArgs.hardPodAffinityWeight; pf_vb: the
 // VolumeBinding prefilter is enabled; preempt: DefaultPreemption is
 // enabled, and vbound is the victims per node its dry run keeps (the
-// reference's `_victim_bound`); vol_limit: the per-node volume limits.
+// reference's `_victim_bound`); vol_limit: the per-node volume limits;
+// nn_reverse: NodeNumberArgs.reverse (plugins/nodenumber.py).
 // X1 names an int, XN an array of n ints.
 #define CFG_FIELDS(X1, XN)                                                          \
   X1(n_filters) XN(filter, MAX_F) X1(n_scores) XN(score, MAX_S) XN(mode, MAX_S)     \
   X1(fit_type) X1(fit_wsum) X1(fit_n) XN(fit_r, MAX_SPEC) XN(fit_w, MAX_SPEC)       \
   X1(rtcr_n) XN(rtcr_x, MAX_PTS) XN(rtcr_y, MAX_PTS) X1(bal_n) XN(bal_r, MAX_BAL)   \
   X1(spread_on) X1(interpod_on) X1(hard_w) X1(pf_vb) X1(preempt) X1(vbound)         \
-  XN(vol_limit, N_VOL3)
+  XN(vol_limit, N_VOL3) X1(nn_reverse)
 
 // Required or preferred node-affinity terms of every pod
 // (ClusterArrays raff_* / paff_*): [P, TM, E(, VV)]. key: label key column
@@ -76,6 +77,11 @@ constexpr int N_VOL3 = 3;  // the volume-count limit plugins (EBS, GCE PD, Azure
 // (engine/encode_vol.py): vb_row [P] (row of vb_code/vz_code [N, VB] | -1),
 // vb_pf [P] prefilter message id, pod_claim [P, CL] ReadWriteOncePod
 // claims, pod_disk_any / pod_disk_rw [P, D] disk mounts, pod_vol3 [P, 3].
+// The out-of-tree plugins' planes (engine/cuda.py SeqProgram.planes; null
+// when the plugin is off): NetworkBandwidth's nb_limit [N] (Mi, the
+// policy's type), nb_has [N] (the node has a limit), nb_bw [P] (the pod's
+// request, Mi, the policy's type); NodeNumber's nn_node [N] / nn_pod [P]
+// (the name's trailing digit; -1 / -2: none).
 #define PLANE_PTRS(X)                                                            \
   X(const void*, node_alloc) X(const unsigned char*, node_unsched)               \
   X(const unsigned char*, node_mask) X(const void*, pod_req) X(const void*, pod_sreq) \
@@ -94,7 +100,9 @@ constexpr int N_VOL3 = 3;  // the volume-count limit plugins (EBS, GCE PD, Azure
   X(const unsigned char*, req_all) X(const int*, spread_lut)                     \
   X(const int*, pod_priority) X(const int*, vb_row) X(const int*, vb_code)       \
   X(const int*, vz_code) X(const int*, vb_pf) X(const unsigned char*, pod_claim)  \
-  X(const int*, pod_disk_any) X(const int*, pod_disk_rw) X(const int*, pod_vol3)
+  X(const int*, pod_disk_any) X(const int*, pod_disk_rw) X(const int*, pod_vol3)  \
+  X(const void*, nb_limit) X(const unsigned char*, nb_has) X(const void*, nb_bw)  \
+  X(const int*, nn_node) X(const int*, nn_pod)
 #define PLANE_DIMS(X)                                                            \
   X(N) X(P) X(R) X(T) X(L) X(K) X(NS) X(Q) X(V2) X(I) X(LP) X(KK) X(NSV) X(NP1) X(LUT) \
   X(VB) X(CL) X(D)

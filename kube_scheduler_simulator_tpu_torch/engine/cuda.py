@@ -137,7 +137,7 @@ KERNEL_DEVICE_TYPES = ("cuda",)
 
 # Capacities of the kernel's config block (csrc/seq_layout.h `Cfg`; the
 # library's own are checked against these when it loads).
-MAX_F, MAX_S, MAX_SPEC, MAX_PTS, MAX_BAL = 16, 8, 16, 16, 16
+MAX_F, MAX_S, MAX_SPEC, MAX_PTS, MAX_BAL = 16, 9, 16, 16, 16
 N_VOL3 = len(VOL_LIMIT_PLUGINS)
 _CFG_FIELDS = (
     ("n_filters", 1), ("filter", MAX_F),
@@ -148,6 +148,7 @@ _CFG_FIELDS = (
     ("bal_n", 1), ("bal_r", MAX_BAL),
     ("spread_on", 1), ("interpod_on", 1), ("hard_w", 1),
     ("pf_vb", 1), ("preempt", 1), ("vbound", 1), ("vol_limit", N_VOL3),
+    ("nn_reverse", 1),
 )
 CFG_INTS = sum(n for _, n in _CFG_FIELDS)
 _NORM_IDS = {None: 0, "default": 1, "default_reverse": 2, "custom": 3}
@@ -185,14 +186,19 @@ class SeqProgram:
     # PACKED's bf16 score lane in the plain attempt's normalize (the kernel
     # leaves the identity out: csrc/seq_kernels.cu beside `normed`)
     bf16_lane: bool = False
+    # the out-of-tree plugins' planes (K.DEVICE_INPUTS: NetworkBandwidth's
+    # and NodeNumber's featurized annotations and names), which the
+    # encoding's arrays do not hold
+    planes: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
     # the cluster planes checked for this program's launches, by id(arrays)
     # (`_planes`); the newest _BOUND_MAX
     bound: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
 
 def pack_config(enc: EncodedCluster, filter_names, score_names, prefilter_names=(),
-                vbound: int = 0) -> np.ndarray:
-    """The kernel's config block for these plugins (field order of `Cfg`).
+                vbound: int = 0, plugin_ints: "dict | None" = None) -> np.ndarray:
+    """The kernel's config block for these plugins (field order of `Cfg`);
+    `plugin_ints`: the out-of-tree plugins' Cfg fields (K.DEVICE_INPUTS).
     Raises ValueError where the block cannot hold the configuration."""
     vals: dict[str, list[int]] = {}
 
@@ -226,6 +232,9 @@ def pack_config(enc: EncodedCluster, filter_names, score_names, prefilter_names=
     vals["preempt"] = [int(vbound > 0)]
     vals["vbound"] = [vbound]
     vals["vol_limit"] = [K.volume_limit(n)[1] for n in VOL_LIMIT_PLUGINS]
+    vals["nn_reverse"] = [0]
+    for name, x in (plugin_ints or {}).items():
+        vals[name] = [int(x)]
     out: list[int] = []
     for name, n in _CFG_FIELDS:
         xs = vals[name]
@@ -245,19 +254,26 @@ def build_program(enc: EncodedCluster, filter_names, score_names, prefilter_name
     if enc.arrays.rel.node_pair.numel() and int(enc.arrays.rel.node_pair.max()) >= np1:
         raise ValueError("node_pair holds pair ids beyond n_node_pairs")
     vbound = PR.victim_bound(enc, filter_names) if preempt else 0
+    inputs = {}
+    for n in dict.fromkeys((*filter_names, *score_names)):
+        if n in K.DEVICE_INPUTS:
+            inputs.update(K.DEVICE_INPUTS[n](enc))
+    planes = {k: v for k, v in inputs.items() if isinstance(v, torch.Tensor)}
     return SeqProgram(
         filter_names=tuple(filter_names),
         score_names=tuple(score_names),
         filters=tuple(K.FILTER_KERNELS[n][0](enc) for n in filter_names),
         scores=tuple(K.SCORE_KERNELS[n][0](enc) for n in score_names),
         normalize=tuple(K.SCORE_KERNELS[n][1] for n in score_names),
-        cfg=pack_config(enc, filter_names, score_names, prefilter_names, vbound),
+        cfg=pack_config(enc, filter_names, score_names, prefilter_names, vbound,
+                        {k: v for k, v in inputs.items() if k not in planes}),
         score_dtype=enc.policy.score,
         np1=np1,
         prefilters=tuple(K.PREFILTER_KERNELS[n][0](enc) for n in prefilter_names),
         preempt=PR.build_preemption(enc, filter_names) if preempt else None,
         vbound=vbound,
         bf16_lane=enc.policy.packed,
+        planes=planes,
     )
 
 
@@ -615,7 +631,13 @@ _SPEC = {
     "assignment": "P i", "used_pair": "N Q i", "used_wild": "N Q i",
     "used_trip": "N V2 i", "used_claims": "CL i", "node_disk_any": "N D i",
     "node_disk_rw": "N D i", "node_vol3": "N V3 i", "bound_seq": "P i",
+    # the out-of-tree plugins' (SeqProgram.planes): NetworkBandwidth's node
+    # limits, which nodes have one and the pods' requests (Mi, the policy's
+    # type); NodeNumber's trailing digits of node and pod names (-1 / -2: none)
+    "nb_limit": "N i", "nb_has": "N b", "nb_bw": "P i", "nn_node": "N i", "nn_pod": "P i",
 }
+PLUGIN_PLANES = ("nb_limit", "nb_has", "nb_bw", "nn_node", "nn_pod")
+_PLUGIN_TYPED = frozenset({"nb_limit", "nb_bw"})  # in the policy's integer type
 
 # name -> (dim names, element kind)
 _SPEC_DIMS = {k: (tuple(v.split()[:-1]), v.split()[-1]) for k, v in _SPEC.items()}
@@ -645,7 +667,7 @@ class _Layout:
             raise RuntimeError(f"kernel State {n['state_ptrs']} differs from SchedState")
         if n["term_domains"] != encode_rel.DOMAINS:
             raise RuntimeError(f"kernel term domains {n['term_domains']} differ")
-        if set(_SPEC) - set(_A_FIELDS + _REL_FIELDS + _STATE_FIELDS):
+        if set(_SPEC) - set(_A_FIELDS + _REL_FIELDS + _STATE_FIELDS + PLUGIN_PLANES):
             raise RuntimeError("_SPEC names a tensor the arrays and state do not hold")
         unknown = [x for x in n["plane_ptrs"] if x not in _SPEC]
         if unknown:
@@ -770,7 +792,8 @@ def _same(refs: list, objs: tuple) -> bool:
 
 def _check_tensor(name: str, t: torch.Tensor, dims: dict, dev, res_dt) -> None:
     names, kind = _SPEC_DIMS[name]
-    want = torch.bool if kind == "b" else (res_dt if name in RES_TYPED else torch.int32)
+    typed = name in RES_TYPED or name in _PLUGIN_TYPED
+    want = torch.bool if kind == "b" else (res_dt if typed else torch.int32)
     if t.device != dev or t.dtype != want or t.dim() != len(names):
         raise ValueError(
             f"{name}: want {want} [{' '.join(names)}] on {dev}, "
@@ -804,11 +827,12 @@ _BOUND_MAX = 4
 
 
 def _planes(prog: SeqProgram, a: ClusterArrays) -> _Bound:
-    """The cluster planes of (prog, a), validated against `_SPEC` (device,
-    element type, contiguity, consistent dims) and packed into the kernels'
-    Planes struct once per pair; later calls with the same program, arrays
-    and tensors reuse it. A tensor whose storage is swapped in place
-    (`.data =`, `resize_`) is not seen."""
+    """The cluster planes of (prog, a), with the program's own out-of-tree
+    plugin planes, validated against `_SPEC` (device, element type,
+    contiguity, consistent dims) and packed into the kernels' Planes struct
+    once per pair (a plane of a plugin that is off is a null pointer); later
+    calls with the same program, arrays and tensors reuse it. A tensor whose
+    storage is swapped in place (`.data =`, `resize_`) is not seen."""
     dev = a.node_mask.device
     objs = (a,) + _leaves(a)
     hit = prog.bound.get(id(a))
@@ -819,6 +843,7 @@ def _planes(prog: SeqProgram, a: ClusterArrays) -> _Bound:
         raise ValueError(f"unsupported score dtype {res_dt}")
     lib = library()
     tensors = dict(zip(_A_FIELDS + _REL_FIELDS, objs[1:]))
+    tensors.update(prog.planes)  # fixed for the program's life
     dims: dict[str, int] = {"NP1": prog.np1, "V3": N_VOL3}
     for name in _SPEC:
         if name in tensors:

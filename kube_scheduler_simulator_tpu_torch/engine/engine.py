@@ -132,10 +132,34 @@ def affinity_config() -> "SchedulerConfiguration":
     return _restricted_config(AFFINITY_PLUGINS)
 
 
+def demo_config(reverse: bool = False,
+                base: "SchedulerConfiguration | None" = None) -> "SchedulerConfiguration":
+    """`base` (the default profile, `supported_config()`, unless given) plus
+    the demo out-of-tree plugins: NetworkBandwidth's filter and score
+    (weight 2) and NodeNumber's score (weight 1, its `reverse` arg as given)
+    — on the default profile 16 filters and 9 scores. An engine takes it
+    once both are registered (`import
+    kube_scheduler_simulator_tpu_torch.plugins.networkbandwidth`, and
+    `.nodenumber`)."""
+    from ..sched.config import SchedulerConfiguration
+
+    cfg = (base or supported_config()).to_dict()
+    prof = cfg["profiles"][0]
+    prof["plugins"]["filter"]["enabled"].append({"name": "NetworkBandwidth"})
+    prof["plugins"]["score"]["enabled"] += [{"name": "NetworkBandwidth", "weight": 2},
+                                            {"name": "NodeNumber", "weight": 1}]
+    if reverse:
+        prof["pluginConfig"] = [*prof.get("pluginConfig", []),
+                                {"name": "NodeNumber", "args": {"reverse": True}}]
+    return SchedulerConfiguration.from_dict(cfg)
+
+
 def unsupported_plugins(cfg: "SchedulerConfiguration") -> list[str]:
-    """Enabled plugins the port has no kernel for (the strict-mode check)."""
-    missing = [n for n in cfg.enabled("filter") if n not in K.FILTER_KERNELS]
-    missing += [n for n, _ in cfg.score_plugins() if n not in K.SCORE_KERNELS]
+    """Enabled plugins the port has no kernel for (the strict-mode check):
+    unknown names, and plugins registered without a body in the kernels
+    (the card has no general path for a user's own plugin)."""
+    missing = [n for n in cfg.enabled("filter") if not K.ported(K.FILTER_KERNELS, n)]
+    missing += [n for n, _ in cfg.score_plugins() if not K.ported(K.SCORE_KERNELS, n)]
     missing += [
         n
         for n in cfg.enabled("preFilter")
@@ -191,14 +215,14 @@ class BatchedScheduler:
         self._prefilter_kernel_names = [
             n for n in self._prefilter_names if n in K.PREFILTER_KERNELS
         ]
-        self._filter_names = [n for n in cfg.enabled("filter") if n in K.FILTER_KERNELS]
+        self._filter_names = [n for n in cfg.enabled("filter") if K.ported(K.FILTER_KERNELS, n)]
         self._prescore_names = [
             n
             for n in cfg.enabled("preScore")
             if n in K.TRIVIAL_PRESCORE or n in K.PRESCORE_KERNELS
         ]
         self._score_specs = [
-            (n, w) for n, w in cfg.score_plugins() if n in K.SCORE_KERNELS
+            (n, w) for n, w in cfg.score_plugins() if K.ported(K.SCORE_KERNELS, n)
         ]
         if strict:
             missing = unsupported_plugins(cfg)
@@ -218,6 +242,11 @@ class BatchedScheduler:
         # run_fn is the pass itself: (arrays, state0, queue, weights) ->
         # (final_state, trace); run() pads the queue and calls it.
         self.run_fn = functools.partial(cuda.seq_run, self.program, record=record)
+        # the signature of what the program baked, out-of-tree plugins'
+        # statics included: `retarget` holds a new encoding against it (the
+        # delta encoder updates `enc.pods` in place, so recomputing it on
+        # this encoding later could read newer pods than the program holds)
+        self.signature = self.compile_signature(enc, record)
         self._trace = None
         self._final_state = None
 
@@ -283,14 +312,15 @@ class BatchedScheduler:
         `include_queue_len=False`: the gang engine takes the queue as a
         fixed-[P] order), every tensor's shape and dtype, and PACKED's
         logical lane counts (`packed_dims`: the word count ceil(n / 32) is
-        not injective in n). Two encodings
-        with equal signatures can share one engine through `retarget`. The
-        reference's signature, component for component (with no custom
-        plugin statics).
+        not injective in n), and the statics of every enabled out-of-tree
+        plugin (`K.COMPILE_STATICS`: what its builders bake from the raw
+        manifests). Two encodings with equal signatures can share one engine
+        through `retarget`. The reference's signature, component for
+        component.
 
-        Memoised on the encoding: the delta encoder updates tensors in
-        place, so recomputing it on an older encoding would read the newer
-        content."""
+        Memoised on the encoding: the delta encoder updates tensors and the
+        pod list in place, so recomputing it on an older encoding would read
+        the newer content."""
         memo = getattr(enc, "_sig_memo", None)
         if memo is None:
             memo = enc._sig_memo = {}
@@ -303,8 +333,16 @@ class BatchedScheduler:
             for f in dataclasses.fields(obj)
             if isinstance(t := getattr(obj, f.name), torch.Tensor)
         )
-        filter_names = [n for n in enc.config.enabled("filter") if n in K.FILTER_KERNELS]
+        filter_names = [n for n in enc.config.enabled("filter")
+                        if K.ported(K.FILTER_KERNELS, n)]
         has_preempt = "DefaultPreemption" in enc.config.enabled("postFilter")
+        enabled = set(filter_names)
+        for point in ("preFilter", "preScore", "score"):
+            enabled.update(enc.config.enabled(point))
+        custom_statics = tuple(
+            (name, K.COMPILE_STATICS[name](enc))
+            for name in sorted(enabled & set(K.COMPILE_STATICS))
+        )
         sig = (
             enc.config.fingerprint(),
             enc.policy.name,
@@ -313,6 +351,7 @@ class BatchedScheduler:
             PR.victim_bound(enc, filter_names) if has_preempt else 0,
             BatchedScheduler.queue_bucket(len(enc.queue)) if include_queue_len else None,
             record,
+            custom_statics,
             shapes,
             tuple(sorted((enc.aux.get("packed_dims") or {}).items())),
         )
@@ -323,10 +362,9 @@ class BatchedScheduler:
         """Point this engine at a new encoding with an equal compile
         signature (same shapes and program content, other tensor contents):
         the program is kept, the decode tables come from the new encoding.
-        Raises ValueError for an encoding that is not compatible."""
-        if self.compile_signature(enc, self.record) != self.compile_signature(
-            self.enc, self.record
-        ):
+        Raises ValueError for an encoding that is not compatible with what
+        the program baked (`signature`)."""
+        if self.compile_signature(enc, self.record) != self.signature:
             raise ValueError("encoding is not compile-compatible; rebuild")
         self.enc = enc.to(self.device)
         self._trace = None

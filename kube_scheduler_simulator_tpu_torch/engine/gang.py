@@ -337,6 +337,7 @@ class GangScheduler(_Rounds):
         self._base = BatchedScheduler(enc, record=False, strict=strict, device=device)
         self.enc = self._base.enc
         self.device = self._base.device
+        self.signature = self.compile_signature(self.enc)  # what the program baked
         self.skipped_postfilter = [
             n for n in enc.config.enabled("postFilter") if n not in K.POSTFILTER_KERNELS
         ]
@@ -628,7 +629,7 @@ class GangScheduler(_Rounds):
     def retarget(self, enc: EncodedCluster) -> "GangScheduler":
         """Point at a compile-compatible new encoding (see
         BatchedScheduler.retarget)."""
-        if self.compile_signature(enc) != self.compile_signature(self.enc):
+        if self.compile_signature(enc) != self.signature:
             raise ValueError("encoding is not compile-compatible; rebuild")
         self._base.enc = self.enc = enc.to(self.device)
         self._prepped = None

@@ -831,18 +831,23 @@ def build_interpod_score(enc: EncodedCluster):
         g = wsum[node_pair]  # [N, K]
         return torch.where(node_pair > 0, g, torch.zeros_like(g)).sum(dim=1).to(score_dt)
 
-    def normalize(a, s, p, raw, feasible):
-        minv = torch.where(feasible, raw, torch.full_like(raw, BIG)).min()
-        maxv = torch.where(feasible, raw, torch.full_like(raw, -BIG)).max()
-        diff = maxv - minv
-        return torch.where(
-            diff > 0,
-            fdiv(MAX_NODE_SCORE * (raw - minv), torch.clamp(diff, min=1)),
-            torch.zeros_like(raw),
-        ).to(raw.dtype)
-
-    kernel._normalize = normalize
+    kernel._normalize = minmax_normalize
     return kernel
+
+
+def minmax_normalize(a, s, p, raw, feasible):
+    """Min-max over the feasible nodes to [0, MAX_NODE_SCORE], floor
+    division; 0 everywhere when the spread is not positive (where no node
+    is feasible the sentinels meet, and wrap in int32 as the reference's).
+    InterPodAffinity's normalize, and NetworkBandwidth's (plugin.go:159-186)."""
+    minv = torch.where(feasible, raw, torch.full_like(raw, BIG)).min()
+    maxv = torch.where(feasible, raw, torch.full_like(raw, -BIG)).max()
+    diff = maxv - minv
+    return torch.where(
+        diff > 0,
+        fdiv(MAX_NODE_SCORE * (raw - minv), torch.clamp(diff, min=1)),
+        torch.zeros_like(raw),
+    ).to(raw.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -948,9 +953,10 @@ def decode_never(code: int, enc: EncodedCluster, node_idx: int) -> str:
 
 
 # ---------------------------------------------------------------------------
-# registries. Each entry also names the plugin's id in the kernel's config
-# block (csrc/seq_kernels.cu F_* / S_*). Each entry also names the plugin's id in
-# the kernel's config block (csrc/seq_kernels.cu FILTER_* / SCORE_*).
+# registries. Each filter and score entry also names the plugin's id in the
+# kernel's config block (csrc/seq_kernels.cu F_* / S_*); an entry whose id is
+# None (a plugin registered without a body in the kernels) is not ported:
+# strict engines refuse it and the others skip it (`ported`).
 # ---------------------------------------------------------------------------
 
 # name -> (builder(enc) -> filter body, decode(code, enc, node) -> message, kernel id)
@@ -1017,6 +1023,25 @@ TRIVIAL_PRESCORE: set[str] = {
 # postFilter kernels: DefaultPreemption (engine/preempt.py), a builder
 # (enc, filter_names) -> the plain dry run.
 POSTFILTER_KERNELS: dict[str, Callable] = {}
+
+# Out-of-tree plugins (plugins/): name -> statics(enc), the content their
+# builders bake into a program from the raw manifests, folded into
+# BatchedScheduler.compile_signature so that an engine is never reused
+# after it changes (the reference's registry of the same name).
+COMPILE_STATICS: dict[str, Callable] = {}
+
+# Out-of-tree plugins' inputs to their bodies in the kernels: name ->
+# fn(enc) -> {name: tensor or int}, the planes (csrc/seq_layout.h
+# PLANE_PTRS, on enc's device) and config ints (Cfg) the body reads beside
+# the encoding's own planes, which hold nothing of such plugins.
+DEVICE_INPUTS: dict[str, Callable] = {}
+
+
+def ported(registry: dict, name: str) -> bool:
+    """`name` has a body in the kernels: a filter or score entry with a
+    kernel id."""
+    entry = registry.get(name)
+    return entry is not None and entry[-1] is not None
 
 
 from .preempt import build_preemption  # noqa: E402  (preempt reads the registries)

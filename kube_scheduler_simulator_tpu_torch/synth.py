@@ -8,6 +8,7 @@ Same generator, same seed, same cluster as the reference package's
 `synth.synthetic_cluster` and `synth.synthetic_affinity_cluster`.
 `dressed_affinity_cluster` adds every feature the affinity plugins read; the
 port's tests and `chip_smoke.py` draw their relational clusters from it.
+`annotate_bandwidth` adds the demo NetworkBandwidth plugin's annotations.
 """
 
 from __future__ import annotations
@@ -497,3 +498,37 @@ def preemption_cluster(n_nodes: int, n_pending: int, seed: int = 0, *, fill: flo
             p["spec"]["nodeName"] = "missing-node"
         pods.append(p)
     return nodes, pods, {"pvcs": pvcs, "pvs": pvs, "storageclasses": storageclasses}
+
+
+# The demo NetworkBandwidth plugin's annotations (plugins/networkbandwidth.py):
+# node limits, and the ranges of the pods' requests in Mi
+NETWORK_LIMITS = ("1Gi", "2Gi", "4Gi", "10Gi")
+INGRESS_MI, EGRESS_MI = (10, 800), (10, 200)
+
+
+def annotate_bandwidth(nodes: list[dict], pods: list[dict], seed: int = 7) -> None:
+    """Annotate a cluster for the demo NetworkBandwidth plugin, in place: a
+    `node.kubernetes.io/network-limit` from `NETWORK_LIMITS` on 7 of every
+    8 nodes (not on node i with i % 8 == 7), an ingress request on 3 of
+    every 4 pods (not on pod j with j % 4 == 3) and an egress request on
+    every other pod (j even), pre-bound pods included, each drawn uniformly
+    in Mi from INGRESS_MI / EGRESS_MI. Choices come from a numpy generator
+    seeded with `seed`. The ranges make the plugin's filter reject a node
+    for about a fifth of `synthetic_cluster`'s pods at 10 pods a node."""
+    rng = np.random.default_rng(seed)
+    for i, nd in enumerate(nodes):
+        if i % 8 != 7:
+            meta = nd.setdefault("metadata", {})
+            ann = meta["annotations"] = dict(meta.get("annotations") or {})
+            ann["node.kubernetes.io/network-limit"] = str(rng.choice(NETWORK_LIMITS))
+    for j, pd in enumerate(pods):
+        ann = {}
+        if j % 4 != 3:
+            mi = int(rng.integers(*INGRESS_MI, endpoint=True))
+            ann["kubernetes.io/ingress-request"] = f"{mi}Mi"
+        if j % 2 == 0:
+            mi = int(rng.integers(*EGRESS_MI, endpoint=True))
+            ann["kubernetes.io/egress-request"] = f"{mi}Mi"
+        if ann:
+            meta = pd.setdefault("metadata", {})
+            meta["annotations"] = {**(meta.get("annotations") or {}), **ann}

@@ -18,7 +18,10 @@ tenants with equal shapes and their own values, one of them with nothing to
 do). The fault sweep's kernels (`fault_evict`, `fault_tally`) run on S
 failure scenarios of one cluster, with one gang round of the scenarios
 through the tenant forms over the scenario table between them, and a whole
-`FaultSweep` runs against the same sweep on the CPU.
+`FaultSweep` runs against the same sweep on the CPU. The demo out-of-tree
+plugins (NetworkBandwidth, NodeNumber) run on the annotated default cluster
+under `kp.demo_config()` (`plugin_engine`): the steps, the dry run with
+NetworkBandwidth's row and the whole pass.
 """
 
 import contextlib
@@ -302,6 +305,110 @@ def default_engine(policy, seed=3):
     enc = kp.encode_cluster(nodes, pods, kp.supported_config(), policy=POLICIES[policy],
                             **objects)
     return kp.BatchedScheduler(enc)
+
+
+def plugin_engine(policy, device=None, seed=3, n_nodes=48, n_pods=200, reverse=False):
+    """The default profile plus the demo out-of-tree plugins (16 filters, 9
+    scores; `kp.demo_config`) on the dressed default cluster, annotated for
+    NetworkBandwidth (`synth.annotate_bandwidth`): its filter rejects
+    nodes, its score's min-max normalize and its dry-run row decide."""
+    import kube_scheduler_simulator_tpu_torch.plugins.networkbandwidth  # noqa: F401
+    import kube_scheduler_simulator_tpu_torch.plugins.nodenumber  # noqa: F401
+
+    nodes, pods, objects = kp.synth.dressed_default_cluster(n_nodes, n_pods, seed=seed)
+    kp.synth.annotate_bandwidth(nodes, pods, seed=7)
+    enc = kp.encode_cluster(nodes, pods, kp.demo_config(reverse=reverse),
+                            policy=POLICIES[policy], device=device, **objects)
+    return kp.BatchedScheduler(enc, device=device)
+
+
+def same(got, want, what):
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want.cpu()), what
+
+
+def check_plugin_steps(eng, rng, states=3, pods=6):
+    """seq_attempt, seq_bind, seq_preempt and seq_evict of a plugin engine
+    against their plain versions at random states (on the encoding's
+    device); returns the nominations seen."""
+    enc, prog, a, w = eng.enc, eng.program, eng.enc.arrays, eng.weights
+    cpu = torch.device("cpu")
+    nominated = 0
+    for k in range(states):
+        st = random_state(enc.to(cpu), rng).to(enc.device)
+        for qi, p in enumerate(rng.choice(enc.n_pods, pods, replace=False).tolist()):
+            got = cuda.seq_attempt(prog, a, st, w, p)
+            want = cuda.seq_attempt_plain(prog, a, st, w, p)
+            for name, g, h in zip(("codes", "raw", "final", "sel", "pf"), got, want):
+                same(g, h, (k, p, name))
+            s1 = cuda.seq_bind(prog, a, st.clone(), p, got[3], qi)
+            s2 = cuda.seq_bind_plain(prog, a, st.clone(), p, want[3], qi)
+            for f in STATE_FIELDS:
+                same(getattr(s1, f), getattr(s2, f), (k, p, f))
+            got = cuda.seq_preempt(prog, a, st, p)
+            want = cuda.seq_preempt_plain(prog, a, st, p)
+            for name, g, h in zip(("pcode", "voff", "vidx", "nominated"), got, want):
+                same(g, h, (k, p, name))
+            nominated += int(got[3]) >= 0
+        mask = (st.assignment >= 0) & torch.as_tensor(rng.random(enc.P) < 0.3,
+                                                      device=enc.device)
+        s1 = cuda.seq_evict(prog, a, st.clone(), mask)
+        s2 = cuda.seq_evict_plain(prog, a, st.clone(), mask)
+        for f in STATE_FIELDS:
+            same(getattr(s1, f), getattr(s2, f), (k, "evict", f))
+    return nominated
+
+
+def check_plugin_run(eng):
+    """The whole recorded pass (preemption branch included) of a plugin
+    engine against its plain version; returns (trace, the records'
+    NetworkBandwidth filter messages)."""
+    enc, q = eng.enc, padded_queue(eng)
+    args = (eng.program, enc.arrays, enc.state0, q, eng.weights)
+    s_k, t_k = cuda.seq_run(*args, record=True)
+    s_p, t_p = cuda.seq_run_plain(*args, record=True)
+    for name, g, h in zip(cuda.TRACE_SLOTS_PREEMPT, t_k, t_p):
+        same(g, h, name)
+    for f in STATE_FIELDS:
+        same(getattr(s_k, f), getattr(s_p, f), f)
+    nb = eng.program.filter_names.index("NetworkBandwidth")
+    return t_k, int((t_k[1][..., nb] != 0).any(dim=1).sum())
+
+
+def check_plugin_no_feasible(policy, device=None):
+    """A pod no node can take under both plugins: NetworkBandwidth's
+    normalize meets its sentinels (int32 wrap under TPU32)."""
+    import kube_scheduler_simulator_tpu_torch.plugins.networkbandwidth  # noqa: F401
+    import kube_scheduler_simulator_tpu_torch.plugins.nodenumber  # noqa: F401
+
+    nodes, pods = rel_cluster(3, 16, 40)
+    kp.synth.annotate_bandwidth(nodes, pods, seed=7)
+    pods[7]["spec"]["containers"][0]["resources"]["requests"] = {"cpu": "999"}
+    enc = kp.encode_cluster(nodes, pods, kp.demo_config(), policy=POLICIES[policy],
+                            namespaces=NAMESPACES, device=device)
+    eng = kp.BatchedScheduler(enc, device=device)
+    got = cuda.seq_attempt(eng.program, enc.arrays, enc.state0, eng.weights, 7)
+    want = cuda.seq_attempt_plain(eng.program, enc.arrays, enc.state0, eng.weights, 7)
+    assert int(got[3]) == -1
+    for name, g, h in zip(("codes", "raw", "final", "sel", "pf"), got, want):
+        same(g, h, name)
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_plugin_steps_match_plain(card, policy):
+    eng = plugin_engine(policy, card)
+    assert (len(eng.program.filter_names), len(eng.program.score_names)) == (16, 9)
+    assert check_plugin_steps(eng, np.random.default_rng(9)) > 0
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_plugin_run_matches_plain(card, policy):
+    trace, nb_rejects = check_plugin_run(plugin_engine(policy, card, seed=4, reverse=True))
+    assert int(trace[5].sum()) > 0 and nb_rejects > 0
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_plugin_normalize_with_no_feasible_node(card, policy):
+    check_plugin_no_feasible(policy, card)
 
 
 @pytest.mark.parametrize("policy", sorted(POLICIES))

@@ -195,8 +195,9 @@ def test_schedule_entry_point():
 
 def test_strict_mode_refuses_plugins_outside_the_slice():
     nodes, pods = port_cluster(0, n_nodes=4, n_pods=4)
-    # the default profile is the port's whole set now: a plugin the port
-    # has no kernel for (the simulator's NodeNumber example) is refused
+    # a plugin the port has no filter for is refused: NodeNumber (the
+    # simulator's example) enabled as a *filter*, which it is not even once
+    # plugins/nodenumber.py registers its score
     cfg = PConfig.default().to_dict()
     cfg["profiles"][0]["plugins"]["filter"]["enabled"].append({"name": "NodeNumber"})
     enc = kp.encode_cluster(nodes, pods, PConfig.from_dict(cfg), device="cpu")

@@ -50,7 +50,9 @@ def test_import_leaves_jax_and_reference_out():
             "kube_scheduler_simulator_tpu_torch.server.sessions",
             "kube_scheduler_simulator_tpu_torch.server.batchplane",
             "kube_scheduler_simulator_tpu_torch.lifecycle.faultsweep",
-            "kube_scheduler_simulator_tpu_torch.utils.prng"} <= names
+            "kube_scheduler_simulator_tpu_torch.utils.prng",
+            "kube_scheduler_simulator_tpu_torch.plugins.networkbandwidth",
+            "kube_scheduler_simulator_tpu_torch.plugins.nodenumber"} <= names
 
 
 def test_no_module_imports_jax_or_the_reference():
@@ -59,7 +61,9 @@ def test_no_module_imports_jax_or_the_reference():
     for new in ("parallel/sweep.py", "scenario/batch.py",  # the sixth slice's
                 "server/sessions.py", "server/batchplane.py",  # the session and batch planes
                 "lifecycle/faultsweep.py", "utils/prng.py",  # the fault sweep's
-                "engine/packing.py"):  # the PACKED policy's
+                "engine/packing.py",  # the PACKED policy's
+                "plugins/__init__.py", "plugins/networkbandwidth.py",  # the demo plugins'
+                "plugins/nodenumber.py"):
         assert PORT / new in files, new
     # the CUDA sources include the toolkit's headers and their own only
     for src in sorted((PORT / "csrc").glob("*.cu")):

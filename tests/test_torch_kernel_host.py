@@ -36,6 +36,9 @@ from test_torch_cuda import (
     check_batch_gang,
     check_advance,
     check_batch_run,
+    check_plugin_no_feasible,
+    check_plugin_run,
+    check_plugin_steps,
     check_batch_seg,
     check_counted_pass,
     check_fault_kernels,
@@ -47,6 +50,7 @@ from test_torch_cuda import (
     cluster,
     fault_cluster,
     packed_encodings,
+    plugin_engine,
     random_state,
     tenant_encodings,
 )
@@ -229,6 +233,28 @@ def test_custom_normalizes_with_no_feasible_node(host, policy, prescore):
     assert int(got[3]) == -1
     for name, g, h in zip(("codes", "raw", "final", "sel"), got, want):
         same(g, h, name)
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_plugin_steps_match_plain(host, policy):
+    """The demo plugins' bodies (NetworkBandwidth's filter, score, normalize
+    and dry-run row; NodeNumber's score) in attempt, bind, preempt and
+    evict."""
+    eng = plugin_engine(policy, "cpu", n_nodes=24, n_pods=80)
+    assert check_plugin_steps(eng, np.random.default_rng(9), states=2) > 0
+    assert cuda.LAUNCHES["seq_preempt"] == 12 and cuda.LAUNCHES["seq_attempt"] == 12
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_plugin_run_matches_plain(host, policy):
+    eng = plugin_engine(policy, "cpu", seed=4, n_nodes=24, n_pods=80, reverse=True)
+    trace, nb_rejects = check_plugin_run(eng)
+    assert int(trace[5].sum()) > 0 and nb_rejects > 0 and cuda.LAUNCHES["seq_run"] == 1
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_plugin_normalize_with_no_feasible_node(host, policy):
+    check_plugin_no_feasible(policy, "cpu")
 
 
 def preempt_engine(policy, kind, seed=3):

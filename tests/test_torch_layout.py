@@ -78,6 +78,9 @@ def test_planes_point_at_their_tensors(mirror, policy):
     b = cuda._planes(prog, a)
     pl = b.planes
     for name in mirror.names["plane_ptrs"]:
+        if name in cuda.PLUGIN_PLANES:  # the out-of-tree plugins', off here
+            assert getattr(pl, name) is None and name not in prog.planes, name
+            continue
         t = getattr(a, name, None)
         t = getattr(rel, name) if t is None else t
         assert getattr(pl, name) == t.data_ptr(), name
