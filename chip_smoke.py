@@ -38,12 +38,15 @@ importing `plugins.networkbandwidth` and `plugins.nodenumber`), runs the
 sequential path, its step functions and the gang kernels with both
 plugins' bodies (csrc/seq_kernels.cu `F_NETBW`, `S_NETBW`, `S_NODENUM`,
 NetworkBandwidth's prologue sum, normalize and dry-run row) on clusters
-annotated by `synth.annotate_bandwidth`. The plain versions of the whole
-passes that phases 3, 4, 4b, 4j, 4k, 4l, 4n and 5e are held against run on the host
-CPU in three more processes (`chip_smoke.py --plain-worker DIR PART`,
-started at once when the build is done and stopped at the end; the card's
-phases hand them their inputs through DIR), beside the card's phases; the
-fourth also runs phase 4c's plain segment on the card; phase 4h compares.
+annotated by `synth.annotate_bandwidth`. A thirteenth, the fleet & memory
+observatory (`KSS_FLEET_STATS`, utils/fleetstats.py), samples the serving
+path's passes through K12 (`fleet_quality`, csrc/fleet_kernels.cu), with the
+pass-level spans of utils/telemetry.py (`KSS_TRACE`). The plain versions of
+the whole passes that phases 3, 4, 4b, 4j, 4k, 4l, 4n and 5e are held against
+run on the host CPU in three more processes (`chip_smoke.py --plain-worker DIR
+PART`, started at once when the build is done and stopped at the end; the
+card's phases hand them their inputs through DIR), beside the card's phases;
+the fourth also runs phase 4c's plain segment on the card; phase 4h compares.
 Phases,
 in order; any failure raises and the process exits non-zero:
 
@@ -53,7 +56,8 @@ in order; any failure raises and the process exits non-zero:
    build/kernels/, all at once (csrc/seq_kernels.cu by four `nvcc`
    processes, one an integer type and half of its entry points, the
    tenant forms apart, csrc/delta_kernels.cu by a fifth,
-   csrc/fault_kernels.cu by a sixth, csrc/pack_kernels.cu by a seventh),
+   csrc/fault_kernels.cu by a sixth, csrc/pack_kernels.cu by a seventh,
+   csrc/fleet_kernels.cu by an eighth),
    with the compiler's register and spill report;
 3. each kernel against its plain PyTorch version on the card, under TPU32
    and EXACT, exact equality: (fit) three fit-path configurations on a
@@ -177,14 +181,14 @@ in order; any failure raises and the process exits non-zero:
 4j. the batch plane through `SessionManager` on the card with its plane
    armed from `KSS_BATCH` (a long window, `KSS_BATCH_MAX_SESSIONS` = the
    tenants: each window flushes full, the passes barrier-aligned), TPU32:
-   (a) 4 tenants of phase 4d's serving cluster (1,024 nodes, 10,000 pods
+   (a) 3 tenants of phase 4d's serving cluster (1,024 nodes, 10,000 pods
    bound, 128 pending; tenant i's pending CPU requests scaled by 1 + i / 8)
    in one sequential window: one `batch_run` launch, no `seq_run` and no
    plain call, all compile signatures equal, every pass counted batched and
    no solo fallback (a failed batched launch fails the phase); (b) 2
    tenants of phase 4c's cluster with 128 pending each, a dry run in every
    tenant; (c) `schedule_gang(record=False)` passes after 128 more
-   arrivals each, the 4 serving tenants in one window, 2 of the preempting
+   arrivals each, the 3 serving tenants in one window, 2 of the preempting
    ones in another: every round one launch of each K9 tenant form, every
    phase one `batch_seg`, the preempting window's phases run. In each
    window every tenant's final state, trace and victims (sequential) or
@@ -254,6 +258,22 @@ in order; any failure raises and the process exits non-zero:
    plain version on the card, and the single-pod step path over it. Each
    prints its wall (encode, pass, decode), decisions/s, peak memory, dry
    runs and nominations, and the pods carrying the filter message;
+4o. the fleet & memory observatory on a `SimulatorService` at 4d's
+   cluster (1,024 nodes, 10,000 bound, TPU32) with a `FleetRecorder`
+   armed, each pass with the counters set to 0 just before and read just
+   after (one `fleet_quality` launch, no plain call): 4d's first three
+   passes replayed (the snapshot's 128 pending; 128 arrivals, a cordon and
+   an uncordon each), their records 4d's, which ran with stats off; 4d's
+   fourth pass's events and one `schedule_gang(record=False)`, its
+   placements a stats-off `GangScheduler`'s over a from-scratch encode.
+   Each sample's K12 buffer held against the plain version on the card
+   over the same tensors, its fields against the buffer, the card's memory
+   fields present, its host split timed (the launch, the readback, the
+   pending ages, the census). Then a batch window of 2 tenants with stats
+   on and `KSS_TRACE` armed: one `batch_run`, one `fleet_quality` a tenant,
+   each tenant's sample under its session, balanced nesting, each tenant's
+   `pass.sequential`, `pass.encode`, `device.execute` and `batch.enroll`
+   with its pass id, `batch.execute` and the five counter tracks;
 4h. the plain processes' versions: phase 3's whole gang pass and gang
    sweep (state, rounds, records; assignments, rounds, states, phases);
    phase 3's sweeps (every
@@ -311,6 +331,10 @@ in order; any failure raises and the process exits non-zero:
    score), beside NetworkBandwidth's allocated sum as one
    `torch.zeros(N).index_add_` call, `seq_preempt` with NetworkBandwidth's
    row at 4n(b)'s first nominating step past the middle, and 4n's passes;
+   5l: `fleet_quality` at 4o's serving state and at config #5's shape
+   (5,000 nodes x 50,000 pods, a seeded synthetic state), each first held
+   against its plain version on the card (bins, pending, max exact; mean
+   and fragmentation within 1e-5), beside the plain version's time;
 6. the card's name and power limit, then the result line.
 
 Each phase prints its seconds. It runs in 13 to 16 minutes on an H100, the
@@ -358,8 +382,9 @@ PHASE_PLAIN_STEPS = 8
 # the batch plane (phase 4j): tenants of the serving cluster in one window,
 # tenants of the preemption cluster with this many pending pods each (each
 # tenant's full encode and decode is host work on the main thread: 4 and 2
-# tenants, from 8 and 4, make room for phase 4n)
-BATCH_TENANTS = 4
+# tenants, from 8 and 4, made room for phase 4n; 3 serving tenants, from 4,
+# for phase 4o)
+BATCH_TENANTS = 3
 BATCH_PREEMPT_TENANTS = 2
 BATCH_PREEMPT_NODES, BATCH_PREEMPT_PENDING = 1024, 128
 # the preempting gang window's tenants (each pass after (b) is a full encode,
@@ -5102,6 +5127,311 @@ def pack_rows(kp, cuda, scatter, diff, packed, smi):
 
 
 # ---------------------------------------------------------------------------
+# the fleet & memory observatory (phases 4o and 5l)
+# ---------------------------------------------------------------------------
+
+FLEET_SOURCE = "kube_scheduler_simulator_tpu_torch/csrc/fleet_kernels.cu"
+FLEET_REPLACES = "kube_scheduler_simulator_tpu/utils/fleetstats.py:258"
+# the mean and the fragmentation are float32 sums in another order than the
+# plain version's; the bins, pending and the max are exact
+FLEET_TOL = 1e-5
+FLEET_TENANTS = 2  # 4o's batch window
+# 5l: config #5's shape (5,000 nodes x 50,000 pods), a seeded synthetic state
+FLEET5_NODES, FLEET5_PODS, FLEET5_RES = 5000, 50000, 4
+FLEET_COUNTERS = {"fleet.pendingPods", "fleet.utilizationMax", "fleet.fragmentationIndex",
+                  "hbm.bytesInUse"}
+
+
+def fleet_check(cuda, got, want, what):
+    """A K12 buffer against its plain version's: the bins, pending and the
+    max bit for bit, the mean and the fragmentation within FLEET_TOL.
+    Returns the largest |difference| of the float lanes."""
+    g, w = got.cpu(), want.cpu()
+    head = cuda.FLEET_BINS + 1
+    if g.shape != w.shape or not torch.equal(g[:head], w[:head]) or g[head + 1] != w[head + 1]:
+        raise AssertionError(f"{what}: fleet_quality {g.tolist()} against plain {w.tolist()}")
+    err = float((g[head:].view(torch.float32).double()
+                 - w[head:].view(torch.float32).double()).abs().max())
+    if err > FLEET_TOL:
+        raise AssertionError(f"{what}: fleet_quality's mean or fragmentation off by {err}")
+    return err
+
+
+class FleetCapture(Swap):
+    """While active, every `fleet_quality` call keeps its inputs (cloned)
+    and its output buffer. The calls go through unchanged."""
+
+    def __init__(self, cuda):
+        self.calls = []
+
+        def make(f):
+            def call(*args):
+                out = f(*args)
+                self.calls.append(([a.clone() for a in args], out))
+                return out
+            return call
+
+        super().__init__(cuda, {"fleet_quality": make})
+
+
+def fleet_recorder(fleetstats):
+    """The armed recorder, keeping the last sample's arguments and each
+    sample's host wall (what the pass paid for it)."""
+
+    class Timed(fleetstats.FleetRecorder):
+        def __init__(self):
+            super().__init__(capacity=64)
+            self.walls, self.last = [], None
+
+        def sample_pass(self, service, enc, state, mode, assignment=None):
+            t0 = time.perf_counter()
+            out = super().sample_pass(service, enc, state, mode, assignment)
+            self.walls.append(time.perf_counter() - t0)
+            self.last = (service, enc, assignment)
+            return out
+
+    return Timed()
+
+
+def check_sample(cuda, diff, what, sample, call, mode, pass_id, session):
+    """A sample against the K12 call it made (the kernel's buffer held
+    against the plain version on the card over the same tensors), and its
+    card fields."""
+    inputs, buf = call
+    diff.err["fleet", "fleet_quality"] = max(diff.err.get(("fleet", "fleet_quality"), 0.0),
+                                            fleet_check(cuda, buf, cuda.fleet_quality_plain(
+                                                *inputs), what))
+    hist, mean, mx, frag, pending = cuda.fleet_fields(buf.cpu())
+    f = sample["fleet"]
+    if ((sample["mode"], sample["passId"], sample["session"]) != (mode, pass_id, session)
+            or f["utilization"]["histogram"] != [int(x) for x in hist]
+            or f["pendingPods"] != int(pending)
+            or f["utilization"]["mean"] != round(float(mean), 6)
+            or f["utilization"]["max"] != round(float(mx), 6)
+            or list(f["fragmentation"].values()) != [round(float(x), 6) for x in frag]
+            or sum(f["utilization"]["histogram"]) != f["nodes"]):
+        raise AssertionError(f"{what}: the sample {sample} does not hold its K12 buffer")
+    if (set(sample["hbm"]) != {"bytesInUse", "peakBytesInUse", "bytesLimit"}
+            or not {"liveArrays", "liveBytes", "deltaRetainedBytes", "warmEngines"}
+            <= set(sample["buffers"])):
+        raise AssertionError(f"{what}: the card's memory fields are missing: {sample}")
+
+
+def sample_split(cuda, fleetstats, rec, inputs, what, smi):
+    """A sample's parts again on its own tensors, after the pass: the K12
+    launch (CUDA events), the readback, the pending ages (a Python loop
+    over the pods) and the census (host clock). Returns the seconds by
+    part, the pass's own sample wall beside them."""
+    service, enc, assignment = rec.last
+    kernel_ms = events_ms(lambda: cuda.fleet_quality(*inputs), 20, 3)
+    parts = {"readback": [], "ages": [], "census": []}
+    for _ in range(3):
+        buf = cuda.fleet_quality(*inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buf.cpu()
+        t1 = time.perf_counter()
+        rec._pending_ages(service.session_id or "default", enc, assignment)
+        t2 = time.perf_counter()
+        fleetstats.buffer_census(service)
+        fleetstats.device_memory([service.device])
+        t3 = time.perf_counter()
+        for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[k].append(v)
+    split = {"kernel_ms": kernel_ms, "sample_ms": rec.walls[-1] * 1e3,
+             **{f"{k}_ms": statistics.median(v) * 1e3 for k, v in parts.items()}}
+    log(f"    {what}: sample {split['sample_ms']:.3f} ms in the pass; parts: K12 "
+        f"{kernel_ms:.6f} ms (device), readback {split['readback_ms']:.3f} ms, pending ages "
+        f"({enc.n_pods} pods) {split['ages_ms']:.3f} ms, census {split['census_ms']:.3f} ms "
+        f"[{smi}]")
+    return split
+
+
+def drive_fleet(kp, cuda, diff, serving, smi):
+    """Phase 4o: the fleet & memory observatory on the card at 4d's cluster
+    (1,024 nodes, 10,000 bound, TPU32), a `FleetRecorder` armed. A new
+    `SimulatorService` replays 4d's first three passes (the snapshot's
+    pending pods; then each pass's 128 arrivals, a cordon and an uncordon),
+    each `schedule()`'s records held equal to 4d's pass, which ran with
+    stats off; then 4d's fourth pass's events and one
+    `schedule_gang(record=False)`, its placements held equal to a
+    `GangScheduler` of the service's chunk over a from-scratch encode of the
+    same store. The counters are set to 0 just before each pass and read
+    just after: one `fleet_quality` launch, no plain call. Each sample's
+    K12 buffer is held against the plain version on the card over the same
+    tensors and its fields against the buffer, the card's memory fields
+    are present, and the sample's host split is timed (`sample_split`).
+    Then one batch window of FLEET_TENANTS tenants of the snapshot with
+    stats on and KSS_TRACE armed: one `batch_run`, one `fleet_quality` a
+    tenant, a sample a tenant under its session; the trace's nesting
+    balanced, each tenant's `pass.sequential`, `pass.encode` and
+    `device.execute` carrying its pass id, the batch plane's spans and the
+    four counter tracks; tenant 0's records 4d's first pass's."""
+    from kube_scheduler_simulator_tpu_torch.server.service import SimulatorService, gang_chunk
+    from kube_scheduler_simulator_tpu_torch.utils import fleetstats, telemetry
+
+    rp = serving["replay"]
+    rec = fleet_recorder(fleetstats)
+    fleetstats.activate(rec)
+    t_start = time.perf_counter()
+    sim = SimulatorService()
+    sim.import_(rp["snap"])  # the store copies what it is given
+    store, sched = sim.store, sim.scheduler
+    splits, launches, inputs = [], 0, None
+    for k in range(1, 5):
+        if k >= 2:
+            for pd in rp["later"][(k - 2) * SERVING_ARRIVALS:(k - 1) * SERVING_ARRIVALS]:
+                store.apply("pods", pd)
+            store.apply("nodes", {"metadata": {"name": f"node-{k}"},
+                                  "spec": {"unschedulable": True}})
+            store.apply("nodes", {"metadata": {"name": f"node-{k - 1}"},
+                                  "spec": {"unschedulable": False}})
+        mode = "gang" if k == 4 else "sequential"
+        fresh = store_encode(kp, store, sched.config, kp.TPU32) if mode == "gang" else None
+        torch.cuda.synchronize()
+        cuda.reset_counts()
+        with FleetCapture(cuda) as cap:
+            if mode == "sequential":
+                results = sched.schedule()
+            else:
+                placements, _, _ = sched.schedule_gang(record=False)
+            torch.cuda.synchronize()
+        counts, plain = cuda.LAUNCHES["fleet_quality"], cuda.PLAIN_CALLS["fleet_quality"]
+        if counts != 1 or plain or len(cap.calls) != 1 or rec.emitted != k:
+            raise AssertionError(f"4o pass {k} ({mode}): fleet_quality launches {counts}, plain "
+                                 f"calls {plain}, {rec.emitted} samples")
+        launches += counts
+        # placements as with stats off
+        if mode == "sequential" and results != rp["records"][k]:
+            raise AssertionError(f"4o pass {k}: records differ from 4d's pass (stats off)")
+        if mode == "gang":
+            g = kp.GangScheduler(fresh, strict=True, chunk=gang_chunk())
+            g.run()
+            if placements != fresh.decode_assignment(g._final_state.assignment.cpu().numpy()):
+                raise AssertionError("4o gang pass: placements differ from a GangScheduler "
+                                     "over a from-scratch encode (stats off)")
+        check_sample(cuda, diff, f"4o pass {k}", rec.snapshot()[-1], cap.calls[0], mode, k,
+                     "default")
+        splits.append(sample_split(cuda, fleetstats, rec, cap.calls[0][0], f"pass {k} ({mode})",
+                                   smi))
+        if mode == "sequential":
+            inputs = cap.calls[0][0]
+    log(f"    4 passes with stats on in {time.perf_counter() - t_start:.3f} s (the import "
+        f"included): the sequential passes' records 4d's (stats off), the gang pass's "
+        f"placements a stats-off GangScheduler's; {launches} fleet_quality launches, no plain "
+        f"call")
+
+    # one batch window, stats on and KSS_TRACE armed
+    t0 = time.perf_counter()
+    mgr = armed_manager(FLEET_TENANTS)
+    sessions = [mgr.create(name=f"fleet{i}", snapshot=tenant_copy(rp["snap"], i))[0]
+                for i in range(FLEET_TENANTS)]
+    old = os.environ.get(telemetry.ENV_VAR)
+    os.environ[telemetry.ENV_VAR] = "1"
+    try:
+        spans = telemetry.active()
+        with FleetCapture(cuda) as cap:
+            out, wall, counts, plain, _, _, moved = run_window(
+                cuda, mgr, sessions, lambda sess: sess.service.scheduler.schedule(),
+                "4o window")
+        events = spans.snapshot()
+    finally:
+        if old is None:
+            os.environ.pop(telemetry.ENV_VAR)
+        else:
+            os.environ[telemetry.ENV_VAR] = old
+    check_window(moved, counts, plain, {"batch_run": 1, "fleet_quality": FLEET_TENANTS},
+                 "4o window")
+    samples = rec.snapshot()[-FLEET_TENANTS:]
+    ids = {x.id for x in sessions}
+    if (rec.emitted != 4 + FLEET_TENANTS or {smp["session"] for smp in samples} != ids
+            or len(cap.calls) != FLEET_TENANTS):
+        raise AssertionError(f"4o window: samples {[smp['session'] for smp in samples]}, "
+                             f"{len(cap.calls)} K12 calls")
+    for inputs_w, buf in cap.calls:
+        # the tenant whose sample holds this buffer's fields
+        hist, mean, mx, frag, pending = cuda.fleet_fields(buf.cpu())
+        which = [smp for smp in samples
+                 if smp["fleet"]["utilization"]["histogram"] == [int(x) for x in hist]
+                 and smp["fleet"]["pendingPods"] == int(pending)
+                 and smp["fleet"]["utilization"]["mean"] == round(float(mean), 6)
+                 and list(smp["fleet"]["fragmentation"].values())
+                 == [round(float(x), 6) for x in frag]]
+        if not which:
+            raise AssertionError("4o window: a K12 call has no sample")
+        check_sample(cuda, diff, "4o window", which[0], (inputs_w, buf), "sequential", 1,
+                     which[0]["session"])
+    if out[0] != rp["records"][1]:
+        raise AssertionError("4o window: tenant 0's records differ from 4d's first pass")
+    launches += FLEET_TENANTS
+    fleetstats.deactivate()
+    # the trace
+    telemetry.check_nesting(events)
+    ivs = telemetry.span_intervals(events)
+    for sid in ids:
+        got = {iv["name"]: iv["args"].get("pass") for iv in ivs
+               if iv["args"].get("session") == sid}
+        if any(got.get(n) != 1 for n in ("pass.sequential", "pass.encode", "device.execute",
+                                         "batch.enroll")):
+            raise AssertionError(f"4o traced window: tenant {sid}'s spans {got}")
+    names = {ev["name"] for ev in events}
+    counters = {ev["name"] for ev in events if ev["ph"] == "C"}
+    if "batch.execute" not in names or not FLEET_COUNTERS | {"fleet.batchOccupancy"} <= counters:
+        raise AssertionError(f"4o traced window: spans {sorted(names)}")
+    mgr.shutdown()
+    log(f"    window of {FLEET_TENANTS} tenants with stats on and KSS_TRACE armed: "
+        f"{time.perf_counter() - t0:.3f} s (imports included; the window {wall:.3f} s), one "
+        f"batch_run, {FLEET_TENANTS} fleet_quality launches, a sample a tenant, tenant 0's "
+        f"records 4d's first pass's; {len(events)} events, nesting balanced, each tenant's "
+        f"pass.sequential / pass.encode / device.execute / batch.enroll carry its pass id, "
+        f"batch.execute and the counters {sorted(counters)}")
+    last = max(splits, key=lambda x: x["sample_ms"])
+    log(f"    the sample's host split at its slowest pass: {last} [{smi}]")
+    return dict(launches=launches, splits=splits, inputs=inputs)
+
+
+def fleet_rows(cuda, diff, fleet, smi):
+    """Phase 5l: `fleet_quality` at 4o's serving state (the last sequential
+    sample's tensors) and at config #5's shape (FLEET5_NODES x FLEET5_PODS,
+    a seeded synthetic state on the card: usage up to 110% of capacity,
+    about a third of the pods unassigned), each first held against its plain
+    version on the card, then timed (a CUDA graph of launches), beside the
+    plain version (CUDA events). No single PyTorch call computes it. Bound:
+    the inputs read once and the buffer written once over 3.35 TB/s, against
+    about 8 float operations a (node, resource) and 2 a pod over 67
+    TFLOP/s."""
+    g = torch.Generator(device=CARD).manual_seed(5)
+    N, P, R = FLEET5_NODES, FLEET5_PODS, FLEET5_RES
+    alloc = torch.randint(1, 1 << 20, (N, R), generator=g, device=CARD, dtype=torch.int32)
+    used = (alloc.double() * torch.rand((N, R), generator=g, device=CARD, dtype=torch.float64)
+            * 1.1).to(torch.int32)
+    assignment = torch.randint(0, N, (P,), generator=g, device=CARD, dtype=torch.int32)
+    assignment[torch.rand((P,), generator=g, device=CARD) < 0.3] = -1
+    synth = (alloc, torch.ones((N,), dtype=torch.bool, device=CARD), used, assignment,
+             torch.ones((P,), dtype=torch.bool, device=CARD))
+    out = []
+    for label, ins in (("4o serving state", fleet["inputs"]),
+                       (f"config #5 shape ({N} x {P})", synth)):
+        n, r = ins[0].shape
+        err = fleet_check(cuda, cuda.fleet_quality(*ins), cuda.fleet_quality_plain(*ins), label)
+        ms = graph_ms(lambda: cuda.fleet_quality(*ins))
+        plain_ms = events_ms(lambda: cuda.fleet_quality_plain(*ins), 10)
+        moved = nbytes(*ins) + (cuda.FLEET_HEAD + r) * 4
+        b = bound(moved, 8 * n * r + 2 * ins[3].shape[0])
+        out.append({"name": "fleet_quality", "path": label, "route": "cuda",
+                    "source": FLEET_SOURCE, "replaces": FLEET_REPLACES,
+                    "launches": fleet["launches"], "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                    "library_ms": None, "nodes": n, "resources": r, "pods": ins[3].shape[0],
+                    "bytes": moved})
+        log(f"    fleet_quality at {label} ({n} nodes x {r} resources, {ins[3].shape[0]} pods, "
+            f"{ins[0].dtype}): {ms:.6f} ms a launch (plain {plain_ms:.4f} ms, bound "
+            f"{b[0]:.7f} ms by {b[1]}, {moved} bytes), max |d| {err}, "
+            f"{fleet['launches']} launches in 4o [{smi}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the second process: the plain versions of whole passes on the host CPU
 # ---------------------------------------------------------------------------
 
@@ -5608,7 +5938,8 @@ def run_phases(kp, workers) -> int:
 
     # -- 2. build ---------------------------------------------------------
     # one library: seq_kernels.cu four times (SEQ_ONLY=32, 64 by SEQ_TENANT=0,
-    # 1) and delta_kernels.cu, five nvcc processes at once, then one link
+    # 1), delta_kernels.cu, fault_kernels.cu, pack_kernels.cu and
+    # fleet_kernels.cu, eight nvcc processes at once, then one link
     t0 = time.perf_counter()
     path, build_s = cuda.build()
     cuda.library()
@@ -5742,6 +6073,13 @@ def run_phases(kp, workers) -> int:
     plugins = drive_plugins(kp, cuda, diff, smi)
     ph.done("4n")
 
+    # -- 4o. the fleet & memory observatory ----------------------------------------
+    log(f"[4o] the fleet observatory (KSS_FLEET_STATS) on the card at 4d's cluster, TPU32: 4d's "
+        f"first 3 schedule() passes and a schedule_gang(record=False) pass with stats on, then "
+        f"a batch window of {FLEET_TENANTS} tenants with stats on and KSS_TRACE armed")
+    fleet = drive_fleet(kp, cuda, diff, serving, smi)
+    ph.done("4o")
+
     # -- 4h. the kernels' whole passes against the second process's plain ones
     log("[4h] the whole passes against the plain versions run on the host CPU in the second "
         "process (exact equality)")
@@ -5801,6 +6139,9 @@ def run_phases(kp, workers) -> int:
     log(f"[5k] the demo plugins' bodies at 4n(a)'s mid-queue state, seq_preempt with "
         f"NetworkBandwidth's row at 4n(b)'s, 4n's passes, TPU32 [{smi}]")
     kernels += plugin_rows(kp, cuda, diff, plugins, smi)
+    log(f"[5l] K12 fleet_quality at 4o's serving state and at config #5's shape "
+        f"({FLEET5_NODES} x {FLEET5_PODS}), TPU32 [{smi}]")
+    kernels += fleet_rows(cuda, diff, fleet, smi)
     ph.done("5")
     log("    phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in ph.seconds.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")

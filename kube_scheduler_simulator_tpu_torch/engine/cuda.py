@@ -67,6 +67,13 @@ policy's widening (`pack_widen`, the reference's `packing.py`
 bit-packed and narrow planes into the logical int32/bool planes the
 kernels above read (engine/packing.py `widen`).
 
+And one (`csrc/fleet_kernels.cu`, a unit of its own) is K12, the fleet
+observatory's `fleet.quality` (`fleet_quality`, the reference's
+`utils/fleetstats.py` `_quality`): one launch a sampled pass reduces the
+pass's cluster and final state to a utilization histogram, its mean and
+max, a fragmentation index a resource and the pending count, in one small
+buffer (utils/fleetstats.py `FleetRecorder.sample_pass`).
+
 Each wrapper takes its plain version (`*_plain`, a line-by-line PyTorch
 rendering of the reference's closure) only for tensors that lie on the CPU;
 for CUDA tensors it launches the kernel or raises. The kernels are built
@@ -117,6 +124,7 @@ DELTA_CSRC = CSRC.with_name("delta_kernels.cu")  # K10, wrapped by engine/scatte
 GANG_CSRC = CSRC.with_name("gang_kernels.cu")  # K9, included by CSRC
 FAULT_CSRC = CSRC.with_name("fault_kernels.cu")  # the fault sweep's, a unit of its own
 PACK_CSRC = CSRC.with_name("pack_kernels.cu")  # K8, the PACKED policy's widening
+FLEET_CSRC = CSRC.with_name("fleet_kernels.cu")  # K12, the fleet observatory's reductions
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -127,7 +135,7 @@ KERNELS = ("seq_attempt", "seq_bind", "seq_run", "seq_preempt", "seq_evict",
            "gang_eval", "gang_topk", "gang_match", "gang_bind", "sweep_run",
            "batch_run", "batch_seg", "batch_eval", "batch_match", "batch_bind",
            "fault_evict", "fault_tally", "gang_match_counted", "batch_match_counted",
-           "gang_advance", "pack_widen")
+           "gang_advance", "pack_widen", "fleet_quality")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _LIB = None
@@ -542,16 +550,17 @@ def seq_run_plain(prog: SeqProgram, a: ClusterArrays, state0: SchedState, queue,
 
 def build() -> tuple[Path, float]:
     """Compile the kernel sources for sm_90a into one library in
-    build/kernels/ unless these sources' library is there already: seven
+    build/kernels/ unless these sources' library is there already: eight
     `nvcc` processes started together, csrc/seq_kernels.cu (with the gang
     kernels it includes) once per integer type (SEQ_ONLY=32, 64) and per
     half of its entry points (SEQ_TENANT=0: all but the tenant forms; 1:
-    the tenant forms), csrc/delta_kernels.cu, csrc/fault_kernels.cu and
-    csrc/pack_kernels.cu, then one link. Returns (library path, build seconds; 0 when it was there). The
+    the tenant forms), csrc/delta_kernels.cu, csrc/fault_kernels.cu,
+    csrc/pack_kernels.cu and csrc/fleet_kernels.cu, then one link. Returns (library path, build seconds; 0 when it was there). The
     compiler's report (registers, shared memory, spills) is kept beside the
     library as a .log file."""
     src = (CSRC.read_bytes() + LAYOUT_H.read_bytes() + GANG_CSRC.read_bytes()
-           + DELTA_CSRC.read_bytes() + FAULT_CSRC.read_bytes() + PACK_CSRC.read_bytes())
+           + DELTA_CSRC.read_bytes() + FAULT_CSRC.read_bytes() + PACK_CSRC.read_bytes()
+           + FLEET_CSRC.read_bytes())
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libkernels_{tag}.so"
     if out.exists():
@@ -564,7 +573,8 @@ def build() -> tuple[Path, float]:
     units = [(CSRC, [f"-DSEQ_ONLY={b}", f"-DSEQ_TENANT={t}"], f"seq{b}{'t' if t else ''}")
              for t in (0, 1) for b in (32, 64)] + [(DELTA_CSRC, [], "delta"),
                                                    (FAULT_CSRC, [], "fault"),
-                                                   (PACK_CSRC, [], "pack")]
+                                                   (PACK_CSRC, [], "pack"),
+                                                   (FLEET_CSRC, [], "fleet")]
     objs = [out.with_name(f"{out.stem}_{u}.{os.getpid()}.o") for _, _, u in units]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *defs, "-c", "-o", str(o), str(path)],
@@ -751,6 +761,9 @@ def library() -> ctypes.CDLL:
         lib.delta_vec_add.argtypes, lib.delta_vec_add.restype = [vp, vp, cl, ci, vp], ci
         lib.pack_widen.argtypes, lib.pack_widen.restype = [vp, ci, cl, ci, vp], ci
         lib.pack_widen_chunk.argtypes, lib.pack_widen_chunk.restype = [], cl
+        for t in ("i32", "i64"):
+            f = getattr(lib, f"fleet_quality_{t}")
+            f.argtypes, f.restype = [vp] * 5 + [ci, ci, ci, vp, vp], ci
         layout = _Layout(lib.seq_layout().decode())
         counts = (ctypes.c_int * len(_CFG_FIELDS))()
         if (lib.seq_cfg_counts(counts) != len(_CFG_FIELDS)
@@ -2361,3 +2374,88 @@ def pack_widen(srcs, lanes) -> list:
     if table is not None:
         pack_launch(table, n_rows, n_chunks)
     return outs
+
+
+# ---------------------------------------------------------------------------
+# K12: the fleet observatory's cluster-quality reductions (csrc/fleet_kernels.cu)
+# ---------------------------------------------------------------------------
+
+FLEET_BINS = 10  # the utilization histogram's bins: [0, 0.1) ... [0.9, 1.0]
+# the output buffer's head: the bins, pending, the mean's and the max's
+# float32 bits; the R fragmentation lanes' float32 bits follow
+FLEET_HEAD = FLEET_BINS + 3
+
+
+def _check_fleet(node_alloc, node_mask, requested, assignment, pod_mask) -> None:
+    """node_alloc and requested [N, R] of one integer type (int32 or
+    int64), node_mask bool [N], assignment int32 [P], pod_mask bool [P],
+    all on one device."""
+    dev = node_alloc.device
+    if node_alloc.dim() != 2 or node_alloc.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"node_alloc: want int32 or int64 [N, R], got {node_alloc.dtype} "
+                         f"{tuple(node_alloc.shape)}")
+    N, R = node_alloc.shape
+    P = assignment.shape[0] if assignment.dim() == 1 else -1
+    for name, t, dtype, shape in (("requested", requested, node_alloc.dtype, (N, R)),
+                                  ("node_mask", node_mask, torch.bool, (N,)),
+                                  ("assignment", assignment, torch.int32, (P,)),
+                                  ("pod_mask", pod_mask, torch.bool, (P,))):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want {dtype} {list(shape)} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def fleet_quality_plain(node_alloc, node_mask, requested, assignment, pod_mask) -> torch.Tensor:
+    """The plain version of K12 (the reference's `_quality`, line by line):
+    the masked reductions in float32, packed as the kernel writes them, an
+    int32 buffer [FLEET_HEAD + R] (`fleet_fields` reads it)."""
+    f = torch.float32
+    alloc = node_alloc.to(f)
+    used = requested.to(f)
+    has = (alloc > 0) & node_mask[:, None]
+    zero = torch.zeros((), dtype=f, device=alloc.device)
+    ratio = torch.where(has, used / torch.clamp(alloc, min=1.0), zero)
+    util = torch.clamp(ratio.max(dim=1).values, 0.0, 1.0)  # [N]
+    n_real = torch.clamp(node_mask.sum(), min=1).to(f)
+    util_mean = torch.where(node_mask, util, zero).sum() / n_real
+    util_max = torch.where(node_mask, util, zero).max()
+    bins = torch.clamp((util * FLEET_BINS).to(torch.int32), 0, FLEET_BINS - 1)
+    hist = torch.bincount(bins[node_mask].long(), minlength=FLEET_BINS).to(torch.int32)
+    free = torch.where(has, torch.clamp(alloc - used, min=0.0), zero)
+    largest = free.max(dim=0).values  # [R]
+    total = free.sum(dim=0)
+    frag = torch.where(total > 0, 1.0 - largest / torch.where(total > 0, total, 1.0), zero)
+    pending = (pod_mask & (assignment < 0)).sum().to(torch.int32)
+    floats = torch.cat([torch.stack([util_mean, util_max]), frag])
+    return torch.cat([hist, pending[None], floats.view(torch.int32)])
+
+
+def fleet_fields(buf: torch.Tensor) -> tuple:
+    """A K12 buffer on the host as (histogram int32 [10], mean, max
+    (float32 scalars), fragmentation float32 [R], pending int32), numpy."""
+    a = buf.numpy()
+    floats = a[FLEET_BINS + 1:].view(np.float32)
+    return a[:FLEET_BINS], floats[0], floats[1], floats[2:], a[FLEET_BINS]
+
+
+def fleet_quality(node_alloc, node_mask, requested, assignment, pod_mask) -> torch.Tensor:
+    """K12 `fleet.quality`: `fleet_quality_plain`'s buffer from one launch
+    of one block (csrc/fleet_kernels.cu). CPU tensors take the plain
+    version. The inputs are made contiguous first (a batched tenant's
+    final state is a slice of the stacked tenants' state)."""
+    _check_fleet(node_alloc, node_mask, requested, assignment, pod_mask)
+    if _on_cpu(node_mask):
+        PLAIN_CALLS["fleet_quality"] += 1
+        return fleet_quality_plain(node_alloc, node_mask, requested, assignment, pod_mask)
+    dev = node_alloc.device
+    if dev.type not in KERNEL_DEVICE_TYPES:
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
+    N, R = node_alloc.shape
+    ins = [t.contiguous() for t in (node_alloc, node_mask, requested, assignment, pod_mask)]
+    out = torch.empty((FLEET_HEAD + R,), dtype=torch.int32, device=dev)
+    t = "i64" if node_alloc.dtype == torch.int64 else "i32"
+    rc = getattr(library(), f"fleet_quality_{t}")(
+        *(x.data_ptr() for x in ins), N, R, assignment.shape[0], out.data_ptr(), _stream())
+    _raise_on(rc, "fleet_quality")
+    LAUNCHES["fleet_quality"] += 1
+    return out

@@ -41,8 +41,14 @@ only so that fills 3 and 5..8 reuse XLA compilations. The card compiles
 nothing per shape, so the port launches exactly B tenants; that changes no
 answer and no counter (the reference's ``batchOccupancySum`` counts B too).
 
-Not ported: telemetry spans, the per-program ledger and the lock-order
-witness (ROADMAP.md queue 1 item 9); plain `threading.Lock`s stand in.
+With tracing on (``KSS_TRACE``, utils/telemetry.py) each enrollment emits
+a ``batch.enroll`` complete event (fill, leader, outcome), and each batched
+launch a ``batch.execute`` on the device track and a
+``fleet.batchOccupancy`` counter sample.
+
+Not ported: the per-program ledger and its per-tenant attribution, and the
+lock-order witness (ROADMAP.md queue 1, the JAX-specific infrastructure);
+plain `threading.Lock`s stand in.
 """
 
 from __future__ import annotations
@@ -50,6 +56,8 @@ from __future__ import annotations
 import os
 import threading
 import time
+
+from ..utils import telemetry
 
 # how long a follower waits on the leader's execution before it gives up
 # and dispatches solo (the leader always signals, in a finally block)
@@ -188,6 +196,7 @@ class BatchPlane:
                 leader = False
                 if len(win.items) >= self.max_sessions:
                     win.full.set()
+        t0 = time.perf_counter()
         if leader:
             # the leader is the window's timer: it wakes after one window
             # even if no other pass arrives, so semaphore waiters queued
@@ -199,13 +208,20 @@ class BatchPlane:
                     del self._open[key]
                 items = list(win.items)
             if len(items) == 1:
-                return None  # a lone tenant: solo, no batched launch for one
+                # a lone tenant: solo, no batched launch for one
+                telemetry.complete("batch.enroll", t0, time.perf_counter(), fill=1,
+                                   leader=True, outcome="solo")
+                return None
             self._execute(win.kind, key, items)
         elif not me.done.wait(_FOLLOWER_TIMEOUT_S):
             with self._lock:
                 if not me.done.is_set():
                     me.abandoned = True
-        if me.abandoned or me.error is not None or me.state is None:
+        batched = not me.abandoned and me.error is None and me.state is not None
+        telemetry.complete("batch.enroll", t0, time.perf_counter(), fill=len(win.items),
+                           leader=leader, outcome="error" if me.error is not None else (
+                               "batched" if batched else "solo"))
+        if not batched:
             return None
         return me.state, me.trace
 
@@ -250,3 +266,7 @@ class BatchPlane:
                 it.metrics.record_phase_seconds(execute=dt)
         if self.metrics is not None:
             self.metrics.record_batching(windows=1, occupancy=B)
+        telemetry.counter("fleet.batchOccupancy", float(B))
+        # the launch's width is B: the card pads no batch bucket
+        telemetry.complete("batch.execute", t0, time.perf_counter(), tid=telemetry.DEVICE_TID,
+                           fill=B, bucket=B)

@@ -19,6 +19,16 @@ synchronous sequential pass:
     `retarget`ed onto the new encoding on a hit;
   * `SimulatorService` composes the store and the scheduler with export,
     import and reset;
+  * each pass carries a per-service pass id (`telemetry.pass_context`,
+    stamped with tracing on or off) and, with ``KSS_TRACE`` armed, emits
+    the reference's pass-level spans: ``pass.sequential``/``pass.gang``
+    around the pass, ``pass.encode`` over its encode and ``device.execute``
+    (on the device track) over its dispatch (utils/telemetry.py); a
+    session's service stamps its session id on them;
+  * with ``KSS_FLEET_STATS`` armed, the end of each pass takes one fleet
+    sample (utils/fleetstats.py: K12 `fleet.quality` over the pass's
+    encoding and final state, the memory census); a failed sample never
+    fails the pass, and placements do not depend on it;
   * with a cross-tenant batch plane armed (`batch_plane`, set by the
     session plane, server/sessions.py), a sequential pass, or an unrecorded
     gang pass, enrolls in the plane's window under its compile signature and
@@ -29,14 +39,15 @@ synchronous sequential pass:
 
 Not ported: the extender loop (a configuration with extenders raises
 NotImplementedError, for gang passes as for sequential ones), the compile broker's
-speculation, the async pass pipeline and the execution ladder's retries and
-CPU failover: a device fault raises.
+speculation, the async pass pipeline (and its spans) and the execution ladder's
+retries and CPU failover: a device fault raises.
 
 Services run on the CUDA card unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -52,6 +63,7 @@ from ..models.snapshot import export_snapshot, import_snapshot
 from ..models.store import ResourceStore
 from ..sched.config import SchedulerConfiguration
 from ..sched.results import PodSchedulingResult
+from ..utils import fleetstats, telemetry
 from ..utils.metrics import SchedulingMetrics
 
 # engines kept per service (the reference broker's warm-engine capacity)
@@ -123,6 +135,8 @@ class SchedulerService:
         self._batch_fallback_counted = False
         self._batch_decode_cache: "tuple | None" = None
         self._batch_gang_decode_cache: "tuple | None" = None
+        # the causal pass counter (telemetry.pass_context), under _lock
+        self._pass_seq = 0
 
     # -- configuration lifecycle -------------------------------------------
 
@@ -148,6 +162,27 @@ class SchedulerService:
         with self._lock:
             self._config = self._initial
 
+    # -- pass ids and contexts -----------------------------------------------
+
+    def _next_pass_id(self) -> int:
+        """The next causal pass id; called with `_schedule_lock` held."""
+        with self._lock:
+            self._pass_seq += 1
+            return self._pass_seq
+
+    def next_pass_id_hint(self) -> int:
+        """The pass id the next pass will carry (exact while the caller is
+        the only one running passes on this service)."""
+        with self._lock:
+            return self._pass_seq + 1
+
+    def _session_scope(self):
+        """The pass's session context: spans emitted inside carry this
+        service's session id (none for a sessionless service)."""
+        if self.session_id is None:
+            return contextlib.nullcontext()
+        return telemetry.session_context(self.session_id)
+
     # -- scheduling ---------------------------------------------------------
 
     def schedule(self) -> list[PodSchedulingResult]:
@@ -155,15 +190,18 @@ class SchedulerService:
         run, delete preemption victims, write placements and annotations
         back. Returns the per-pod records (a nominated pod has two). Passes
         are serialised."""
-        with self._schedule_lock:
+        with self._schedule_lock, self._session_scope():
             config = self.config  # one read: encode and engine see the same
             self._batch_fallback_counted = False
-            with self.metrics.time_pass("sequential") as ctx:
-                results = self._schedule_locked(config)
-                ctx.done(
-                    pods=len({(r.pod_namespace, r.pod_name) for r in results}),
-                    scheduled=sum(1 for r in results if r.status == "Scheduled"),
-                )
+            pass_id = self._next_pass_id()
+            with telemetry.pass_context(pass_id), telemetry.span(
+                    "pass.sequential", pass_id=pass_id):
+                with self.metrics.time_pass("sequential") as ctx:
+                    results = self._schedule_locked(config)
+                    ctx.done(
+                        pods=len({(r.pod_namespace, r.pod_name) for r in results}),
+                        scheduled=sum(1 for r in results if r.status == "Scheduled"),
+                    )
             return results
 
     def schedule_gang(
@@ -176,22 +214,27 @@ class SchedulerService:
         engine's `eval_window`. Passes are serialised."""
         if window is not None and int(window) < 1:
             raise ValueError(f"window must be >= 1, got {window}")
-        with self._schedule_lock:
+        with self._schedule_lock, self._session_scope():
             self._batch_fallback_counted = False
             return self._schedule_gang_timed(record, window)
 
     def _schedule_gang_timed(self, record: bool, window: "int | None" = None):
         config = self.config  # never has extenders: restart refuses them
-        with self.metrics.time_pass("gang") as ctx:
-            placements, rounds, results = self._schedule_gang_locked(config, record, window)
-            ctx.done(pods=len(placements), scheduled=sum(1 for v in placements.values() if v),
-                     rounds=rounds)
+        pass_id = self._next_pass_id()
+        with telemetry.pass_context(pass_id), telemetry.span("pass.gang", pass_id=pass_id):
+            with self.metrics.time_pass("gang") as ctx:
+                placements, rounds, results = self._schedule_gang_locked(config, record, window)
+                ctx.done(pods=len(placements),
+                         scheduled=sum(1 for v in placements.values() if v), rounds=rounds)
         return placements, rounds, results
 
     def _schedule_gang_locked(self, config, record: bool, window=None):
+        t0 = time.perf_counter()
         disp = self._gang_dispatch_once(config, record, window)
         if disp is None:
             return {}, 0, ([] if record else None)
+        telemetry.complete("device.execute", t0, time.perf_counter(), tid=telemetry.DEVICE_TID,
+                           mode="gang")
         return self._gang_finish_inner(disp, record)
 
     def _gang_dispatch_once(self, config, record: bool, window=None):
@@ -252,13 +295,33 @@ class SchedulerService:
                     self.store.apply("pods", {"metadata": {"name": name, "namespace": ns},
                                               "spec": {"nodeName": node_name}})
         self.metrics.record_phase_seconds(decode=time.perf_counter() - t_decode)
+        self._fleet_sample(enc, gang._final_state, "gang", after)
         return placements, rounds, results
 
     def _schedule_locked(self, config) -> list[PodSchedulingResult]:
+        # the pass's device window (encode and engine run inside the
+        # dispatch), on the device track
+        t0 = time.perf_counter()
         disp = self._seq_dispatch_once(config)
         if disp is None:
             return []
+        telemetry.complete("device.execute", t0, time.perf_counter(), tid=telemetry.DEVICE_TID,
+                           mode="sequential")
         return self._seq_finish_inner(disp)
+
+    def _fleet_sample(self, enc, state, mode: str, assignment=None) -> None:
+        """One fleet-observatory sample over this pass's encoding and final
+        state (utils/fleetstats.py); `assignment` is the finish path's host
+        copy of the final assignment. It only reads the pass's tensors, and
+        never raises: a failed sample never fails a pass. No-op unless
+        KSS_FLEET_STATS (or `fleetstats.activate`) armed a recorder."""
+        rec = fleetstats.active()
+        if rec is None:
+            return
+        try:
+            rec.sample_pass(self, enc, state, mode, assignment)
+        except Exception:  # noqa: BLE001 — a failed sample never fails a pass
+            pass
 
     def _encode_current(self, config) -> "object | None":
         """Encode the store's pending state: the (latest rv, policy) LRU
@@ -273,6 +336,7 @@ class SchedulerService:
             with self._lock:
                 self.last_encode_info = {"mode": "cached"}
             self.metrics.record_encode("cached", time.perf_counter() - t0)
+            telemetry.complete("pass.encode", t0, time.perf_counter(), mode="cached")
             return cached
         self._delta.policy = policy
         enc, info = self._delta.encode(self.store, config)
@@ -283,6 +347,7 @@ class SchedulerService:
             self.last_encode_info = info
         self._sync()
         self.metrics.record_encode(info["mode"], time.perf_counter() - t0)
+        telemetry.complete("pass.encode", t0, time.perf_counter(), mode=info["mode"])
         return enc
 
     def _sync(self) -> None:
@@ -395,6 +460,7 @@ class SchedulerService:
 
         self._write_back(results, placements)
         self.metrics.record_phase_seconds(decode=time.perf_counter() - t_decode)
+        self._fleet_sample(enc, engine._final_state, "sequential", after)
         return results
 
     def _write_back(self, results, placements) -> None:

@@ -12,7 +12,11 @@ engines. The manager admits sessions and requests:
     flight (`pass_slot`); each sheds with its own exception;
   * with ``KSS_BATCH`` set it arms one cross-tenant batch plane
     (server/batchplane.py) and hands it to every session's scheduler, so
-    concurrent compatible passes of different sessions run as one launch.
+    concurrent compatible passes of different sessions run as one launch;
+  * it tells the fleet observatory (utils/fleetstats.py) which sessions
+    exist, through a weakref-backed provider (the census counts them, the
+    exposition drops a deleted tenant's gauges), and a deleted session's
+    pending-age stamps are purged.
 
 The ``default`` session wraps the service the manager is given (or a new
 one). Every service runs on `device` (the CUDA card unless the caller names
@@ -30,10 +34,12 @@ import os
 import secrets
 import threading
 import time
+import weakref
 from contextlib import contextmanager
 
 import torch
 
+from ..utils import fleetstats
 from . import batchplane as batchplane_mod
 from .service import SimulatorService
 
@@ -156,6 +162,16 @@ class SessionManager:
         self._sessions: "dict[str, Session]" = {
             DEFAULT_SESSION_ID: Session(DEFAULT_SESSION_ID, DEFAULT_SESSION_ID, default_service)
         }
+        # the fleet observatory reads the known session ids through this
+        # hook (the most recent manager wins); weakref-backed, so a dropped
+        # manager does not stay reachable through a module global
+        manager_ref = weakref.ref(self)
+
+        def _known_session_ids() -> "list[str] | None":
+            mgr = manager_ref()
+            return None if mgr is None else mgr.session_ids()
+
+        fleetstats.set_session_provider(_known_session_ids)
 
     # -- lookup ----------------------------------------------------------------
 
@@ -247,6 +263,8 @@ class SessionManager:
         with self._lock:
             if self._sessions.pop(sid, None) is None:
                 raise UnknownSession(sid)
+        # its pending-age stamps in the fleet observatory
+        fleetstats.drop_session(sid)
 
     def _admit_session_locked(self) -> None:
         if len(self._sessions) >= self.max_sessions:

@@ -21,7 +21,10 @@ through the tenant forms over the scenario table between them, and a whole
 `FaultSweep` runs against the same sweep on the CPU. The demo out-of-tree
 plugins (NetworkBandwidth, NodeNumber) run on the annotated default cluster
 under `kp.demo_config()` (`plugin_engine`): the steps, the dry run with
-NetworkBandwidth's row and the whole pass.
+NetworkBandwidth's row and the whole pass. The fleet observatory's K12
+(`fleet_quality`) runs on seeded int32 and int64 planes (`FLEET_CASES`):
+its histogram, pending and max exact, its mean and fragmentation within
+1e-5 (float32 sums in another order).
 """
 
 import contextlib
@@ -147,6 +150,84 @@ def check_pack_widen(device, cuda, encs=(), seed=0):
             assert g.dtype == w.dtype and g.shape == w.shape, i
             assert g.device.type == device.type and torch.equal(g.cpu(), w), i
         n += len(leaves)
+    return n
+
+
+# K12 (csrc/fleet_kernels.cu): seeded cluster planes with padded nodes,
+# zero-alloc lanes, over-committed nodes, utilizations on the exact bin
+# edges (k/10 as float32), a resource with no free capacity, one node
+FLEET_TOL = 1e-5
+FLEET_CASES = {
+    "plain": dict(N=64, R=4, P=200),
+    "padded-zero-lanes": dict(N=64, R=4, P=200, pad=9, zero_lanes=12),
+    "over-committed": dict(N=64, R=4, P=200, over=10, pad=3),
+    "bin-edges": dict(N=64, R=4, P=200, edges=33),
+    "no-free": dict(N=64, R=4, P=200, full_lane=True, over=4),
+    "one-node": dict(N=1, R=4, P=8),
+    "one-padded-node": dict(N=1, R=4, P=8, pad=1),
+}
+
+
+def fleet_inputs(seed, N, R, P, dtype, *, pad=0, zero_lanes=0, over=0, edges=0,
+                 full_lane=False):
+    """Seeded numpy inputs of K12 (the reference's `_quality` order): N
+    nodes (the last `pad` masked out, keeping their allocations), R
+    resources, P pods (a tail masked out, about a third unassigned)."""
+    rng = np.random.default_rng(seed)
+    alloc = rng.integers(1, 1 << 20, size=(N, R)).astype(dtype)
+    used = (alloc * rng.uniform(0.0, 1.0, size=(N, R))).astype(dtype)
+    if zero_lanes:
+        for n in rng.choice(N, zero_lanes, replace=False):
+            alloc[n, rng.integers(R)] = 0
+    if over:
+        for n in rng.choice(N, over, replace=False):
+            used[n] = alloc[n] + rng.integers(1, 1000, size=R)
+    if edges:
+        # util exactly k/10 in float32 on the node's dominant lane
+        for j, n in enumerate(rng.choice(N, edges, replace=False)):
+            k, m = j % 11, int(rng.integers(1, 5000))
+            alloc[n] = 10 * m
+            used[n] = 0
+            used[n, 0] = k * m
+    if full_lane:
+        used[:, R - 1] = alloc[:, R - 1]
+    node_mask = np.ones(N, bool)
+    if pad:
+        node_mask[N - pad:] = False
+    assignment = rng.integers(-1, max(N, 1), size=P).astype(np.int32)
+    assignment[rng.random(P) < 0.3] = -1
+    pod_mask = np.ones(P, bool)
+    pod_mask[P - P // 5:] = False
+    return alloc, node_mask, used, assignment, pod_mask
+
+
+def check_fleet_buffer(got, want, what):
+    """Two K12 buffers: the bins, pending and the max bit for bit, the mean
+    and the fragmentation within FLEET_TOL."""
+    g, w = got.cpu(), want.cpu()
+    assert g.dtype == w.dtype == torch.int32 and g.shape == w.shape, what
+    head = cuda.FLEET_BINS + 1
+    assert torch.equal(g[:head], w[:head]), (what, g[:head], w[:head])
+    assert g[head + 1] == w[head + 1], (what, "max")
+    diff = (g[head:].view(torch.float32) - w[head:].view(torch.float32)).abs().max()
+    assert diff <= FLEET_TOL, (what, float(diff))
+
+
+def check_fleet_quality(device, cuda, seed=0):
+    """K12 on `device` against its plain version on the CPU over every
+    FLEET_CASES case in int32 and int64, the requested plane once a
+    transposed (non-contiguous) view; one call each. Returns the calls."""
+    n = 0
+    for name, kw in sorted(FLEET_CASES.items()):
+        for dtype in (np.int32, np.int64):
+            ins = [torch.as_tensor(x) for x in fleet_inputs(seed, dtype=dtype, **kw)]
+            want = cuda.fleet_quality_plain(*ins)
+            dev_ins = [t.to(device) for t in ins]
+            if name == "plain":
+                dev_ins[2] = dev_ins[2].t().contiguous().t()
+                assert not dev_ins[2].is_contiguous()
+            check_fleet_buffer(cuda.fleet_quality(*dev_ins), want, (name, dtype))
+            n += 1
     return n
 
 
@@ -477,6 +558,16 @@ def test_pack_widen_matches_plain(card):
     encs = packed_encodings("cpu")
     assert check_pack_widen(card, cuda, encs) > 12
     assert cuda.LAUNCHES["pack_widen"] == 3 and cuda.PLAIN_CALLS["pack_widen"] == 0
+
+
+def test_fleet_quality_matches_plain(card):
+    """K12 (csrc/fleet_kernels.cu): padded nodes, zero-alloc lanes,
+    over-committed nodes, bin edges, a full lane and one node, in int32 and
+    int64, each call one launch of one block."""
+    cuda.reset_counts()
+    assert check_fleet_quality(card, cuda) == 2 * len(FLEET_CASES)
+    assert cuda.LAUNCHES["fleet_quality"] == 2 * len(FLEET_CASES)
+    assert cuda.PLAIN_CALLS["fleet_quality"] == 0
 
 
 def test_packed_pass_matches_tpu32(card):

@@ -52,7 +52,9 @@ def test_import_leaves_jax_and_reference_out():
             "kube_scheduler_simulator_tpu_torch.lifecycle.faultsweep",
             "kube_scheduler_simulator_tpu_torch.utils.prng",
             "kube_scheduler_simulator_tpu_torch.plugins.networkbandwidth",
-            "kube_scheduler_simulator_tpu_torch.plugins.nodenumber"} <= names
+            "kube_scheduler_simulator_tpu_torch.plugins.nodenumber",
+            "kube_scheduler_simulator_tpu_torch.utils.telemetry",
+            "kube_scheduler_simulator_tpu_torch.utils.fleetstats"} <= names
 
 
 def test_no_module_imports_jax_or_the_reference():
@@ -63,14 +65,16 @@ def test_no_module_imports_jax_or_the_reference():
                 "lifecycle/faultsweep.py", "utils/prng.py",  # the fault sweep's
                 "engine/packing.py",  # the PACKED policy's
                 "plugins/__init__.py", "plugins/networkbandwidth.py",  # the demo plugins'
-                "plugins/nodenumber.py"):
+                "plugins/nodenumber.py",
+                "utils/telemetry.py", "utils/fleetstats.py"):  # the fleet observatory's
         assert PORT / new in files, new
     # the CUDA sources include the toolkit's headers and their own only
     for src in sorted((PORT / "csrc").glob("*.cu")):
         for inc in re.findall(r'#include [<"]([^>"]+)[>"]', src.read_text()):
             assert inc in ("cuda_runtime.h", "stdint.h", "climits", "type_traits") or (
                 PORT / "csrc" / inc).exists(), (src.name, inc)
-    assert cuda.PACK_CSRC.exists() and cuda.PACK_CSRC.parent == PORT / "csrc"
+    for src in (cuda.PACK_CSRC, cuda.FLEET_CSRC):
+        assert src.exists() and src.parent == PORT / "csrc"
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -156,6 +160,8 @@ def test_wrappers_take_plain_versions_on_cpu_tensors(monkeypatch):
     # the PACKED policy's widening (K8), once
     cuda.pack_widen([torch.zeros((3, 1), dtype=torch.int32), torch.zeros(4, dtype=torch.int16)],
                     [9, 0])
+    # the fleet observatory's quality reductions (K12), once
+    cuda.fleet_quality(a.node_alloc, a.node_mask, state.requested, state.assignment, a.pod_mask)
     assert cuda.PLAIN_CALLS == dict.fromkeys(cuda.KERNELS, 1)
     assert cuda.LAUNCHES == dict.fromkeys(cuda.KERNELS, 0)
 
@@ -166,9 +172,12 @@ def test_wrappers_refuse_tensors_they_cannot_take():
         kp.encode_cluster(nodes, pods, kp.affinity_config(), device="cpu"), device="cpu"
     )
     meta = eng.enc.arrays.to(torch.device("meta"))
+    st = eng.enc.state0.to(torch.device("meta"))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        cuda.seq_attempt(eng.program, meta, eng.enc.state0.to(torch.device("meta")),
-                         eng.weights.to("meta"), 0)
+        cuda.seq_attempt(eng.program, meta, st, eng.weights.to("meta"), 0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda.fleet_quality(meta.node_alloc, meta.node_mask, st.requested, st.assignment,
+                           meta.pod_mask)
 
 
 def test_supported_config_is_the_references():

@@ -1,5 +1,6 @@
 """The CUDA sources (csrc/seq_kernels.cu, csrc/delta_kernels.cu,
-csrc/fault_kernels.cu) run on the CPU against the plain versions, through
+csrc/fault_kernels.cu, csrc/pack_kernels.cu, csrc/fleet_kernels.cu) run on
+the CPU against the plain versions, through
 the wrappers of engine/cuda.py and engine/scatter.py.
 
 The host's C++ compiler builds the kernel source with stand-ins for the
@@ -11,7 +12,8 @@ in order — the plugin bodies, the arithmetic in the policy's type, the
 relational counts, the normalizes, the select and the bind, the structs'
 layout and the wrappers' arguments — but not the interleaving of threads,
 which only the card's tests (test_torch_cuda.py) see. Skipped where no
-`g++` is found. Tolerance: exact equality.
+`g++` is found. Tolerance: exact equality (K12's float32 mean and
+fragmentation, sums in another order: 1e-5).
 """
 
 import contextlib
@@ -43,6 +45,7 @@ from test_torch_cuda import (
     check_counted_pass,
     check_fault_kernels,
     check_fault_sweep,
+    check_fleet_quality,
     check_k10,
     check_pack_widen,
     check_segments,
@@ -93,6 +96,8 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 inline double __dsqrt_rn(double a) { return std::sqrt(a); }
+inline float __int2float_rn(int v) { return (float)v; }
+inline float __ll2float_rn(long long v) { return (float)v; }
 """
 
 POLICIES = {"exact": kp.EXACT, "i32": kp.TPU32}
@@ -105,8 +110,8 @@ def host_lib(tmp_path_factory):
         pytest.skip("no g++ to build the kernel source on the host")
     d = tmp_path_factory.mktemp("host_kernels")
     shutil.copy(cuda.LAYOUT_H, d)
-    return host_build(d, (cuda.CSRC, cuda.DELTA_CSRC, cuda.FAULT_CSRC, cuda.PACK_CSRC),
-                      "kernels")
+    return host_build(d, (cuda.CSRC, cuda.DELTA_CSRC, cuda.FAULT_CSRC, cuda.PACK_CSRC,
+                          cuda.FLEET_CSRC), "kernels")
 
 
 @pytest.fixture
@@ -378,6 +383,15 @@ def test_pack_widen_matches_plain(host):
     launch a call."""
     assert check_pack_widen(torch.device("cpu"), cuda, packed_encodings("cpu"), seed=3) > 12
     assert cuda.LAUNCHES["pack_widen"] == 3 and cuda.PLAIN_CALLS["pack_widen"] == 0
+
+
+def test_fleet_quality_matches_plain(host):
+    """K12 (csrc/fleet_kernels.cu) through the wrapper against its plain
+    version: padded nodes, zero-alloc lanes, over-committed nodes, bin
+    edges, a full lane and one node, int32 and int64, a non-contiguous
+    plane; one launch a call."""
+    n = check_fleet_quality(torch.device("cpu"), cuda, seed=2)
+    assert cuda.LAUNCHES["fleet_quality"] == n and cuda.PLAIN_CALLS["fleet_quality"] == 0
 
 
 @pytest.mark.parametrize("policy", sorted(POLICIES) + ["packed"])
